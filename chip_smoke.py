@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``tpu_radix_join_torch/csrc/``, holds
+each one bit-exact against its plain PyTorch version on the card (at the
+main path's shapes and at adversarial small shapes), times it beside its
+plain version, its memory bound and the nearest single PyTorch call, then
+drives the main path — ``HashJoin(JoinConfig()).join(inner, outer)`` — on
+three workloads and checks their answers and that each kernel launched:
+
+  (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
+  (b) unique ⋈ zipf(theta 0.75) over a 20,000,000-key domain;
+  (c) modulo(65536) ⋈ unique at 2**24 tuples, where the uint32
+      overflow guard runs the partition histogram.
+
+Every line of standard output is one JSON object, except one line that is
+nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
+last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero.  Needs one CUDA device; exits non-zero
+without one, and outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    # the port beside this script; outside a checkout the import fails
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.data.relation import host_join_count
+    from tpu_radix_join_torch.data.tuples import lane_to_numpy, narrow, widen
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.kernels import _build
+    from tpu_radix_join_torch.ops.kernels import histogram as k1
+    from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import radix_sort as k2
+    from tpu_radix_join_torch.ops.merge_count import MAX_MERGE_KEY, _pack_pm
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    card = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "device", **card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": list(_build.SOURCES)})
+
+    hbm_bytes_per_s = 3.35e12        # H100 SXM, NVIDIA data sheet
+    gen = torch.Generator(device="cpu").manual_seed(20240601)
+
+    def rand_lane(n, lo=0, hi=1 << 32):
+        x = torch.randint(lo, hi, (n,), dtype=torch.int64, generator=gen)
+        return narrow(x).to(dev)
+
+    def max_abs_err(a, b) -> int:
+        if a.numel() == 0:
+            return 0
+        return int((widen(a) - widen(b)).abs().max())
+
+    def exact(a, b, what) -> int:
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel differs from its plain "
+                                 f"version (max abs err "
+                                 f"{max_abs_err(a, b) if a.shape == b.shape else 'shape'})")
+        return max_abs_err(a, b)
+
+    def time_ms(fn, reps=10) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    # ---------------------------------------------------- main-path inputs
+    n_main = 20_000_000
+    fanout = JoinConfig().network_fanout_bits
+    num_p = 1 << fanout
+    inner = Relation(n_main, 1, "unique", seed=1234)
+    outer = Relation(n_main, 1, "unique", seed=1235)
+    r_main = inner.generate(dev)
+    s_main = outer.generate(dev)
+    union = _pack_pm(r_main.key, s_main.key, fanout)          # 40M, unsorted
+    s_pid = torch.bitwise_and(s_main.key, num_p - 1)          # 20M pids
+
+    results = {}
+
+    # ------------------------------------------------------------ K2 sort
+    errs = []
+    for shift in (0, 8, 16, 24):
+        errs.append(exact(k2.radix_pass_slots(union, shift=shift),
+                          k2.radix_pass_slots_plain(union, shift),
+                          f"radix pass shift {shift} @ {union.numel()}"))
+    sorted_union = k2.radix_sort([union])[0]
+    errs.append(exact(sorted_union, k2.radix_sort_plain([union])[0],
+                      "radix sort @ main shape"))
+    sentinels = torch.tensor([0, 1, 0xFFFFFFFE, 0xFFFFFFFF], dtype=torch.int64)
+    adversarial = {
+        **{f"random_{n}": rand_lane(n) for n in (1, 255, 32767, 32769,
+                                                 1000003)},
+        "all_equal": narrow(torch.full((100003,), 0xDEADBEEF,
+                                       dtype=torch.int64)).to(dev),
+        "presorted": k2.radix_sort_plain([rand_lane(100003)])[0],
+        "reverse_sorted": k2.radix_sort_plain(
+            [rand_lane(100003)])[0].flip(0).contiguous(),
+        "sentinel_saturated": narrow(sentinels[torch.randint(
+            0, 4, (100003,), generator=gen)]).to(dev),
+        "max_merge_key": narrow(torch.full((70001,), MAX_MERGE_KEY,
+                                           dtype=torch.int64)).to(dev),
+    }
+    for name, x in adversarial.items():
+        vals = narrow(torch.arange(x.numel(), dtype=torch.int64)).to(dev)
+        got = k2.radix_sort([x, vals])
+        ref = k2.radix_sort_plain([x, vals])
+        errs.append(exact(got[0], ref[0], f"radix sort keys, {name}"))
+        errs.append(exact(got[1], ref[1], f"radix sort values, {name}"))
+        for shift in (0, 24):
+            errs.append(exact(k2.radix_pass_slots(x, shift=shift),
+                              k2.radix_pass_slots_plain(x, shift),
+                              f"radix pass shift {shift}, {name}"))
+    m = union.numel()
+    flipped = torch.bitwise_xor(union, -(1 << 31))   # uint32 order as int32
+    results["radix_sort"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k2.radix_sort([union])),
+        "plain_ms": time_ms(lambda: k2.radix_sort_plain([union]), reps=3),
+        "bound_ms": 8 * m / hbm_bytes_per_s * 1e3,
+        "library_ms": time_ms(lambda: torch.sort(flipped)),
+    }
+    emit({"phase": "kernel", "kernel": "radix_sort", "elements": m,
+          "checks": len(errs), **results["radix_sort"]})
+
+    # ---------------------------------------------------------- K3 probe
+    errs = []
+    got = k3.merge_scan_partitions(sorted_union, num_partitions=num_p)
+    ref = k3.merge_scan_plain(sorted_union, fanout)
+    errs += [exact(got[0], ref[0], "merge scan counts @ main shape"),
+             exact(got[1], ref[1], "merge scan max weight @ main shape")]
+
+    def probe_case(name, r_keys, s_keys, f):
+        packed = k2.radix_sort_plain([_pack_pm(r_keys, s_keys, f)])[0]
+        g = k3.merge_scan_partitions(packed, num_partitions=1 << f)
+        p = k3.merge_scan_plain(packed, f)
+        return [exact(g[0], p[0], f"merge scan counts, {name}"),
+                exact(g[1], p[1], f"merge scan max weight, {name}")]
+
+    for n in (1, 255, 32767, 32769, 1000003):
+        errs += probe_case(f"random_{n}", rand_lane(n, hi=1 << 20),
+                           rand_lane(n, hi=1 << 20), fanout)
+    run = 3 * 4096 + 17                 # one key run longer than a block
+    seven = narrow(torch.full((run,), 7, dtype=torch.int64)).to(dev)
+    errs += probe_case("long_run", seven, seven, fanout)
+    errs += probe_case("long_run_fanout0", seven, seven, 0)
+    edge = narrow(torch.tensor([MAX_MERGE_KEY, MAX_MERGE_KEY + 1,
+                                0xFFFFFFFE, 0xFFFFFFFF, 0] * 9001,
+                               dtype=torch.int64)).to(dev)
+    errs += probe_case("max_merge_key_and_sentinels", edge, edge, 7)
+    # the pack runs int32 arithmetic on the card: its bits against the host's
+    wide = rand_lane(1000003)
+    for f in (0, 5, 7):
+        for lane in (edge, wide):
+            errs.append(exact(_pack_pm(lane, lane, f),
+                              _pack_pm(lane.cpu(), lane.cpu(), f).to(dev),
+                              f"pack fanout {f}"))
+    dup = rand_lane(500003, hi=97)
+    errs += probe_case("duplicate_heavy", dup, rand_lane(500003, hi=97), 3)
+    results["merge_scan"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k3.merge_scan_partitions(
+            sorted_union, num_partitions=num_p)),
+        "plain_ms": time_ms(lambda: k3.merge_scan_plain(sorted_union, fanout),
+                            reps=3),
+        "bound_ms": (4 * m + 4 * (num_p + 1)) / hbm_bytes_per_s * 1e3,
+        "library_ms": None,
+    }
+    emit({"phase": "kernel", "kernel": "merge_scan", "elements": m,
+          "checks": len(errs), **results["merge_scan"]})
+
+    # ------------------------------------------------------ K1 histogram
+    errs = [exact(k1.histogram(s_pid, num_bins=num_p),
+                  k1.histogram_plain(s_pid, None, num_p),
+                  "histogram @ main shape")]
+    for n in (1, 255, 32767, 32769, 1000003):
+        ids = rand_lane(n, hi=200)                    # ids >= P are ignored
+        w = rand_lane(n)
+        for bins in (1, 32, 128):
+            errs.append(exact(k1.histogram(ids, num_bins=bins),
+                              k1.histogram_plain(ids, None, bins),
+                              f"histogram {n} x {bins}"))
+            errs.append(exact(k1.histogram(ids, w, num_bins=bins),
+                              k1.histogram_plain(ids, w, bins),
+                              f"weighted histogram {n} x {bins}"))
+    same = torch.zeros(1000003, dtype=torch.int32, device=dev)
+    errs.append(exact(k1.histogram(same, num_bins=32),
+                      k1.histogram_plain(same, None, 32), "histogram, one bin"))
+    results["histogram"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k1.histogram(s_pid, num_bins=num_p)),
+        "plain_ms": time_ms(lambda: k1.histogram_plain(s_pid, None, num_p)),
+        "bound_ms": (4 * n_main + 4 * num_p) / hbm_bytes_per_s * 1e3,
+        "library_ms": time_ms(lambda: torch.bincount(s_pid, minlength=num_p)),
+    }
+    emit({"phase": "kernel", "kernel": "histogram", "elements": n_main,
+          "checks": len(errs), **results["histogram"]})
+    del union, flipped, sorted_union, s_pid, r_main, s_main
+
+    # ---------------------------------------------------------- main path
+    def cpu_agrees(inner_rel, outer_rel):
+        """A small join on the card equals the plain versions on the host
+        and the host oracle."""
+        r, s = inner_rel.generate(dev), outer_rel.generate(dev)
+        got = HashJoin(JoinConfig()).join_arrays(r, s)
+        ref = HashJoin(JoinConfig(), device="cpu").join_arrays(
+            inner_rel.generate("cpu"), outer_rel.generate("cpu"))
+        oracle = host_join_count(lane_to_numpy(r.key), lane_to_numpy(s.key))
+        if not (got.matches == ref.matches == oracle and got.ok and ref.ok
+                and (got.partition_counts == ref.partition_counts).all()):
+            raise AssertionError(f"small join disagrees: card {got}, host "
+                                 f"{ref}, oracle {oracle}")
+
+    cpu_agrees(Relation(1 << 16, 1, "unique", seed=7),
+               Relation(1 << 16, 1, "zipf", seed=8, zipf_theta=0.75))
+    cpu_agrees(Relation(1 << 16, 1, "modulo", seed=7, modulo=4099),
+               Relation(1 << 16, 1, "unique", seed=8))
+
+    workloads = [
+        ("unique_20M", Relation(n_main, 1, "unique", seed=1234),
+         Relation(n_main, 1, "unique", seed=1235), n_main, ()),
+        ("zipf_20M", Relation(n_main, 1, "unique", seed=1234),
+         Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
+                  key_domain=n_main), None, ()),
+        ("refine_2p24", Relation(1 << 24, 1, "modulo", seed=1234,
+                                 modulo=65536),
+         Relation(1 << 24, 1, "unique", seed=1235), 1 << 24,
+         ("histogram",)),
+    ]
+    engine = HashJoin(JoinConfig())
+    kernels.reset_launches()
+    for name, inner_rel, outer_rel, expected, extra in workloads:
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        res = engine.join(inner_rel, outer_rel)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        if expected is None:
+            expected = inner_rel.expected_matches(outer_rel)
+        if res.matches != expected or not res.ok:
+            raise AssertionError(f"{name}: {res} (expected {expected})")
+        for k in ("radix_pass", "merge_scan", *extra):
+            if after[k] <= before[k]:
+                raise AssertionError(f"{name}: kernel {k} did not launch")
+        emit({"phase": "join", "workload": name, "matches": res.matches,
+              "expected": expected, "ok": res.ok,
+              "failure_class": res.diagnostics["failure_class"],
+              "launches": {k: after[k] - before[k] for k in after},
+              "join_with_generation_ms": total_s * 1e3})
+    launches = kernels.launch_counts()
+
+    # join time alone, on placed inputs (not counted as the main path)
+    for name, inner_rel, outer_rel, _, _ in workloads:
+        r, s = engine.place(inner_rel), engine.place(outer_rel)
+        bound = max(inner_rel.key_bound(), outer_rel.key_bound())
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.join_arrays(r, s, key_bound=bound)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        join_s = statistics.median(times[1:])
+        emit({"phase": "join_time", "workload": name, "join_ms": join_s * 1e3,
+              "tuples_per_s": (r.size + s.size) / join_s, **card})
+        if name == "unique_20M":
+            # where the join's time goes: each stage alone, CUDA events
+            packed = _pack_pm(r.key, s.key, fanout)
+            ordered = k2.radix_sort([packed])[0]
+            stages = {
+                "key_minmax": lambda: (torch.aminmax(r.key),
+                                       torch.aminmax(s.key)),
+                "pack": lambda: _pack_pm(r.key, s.key, fanout),
+                "radix_sort": lambda: k2.radix_sort([packed]),
+                "merge_scan": lambda: k3.merge_scan_partitions(
+                    ordered, num_partitions=num_p),
+                "readback": lambda: torch.zeros(
+                    num_p + 5, dtype=torch.int64, device=dev).cpu(),
+            }
+            emit({"phase": "breakdown", "workload": name,
+                  "stage_ms": {k: time_ms(f) for k, f in stages.items()},
+                  "join_ms": join_s * 1e3, **card})
+            del packed, ordered
+        del r, s
+
+    sources = {
+        "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
+                      "tpu_radix_join/ops/pallas/histogram.py:60",
+                      "histogram"),
+        "radix_sort": ("tpu_radix_join_torch/csrc/radix_sort.cu",
+                       "tpu_radix_join/ops/pallas/radix_sort.py:162",
+                       "radix_pass"),
+        "merge_scan": ("tpu_radix_join_torch/csrc/merge_scan.cu",
+                       "tpu_radix_join/ops/pallas/merge_scan.py:187",
+                       "merge_scan"),
+    }
+    rows = []
+    for name, (src, replaces, counter) in sources.items():
+        r = results[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[counter],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": "bytes", "library_ms": r["library_ms"]})
+    print(smi, flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

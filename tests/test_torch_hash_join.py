@@ -1,0 +1,144 @@
+"""Port parity: the whole single-GPU join (tpu_radix_join_torch.HashJoin)
+against ``tpu_radix_join.HashJoin(JoinConfig()).join`` on the JAX CPU
+backend — matches, ok, per-partition counts bit for bit, diagnostics — plus
+the overflow-guard refine branch and the key contract, with JAX lanes
+carried over through ``from_jax_state``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import tpu_radix_join as jx  # noqa: E402
+from tpu_radix_join.data.tuples import TupleBatch as JBatch  # noqa: E402
+
+import tpu_radix_join_torch as tx  # noqa: E402
+from tpu_radix_join_torch.state import config_from_jax  # noqa: E402
+
+
+def _spec(kind, size, seed, **kw):
+    return dict(global_size=size, num_nodes=1, kind=kind, seed=seed, **kw)
+
+
+def _assert_same(got, want):
+    assert got.matches == want.matches
+    assert got.ok == want.ok
+    assert got.partition_counts.dtype == np.uint32
+    np.testing.assert_array_equal(got.partition_counts,
+                                  np.asarray(want.partition_counts))
+    assert got.diagnostics == {k: want.diagnostics[k] for k in got.diagnostics}
+    assert set(got.diagnostics) == set(want.diagnostics)
+
+
+@pytest.mark.parametrize("size,outer", [
+    (1 << 12, ("unique", {})),
+    (5000, ("modulo", {"modulo": 1250})),
+    (1 << 14, ("zipf", {"zipf_theta": 0.75})),
+    (1 << 16, ("unique", {})),
+    (1 << 16, ("zipf", {"zipf_theta": 1.1})),
+])
+def test_join_equals_jax_join(size, outer):
+    kind, kw = outer
+    if kind == "zipf":
+        kw = dict(kw, key_domain=size)
+    inner = _spec("unique", size, 1234)
+    outer_s = _spec(kind, size, 1235, **kw)
+    want = jx.HashJoin(jx.JoinConfig()).join(jx.Relation(**inner),
+                                             jx.Relation(**outer_s))
+    got = tx.HashJoin(tx.JoinConfig(), device="cpu").join(
+        tx.Relation(**inner), tx.Relation(**outer_s))
+    _assert_same(got, want)
+    assert got.ok and got.matches == tx.Relation(**inner).expected_matches(
+        tx.Relation(**outer_s))
+
+
+def _carried(jcfg, r_key, s_key):
+    """Both engines on the same lanes: the JAX one directly, the port's
+    through from_jax_state."""
+    n_r, n_s = len(r_key), len(s_key)
+    r_rid = np.arange(n_r, dtype=np.uint32)
+    s_rid = np.arange(n_s, dtype=np.uint32)
+    want = jx.HashJoin(jcfg).join_arrays(
+        JBatch(jnp.asarray(r_key), jnp.asarray(r_rid)),
+        JBatch(jnp.asarray(s_key), jnp.asarray(s_rid)))
+    cfg_dict = dataclasses.asdict(jcfg)
+    cfg, r = tx.from_jax_state(cfg_dict, r_key, r_rid, device="cpu")
+    _, s = tx.from_jax_state(cfg_dict, s_key, s_rid, device="cpu")
+    got = tx.HashJoin(cfg, device="cpu").join_arrays(r, s)
+    return got, want
+
+
+def test_refine_branch_runs_and_agrees():
+    """maxw (one key with 2**17 inner copies) exceeds (2**32 - 1) // |S|, so
+    the guard pays the per-partition histogram; no count can wrap."""
+    r_key = np.zeros(1 << 17, np.uint32)
+    s_key = tx.Relation(1 << 16, seed=3).generate("cpu").key.numpy().view(
+        np.uint32)
+    got, want = _carried(jx.JoinConfig(), r_key, s_key)
+    _assert_same(got, want)
+    assert got.ok and got.matches == 1 << 17
+
+
+def test_refine_branch_flags_a_count_that_may_wrap():
+    r_key = np.full(70000, 9, np.uint32)
+    s_key = np.full(1 << 16, 9, np.uint32)
+    got, want = _carried(jx.JoinConfig(), r_key, s_key)
+    _assert_same(got, want)
+    assert not got.ok
+    assert got.diagnostics["failure_class"] == "count_overflow_risk"
+
+
+def test_key_above_max_merge_key_flags_the_contract():
+    rng = np.random.default_rng(2)
+    r_key = rng.integers(0, 1 << 20, 4096, dtype=np.uint32)
+    s_key = rng.integers(0, 1 << 20, 4096, dtype=np.uint32)
+    s_key[17] = 0x7FFFFFFE            # MAX_MERGE_KEY + 1
+    got, want = _carried(jx.JoinConfig(key_range="narrow"), r_key, s_key)
+    _assert_same(got, want)
+    assert not got.ok
+    assert got.diagnostics["key_contract_violations"] == 1
+    assert got.diagnostics["failure_class"] == "key_contract"
+
+
+def test_raw_arrays_probe_the_key_range():
+    """key_range="auto" on raw lanes: the device max-key probe keeps the
+    packed path for in-range keys and refuses the unported full range."""
+    rng = np.random.default_rng(5)
+    r_key = rng.integers(0, 1 << 30, 3000, dtype=np.uint32)
+    s_key = np.concatenate([r_key[:1000],
+                            rng.integers(0, 1 << 30, 2000, dtype=np.uint32)])
+    got, want = _carried(jx.JoinConfig(), r_key, s_key)
+    _assert_same(got, want)
+    s_key[0] = 0x90000000
+    cfg, r = tx.from_jax_state(dataclasses.asdict(jx.JoinConfig()), r_key,
+                               np.arange(3000, dtype=np.uint32), device="cpu")
+    _, s = tx.from_jax_state({}, s_key, np.arange(3000, dtype=np.uint32),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        tx.HashJoin(cfg, device="cpu").join_arrays(r, s)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("num_nodes", 4, "A7"), ("key_bits", 64, "A9"), ("key_range", "full", "A9"),
+    ("probe_algorithm", "bucket", "A11"), ("two_level", True, "A11"),
+    ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
+    ("chunk_size", 1024, "A14"),
+])
+def test_settings_outside_the_slice_raise(field, value, item):
+    jcfg = jx.JoinConfig()
+    d = dataclasses.asdict(jcfg)
+    d[field] = value
+    with pytest.raises(NotImplementedError, match=item):
+        config_from_jax(d)
+
+
+def test_default_configs_agree():
+    cfg = config_from_jax(dataclasses.asdict(jx.JoinConfig()))
+    assert cfg == tx.JoinConfig()
+    assert cfg.network_partition_count == jx.JoinConfig().network_partition_count
+    with pytest.raises(ValueError):
+        config_from_jax({"no_such_field": 1})

@@ -1,0 +1,81 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and an
+entry point given no device runs on the card or raises — it never falls
+back to the CPU on its own."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "tpu_radix_join_torch"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import tpu_radix_join_torch as tx
+for m in pkgutil.walk_packages(tx.__path__, "tpu_radix_join_torch."):
+    importlib.import_module(m.name)
+res = tx.HashJoin(tx.JoinConfig(), device="cpu").join(
+    tx.Relation(3000, 1, "unique", seed=1),
+    tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
+raised = {}
+for name, call in [
+        ("HashJoin", lambda: tx.HashJoin()),
+        ("Relation.generate", lambda: tx.Relation(64).generate()),
+        ("batch_from_numpy", lambda: tx.batch_from_numpy([1], [2])),
+        ("main", lambda: tx.main.main(["--tuples-per-node", "64"]))]:
+    try:
+        call()
+        raised[name] = None
+    except RuntimeError as e:
+        raised[name] = str(e)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "tpu_radix_join"))
+print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
+                  "raised": raised}))
+"""
+
+
+def _run(args):
+    """Run Python with ``args`` in the repo root, with no card visible."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
+    got = _run(["-c", _PROBE])
+    assert got["leaked"] == []
+    assert got["ok"] and got["matches"] == 3000
+    for name, msg in got["raised"].items():
+        assert msg is not None and "no CUDA device" in msg, name
+
+
+def test_main_cli_runs_on_the_cpu_when_asked():
+    got = _run(["-m", "tpu_radix_join_torch.main", "--device", "cpu",
+                "--tuples-per-node", "4096", "--outer-kind", "modulo"])
+    assert got["matches"] == got["expected"] == 4096 and got["ok"]
+    assert got["device"] == "cpu"
+
+
+def test_sources_import_neither_jax_nor_the_jax_package():
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "tpu_radix_join"), (
+                    f"{path.relative_to(ROOT)} imports {name}")

@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of tpu_radix_join: the single-GPU sort-probe join.
+
+The JAX package ``tpu_radix_join`` stays the reference; this package imports
+nothing of it (nor JAX).  Lanes are ``torch.int32`` tensors holding uint32
+bit patterns (data/tuples.py).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``, where every kernel takes its plain PyTorch
+version.
+"""
+
+from tpu_radix_join_torch.core.config import JoinConfig
+from tpu_radix_join_torch.data.relation import Relation
+from tpu_radix_join_torch.data.tuples import TupleBatch
+from tpu_radix_join_torch.operators.hash_join import HashJoin, JoinResult
+from tpu_radix_join_torch.state import batch_from_numpy, from_jax_state
+
+__all__ = ["HashJoin", "JoinConfig", "JoinResult", "Relation", "TupleBatch",
+           "batch_from_numpy", "from_jax_state"]

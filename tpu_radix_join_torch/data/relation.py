@@ -1,0 +1,232 @@
+"""Relations and seeded data generation with closed-form correctness oracles.
+
+Counterpart of ``tpu_radix_join/data/relation.py``.  A :class:`Relation` is
+a spec; :meth:`Relation.generate` materialises it on a device, bit-identical
+to the JAX package's device generators for the same spec:
+
+  * ``unique`` — a seeded 6-round Feistel permutation of [0, global_size)
+    with cycle-walking; the round keys come from numpy's ``default_rng``,
+    exactly as the JAX package draws them.
+  * ``modulo`` — ``key = rid % modulo``.
+  * ``zipf``   — Zipf(1 + theta) draws over [0, key_domain) from integer
+    tables built once on the host (:func:`zipf_tables`, copied verbatim),
+    then pure uint32 arithmetic.
+
+``rid`` is the dense global tuple index.  Generation is plain PyTorch on
+int64 tensors holding uint32 values; the lanes it returns are int32
+(data/tuples.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpu_radix_join_torch.core.device import resolve_device
+from tpu_radix_join_torch.data.tuples import TupleBatch, narrow
+from tpu_radix_join_torch.utils.hashing import mix32
+
+_FEISTEL_ROUNDS = 6
+_ZIPF_TABLE_MAX = 65536
+ZIPF_TAIL_POINTS = 4096
+_ZIPF_V_SALT = 0x9E3779B9   # second-draw salt for the tail interpolation
+_U32 = 0xFFFFFFFF
+
+
+def zipf_tables(theta: float, domain: int):
+    """Integer-scaled Zipf(1+theta) sampling tables (host float64, once):
+    ``head_cdf`` uint32 [min(domain, 65536)], the rank CDF scaled to 2**32,
+    and ``tail_keys`` uint32 [4097], the piecewise-linear inverse CDF of the
+    power-law tail past the head table."""
+    table = min(domain, _ZIPF_TABLE_MAX)
+    ranks = np.arange(1, table + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / np.power(ranks, 1.0 + theta))
+    head = cdf[-1]
+    t_pow = float(table) ** -theta
+    d_pow = float(domain) ** -theta
+    tail = (t_pow - d_pow) / theta if domain > table else 0.0
+    total = head + tail
+    head_cdf = np.minimum(np.floor(cdf / total * 4294967296.0),
+                          4294967295.0).astype(np.uint32)
+    if domain > table:
+        f = (np.arange(ZIPF_TAIL_POINTS + 1, dtype=np.float64)
+             / ZIPF_TAIL_POINTS)
+        x = np.power(t_pow - f * (t_pow - d_pow), -1.0 / theta)
+        tail_keys = np.clip(np.floor(x), table, domain - 1).astype(np.uint32)
+    else:
+        # unused (no tail); a constant table keeps every sampler shape-stable
+        tail_keys = np.full(ZIPF_TAIL_POINTS + 1, table - 1, np.uint32)
+    return head_cdf, tail_keys
+
+
+def zipf_range(start: int, n: int, head_cdf: np.ndarray,
+               tail_keys: np.ndarray, domain: int, seed: int,
+               device) -> torch.Tensor:
+    """int64 Zipf keys for global indices [start, start + n): u = mix32(index
+    ^ mix32(seed)); head ranks by upper-bound search of the scaled CDF;
+    tail ranks by linear interpolation of ``tail_keys`` with a second mixed
+    draw supplying (segment, fraction) bits."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    cdf = torch.from_numpy(head_cdf.astype(np.int64)).to(device)
+    table = cdf.numel()
+    u = mix32(idx ^ mix32(torch.tensor(seed & _U32, dtype=torch.int64,
+                                       device=device)))
+    key = torch.clamp(torch.searchsorted(cdf, u, right=True), max=table - 1)
+    if domain > table:
+        tk_all = torch.from_numpy(tail_keys.astype(np.int64)).to(device)
+        v = mix32(u ^ _ZIPF_V_SALT)
+        j = v >> 20
+        frac = (v >> 8) & 0xFFF
+        tk = tk_all[j]
+        d = (tk_all[j + 1] - tk) & _U32
+        interp = ((d >> 12) * frac + (((d & 0xFFF) * frac) >> 12)) & _U32
+        s = (tk + interp) & _U32
+        # uint32-wrap clamp (domain may sit within 4093 of 2**32): a
+        # wrapped sum shows as s < tk
+        k_tail = torch.where(s < tk, torch.full_like(s, domain - 1),
+                             torch.clamp(s, max=domain - 1))
+        key = torch.where(u >= cdf[table - 1], k_tail, key)
+    return key
+
+
+def _feistel_keys(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 1 << 31, size=_FEISTEL_ROUNDS, dtype=np.uint32)
+
+
+def _feistel(idx: torch.Tensor, round_keys, domain_bits: int) -> torch.Tensor:
+    """Seeded bijection on [0, 2**(2*half)) for int64 ``idx``.  ``r`` stays
+    below 2**16, so ``r * 0x9E3779B1 + k`` fits int64; its uint32 wrap on
+    the TPU only touches bits the half mask drops."""
+    half = (domain_bits + 1) // 2
+    mask = (1 << half) - 1
+    left = idx >> half
+    right = idx & mask
+    for k in round_keys:
+        f = ((right * 0x9E3779B1 + int(k)) ^ (right >> 7)) & mask
+        left, right = right, (left ^ f) & mask
+    return (left << half) | right
+
+
+def unique_keys(start: int, n: int, global_size: int, seed: int,
+                device) -> torch.Tensor:
+    """int64 shard [start, start + n) of a seeded permutation of
+    [0, global_size): Feistel over the next power-of-two domain, re-walking
+    the values that land outside [0, global_size) until none does."""
+    domain_bits = max(2, (global_size - 1).bit_length())
+    rk = _feistel_keys(seed)
+    v = _feistel(torch.arange(start, start + n, dtype=torch.int64,
+                              device=device), rk, domain_bits)
+    while bool((v >= global_size).any()):
+        v = torch.where(v < global_size, v, _feistel(v, rk, domain_bits))
+    return v
+
+
+class Relation:
+    """A logical relation: a global keyspace spec plus its generator.
+
+    ``num_nodes`` and ``key_bits`` keep the JAX package's signature; this
+    slice generates single-node 32-bit relations and raises for the rest."""
+
+    def __init__(
+        self,
+        global_size: int,
+        num_nodes: int = 1,
+        kind: str = "unique",
+        seed: int = 1234,
+        key_bits: int = 32,
+        modulo: Optional[int] = None,
+        zipf_theta: Optional[float] = None,
+        key_domain: Optional[int] = None,
+    ):
+        if global_size % num_nodes != 0:
+            raise ValueError("global_size must divide evenly across nodes")
+        if kind not in ("unique", "modulo", "zipf"):
+            raise ValueError(f"unknown relation kind {kind!r}")
+        if kind == "modulo" and not modulo:
+            raise ValueError("modulo kind requires modulo=")
+        if kind == "zipf" and (zipf_theta is None or zipf_theta <= 0):
+            raise ValueError("zipf kind requires zipf_theta= > 0")
+        if key_bits not in (32, 64):
+            raise ValueError("key_bits must be 32 or 64")
+        if key_bits == 64:
+            raise NotImplementedError(
+                "key_bits=64 is not ported to PyTorch yet (ROADMAP.md A9)")
+        if num_nodes > 1:
+            raise NotImplementedError(
+                "num_nodes > 1 is not ported to PyTorch yet (ROADMAP.md A7)")
+        if global_size > (1 << 31) - 2:
+            raise ValueError(
+                "32-bit keys cap global_size at 2**31 - 2 (31-bit merge-count "
+                "packing + sentinel headroom)")
+        self.global_size = int(global_size)
+        self.num_nodes = int(num_nodes)
+        self.kind = kind
+        self.seed = int(seed)
+        self.key_bits = int(key_bits)
+        self.modulo = modulo
+        self.zipf_theta = zipf_theta
+        self.key_domain = int(key_domain) if key_domain else self.global_size
+        self._zipf_cache = None
+
+    def _zipf_tables_cached(self):
+        if self._zipf_cache is None:
+            self._zipf_cache = zipf_tables(self.zipf_theta, self.key_domain)
+        return self._zipf_cache
+
+    @property
+    def local_size(self) -> int:
+        return self.global_size // self.num_nodes
+
+    def key_bound(self) -> int:
+        """Exclusive static upper bound on generated key values (the input
+        of ``key_range="auto"``)."""
+        if self.kind == "unique":
+            return self.global_size
+        if self.kind == "modulo":
+            return min(self.modulo, self.global_size)
+        return self.key_domain
+
+    def keys_range(self, start: int, n: int, device) -> torch.Tensor:
+        """int64 keys of the global index range [start, start + n)."""
+        if self.kind == "unique":
+            return unique_keys(start, n, self.global_size, self.seed, device)
+        if self.kind == "modulo":
+            return torch.arange(start, start + n, dtype=torch.int64,
+                                device=device) % self.modulo
+        head_cdf, tail_keys = self._zipf_tables_cached()
+        return zipf_range(start, n, head_cdf, tail_keys, self.key_domain,
+                          self.seed, device)
+
+    def generate(self, device="cuda") -> TupleBatch:
+        """The whole relation as a TupleBatch on ``device`` (cuda unless the
+        caller asks for cpu)."""
+        dev = resolve_device(device)
+        key = self.keys_range(0, self.global_size, dev)
+        rid = torch.arange(self.global_size, dtype=torch.int64, device=dev)
+        return TupleBatch(key=narrow(key), rid=narrow(rid))
+
+    def expected_matches(self, outer: "Relation") -> Optional[int]:
+        """Closed-form expected |self ⋈ outer| where derivable: unique ⋈
+        unique over the same range -> global_size; unique ⋈ modulo/zipf with
+        the outer key domain covered by the unique range -> outer size.
+        None when no closed form applies."""
+        if self.kind != "unique":
+            return None
+        if outer.kind == "unique" and outer.global_size == self.global_size:
+            return self.global_size
+        if outer.kind == "modulo" and outer.modulo <= self.global_size:
+            return outer.global_size
+        if outer.kind == "zipf" and outer.key_domain <= self.global_size:
+            return outer.global_size
+        return None
+
+
+def host_join_count(r_keys: np.ndarray, s_keys: np.ndarray) -> int:
+    """O((n+m) log) host oracle join count for tests without a closed form."""
+    r_sorted = np.sort(r_keys)
+    lo = np.searchsorted(r_sorted, s_keys, side="left")
+    hi = np.searchsorted(r_sorted, s_keys, side="right")
+    return int((hi - lo).sum())

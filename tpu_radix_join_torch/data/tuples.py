@@ -1,0 +1,92 @@
+"""Tuple layout of the port: structure-of-arrays batches of uint32 lanes.
+
+Counterpart of ``tpu_radix_join/data/tuples.py`` (``TupleBatch``, the pad
+sentinels, ``_sentinel_lane``, ``effective_key_bits``).
+
+**Lane dtype.**  A lane is a 1-D ``torch.int32`` tensor that holds the uint32
+bit pattern of each value: 4 bytes a lane, as on the TPU, and the CUDA
+kernels reinterpret it as ``uint32_t*``.  PyTorch's uint32 lacks shifts,
+additions, comparisons, ``bincount``, ``searchsorted`` and ``max`` on the
+CPU, and signed int32 order is wrong for uint32 values (with fanout 5 every
+partition id >= 16 sets bit 31 of a packed value).  So plain PyTorch code
+widens a lane with :func:`widen` (int64 in [0, 2**32)) before any shift,
+compare, add, sum or sort, and stores results back with :func:`narrow`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+# Sentinel key values for padded (invalid) slots, per relation side.
+R_PAD_KEY = 0xFFFFFFFE   # inner/build side
+S_PAD_KEY = 0xFFFFFFFF   # outer/probe side
+PAD_RID = 0xFFFFFFFF
+
+U32_MASK = 0xFFFFFFFF
+
+
+def widen(lane: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) of a uint32 lane (int32 bit patterns)."""
+    return lane.to(torch.int64) & U32_MASK
+
+
+def narrow(values: torch.Tensor) -> torch.Tensor:
+    """The int32 lane holding the low 32 bits of int64 ``values``."""
+    return (((values & U32_MASK) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def lane_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A uint32 numpy array as a lane on ``device`` (bits unchanged)."""
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def lane_to_numpy(lane: torch.Tensor) -> np.ndarray:
+    """A lane as a uint32 numpy array (bits unchanged)."""
+    return lane.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def check_lane(x: torch.Tensor, what: str) -> None:
+    """Raise unless ``x`` is a contiguous 1-D int32 lane."""
+    if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(
+            f"{what} wants a contiguous 1-D int32 lane (uint32 bits), got "
+            f"{x.dtype} rank {x.dim()} contiguous={x.is_contiguous()}")
+
+
+class TupleBatch(NamedTuple):
+    """SoA batch of full tuples (analog of ``Tuple[]``, data/Tuple.h)."""
+
+    key: torch.Tensor                       # int32 lane [n] — low 32 key bits
+    rid: torch.Tensor                       # int32 lane [n]
+    key_hi: Optional[torch.Tensor] = None   # upper key lane (64-bit keys)
+
+    @property
+    def size(self) -> int:
+        return self.key.shape[-1]
+
+
+# TupleBatch keeps the JAX package's positional layout:
+# field 0 = primary key lane, field 1 = rid, field 2 = optional high key lane.
+def _sentinel_lane(batch) -> torch.Tensor:
+    return batch[2] if batch[2] is not None else batch[0]
+
+
+def effective_key_bits(key_bound: Optional[int], fanout_bits: int = 0,
+                       key_bits: int = 32) -> int:
+    """Bits a key can occupy given its exclusive upper bound ``key_bound``
+    (None = the full lane width), after the caller dropped ``fanout_bits``
+    partition bits.  The radix sort skips the digit passes this proves
+    constant: a 16-bit-bounded key needs 2 of the 4 uint32 passes."""
+    if not 0 <= fanout_bits < key_bits:
+        raise ValueError(
+            f"fanout_bits must be in [0, {key_bits}), got {fanout_bits}")
+    if key_bound is None:
+        return key_bits - fanout_bits
+    if key_bound < 1:
+        raise ValueError(f"key_bound must be >= 1, got {key_bound}")
+    kb = max(1, ((int(key_bound) - 1) >> fanout_bits).bit_length())
+    return min(kb, key_bits - fanout_bits)

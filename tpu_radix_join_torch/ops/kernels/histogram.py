@@ -1,0 +1,69 @@
+"""K1: partition histogram — ``csrc/histogram.cu`` and its plain version.
+
+Counterpart of ``tpu_radix_join/ops/pallas/histogram.py::histogram_pallas``:
+uint32 counts (or wrapping uint32 weight sums) of ``pid`` into
+``num_bins <= 128`` bins; ids >= ``num_bins`` are ignored.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from tpu_radix_join_torch.data.tuples import check_lane, narrow, widen
+from tpu_radix_join_torch.ops.kernels import LAUNCHES
+from tpu_radix_join_torch.ops.kernels._build import c_function, check
+
+MAX_BINS = 128
+
+
+def histogram_plain(pid: torch.Tensor, weights: Optional[torch.Tensor],
+                    num_bins: int) -> torch.Tensor:
+    """Plain PyTorch K1: widen, mask out ids >= num_bins, integer
+    ``index_add_`` (a weighted ``bincount`` that stays exact in int64),
+    then keep the low 32 bits."""
+    ids = widen(pid)
+    keep = ids < num_bins
+    w = (widen(weights) if weights is not None
+         else torch.ones_like(ids))
+    out = torch.zeros(num_bins, dtype=torch.int64, device=pid.device)
+    out.index_add_(0, ids[keep], w[keep])
+    return narrow(out)
+
+
+def _histogram_cuda(pid: torch.Tensor, weights: Optional[torch.Tensor],
+                    num_bins: int) -> torch.Tensor:
+    fn = c_function("histogram", "rj_histogram",
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.empty(num_bins, dtype=torch.int32, device=pid.device)
+    stream = torch.cuda.current_stream(pid.device).cuda_stream
+    err = fn(pid.data_ptr(),
+             weights.data_ptr() if weights is not None else None,
+             pid.numel(), num_bins, out.data_ptr(), stream)
+    check(err, "histogram kernel")
+    LAUNCHES["histogram"] += 1
+    return out
+
+
+def histogram(pid: torch.Tensor, weights: Optional[torch.Tensor] = None, *,
+              num_bins: int) -> torch.Tensor:
+    """int32 lane [num_bins]: uint32 counts (or weight sums) of ``pid``.
+
+    A CPU ``pid`` takes :func:`histogram_plain`; a CUDA ``pid`` launches
+    the kernel, and anything else raises."""
+    check_lane(pid, "histogram ids")
+    if weights is not None:
+        check_lane(weights, "histogram weights")
+        if weights.shape != pid.shape or weights.device != pid.device:
+            raise ValueError("histogram weights must match the ids' shape "
+                             "and device")
+    if not 1 <= num_bins <= MAX_BINS:
+        raise ValueError(f"num_bins must be in [1, {MAX_BINS}], got {num_bins}")
+    if pid.device.type == "cpu":
+        return histogram_plain(pid, weights, num_bins)
+    if pid.device.type == "cuda":
+        return _histogram_cuda(pid, weights, num_bins)
+    raise ValueError(f"histogram runs on cpu or cuda, not {pid.device}")

@@ -1,0 +1,76 @@
+"""Carrying a join's state from the JAX package into the port.
+
+A join has no weights: its state is the configuration and the relations'
+lanes.  :func:`from_jax_state` takes ``dataclasses.asdict`` of a JAX
+``JoinConfig`` and the JAX lanes as numpy arrays, and returns the port's
+``JoinConfig`` and ``TupleBatch`` — so the port can be held against the JAX
+package on exactly the same inputs, without importing it.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+
+from tpu_radix_join_torch.core.config import JoinConfig
+from tpu_radix_join_torch.core.device import resolve_device
+from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
+
+#: JAX config fields the single-node sort-probe join never reads: the
+#: shuffle, window, bucket-path, retry-pacing and placement knobs
+_UNREAD_AT_ONE_NODE = frozenset({
+    "local_fanout_bits", "payload_bits", "num_hosts", "mesh_axis",
+    "result_aggregation_node", "window_sizing", "allocation_factor",
+    "exchange_codec", "exchange_stages", "partition_impl",
+    "assignment_policy", "match_rate_cap", "fallback", "grid_pipeline",
+    "retry_backoff_s", "retry_backoff_mult", "retry_backoff_max_s",
+    "retry_jitter", "generation", "debug_checks", "measure_phases",
+})
+
+
+def config_from_jax(config_dict: Mapping) -> JoinConfig:
+    """The port's JoinConfig for ``dataclasses.asdict(jax_config)``.
+
+    ``sort_impl`` picks among implementations of the same sort, and the port
+    has one, so it maps to "auto".  ``chunk_size`` (the out-of-core probe)
+    is not ported; an unknown field raises."""
+    own = {f for f in JoinConfig.__dataclass_fields__}
+    kw = {}
+    for name, value in config_dict.items():
+        if name == "sort_impl":
+            continue
+        if name == "chunk_size":
+            if value is not None:
+                raise NotImplementedError(
+                    "chunk_size is not ported to PyTorch yet "
+                    "(ROADMAP.md A14)")
+            continue
+        if name in own:
+            kw[name] = value
+        elif name not in _UNREAD_AT_ONE_NODE:
+            raise ValueError(f"unknown JoinConfig field {name!r}")
+    return JoinConfig(**kw)
+
+
+def batch_from_numpy(key: np.ndarray, rid: np.ndarray,
+                     key_hi: Optional[np.ndarray] = None,
+                     device="cuda") -> TupleBatch:
+    """A TupleBatch on ``device`` from uint32 numpy lanes (bits kept)."""
+    if key_hi is not None:
+        raise NotImplementedError(
+            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+    if np.shape(key) != np.shape(rid) or np.ndim(key) != 1:
+        raise ValueError("key and rid must be 1-D lanes of one length")
+    dev = resolve_device(device)
+    return TupleBatch(key=lane_from_numpy(key, dev),
+                      rid=lane_from_numpy(rid, dev))
+
+
+def from_jax_state(config_dict: Mapping, key: np.ndarray, rid: np.ndarray,
+                   key_hi: Optional[np.ndarray] = None,
+                   device="cuda") -> Tuple[JoinConfig, TupleBatch]:
+    """(port JoinConfig, port TupleBatch) for a JAX config dict and one
+    relation's JAX lanes as numpy arrays."""
+    return (config_from_jax(config_dict),
+            batch_from_numpy(key, rid, key_hi, device=device))
