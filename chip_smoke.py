@@ -7,13 +7,22 @@ Builds the port's CUDA kernels from ``tpu_radix_join_torch/csrc/``, holds
 each one bit-exact against its plain PyTorch version on the card (at the
 main path's shapes and at adversarial small shapes), times it beside its
 plain version, its memory bound and the nearest single PyTorch call, then
-drives the main path — ``HashJoin(JoinConfig()).join(inner, outer)`` — on
-three workloads and checks their answers and that each kernel launched:
+drives two paths and checks their answers and that each kernel launched.
+The sort probe — ``HashJoin(JoinConfig()).join(inner, outer)``:
 
   (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
   (b) unique ⋈ zipf(theta 0.75) over a 20,000,000-key domain;
   (c) modulo(65536) ⋈ unique at 2**24 tuples, where the uint32
       overflow guard runs the partition histogram.
+
+The partitioned join (window sizing, exchange, local radix partition,
+bucketized build/probe):
+
+  (d) unique ⋈ unique, 20,000,000 each, ``probe_algorithm="bucket"``;
+  (e) unique ⋈ zipf(theta 0.75) over 20,000,000 keys, ``two_level=True``
+      with capacity retries (the Zipf head fills one local bucket);
+  (f) full-range keys at 2**24: unique ⋈ modulo(65536), both shifted into
+      [2**31, 2**32 - 2), through ``join_arrays``.
 
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
@@ -46,13 +55,22 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
     from tpu_radix_join_torch.data.relation import host_join_count
-    from tpu_radix_join_torch.data.tuples import lane_to_numpy, narrow, widen
+    from tpu_radix_join_torch.data.tuples import (PAD_RID, R_PAD_KEY,
+                                                  S_PAD_KEY, TupleBatch,
+                                                  lane_to_numpy, narrow,
+                                                  valid_mask, widen)
+    from tpu_radix_join_torch.operators.local_partitioning import (
+        local_bucket_ids, local_partition)
     from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.build_probe import (bucket_rows_count,
+                                                      bucket_rows_sort)
     from tpu_radix_join_torch.ops.kernels import _build
     from tpu_radix_join_torch.ops.kernels import histogram as k1
     from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import partition as k4
     from tpu_radix_join_torch.ops.kernels import radix_sort as k2
     from tpu_radix_join_torch.ops.merge_count import MAX_MERGE_KEY, _pack_pm
+    from tpu_radix_join_torch.parallel.window import Window
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -232,33 +250,158 @@ def main() -> int:
     }
     emit({"phase": "kernel", "kernel": "histogram", "elements": n_main,
           "checks": len(errs), **results["histogram"]})
-    del union, flipped, sorted_union, s_pid, r_main, s_main
+    del union, flipped, sorted_union, s_pid
+
+    # ------------------------------------------------------ K4 partition
+    # the partitioned join's two shapes at 20M (one rank), as its calls
+    # give them: the exchange groups 20M ids into one block of 2**25
+    # slots; the local pass groups the 2**25 received slots into 32
+    # buckets of bucket_capacity(2**25, 32) slots, pad slots carrying the
+    # invalid id 32, which K4 drops (ops/radix.scatter_to_blocks)
+    cfg_b = JoinConfig(probe_algorithm="bucket")
+    cap_x = 1 << (n_main - 1).bit_length()
+    n_buckets = cfg_b.local_partition_count
+    lcap = cfg_b.bucket_capacity(cap_x, n_buckets)
+    fills = [R_PAD_KEY, PAD_RID]
+    ex_ids = torch.zeros(n_main, dtype=torch.int32, device=dev)
+    (rx_key, rx_rid), _ = k4.partition_scatter(
+        ex_ids, [r_main.key, r_main.rid], fills, num_groups=1,
+        capacity=cap_x)
+    received = TupleBatch(key=rx_key, rid=rx_rid)
+    loc_ids = torch.where(valid_mask(received, "inner"),
+                          local_bucket_ids(received, fanout,
+                                           cfg_b.local_fanout_bits),
+                          n_buckets).to(torch.int32)
+    k4_shapes = {
+        "exchange": (ex_ids, [r_main.key, r_main.rid], 1, 1, cap_x),
+        "local": (loc_ids, [rx_key, rx_rid], n_buckets, 1, lcap),
+    }
+
+    def k4_case(name, ids, lanes, groups, gsize, cap):
+        """K4 (slots and the lanes it moves) against its plain version."""
+        got = k4.partition_slots(ids, num_groups=groups, group_size=gsize,
+                                 capacity=cap)
+        ref = k4.partition_slots_plain(ids, groups, gsize, cap)
+        out = [exact(got[0], ref[0], f"partition slots, {name}"),
+               exact(got[1], ref[1], f"partition hist, {name}")]
+        pads = [R_PAD_KEY, PAD_RID, S_PAD_KEY, 7][:len(lanes)]
+        got = k4.partition_scatter(ids, lanes, pads, num_groups=groups,
+                                   group_size=gsize, capacity=cap)
+        ref = k4.partition_scatter_plain(ids, lanes, pads, groups, gsize, cap)
+        for i, (g, r) in enumerate(zip(got[0], ref[0])):
+            out.append(exact(g, r, f"partition lane {i}, {name}"))
+        out.append(exact(got[1], ref[1], f"partition scatter hist, {name}"))
+        return out
+
+    errs = []
+    for name, (ids, lanes, groups, gsize, cap) in k4_shapes.items():
+        errs += k4_case(f"{name} @ main shape", ids, lanes, groups, gsize,
+                        cap)
+    # dense mode with the pads as a real last group: reorder_by_partition's
+    # call, on the main path's ids
+    errs += k4_case("dense reorder @ main shape", loc_ids, [rx_key, rx_rid],
+                    n_buckets + 1, 1, None)
+    for n in (1, 255, 4097, 32769, 600_000, 1000003):
+        lanes = [rand_lane(n) for _ in range(4)]
+        for groups, gsize, hi in ((7, 1, 10), (16, 4, 18), (256, 1, 257),
+                                  (5, 1, 1 << 32)):
+            ids = rand_lane(n, hi=hi)          # some ids >= groups: invalid
+            for cap in (None, max(1, n // groups), max(1, n // 2)):
+                errs += k4_case(f"{n} ids, {groups} groups / {gsize}, "
+                                f"capacity {cap}", ids, lanes, groups,
+                                gsize, cap)
+    for name, ids in (
+            ("all equal", torch.full((100003,), 3, dtype=torch.int32,
+                                     device=dev)),
+            ("all invalid", rand_lane(100003, lo=256)),
+            ("id 256 of 256", narrow(torch.tensor([256, 0, 255] * 33335,
+                                                  dtype=torch.int64)).to(dev))):
+        lanes = [rand_lane(ids.numel()) for _ in range(2)]
+        for cap in (None, 1000, 60000):
+            errs += k4_case(f"{name}, capacity {cap}", ids, lanes, 256, 1,
+                            cap)
+    ids, lanes, groups, gsize, cap = k4_shapes["local"]
+    m4, out4 = ids.numel(), k4.out_size(ids.numel(), groups, gsize, cap)
+    ex_ms = time_ms(lambda: k4.partition_scatter(
+        ex_ids, [r_main.key, r_main.rid], fills, num_groups=1,
+        capacity=cap_x))
+    results["partition"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k4.partition_scatter(
+            ids, lanes, fills, num_groups=groups, capacity=cap)),
+        "plain_ms": time_ms(lambda: k4.partition_scatter_plain(
+            ids, lanes, fills, groups, gsize, cap), reps=3),
+        # ids read, two lanes read, two block layouts written, the hist
+        "bound_ms": (4 * m4 + 2 * 4 * m4 + 2 * 4 * out4 + 4 * groups)
+        / hbm_bytes_per_s * 1e3,
+        "library_ms": time_ms(lambda: torch.argsort(ids, stable=True)),
+    }
+    emit({"phase": "kernel", "kernel": "partition", "elements": m4,
+          "out_slots": out4, "checks": len(errs),
+          "exchange_shape": {
+              "elements": n_main, "out_slots": cap_x, "ms": ex_ms,
+              "bound_ms": (4 * n_main + 2 * 4 * n_main + 2 * 4 * cap_x + 4)
+              / hbm_bytes_per_s * 1e3},
+          **results["partition"]})
+    del (r_main, s_main, ex_ids, rx_key, rx_rid, received, loc_ids,
+         k4_shapes, ids, lanes)
 
     # ---------------------------------------------------------- main path
-    def cpu_agrees(inner_rel, outer_rel):
+    def cpu_agrees(cfg, inner_rel, outer_rel):
         """A small join on the card equals the plain versions on the host
         and the host oracle."""
         r, s = inner_rel.generate(dev), outer_rel.generate(dev)
-        got = HashJoin(JoinConfig()).join_arrays(r, s)
-        ref = HashJoin(JoinConfig(), device="cpu").join_arrays(
+        got = HashJoin(cfg).join_arrays(r, s)
+        ref = HashJoin(cfg, device="cpu").join_arrays(
             inner_rel.generate("cpu"), outer_rel.generate("cpu"))
         oracle = host_join_count(lane_to_numpy(r.key), lane_to_numpy(s.key))
         if not (got.matches == ref.matches == oracle and got.ok and ref.ok
-                and (got.partition_counts == ref.partition_counts).all()):
+                and (got.partition_counts == ref.partition_counts).all()
+                and got.retries == ref.retries):
             raise AssertionError(f"small join disagrees: card {got}, host "
                                  f"{ref}, oracle {oracle}")
 
-    cpu_agrees(Relation(1 << 16, 1, "unique", seed=7),
-               Relation(1 << 16, 1, "zipf", seed=8, zipf_theta=0.75))
-    cpu_agrees(Relation(1 << 16, 1, "modulo", seed=7, modulo=4099),
-               Relation(1 << 16, 1, "unique", seed=8))
+    small = 1 << 16
+    cpu_agrees(JoinConfig(), Relation(small, 1, "unique", seed=7),
+               Relation(small, 1, "zipf", seed=8, zipf_theta=0.75))
+    cpu_agrees(JoinConfig(), Relation(small, 1, "modulo", seed=7, modulo=4099),
+               Relation(small, 1, "unique", seed=8))
+    cpu_agrees(cfg_b, Relation(small, 1, "unique", seed=7),
+               Relation(small, 1, "modulo", seed=8, modulo=4099))
+    cpu_agrees(JoinConfig(two_level=True), Relation(small, 1, "unique", seed=7),
+               Relation(small, 1, "unique", seed=8))
 
+    def drive(engine, name, run, expected, needed, retries=0):
+        """One main-path join, its answer and the kernels it launched."""
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if res.matches != expected or not res.ok or res.retries != retries:
+            raise AssertionError(f"{name}: {res} (expected {expected} "
+                                 f"matches after {retries} retries)")
+        for k in needed:
+            if delta[k] <= 0:
+                raise AssertionError(f"{name}: kernel {k} did not launch")
+        if not engine.config.sort_probe and \
+                delta["partition"] != 4 * (retries + 1):
+            raise AssertionError(f"{name}: {delta['partition']} partition "
+                                 f"launches for {retries + 1} attempts")
+        emit({"phase": "join", "workload": name, "matches": res.matches,
+              "expected": expected, "ok": res.ok, "retries": res.retries,
+              "failure_class": res.diagnostics["failure_class"],
+              "launches": delta, "join_with_generation_ms": total_s * 1e3})
+
+    # the sort probe: (a), (b), (c)
     workloads = [
         ("unique_20M", Relation(n_main, 1, "unique", seed=1234),
          Relation(n_main, 1, "unique", seed=1235), n_main, ()),
         ("zipf_20M", Relation(n_main, 1, "unique", seed=1234),
          Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
-                  key_domain=n_main), None, ()),
+                  key_domain=n_main), n_main, ()),
         ("refine_2p24", Relation(1 << 24, 1, "modulo", seed=1234,
                                  modulo=65536),
          Relation(1 << 24, 1, "unique", seed=1235), 1 << 24,
@@ -267,40 +410,64 @@ def main() -> int:
     engine = HashJoin(JoinConfig())
     kernels.reset_launches()
     for name, inner_rel, outer_rel, expected, extra in workloads:
-        before = kernels.launch_counts()
-        t0 = time.perf_counter()
-        res = engine.join(inner_rel, outer_rel)
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        after = kernels.launch_counts()
-        if expected is None:
-            expected = inner_rel.expected_matches(outer_rel)
-        if res.matches != expected or not res.ok:
-            raise AssertionError(f"{name}: {res} (expected {expected})")
-        for k in ("radix_pass", "merge_scan", *extra):
-            if after[k] <= before[k]:
-                raise AssertionError(f"{name}: kernel {k} did not launch")
-        emit({"phase": "join", "workload": name, "matches": res.matches,
-              "expected": expected, "ok": res.ok,
-              "failure_class": res.diagnostics["failure_class"],
-              "launches": {k: after[k] - before[k] for k in after},
-              "join_with_generation_ms": total_s * 1e3})
+        drive(engine, name, lambda: engine.join(inner_rel, outer_rel),
+              expected, ("radix_pass", "merge_scan", *extra))
     launches = kernels.launch_counts()
 
+    # the partitioned join: (d), (e), (f).  (e) needs four retries: the
+    # Zipf(1.75) head puts ~95% of S in local bucket 0, 12x its capacity.
+    # (f)'s lanes are made before the counts are reset.
+    full_n = 1 << 24
+    r_full = Relation(full_n, 1, "unique", seed=1234).generate(dev)
+    s_full = Relation(full_n, 1, "modulo", seed=1235,
+                      modulo=65536).generate(dev)
+    r_full = TupleBatch(key=torch.bitwise_xor(r_full.key, -(1 << 31)),
+                        rid=r_full.rid)
+    s_full = TupleBatch(key=torch.bitwise_xor(s_full.key, -(1 << 31)),
+                        rid=s_full.rid)
+    full_oracle = host_join_count(lane_to_numpy(r_full.key),
+                                  lane_to_numpy(s_full.key))
+    torch.cuda.synchronize()
+    zipf_retries = 4
+    partitioned = [
+        ("bucket_unique_20M", cfg_b,
+         Relation(n_main, 1, "unique", seed=1234),
+         Relation(n_main, 1, "unique", seed=1235), n_main, 0),
+        ("two_level_zipf_20M",
+         JoinConfig(two_level=True, max_retries=zipf_retries),
+         Relation(n_main, 1, "unique", seed=1234),
+         Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
+                  key_domain=n_main), n_main, zipf_retries),
+    ]
+    kernels.reset_launches()
+    for name, cfg, inner_rel, outer_rel, expected, retries in partitioned:
+        eng = HashJoin(cfg)
+        drive(eng, name, lambda: eng.join(inner_rel, outer_rel), expected,
+              ("histogram", "partition", "radix_pass"), retries)
+    eng = HashJoin(cfg_b)
+    drive(eng, "bucket_full_range_2p24",
+          lambda: eng.join_arrays(r_full, s_full), full_oracle,
+          ("histogram", "partition", "radix_pass"))
+    launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
+    del r_full, s_full
+
     # join time alone, on placed inputs (not counted as the main path)
-    for name, inner_rel, outer_rel, _, _ in workloads:
-        r, s = engine.place(inner_rel), engine.place(outer_rel)
-        bound = max(inner_rel.key_bound(), outer_rel.key_bound())
+    def join_ms(eng, r, s, bound=None):
         times = []
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.join_arrays(r, s, key_bound=bound)
+            eng.join_arrays(r, s, key_bound=bound)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        join_s = statistics.median(times[1:])
-        emit({"phase": "join_time", "workload": name, "join_ms": join_s * 1e3,
-              "tuples_per_s": (r.size + s.size) / join_s, **card})
+        return statistics.median(times[1:]) * 1e3
+
+    for name, inner_rel, outer_rel, _, _ in workloads:
+        r, s = engine.place(inner_rel), engine.place(outer_rel)
+        ms = join_ms(engine, r, s,
+                     max(inner_rel.key_bound(), outer_rel.key_bound()))
+        emit({"phase": "join_time", "workload": name, "join_ms": ms,
+              "tuples_per_s": (r.size + s.size) / ms * 1e3, **card})
         if name == "unique_20M":
             # where the join's time goes: each stage alone, CUDA events
             packed = _pack_pm(r.key, s.key, fanout)
@@ -317,9 +484,61 @@ def main() -> int:
             }
             emit({"phase": "breakdown", "workload": name,
                   "stage_ms": {k: time_ms(f) for k, f in stages.items()},
-                  "join_ms": join_s * 1e3, **card})
+                  "join_ms": ms, **card})
             del packed, ordered
         del r, s
+
+    # (d): join time, and its stages alone
+    name, cfg, inner_rel, outer_rel, _, _ = partitioned[0]
+    eng = HashJoin(cfg)
+    r, s = eng.place(inner_rel), eng.place(outer_rel)
+    ms = join_ms(eng, r, s)
+    emit({"phase": "join_time", "workload": name, "join_ms": ms,
+          "tuples_per_s": (r.size + s.size) / ms * 1e3, **card})
+    # (d) under the load-aware assignment: exact, and its time beside (d)'s
+    eng_la = HashJoin(JoinConfig(probe_algorithm="bucket",
+                                 assignment_policy="load_aware"))
+    res = eng_la.join_arrays(r, s)
+    if res.matches != n_main or not res.ok:
+        raise AssertionError(f"{name}, load_aware: {res}")
+    ms_la = join_ms(eng_la, r, s)
+    emit({"phase": "join_time", "workload": f"{name}_load_aware",
+          "join_ms": ms_la, "tuples_per_s": (r.size + s.size) / ms_la * 1e3,
+          **card})
+    plan = eng._shuffle_plan(r, s)
+    cap_r, cap_s = eng._measure_capacities(r, s, plan)
+    win_r = Window(eng.world, cap_r, "inner")
+    win_s = Window(eng.world, cap_s, "outer")
+    rp, sp, *_ = eng._shuffle(r, s, plan, win_r, win_s)
+    lcap_r, lcap_s = eng._bucket_caps(cap_r, cap_s, 1)
+    lf = cfg.local_fanout_bits
+
+    def local_pass():
+        return (local_partition(rp.batch, rp.valid, fanout, lf, lcap_r,
+                                "inner"),
+                local_partition(sp.batch, sp.valid, fanout, lf, lcap_s,
+                                "outer"))
+
+    lr, ls = local_pass()
+    rows = (lr.blocks.key.view(n_buckets, lcap_r),
+            ls.blocks.key.view(n_buckets, lcap_s))
+    sorted_rows = bucket_rows_sort(*rows)
+    stages = {
+        "key_contract": lambda: eng._keys_in_contract(r, s),
+        "sizing_histograms": lambda: eng._measure_capacities(
+            r, s, eng._shuffle_plan(r, s)),
+        "exchange": lambda: eng._shuffle(r, s, plan, win_r, win_s),
+        "local_partition": local_pass,
+        "row_sort": lambda: bucket_rows_sort(*rows),
+        "row_scan": lambda: bucket_rows_count(*sorted_rows),
+        "readback": lambda: torch.zeros(
+            n_buckets + 7, dtype=torch.int64, device=dev).cpu(),
+    }
+    emit({"phase": "breakdown", "workload": name,
+          "stage_ms": {k: time_ms(f) for k, f in stages.items()},
+          "row_sort_elements": sorted_rows[0].numel(),
+          "caps": [cap_r, cap_s, lcap_r, lcap_s], "join_ms": ms, **card})
+    del r, s, plan, rp, sp, lr, ls, rows, sorted_rows
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
@@ -331,17 +550,20 @@ def main() -> int:
         "merge_scan": ("tpu_radix_join_torch/csrc/merge_scan.cu",
                        "tpu_radix_join/ops/pallas/merge_scan.py:187",
                        "merge_scan"),
+        "partition": ("tpu_radix_join_torch/csrc/partition.cu",
+                      "tpu_radix_join/ops/pallas/partition.py:150",
+                      "partition"),
     }
-    rows = []
+    table = []
     for name, (src, replaces, counter) in sources.items():
         r = results[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
+        table.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[counter],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
     print(smi, flush=True)
-    emit({"kernels": rows})
+    emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -124,7 +124,7 @@ def test_raw_arrays_probe_the_key_range():
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_nodes", 4, "A7"), ("key_bits", 64, "A9"), ("key_range", "full", "A9"),
-    ("probe_algorithm", "bucket", "A11"), ("two_level", True, "A11"),
+    ("exchange_codec", "pack", "A13"), ("fallback", "chunked", "A14"),
     ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
     ("chunk_size", 1024, "A14"),
 ])

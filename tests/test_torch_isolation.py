@@ -24,12 +24,17 @@ for m in pkgutil.walk_packages(tx.__path__, "tpu_radix_join_torch."):
 res = tx.HashJoin(tx.JoinConfig(), device="cpu").join(
     tx.Relation(3000, 1, "unique", seed=1),
     tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
+bucket = tx.HashJoin(tx.JoinConfig(probe_algorithm="bucket"), device="cpu").join(
+    tx.Relation(3000, 1, "unique", seed=1),
+    tx.Relation(3000, 1, "modulo", seed=2, modulo=700))
 raised = {}
 for name, call in [
         ("HashJoin", lambda: tx.HashJoin()),
         ("Relation.generate", lambda: tx.Relation(64).generate()),
         ("batch_from_numpy", lambda: tx.batch_from_numpy([1], [2])),
-        ("main", lambda: tx.main.main(["--tuples-per-node", "64"]))]:
+        ("main", lambda: tx.main.main(["--tuples-per-node", "64"])),
+        ("main --probe bucket", lambda: tx.main.main(
+            ["--probe", "bucket", "--tuples-per-node", "64"]))]:
     try:
         call()
         raised[name] = None
@@ -38,7 +43,9 @@ for name, call in [
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "tpu_radix_join"))
 print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
-                  "raised": raised}))
+                  "raised": raised,
+                  "bucket": [bucket.matches, bucket.ok,
+                             len(bucket.partition_counts)]}))
 """
 
 
@@ -55,6 +62,7 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     got = _run(["-c", _PROBE])
     assert got["leaked"] == []
     assert got["ok"] and got["matches"] == 3000
+    assert got["bucket"] == [3000, True, 32]
     for name, msg in got["raised"].items():
         assert msg is not None and "no CUDA device" in msg, name
 

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of tpu_radix_join: the single-GPU sort-probe join.
+"""PyTorch + CUDA port of tpu_radix_join: the one-GPU joins — the sort probe
+and the partitioned (bucket / two-level) join.
 
 The JAX package ``tpu_radix_join`` stays the reference; this package imports
 nothing of it (nor JAX).  Lanes are ``torch.int32`` tensors holding uint32

@@ -1,7 +1,8 @@
 """Tuple layout of the port: structure-of-arrays batches of uint32 lanes.
 
 Counterpart of ``tpu_radix_join/data/tuples.py`` (``TupleBatch``, the pad
-sentinels, ``_sentinel_lane``, ``effective_key_bits``).
+sentinels, ``_sentinel_lane``, ``partition_ids``, ``pad_sentinel``,
+``valid_mask``, ``make_padding_like``, ``effective_key_bits``).
 
 **Lane dtype.**  A lane is a 1-D ``torch.int32`` tensor that holds the uint32
 bit pattern of each value: 4 bytes a lane, as on the TPU, and the CUDA
@@ -73,6 +74,36 @@ class TupleBatch(NamedTuple):
 # field 0 = primary key lane, field 1 = rid, field 2 = optional high key lane.
 def _sentinel_lane(batch) -> torch.Tensor:
     return batch[2] if batch[2] is not None else batch[0]
+
+
+def partition_ids(batch: TupleBatch, fanout_bits: int) -> torch.Tensor:
+    """Radix partition id = low ``fanout_bits`` of the key
+    (LocalHistogram.cpp:20,44-47): an int32 lane of values in
+    [0, 1 << fanout_bits)."""
+    return torch.bitwise_and(batch.key, (1 << fanout_bits) - 1)
+
+
+def pad_sentinel(side: str) -> int:
+    """The uint32 key of a padding slot on ``side``."""
+    if side == "inner":
+        return R_PAD_KEY
+    if side == "outer":
+        return S_PAD_KEY
+    raise ValueError(f"side must be 'inner' or 'outer', got {side!r}")
+
+
+def valid_mask(batch, side: str) -> torch.Tensor:
+    """True for real tuples, False for padding slots."""
+    return _sentinel_lane(batch) != int(narrow(torch.tensor(pad_sentinel(side))))
+
+
+def make_padding_like(batch, n: int, side: str):
+    """A block of n invalid tuples with the same structure as ``batch``."""
+    dev = batch[0].device
+    sent = narrow(torch.full((n,), pad_sentinel(side), dtype=torch.int64,
+                             device=dev))
+    rid = narrow(torch.full((n,), PAD_RID, dtype=torch.int64, device=dev))
+    return type(batch)(sent, rid, sent if batch[2] is not None else None)
 
 
 def effective_key_bits(key_bound: Optional[int], fanout_bits: int = 0,

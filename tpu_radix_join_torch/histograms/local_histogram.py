@@ -1,0 +1,31 @@
+"""Local and global partition histograms.
+
+Counterpart of ``tpu_radix_join/histograms/local_histogram.py`` (one pass
+counting tuples per network partition, LocalHistogram.cpp:20,44-47, on K1)
+and ``global_histogram.py`` (the sum over ranks, GlobalHistogram.cpp:37-42).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from tpu_radix_join_torch.data.tuples import TupleBatch, partition_ids
+from tpu_radix_join_torch.ops.radix import local_histogram
+from tpu_radix_join_torch.parallel.world import OneRankWorld
+
+
+def compute_local_histogram(batch: TupleBatch, fanout_bits: int,
+                            valid: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pid int32 [n], histogram int32 [1 << fanout_bits] of uint32
+    counts)."""
+    pid = partition_ids(batch, fanout_bits)
+    return pid, local_histogram(pid, 1 << fanout_bits, valid)
+
+
+def compute_global_histogram(local_hist: torch.Tensor,
+                             world: OneRankWorld) -> torch.Tensor:
+    """The local histograms summed over every rank of ``world``."""
+    return world.all_reduce(local_hist)

@@ -1,12 +1,15 @@
-"""Driver CLI of the port: one single-GPU join of two generated relations.
+"""Command line of the port: one one-GPU join of two generated relations.
 
-The single-GPU subset of ``tpu_radix_join/main.py``: the inner relation is
-unique with seed ``--seed``, the outer one of ``--outer-kind`` with seed
-``--seed + 1``; the join runs through ``HashJoin(JoinConfig()).join``.
+The one-GPU subset of ``tpu_radix_join/main.py``, with its flag names and
+defaults: the inner relation is unique with seed ``--seed``, the outer one
+of ``--outer-kind`` with seed ``--seed + 1``; the join runs through
+``HashJoin(JoinConfig(...)).join_arrays`` on the placed relations.
+``--probe bucket`` or ``--two-level`` select the partitioned join.
 
 Usage:
     python -m tpu_radix_join_torch.main --tuples-per-node 20000000
-    python -m tpu_radix_join_torch.main --outer-kind zipf --zipf-theta 0.75
+    python -m tpu_radix_join_torch.main --probe bucket --tuples-per-node 20000000
+    python -m tpu_radix_join_torch.main --two-level --outer-kind zipf --max-retries 2
     python -m tpu_radix_join_torch.main --device cpu --tuples-per-node 65536
 """
 
@@ -23,9 +26,21 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu_radix_join_torch",
-        description="Single-GPU radix hash join (PyTorch + CUDA)")
+        description="One-GPU radix hash join (PyTorch + CUDA)")
     p.add_argument("--tuples-per-node", type=int, default=1 << 20,
                    help="tuples per relation (reference: 20M, main.cpp:70)")
+    p.add_argument("--network-fanout", type=int, default=5,
+                   help="network radix bits (Configuration.h:30)")
+    p.add_argument("--local-fanout", type=int, default=5)
+    p.add_argument("--two-level", action="store_true",
+                   help="enable second-level partitioning (Configuration.h:28)")
+    p.add_argument("--probe", choices=["sort", "bucket"], default="sort")
+    p.add_argument("--assignment", choices=["round_robin", "load_aware"],
+                   default="round_robin")
+    p.add_argument("--window-sizing", choices=["measured", "static"],
+                   default="measured")
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="capacity-shortfall retries with doubled shapes")
     p.add_argument("--outer-kind", choices=["unique", "modulo", "zipf"],
                    default="unique")
     p.add_argument("--modulo", type=int, default=None,
@@ -53,7 +68,13 @@ def main(argv=None) -> int:
     outer = Relation(n, 1, args.outer_kind, seed=args.seed + 1, **outer_kw)
     expected = inner.expected_matches(outer)
 
-    engine = HashJoin(JoinConfig(), device=args.device)
+    cfg = JoinConfig(network_fanout_bits=args.network_fanout,
+                     local_fanout_bits=args.local_fanout,
+                     two_level=args.two_level, probe_algorithm=args.probe,
+                     assignment_policy=args.assignment,
+                     window_sizing=args.window_sizing,
+                     max_retries=args.max_retries)
+    engine = HashJoin(cfg, device=args.device)
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
     cuda = engine.device.type == "cuda"
@@ -70,6 +91,8 @@ def main(argv=None) -> int:
         "join_ms": join_s * 1e3, "tuples": 2 * n,
         "tuples_per_s": 2 * n / join_s,
         "failure_class": result.diagnostics["failure_class"],
+        "retries": result.retries,
+        "pipeline": "sort_probe" if cfg.sort_probe else "partitioned",
         "device": (torch.cuda.get_device_name(engine.device) if cuda
                    else "cpu"),
     }))

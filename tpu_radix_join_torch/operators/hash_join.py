@@ -1,9 +1,11 @@
-"""The single-GPU join engine.
+"""The one-GPU join engine.
 
-Counterpart of the ``num_nodes == 1`` sort-probe specialisation of
-``tpu_radix_join/operators/hash_join.py`` (``_pipeline_fn``'s n == 1 branch,
-``join``, ``join_arrays``, ``place``, ``_finish_join``).  At one node the
-shuffle is an identity, so the whole join is:
+Counterpart of ``tpu_radix_join/operators/hash_join.py`` at
+``num_nodes == 1`` (``_pipeline_fn``, ``join``, ``join_arrays``, ``place``,
+``_finish_join``).  The config picks one of two pipelines.
+
+**Sort probe** (the default; ``_pipeline_fn``'s n == 1 branch): the shuffle
+is an identity, so the join is
 
   1. pack both key lanes partition-major (ops/merge_count._pack_pm);
   2. sort the packed union (K2, the LSD radix sort);
@@ -12,6 +14,22 @@ shuffle is an identity, so the whole join is:
   4. the uint32 overflow-risk guard, which runs the partition histogram
      (K1) only when the one scalar readback says a count might wrap;
   5. a host uint64 sum of the per-partition counts.
+
+**Partitioned join** (``probe_algorithm="bucket"`` or ``two_level``;
+``_pipeline_fn``'s generic body, hpcjoin's own algorithm at one node):
+
+  1. window sizing: the local histograms (K1), the assignment, and each
+     relation's worst per-destination demand rounded up to a power of two
+     (or the ``allocation_factor`` estimate, ``window_sizing="static"``);
+     the histograms and the assignment are computed once a join and
+     shared by every attempt;
+  2. the exchange (``_shuffle``): ``network_partition`` into one block per
+     rank (K4), the all_to_all, and the conservation check;
+  3. local processing: the second radix pass into buckets (K4), the row
+     sort of every bucket (K2) and the merge-weight scan;
+  4. the 7-entry flag vector, read back with the per-bucket counts; a
+     capacity shortfall reruns the attempt with only the shape that fell
+     short doubled, up to ``max_retries`` times.
 """
 
 from __future__ import annotations
@@ -24,10 +42,20 @@ import torch
 from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.relation import Relation
-from tpu_radix_join_torch.data.tuples import TupleBatch, _sentinel_lane
+from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, TupleBatch,
+                                              _sentinel_lane, widen)
+from tpu_radix_join_torch.histograms import (compute_global_histogram,
+                                             compute_local_histogram,
+                                             compute_partition_assignment)
+from tpu_radix_join_torch.operators.local_partitioning import local_partition
+from tpu_radix_join_torch.ops.build_probe import probe_count_bucketized
 from tpu_radix_join_torch.ops.merge_count import (MAX_MERGE_KEY,
                                                   merge_count_per_partition)
 from tpu_radix_join_torch.ops.radix import local_histogram
+from tpu_radix_join_torch.parallel.network_partitioning import (
+    network_partition)
+from tpu_radix_join_torch.parallel.window import Window
+from tpu_radix_join_torch.parallel.world import make_world
 
 # failure classes, in priority order (robustness/retry.classify_diagnostics
 # of the JAX package): fatal flags outrank capacity shortfalls
@@ -54,8 +82,17 @@ def classify_diagnostics(diag: dict) -> str:
 class JoinResult(NamedTuple):
     matches: int                  # exact match count (host uint64 sum)
     ok: bool                      # no flag raised
-    partition_counts: np.ndarray  # uint32 [P] per-partition counts
+    partition_counts: np.ndarray  # uint32 [P] per-partition (or bucket) counts
     diagnostics: Optional[dict] = None   # failure breakdown (_flags_to_diag)
+    retries: int = 0              # capacity retries the join took
+
+
+class ShufflePlan(NamedTuple):
+    r_hist: torch.Tensor          # int32 [P]: this rank's R histogram
+    s_hist: torch.Tensor          # int32 [P]: this rank's S histogram
+    r_ghist: torch.Tensor         # int32 [P]: R summed over the ranks
+    s_ghist: torch.Tensor         # int32 [P]: S summed over the ranks
+    assignment: torch.Tensor      # int32 [P]: partition -> owner rank
 
 
 def _minmax_i32(lane: torch.Tensor) -> torch.Tensor:
@@ -65,6 +102,14 @@ def _minmax_i32(lane: torch.Tensor) -> torch.Tensor:
         return torch.tensor([0, 0], dtype=torch.int64, device=lane.device)
     lo, hi = torch.aminmax(lane)
     return torch.stack([lo, hi]).to(torch.int64)
+
+
+def _umax(lane: torch.Tensor) -> torch.Tensor:
+    """0-d int64: the largest uint32 value of an int32 lane (0 if empty).
+    Flipping the sign bit makes signed order the unsigned one."""
+    if lane.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=lane.device)
+    return torch.bitwise_xor(lane, -(1 << 31)).max().to(torch.int64) + (1 << 31)
 
 
 def _all_below(minmax: np.ndarray, cap: int) -> bool:
@@ -80,6 +125,7 @@ class HashJoin:
     def __init__(self, config: Optional[JoinConfig] = None, device="cuda"):
         self.config = config if config is not None else JoinConfig()
         self.device = resolve_device(device)
+        self.world = make_world(self.config.num_nodes)
 
     # ------------------------------------------------------------- checks
     def _check_batches(self, r: TupleBatch, s: TupleBatch) -> None:
@@ -100,8 +146,8 @@ class HashJoin:
             if b.key.shape != b.rid.shape:
                 raise ValueError(f"{name} key and rid lanes differ in length")
         if r.size + s.size >= 1 << 31:
-            raise ValueError("the sort probe counts in 32 bits: |R| + |S| "
-                             "must stay below 2**31")
+            raise ValueError("the joins count positions in 32 bits: "
+                             "|R| + |S| must stay below 2**31")
 
     def _resolve_key_range(self, key_minmax: torch.Tensor,
                            key_bound: Optional[int]) -> None:
@@ -147,14 +193,29 @@ class HashJoin:
         diag["failure_class"] = classify_diagnostics(diag)
         return diag
 
+    @staticmethod
+    def _retryable(diag: dict) -> bool:
+        """Capacity shortfalls are fixable with bigger shapes; key,
+        conservation and count-overflow flags are not (classify_diagnostics
+        ranks them first, so one in the same attempt is never retried)."""
+        return diag["failure_class"] == "capacity_overflow"
+
     # ------------------------------------------------------------- joins
     def join_arrays(self, r: TupleBatch, s: TupleBatch,
                     key_bound: Optional[int] = None) -> JoinResult:
         """Join two placed batches (lanes on the engine's device).
         ``key_bound``, when known, is an exclusive bound on both relations'
-        keys; with ``key_range="auto"`` it spares the device max-key probe
-        (:meth:`join` passes the relations' static bounds)."""
+        keys; with ``key_range="auto"`` it spares the sort probe the device
+        max-key probe (:meth:`join` passes the relations' static bounds).
+        The partitioned join takes every key below the pads and needs no
+        bound."""
         self._check_batches(r, s)
+        if self.config.sort_probe:
+            return self._sort_probe_join(r, s, key_bound)
+        return self._partitioned_join(r, s)
+
+    def _sort_probe_join(self, r: TupleBatch, s: TupleBatch,
+                         key_bound: Optional[int]) -> JoinResult:
         cfg = self.config
         num_p = cfg.network_partition_count
         # (min, max) of both sentinel lanes: the contract check, and the
@@ -189,6 +250,155 @@ class HashJoin:
         matches = int(counts.astype(np.uint64).sum())
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag)
+
+    # ------------------------------------------------- partitioned join
+    def _partitioned_join(self, r: TupleBatch, s: TupleBatch) -> JoinResult:
+        """The retry loop around :meth:`_partitioned_attempt`
+        (``_join_arrays_inner``, hash_join.py:1912-1948): a capacity
+        shortfall doubles only what fell short — ``cap_r``, ``cap_s`` or
+        the local slack — and reruns the attempt."""
+        plan = self._shuffle_plan(r, s)
+        cap_r, cap_s = self._measure_capacities(r, s, plan)
+        local_slack = 1
+        for attempt in range(self.config.max_retries + 1):
+            counts, flags = self._partitioned_attempt(r, s, plan, cap_r,
+                                                      cap_s, local_slack)
+            diag = self._flags_to_diag(flags)
+            if not flags.any() or not self._retryable(diag):
+                break
+            if diag["shuffle_overflow_r_tuples"]:
+                cap_r *= 2
+            if diag["shuffle_overflow_s_tuples"]:
+                cap_s *= 2
+            if diag["local_overflow"]:
+                local_slack *= 2
+        matches = int(counts.astype(np.uint64).sum())
+        return JoinResult(matches=matches, ok=not flags.any(),
+                          partition_counts=counts, diagnostics=diag,
+                          retries=attempt)
+
+    def _shuffle_plan(self, r: TupleBatch, s: TupleBatch) -> ShufflePlan:
+        """The histograms (K1) and the assignment.  The JAX package computes
+        them twice, in its sizing program (``_histogram_fn``) and again in
+        every attempt's ``_shuffle``; they depend on the relations alone, so
+        here the sizing pass and every attempt share one computation."""
+        cfg = self.config
+        _, r_hist = compute_local_histogram(r, cfg.network_fanout_bits)
+        _, s_hist = compute_local_histogram(s, cfg.network_fanout_bits)
+        r_ghist = compute_global_histogram(r_hist, self.world)
+        s_ghist = compute_global_histogram(s_hist, self.world)
+        return ShufflePlan(r_hist, s_hist, r_ghist, s_ghist,
+                           compute_partition_assignment(
+                               r_ghist, s_ghist, cfg.num_nodes,
+                               cfg.assignment_policy))
+
+    def _sizing_demands(self, plan: ShufflePlan):
+        """The sizing pass (``_histogram_fn`` without hot bits or the
+        codec's key max): each relation's per-destination send demand,
+        int64 [num_nodes] on the device."""
+        n = self.config.num_nodes
+        assignment = plan.assignment
+        dest_onehot = (widen(assignment)[None, :]
+                       == torch.arange(n, device=assignment.device)[:, None])
+        return tuple(torch.where(dest_onehot, widen(h)[None, :], 0).sum(dim=1)
+                     for h in (plan.r_hist, plan.s_hist))
+
+    def _measure_capacities(self, r: TupleBatch, s: TupleBatch,
+                            plan: ShufflePlan):
+        """(cap_r, cap_s): the static exchange block sizes — the next power
+        of two at or above the worst (sender, destination) demand, or the
+        ``allocation_factor`` estimate with ``window_sizing="static"``."""
+        cfg = self.config
+        n = cfg.num_nodes
+        if cfg.window_sizing == "static":
+            return (cfg.shuffle_block_capacity(r.size // n),
+                    cfg.shuffle_block_capacity(s.size // n))
+        demands = torch.stack(self._sizing_demands(plan)).cpu()
+
+        def cap(demand):
+            worst = max(1, int(demand.max()))
+            return max(8, 1 << (worst - 1).bit_length())
+
+        return cap(demands[0]), cap(demands[1])
+
+    def _keys_in_contract(self, r: TupleBatch, s: TupleBatch) -> torch.Tensor:
+        """0-d bool: every key below the pads (the partitioned join has no
+        packing cap)."""
+        return ((_umax(_sentinel_lane(r)) < R_PAD_KEY)
+                & (_umax(_sentinel_lane(s)) < R_PAD_KEY))
+
+    def _shuffle(self, r: TupleBatch, s: TupleBatch, plan: ShufflePlan,
+                 win_r: Window, win_s: Window):
+        """Exchange and conservation checks (the non-skew branch of
+        ``_shuffle``, on the histograms and assignment of ``plan``).
+        Returns (rp, sp, lost_r, lost_s, conserve_bad), the last three 0-d
+        device tensors."""
+        fanout = self.config.network_fanout_bits
+        rp = network_partition(r, fanout, plan.assignment, win_r)
+        sp = network_partition(s, fanout, plan.assignment, win_s)
+        lost_r, bad_r = win_r.diagnostics(rp, plan.r_ghist, plan.assignment)
+        lost_s, bad_s = win_s.diagnostics(sp, plan.s_ghist, plan.assignment)
+        conserve_bad = self.world.all_reduce(bad_r.to(torch.int64)
+                                             + bad_s.to(torch.int64))
+        return rp, sp, lost_r, lost_s, conserve_bad
+
+    def _bucket_caps(self, cap_r: int, cap_s: int, local_slack: int):
+        """Per-bucket capacities of the second radix pass."""
+        cfg = self.config
+        n, nb = cfg.num_nodes, cfg.local_partition_count
+        return (cfg.bucket_capacity(n * cap_r, nb) * local_slack,
+                cfg.bucket_capacity(n * cap_s, nb) * local_slack)
+
+    @staticmethod
+    def _guarded_bucket_counts(inner_rows: torch.Tensor,
+                               outer_rows: torch.Tensor):
+        """(counts, count-overflow risk): a bucket's count is at most
+        lcap_r * lcap_s, so the max-weight bound runs only when that
+        product can reach 2**32."""
+        lcap_r, lcap_s = inner_rows.shape[1], outer_rows.shape[1]
+        if lcap_r * lcap_s < 1 << 32:
+            return (probe_count_bucketized(inner_rows, outer_rows),
+                    torch.zeros((), dtype=torch.bool, device=inner_rows.device))
+        counts, maxw = probe_count_bucketized(inner_rows, outer_rows,
+                                              return_max_weight=True)
+        return counts, widen(maxw) > 0xFFFFFFFF // lcap_s
+
+    def _local_process(self, rp, sp, cap_r: int, cap_s: int,
+                       local_slack: int):
+        """The bucket branch of ``_local_process``: the second radix pass
+        of both received relations, then the bucketized probe.  Returns
+        (per-bucket counts, local overflow, count-overflow risk)."""
+        cfg = self.config
+        nb = cfg.local_partition_count
+        lcap_r, lcap_s = self._bucket_caps(cap_r, cap_s, local_slack)
+        lr = local_partition(rp.batch, rp.valid, cfg.network_fanout_bits,
+                             cfg.local_fanout_bits, lcap_r, "inner")
+        ls = local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
+                             cfg.local_fanout_bits, lcap_s, "outer")
+        counts, risk = self._guarded_bucket_counts(
+            lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s))
+        return counts, lr.overflow + ls.overflow, risk
+
+    def _partitioned_attempt(self, r: TupleBatch, s: TupleBatch,
+                             plan: ShufflePlan, cap_r: int, cap_s: int,
+                             local_slack: int):
+        """One attempt at the given capacities: (per-bucket uint32 counts,
+        uint32 [7] flags), both from one readback."""
+        keys_ok = self._keys_in_contract(r, s)
+        rp, sp, lost_r, lost_s, conserve_bad = self._shuffle(
+            r, s, plan, Window(self.world, cap_r, "inner"),
+            Window(self.world, cap_s, "outer"))
+        counts, local_overflow, risk = self._local_process(
+            rp, sp, cap_r, cap_s, local_slack)
+        zero = torch.zeros((), dtype=torch.int64, device=counts.device)
+        flags = torch.stack([
+            self.world.all_reduce((~keys_ok).to(torch.int64)),
+            lost_r, lost_s, conserve_bad,
+            self.world.all_reduce(local_overflow), zero,
+            self.world.all_reduce(risk.to(torch.int64))])
+        host = torch.cat([flags, widen(counts)]).cpu().numpy()
+        return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
+                (host[:7] & 0xFFFFFFFF).astype(np.uint32))
 
     def place(self, rel: Relation) -> TupleBatch:
         """Generate a relation on the engine's device."""

@@ -1,16 +1,22 @@
 """Radix partitioning primitives of the port.
 
-This slice ports ``local_histogram`` (``tpu_radix_join/ops/radix.py``); the
-shuffle's ``scatter_to_blocks`` belongs to the distributed slice.
+Counterpart of ``tpu_radix_join/ops/radix.py``: ``local_histogram`` on K1,
+and ``scatter_to_blocks`` (the fused route ``_scatter_blocks_fused`` with
+``group_size=1``) and ``reorder_by_partition`` on K4's blocked and dense
+modes.  The JAX package's sort-based fallback and its impl switch have no
+counterpart: the port has one partition pass, K4.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from tpu_radix_join_torch.data.tuples import (PAD_RID, TupleBatch, narrow,
+                                              pad_sentinel, widen)
 from tpu_radix_join_torch.ops.kernels.histogram import histogram
+from tpu_radix_join_torch.ops.kernels.partition import partition_scatter
 
 
 def local_histogram(pid: torch.Tensor, num_partitions: int,
@@ -21,3 +27,63 @@ def local_histogram(pid: torch.Tensor, num_partitions: int,
     CPU lane."""
     weights = None if valid is None else valid.to(torch.int32)
     return histogram(pid, weights, num_bins=num_partitions)
+
+
+def exclusive_cumsum(hist: torch.Tensor) -> torch.Tensor:
+    """Partition base offsets = exclusive prefix sum of a uint32 histogram
+    lane (LocalPartitioning.cpp:165-192), wrapping as uint32 does."""
+    h = widen(hist)
+    return narrow(torch.cumsum(h, 0) - h)
+
+
+def _overflow(counts: torch.Tensor, capacity: int) -> torch.Tensor:
+    """0-d int64: tuples past capacity, sum(max(counts - capacity, 0))."""
+    return torch.clamp(widen(counts) - capacity, min=0).sum()
+
+
+def _group_key(ids: torch.Tensor, num_groups: int,
+               valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Invalid (padding) slots are routed to the group past the real ones."""
+    if valid is None:
+        return ids
+    return torch.where(valid, ids, num_groups).to(torch.int32)
+
+
+def scatter_to_blocks(batch: TupleBatch, dest: torch.Tensor, num_blocks: int,
+                      capacity: int, side: str,
+                      valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[TupleBatch, torch.Tensor, torch.Tensor]:
+    """Route tuples into ``num_blocks`` blocks of ``capacity`` slots each,
+    padding unused slots with the side's sentinel key and ``PAD_RID``.
+
+    Returns (blocks with [num_blocks * capacity] lanes, counts — int32 lane
+    [num_blocks] of the *unclipped* per-destination demand, overflow — 0-d
+    int64 count of tuples that did not fit).  A block keeps the first
+    ``capacity`` of its tuples in input order."""
+    if batch.key_hi is not None:
+        raise NotImplementedError(
+            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+    key = _group_key(dest, num_blocks, valid)
+    (k, r), counts = partition_scatter(
+        key, [batch.key, batch.rid], [pad_sentinel(side), PAD_RID],
+        num_groups=num_blocks, group_size=1, capacity=capacity)
+    return TupleBatch(key=k, rid=r), counts, _overflow(counts, capacity)
+
+
+def reorder_by_partition(batch: TupleBatch, pid: torch.Tensor,
+                         num_partitions: int,
+                         valid: Optional[torch.Tensor] = None):
+    """Reorder so each partition's tuples are contiguous, in input order
+    within a partition; invalid (padding) slots go to a virtual partition
+    after the real ones, so every tuple lands.  Returns (reordered batch,
+    reordered pid, histogram, base offsets), the last two int32 lanes
+    [num_partitions] of uint32 values."""
+    if batch.key_hi is not None:
+        raise NotImplementedError(
+            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+    key = _group_key(pid, num_partitions, valid)
+    (k, r, p), hist_x = partition_scatter(
+        key, [batch.key, batch.rid, pid], [0, 0, 0],
+        num_groups=num_partitions + 1, group_size=1, capacity=None)
+    hist = hist_x[:num_partitions]
+    return TupleBatch(key=k, rid=r), p, hist, exclusive_cumsum(hist)

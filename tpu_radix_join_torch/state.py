@@ -17,28 +17,31 @@ from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 
-#: JAX config fields the single-node sort-probe join never reads: the
-#: shuffle, window, bucket-path, retry-pacing and placement knobs
+#: JAX config fields the one-GPU joins never read: placement, the wire
+#: codec's staging, the materializing probe, the out-of-core grid, retry
+#: pacing, and instrumentation knobs
 _UNREAD_AT_ONE_NODE = frozenset({
-    "local_fanout_bits", "payload_bits", "num_hosts", "mesh_axis",
-    "result_aggregation_node", "window_sizing", "allocation_factor",
-    "exchange_codec", "exchange_stages", "partition_impl",
-    "assignment_policy", "match_rate_cap", "fallback", "grid_pipeline",
+    "payload_bits", "num_hosts", "mesh_axis", "result_aggregation_node",
+    "exchange_stages", "match_rate_cap", "grid_pipeline",
     "retry_backoff_s", "retry_backoff_mult", "retry_backoff_max_s",
     "retry_jitter", "generation", "debug_checks", "measure_phases",
 })
+#: implementation choices among versions of the same kernel: the port has
+#: one of each, so they map to "auto"
+_ONE_IMPL = frozenset({"sort_impl", "partition_impl"})
 
 
 def config_from_jax(config_dict: Mapping) -> JoinConfig:
     """The port's JoinConfig for ``dataclasses.asdict(jax_config)``.
 
-    ``sort_impl`` picks among implementations of the same sort, and the port
-    has one, so it maps to "auto".  ``chunk_size`` (the out-of-core probe)
-    is not ported; an unknown field raises."""
+    ``sort_impl`` and ``partition_impl`` pick among implementations of the
+    same kernel, and the port has one of each, so they map to "auto".
+    ``chunk_size`` (the out-of-core probe) is not ported; an unknown field
+    raises."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
-        if name == "sort_impl":
+        if name in _ONE_IMPL:
             continue
         if name == "chunk_size":
             if value is not None:
