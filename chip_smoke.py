@@ -24,6 +24,17 @@ bucketized build/probe):
   (f) full-range keys at 2**24: unique ⋈ modulo(65536), both shifted into
       [2**31, 2**32 - 2), through ``join_arrays``.
 
+Full-range and 64-bit keys (the wide merge scan, K5):
+
+  (g) the full-range sort probe: unique ⋈ zipf(theta 0.75) over a
+      20,000,000-key domain, 20,000,000 each, both shifted into
+      [2**31, 2**31 + 20M) by flipping bit 31, through ``join_arrays`` with
+      ``key_range="auto"``, whose device max-key probe picks the full route;
+  (h) the 64-bit sort probe: unique ⋈ unique, 20,000,000 each,
+      ``key_bits=64``;
+  (i) the 64-bit partitioned join: (h)'s relations with
+      ``probe_algorithm="bucket"``.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -46,6 +57,7 @@ def emit(obj) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -67,9 +79,12 @@ def main() -> int:
     from tpu_radix_join_torch.ops.kernels import _build
     from tpu_radix_join_torch.ops.kernels import histogram as k1
     from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import merge_scan_wide as k5
     from tpu_radix_join_torch.ops.kernels import partition as k4
     from tpu_radix_join_torch.ops.kernels import radix_sort as k2
-    from tpu_radix_join_torch.ops.merge_count import MAX_MERGE_KEY, _pack_pm
+    from tpu_radix_join_torch.operators.hash_join import _umax
+    from tpu_radix_join_torch.ops.merge_count import (MAX_MERGE_KEY, _pack_pm,
+                                                      _rotate_pid, _side_tags)
     from tpu_radix_join_torch.parallel.window import Window
 
     dev = torch.device("cuda", 0)
@@ -346,15 +361,136 @@ def main() -> int:
     del (r_main, s_main, ex_ids, rx_key, rx_rid, received, loc_ids,
          k4_shapes, ids, lanes)
 
+    # ------------------------------------------------------ K5 wide probe
+    # its two main-path shapes: (h)'s sorted 40M three-lane union (lo
+    # rotated, hi, tag) and (g)'s sorted 40M two-lane union with no hi lane
+    def flipped(rel, where=dev):
+        """A relation's lanes with bit 31 of every key set: [2**31, ...)."""
+        b = rel.generate(where)
+        return TupleBatch(key=torch.bitwise_xor(b.key, -(1 << 31)), rid=b.rid)
+
+    def wide_union(r, s, f):
+        lanes = [torch.cat([_rotate_pid(r.key, f), _rotate_pid(s.key, f)])]
+        if r.key_hi is not None:
+            lanes.append(torch.cat([r.key_hi, s.key_hi]))
+        return lanes + [_side_tags(r.key, s.key)]
+
+    rel_h = (Relation(n_main, 1, "unique", seed=1234, key_bits=64),
+             Relation(n_main, 1, "unique", seed=1235, key_bits=64))
+    rel_g = (Relation(n_main, 1, "unique", seed=1234),
+             Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
+                      key_domain=n_main))
+    union_h = wide_union(*(rel.generate(dev) for rel in rel_h), fanout)
+    union_g = wide_union(*(flipped(rel) for rel in rel_g), fanout)
+    # K2 on the wide sort's shape, once: the plain version takes seconds
+    errs = []
+    sorted_h = k2.radix_sort(union_h, num_keys=2)
+    for i, (g, r) in enumerate(zip(sorted_h, k2.radix_sort_plain(
+            union_h, num_keys=2))):
+        errs.append(exact(g, r, f"radix sort lane {i}, (h)'s wide union"))
+    sorted_g = k2.radix_sort(union_g, num_keys=1)
+    m5 = sorted_h[0].numel()
+    k2_wide_ms = time_ms(lambda: k2.radix_sort(union_h, num_keys=2))
+    del union_h, union_g
+
+    def wide_case(name, lo_rot, hi, tag, f):
+        """K5 against its plain version on lanes sorted by (lo_rot, hi)."""
+        keys = [lo_rot] if hi is None else [lo_rot, hi]
+        lanes = k2.radix_sort([*keys, tag], num_keys=len(keys))
+        lo_s, hi_s = lanes[0], (None if hi is None else lanes[1])
+        g = k5.merge_scan_partitions_wide(lo_s, hi_s, lanes[-1],
+                                          num_partitions=1 << f)
+        p = k5.merge_scan_wide_plain(lo_s, hi_s, lanes[-1], f)
+        return [exact(g[0], p[0], f"wide merge scan counts, {name}"),
+                exact(g[1], p[1], f"wide merge scan max weight, {name}")]
+
+    sorted_sets = {"(h) wide union": sorted_h,
+                   "(g) full-range union": [sorted_g[0], None, sorted_g[1]]}
+    for name, (lo_s, hi_s, tag_s) in sorted_sets.items():
+        g = k5.merge_scan_partitions_wide(lo_s, hi_s, tag_s,
+                                          num_partitions=num_p)
+        p = k5.merge_scan_wide_plain(lo_s, hi_s, tag_s, fanout)
+        errs += [exact(g[0], p[0], f"wide merge scan counts, {name}"),
+                 exact(g[1], p[1], f"wide merge scan max weight, {name}")]
+
+    def sides(n):
+        """Tags of a union of n // 2 inner then n - n // 2 outer tuples."""
+        return (torch.arange(n, device=dev) >= n // 2).to(torch.int32)
+
+    for n in (1, 255, 32767, 32769, 1000003):
+        for hi in (rand_lane(n, hi=4), None):
+            errs += wide_case(f"random_{n}, hi {hi is not None}",
+                              rand_lane(n, hi=1 << 12), hi, sides(n), fanout)
+    run = 3 * 2304 + 17                 # one key's run longer than a block
+    key = narrow(torch.full((2 * run,), 0x12345678, dtype=torch.int64)).to(dev)
+    for f in (0, 5, 7):
+        errs += wide_case(f"long_run, fanout {f}", key, key, sides(2 * run), f)
+        errs += wide_case(f"long_run, no hi, fanout {f}", key, None,
+                          sides(2 * run), f)
+    # equal lo with different hi, which generated relations never give
+    n = 200003
+    errs += wide_case("equal_lo_different_hi", rand_lane(n, hi=16),
+                      rand_lane(n, hi=4), rand_lane(n, hi=2), fanout)
+    edge = torch.tensor([0, 0xFFFFFFFF, 0xFFFFFFFE, 1, MAX_MERGE_KEY,
+                         0x80000000], dtype=torch.int64)
+
+    def pick(n):
+        return narrow(edge[torch.randint(0, len(edge), (n,),
+                                         generator=gen)]).to(dev)
+    for f in (0, 5, 7):
+        errs += wide_case(f"lo 0 / all-ones and sentinel pairs, fanout {f}",
+                          pick(n), pick(n), rand_lane(n, hi=2), f)
+        errs += wide_case(f"lo 0 / all-ones, no hi, fanout {f}", pick(n),
+                          None, rand_lane(n, hi=2), f)
+    ones = narrow(torch.full((70001,), 0xFFFFFFFF, dtype=torch.int64)).to(dev)
+    errs += wide_case("all-ones S-pad triples", ones, ones,
+                      torch.ones(70001, dtype=torch.int32, device=dev), fanout)
+    errs += wide_case("duplicate_heavy", rand_lane(500003, hi=97),
+                      rand_lane(500003, hi=3), sides(500003), 3)
+    lo_h, hi_h, tag_h = sorted_h
+    results["merge_scan_wide"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k5.merge_scan_partitions_wide(
+            lo_h, hi_h, tag_h, num_partitions=num_p)),
+        "plain_ms": time_ms(lambda: k5.merge_scan_wide_plain(
+            lo_h, hi_h, tag_h, fanout), reps=3),
+        # three lanes read once, the counts and the max weight written
+        "bound_ms": (3 * 4 * m5 + 4 * (num_p + 1)) / hbm_bytes_per_s * 1e3,
+        "library_ms": None,
+    }
+    emit({"phase": "kernel", "kernel": "merge_scan_wide", "elements": m5,
+          "checks": len(errs),
+          "full_range_shape": {
+              "elements": sorted_g[0].numel(),
+              "ms": time_ms(lambda: k5.merge_scan_partitions_wide(
+                  sorted_g[0], None, sorted_g[1], num_partitions=num_p)),
+              "bound_ms": (2 * 4 * sorted_g[0].numel() + 4 * (num_p + 1))
+              / hbm_bytes_per_s * 1e3},
+          "radix_sort_wide_shape": {"elements": m5, "lanes": 3, "passes": 8,
+                                    "ms": k2_wide_ms},
+          **results["merge_scan_wide"]})
+    del sorted_h, sorted_g, sorted_sets, lo_h, hi_h, tag_h
+
     # ---------------------------------------------------------- main path
-    def cpu_agrees(cfg, inner_rel, outer_rel):
+    def cpu_agrees(cfg, inner_rel, outer_rel, flip=False):
         """A small join on the card equals the plain versions on the host
-        and the host oracle."""
-        r, s = inner_rel.generate(dev), outer_rel.generate(dev)
+        and the host oracle (on the uint64 keys hi << 32 | lo for 64-bit
+        relations); ``flip`` sets bit 31 of every key first."""
+        def lanes(rel, where):
+            return flipped(rel, where) if flip else rel.generate(where)
+
+        def host_keys(b):
+            lo = lane_to_numpy(b.key).astype(np.uint64)
+            if b.key_hi is None:
+                return lo
+            return (lane_to_numpy(b.key_hi).astype(np.uint64)
+                    << np.uint64(32)) | lo
+
+        r, s = lanes(inner_rel, dev), lanes(outer_rel, dev)
         got = HashJoin(cfg).join_arrays(r, s)
         ref = HashJoin(cfg, device="cpu").join_arrays(
-            inner_rel.generate("cpu"), outer_rel.generate("cpu"))
-        oracle = host_join_count(lane_to_numpy(r.key), lane_to_numpy(s.key))
+            lanes(inner_rel, "cpu"), lanes(outer_rel, "cpu"))
+        oracle = host_join_count(host_keys(r), host_keys(s))
         if not (got.matches == ref.matches == oracle and got.ok and ref.ok
                 and (got.partition_counts == ref.partition_counts).all()
                 and got.retries == ref.retries):
@@ -370,6 +506,14 @@ def main() -> int:
                Relation(small, 1, "modulo", seed=8, modulo=4099))
     cpu_agrees(JoinConfig(two_level=True), Relation(small, 1, "unique", seed=7),
                Relation(small, 1, "unique", seed=8))
+    # (g), (h) and (i) in small
+    cpu_agrees(JoinConfig(), Relation(small, 1, "unique", seed=7),
+               Relation(small, 1, "zipf", seed=8, zipf_theta=0.75), flip=True)
+    for cfg in (JoinConfig(key_bits=64),
+                JoinConfig(probe_algorithm="bucket", key_bits=64)):
+        cpu_agrees(cfg, Relation(small, 1, "unique", seed=7, key_bits=64),
+                   Relation(small, 1, "modulo", seed=8, modulo=4099,
+                            key_bits=64))
 
     def drive(engine, name, run, expected, needed, retries=0):
         """One main-path join, its answer and the kernels it launched."""
@@ -450,6 +594,26 @@ def main() -> int:
           ("histogram", "partition", "radix_pass"))
     launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
     del r_full, s_full
+
+    # full-range and 64-bit keys: (g), (h), (i); (g)'s lanes are made
+    # before the counts are reset
+    r_g, s_g = (flipped(rel) for rel in rel_g)
+    torch.cuda.synchronize()
+    eng_g = HashJoin(JoinConfig())
+    eng_h = HashJoin(JoinConfig(key_bits=64))
+    cfg_i = JoinConfig(probe_algorithm="bucket", key_bits=64)
+    eng_i = HashJoin(cfg_i)
+    kernels.reset_launches()
+    before = kernels.launch_counts()
+    drive(eng_g, "full_range_zipf_20M", lambda: eng_g.join_arrays(r_g, s_g),
+          n_main, ("radix_pass", "merge_scan_wide"))
+    if kernels.launch_counts()["merge_scan"] != before["merge_scan"]:
+        raise AssertionError("full_range_zipf_20M: the narrow probe ran")
+    drive(eng_h, "wide_unique_20M", lambda: eng_h.join(*rel_h), n_main,
+          ("radix_pass", "merge_scan_wide"))
+    drive(eng_i, "bucket_wide_unique_20M", lambda: eng_i.join(*rel_h),
+          n_main, ("histogram", "partition", "radix_pass"))
+    launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
 
     # join time alone, on placed inputs (not counted as the main path)
     def join_ms(eng, r, s, bound=None):
@@ -540,6 +704,35 @@ def main() -> int:
           "caps": [cap_r, cap_s, lcap_r, lcap_s], "join_ms": ms, **card})
     del r, s, plan, rp, sp, lr, ls, rows, sorted_rows
 
+    # (g), (h), (i): join time; (h)'s stages alone
+    ms = join_ms(eng_g, r_g, s_g)
+    emit({"phase": "join_time", "workload": "full_range_zipf_20M",
+          "join_ms": ms, "tuples_per_s": 2 * n_main / ms * 1e3, **card})
+    del r_g, s_g
+    r, s = eng_h.place(rel_h[0]), eng_h.place(rel_h[1])
+    for name, eng in (("wide_unique_20M", eng_h),
+                      ("bucket_wide_unique_20M", eng_i)):
+        ms = join_ms(eng, r, s)
+        emit({"phase": "join_time", "workload": name, "join_ms": ms,
+              "tuples_per_s": (r.size + s.size) / ms * 1e3, **card})
+        if eng is eng_h:
+            lanes = wide_union(r, s, fanout)
+            ordered = k2.radix_sort(lanes, num_keys=2)
+            stages = {
+                "rotate_concat": lambda: wide_union(r, s, fanout),
+                "radix_sort": lambda: k2.radix_sort(lanes, num_keys=2),
+                "merge_scan_wide": lambda: k5.merge_scan_partitions_wide(
+                    *ordered, num_partitions=num_p),
+                "key_contract": lambda: (_umax(r.key_hi), _umax(s.key_hi)),
+                "readback": lambda: torch.zeros(
+                    num_p + 4, dtype=torch.int64, device=dev).cpu(),
+            }
+            emit({"phase": "breakdown", "workload": name,
+                  "stage_ms": {k: time_ms(f) for k, f in stages.items()},
+                  "join_ms": ms, **card})
+            del lanes, ordered
+    del r, s
+
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
                       "tpu_radix_join/ops/pallas/histogram.py:60",
@@ -553,6 +746,9 @@ def main() -> int:
         "partition": ("tpu_radix_join_torch/csrc/partition.cu",
                       "tpu_radix_join/ops/pallas/partition.py:150",
                       "partition"),
+        "merge_scan_wide": ("tpu_radix_join_torch/csrc/merge_scan_wide.cu",
+                            "tpu_radix_join/ops/pallas/merge_scan.py:313",
+                            "merge_scan_wide"),
     }
     table = []
     for name, (src, replaces, counter) in sources.items():

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import tpu_radix_join as jx  # noqa: E402
+from tpu_radix_join.data.relation import host_join_count  # noqa: E402
 from tpu_radix_join.data.tuples import TupleBatch as JBatch  # noqa: E402
 
 import tpu_radix_join_torch as tx  # noqa: E402
@@ -106,7 +107,8 @@ def test_key_above_max_merge_key_flags_the_contract():
 
 def test_raw_arrays_probe_the_key_range():
     """key_range="auto" on raw lanes: the device max-key probe keeps the
-    packed path for in-range keys and refuses the unported full range."""
+    packed path for in-range keys and takes the full-range probe above
+    MAX_MERGE_KEY, as the JAX join does."""
     rng = np.random.default_rng(5)
     r_key = rng.integers(0, 1 << 30, 3000, dtype=np.uint32)
     s_key = np.concatenate([r_key[:1000],
@@ -114,19 +116,16 @@ def test_raw_arrays_probe_the_key_range():
     got, want = _carried(jx.JoinConfig(), r_key, s_key)
     _assert_same(got, want)
     s_key[0] = 0x90000000
-    cfg, r = tx.from_jax_state(dataclasses.asdict(jx.JoinConfig()), r_key,
-                               np.arange(3000, dtype=np.uint32), device="cpu")
-    _, s = tx.from_jax_state({}, s_key, np.arange(3000, dtype=np.uint32),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tx.HashJoin(cfg, device="cpu").join_arrays(r, s)
+    r_key[1] = 0x90000000
+    got, want = _carried(jx.JoinConfig(), r_key, s_key)
+    _assert_same(got, want)
+    assert got.ok and got.matches == host_join_count(r_key, s_key)
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_nodes", 4, "A7"), ("key_bits", 64, "A9"), ("key_range", "full", "A9"),
-    ("exchange_codec", "pack", "A13"), ("fallback", "chunked", "A14"),
-    ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
-    ("chunk_size", 1024, "A14"),
+    ("num_nodes", 4, "A7"), ("exchange_codec", "pack", "A13"),
+    ("fallback", "chunked", "A14"), ("verify", "check", "A15"),
+    ("skew_threshold", 2.0, "A10"), ("chunk_size", 1024, "A14"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
     jcfg = jx.JoinConfig()
@@ -134,6 +133,17 @@ def test_settings_outside_the_slice_raise(field, value, item):
     d[field] = value
     with pytest.raises(NotImplementedError, match=item):
         config_from_jax(d)
+
+
+@pytest.mark.parametrize("field,value", [("key_bits", 64),
+                                         ("key_range", "full")])
+def test_settings_of_the_slice_carry_across(field, value):
+    """64-bit keys and the full key range are ported: the JAX config
+    carries across unchanged, with the same sort-probe discipline."""
+    jcfg = jx.JoinConfig(**{field: value})
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    assert cfg == tx.JoinConfig(**{field: value})
+    assert getattr(cfg, field) == value and cfg.sort_probe == jcfg.sort_probe
 
 
 def test_default_configs_agree():

@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of tpu_radix_join: the one-GPU joins — the sort probe
-and the partitioned (bucket / two-level) join.
+(narrow, full-range and 64-bit keys) and the partitioned (bucket /
+two-level) join.
 
 The JAX package ``tpu_radix_join`` stays the reference; this package imports
 nothing of it (nor JAX).  Lanes are ``torch.int32`` tensors holding uint32

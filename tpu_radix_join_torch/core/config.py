@@ -39,10 +39,16 @@ class JoinConfig:
       * ``probe_algorithm="bucket"`` or ``two_level`` select the
         partitioned join (histograms, window sizing, exchange, local radix
         partition, bucketized build/probe); otherwise the sort probe runs.
-      * ``key_range``: "auto" decides per join from the relations' key
-        bounds (or the device max key for raw lanes); "narrow" always takes
-        the packed 31-bit probe and flags larger keys.  The partitioned
-        join takes every key below the pads and ignores it.
+      * ``key_bits``: 32 keys ride one uint32 lane; 64 adds the ``key_hi``
+        lane, and the sort probe then always counts on the wide three-lane
+        order (lo rotated, hi, tag) with K5.
+      * ``key_range`` picks the 32-bit sort probe's discipline: "narrow"
+        always takes the packed 31-bit probe (K3) and flags larger keys;
+        "full" always takes the two-lane full-range probe (K5 with no hi
+        lane), exact for every key below the pads; "auto" decides per join
+        from the relations' key bounds (or the device max key for raw
+        lanes).  64-bit keys and the partitioned join take every key below
+        the pads and ignore it.
       * ``window_sizing``: "measured" sizes the exchange blocks from a
         histogram pass, "static" from ``allocation_factor`` alone.
       * ``sort_impl`` / ``partition_impl``: the port has one sort (K2) and
@@ -89,12 +95,12 @@ class JoinConfig:
                               "A7, the distributed main path")
         if self.key_bits not in (32, 64):
             raise ValueError("key_bits must be 32 or 64")
-        if self.key_bits == 64:
-            raise _not_ported("key_bits=64", "A9")
         if self.key_range not in ("auto", "narrow", "full"):
             raise ValueError(f"unknown key range mode {self.key_range!r}")
-        if self.key_range == "full" and self.sort_probe:
-            raise _not_ported("key_range='full'", "A9")
+        if self.key_range != "auto" and self.key_bits == 64:
+            raise ValueError(
+                "key_range selects among 32-bit count disciplines; "
+                "key_bits=64 always takes the wide hi/lo path")
         if self.window_sizing not in ("measured", "static"):
             raise ValueError(
                 f"unknown window sizing mode {self.window_sizing!r}")
@@ -133,8 +139,9 @@ class JoinConfig:
     # --- derived geometry ------------------------------------------------
     @property
     def sort_probe(self) -> bool:
-        """True when the flat sort-merge probe runs (no second radix pass);
-        it selects the 31-bit merge packing as the key contract."""
+        """True when the flat sort-merge probe runs (no second radix pass).
+        With 32-bit keys ``key_range`` then picks the packed 31-bit probe
+        or the full-range one; 64-bit keys take the wide probe."""
         return not self.two_level and self.probe_algorithm != "bucket"
 
     @property

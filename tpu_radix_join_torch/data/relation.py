@@ -12,8 +12,9 @@ to the JAX package's device generators for the same spec:
     tables built once on the host (:func:`zipf_tables`, copied verbatim),
     then pure uint32 arithmetic.
 
-``rid`` is the dense global tuple index.  Generation is plain PyTorch on
-int64 tensors holding uint32 values; the lanes it returns are int32
+``rid`` is the dense global tuple index.  ``key_bits=64`` adds the hi lane
+:func:`key_hi_lane` of each key.  Generation is plain PyTorch on int64
+tensors holding uint32 values; the lanes it returns are int32
 (data/tuples.py).
 """
 
@@ -33,6 +34,19 @@ _ZIPF_TABLE_MAX = 65536
 ZIPF_TAIL_POINTS = 4096
 _ZIPF_V_SALT = 0x9E3779B9   # second-draw salt for the tail interpolation
 _U32 = 0xFFFFFFFF
+# 64-bit keys: the hi lane is a fixed, unseeded mix of the 32-bit logical
+# key, the same for every relation, so equal logical keys stay equal wide
+# keys and every closed-form oracle carries over.  It lies in [2**30,
+# 2**31): every wide key is above 2**62, and the sentinel lane (key_hi for
+# wide batches) never meets the 0xFFFFFFFE/0xFFFFFFFF pads.
+_HI_LANE_LOW = 0x40000000
+_HI_LANE_MASK = 0x3FFFFFFF
+
+
+def key_hi_lane(key: torch.Tensor) -> torch.Tensor:
+    """int64 hi lane of int64 keys in [0, 2**32): ``(mix32(key) &
+    0x3FFFFFFF) | 0x40000000``."""
+    return (mix32(key) & _HI_LANE_MASK) | _HI_LANE_LOW
 
 
 def zipf_tables(theta: float, domain: int):
@@ -127,8 +141,9 @@ def unique_keys(start: int, n: int, global_size: int, seed: int,
 class Relation:
     """A logical relation: a global keyspace spec plus its generator.
 
-    ``num_nodes`` and ``key_bits`` keep the JAX package's signature; this
-    slice generates single-node 32-bit relations and raises for the rest."""
+    ``num_nodes`` keeps the JAX package's signature; the port generates
+    single-node relations and raises for more nodes.  ``key_bits=64`` adds
+    the hi lane."""
 
     def __init__(
         self,
@@ -151,16 +166,16 @@ class Relation:
             raise ValueError("zipf kind requires zipf_theta= > 0")
         if key_bits not in (32, 64):
             raise ValueError("key_bits must be 32 or 64")
-        if key_bits == 64:
-            raise NotImplementedError(
-                "key_bits=64 is not ported to PyTorch yet (ROADMAP.md A9)")
         if num_nodes > 1:
             raise NotImplementedError(
                 "num_nodes > 1 is not ported to PyTorch yet (ROADMAP.md A7)")
-        if global_size > (1 << 31) - 2:
+        if key_bits == 32 and global_size > (1 << 31) - 2:
             raise ValueError(
                 "32-bit keys cap global_size at 2**31 - 2 (31-bit merge-count "
-                "packing + sentinel headroom)")
+                "packing + sentinel headroom); use key_bits=64 beyond that")
+        if key_bits == 64 and global_size > (1 << 32) - 1:
+            raise ValueError(
+                "global_size caps at 2**32 - 1 (dense uint32 rids)")
         self.global_size = int(global_size)
         self.num_nodes = int(num_nodes)
         self.kind = kind
@@ -182,7 +197,10 @@ class Relation:
 
     def key_bound(self) -> int:
         """Exclusive static upper bound on generated key values (the input
-        of ``key_range="auto"``)."""
+        of ``key_range="auto"``); 2**64 for 64-bit keys, whose hi lane
+        spans [2**30, 2**31)."""
+        if self.key_bits == 64:
+            return 1 << 64
         if self.kind == "unique":
             return self.global_size
         if self.kind == "modulo":
@@ -202,11 +220,12 @@ class Relation:
 
     def generate(self, device="cuda") -> TupleBatch:
         """The whole relation as a TupleBatch on ``device`` (cuda unless the
-        caller asks for cpu)."""
+        caller asks for cpu); 64-bit relations carry ``key_hi``."""
         dev = resolve_device(device)
         key = self.keys_range(0, self.global_size, dev)
         rid = torch.arange(self.global_size, dtype=torch.int64, device=dev)
-        return TupleBatch(key=narrow(key), rid=narrow(rid))
+        hi = narrow(key_hi_lane(key)) if self.key_bits == 64 else None
+        return TupleBatch(key=narrow(key), rid=narrow(rid), key_hi=hi)
 
     def expected_matches(self, outer: "Relation") -> Optional[int]:
         """Closed-form expected |self ⋈ outer| where derivable: unique ⋈

@@ -4,10 +4,12 @@ The one-GPU subset of ``tpu_radix_join/main.py``, with its flag names and
 defaults: the inner relation is unique with seed ``--seed``, the outer one
 of ``--outer-kind`` with seed ``--seed + 1``; the join runs through
 ``HashJoin(JoinConfig(...)).join_arrays`` on the placed relations.
-``--probe bucket`` or ``--two-level`` select the partitioned join.
+``--probe bucket`` or ``--two-level`` select the partitioned join;
+``--key-range`` picks the sort probe's 32-bit discipline.
 
 Usage:
     python -m tpu_radix_join_torch.main --tuples-per-node 20000000
+    python -m tpu_radix_join_torch.main --key-range full --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --probe bucket --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --two-level --outer-kind zipf --max-retries 2
     python -m tpu_radix_join_torch.main --device cpu --tuples-per-node 65536
@@ -35,6 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--two-level", action="store_true",
                    help="enable second-level partitioning (Configuration.h:28)")
     p.add_argument("--probe", choices=["sort", "bucket"], default="sort")
+    p.add_argument("--key-range", choices=["auto", "narrow", "full"],
+                   default="auto",
+                   help="32-bit sort-probe discipline: the packed 31-bit "
+                        "probe (narrow), the full-range one (full), or per "
+                        "join from the key bounds (auto)")
     p.add_argument("--assignment", choices=["round_robin", "load_aware"],
                    default="round_robin")
     p.add_argument("--window-sizing", choices=["measured", "static"],
@@ -73,6 +80,7 @@ def main(argv=None) -> int:
                      two_level=args.two_level, probe_algorithm=args.probe,
                      assignment_policy=args.assignment,
                      window_sizing=args.window_sizing,
+                     key_range=args.key_range,
                      max_retries=args.max_retries)
     engine = HashJoin(cfg, device=args.device)
     r, s = engine.place(inner), engine.place(outer)
@@ -93,6 +101,7 @@ def main(argv=None) -> int:
         "failure_class": result.diagnostics["failure_class"],
         "retries": result.retries,
         "pipeline": "sort_probe" if cfg.sort_probe else "partitioned",
+        "key_range": args.key_range,
         "device": (torch.cuda.get_device_name(engine.device) if cuda
                    else "cpu"),
     }))

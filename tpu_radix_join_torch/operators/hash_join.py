@@ -7,10 +7,14 @@ Counterpart of ``tpu_radix_join/operators/hash_join.py`` at
 **Sort probe** (the default; ``_pipeline_fn``'s n == 1 branch): the shuffle
 is an identity, so the join is
 
-  1. pack both key lanes partition-major (ops/merge_count._pack_pm);
-  2. sort the packed union (K2, the LSD radix sort);
-  3. the fused merge-scan probe (K3): per-partition uint32 counts and the
-     largest single weight;
+  1. the discipline (``_resolve_key_range``): "wide" for 64-bit keys, else
+     ``key_range``'s "narrow" or "full";
+  2. the sort of the union (K2, the LSD radix sort): narrow packs both key
+     lanes partition-major into one lane (ops/merge_count._pack_pm); full
+     sorts the pid-rotated keys, wide the (rotated lo, hi) pairs, with the
+     side tag riding;
+  3. the fused merge-scan probe, K3 on the packed lane or K5 on the wide
+     order: per-partition uint32 counts and the largest single weight;
   4. the uint32 overflow-risk guard, which runs the partition histogram
      (K1) only when the one scalar readback says a count might wrap;
   5. a host uint64 sum of the per-partition counts.
@@ -49,8 +53,9 @@ from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_partition_assignment)
 from tpu_radix_join_torch.operators.local_partitioning import local_partition
 from tpu_radix_join_torch.ops.build_probe import probe_count_bucketized
-from tpu_radix_join_torch.ops.merge_count import (MAX_MERGE_KEY,
-                                                  merge_count_per_partition)
+from tpu_radix_join_torch.ops.merge_count import (
+    MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
+    merge_count_wide_per_partition)
 from tpu_radix_join_torch.ops.radix import local_histogram
 from tpu_radix_join_torch.parallel.network_partitioning import (
     network_partition)
@@ -112,12 +117,6 @@ def _umax(lane: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_xor(lane, -(1 << 31)).max().to(torch.int64) + (1 << 31)
 
 
-def _all_below(minmax: np.ndarray, cap: int) -> bool:
-    """True when every uint32 value of a lane with signed (min, max)
-    ``minmax`` is below ``cap`` (<= 2**31)."""
-    return bool(minmax[0] >= 0 and minmax[1] < cap)
-
-
 class HashJoin:
     """The join engine; ``device`` is "cuda" unless the caller asks for
     "cpu", where every kernel takes its plain PyTorch version."""
@@ -129,12 +128,10 @@ class HashJoin:
 
     # ------------------------------------------------------------- checks
     def _check_batches(self, r: TupleBatch, s: TupleBatch) -> None:
+        self._check_key_width(r, s)
         for name, b in (("inner", r), ("outer", s)):
-            if b.key_hi is not None:
-                raise NotImplementedError(
-                    f"the {name} batch carries a key_hi lane: 64-bit keys "
-                    "are not ported to PyTorch yet (ROADMAP.md A9)")
-            for lane in (b.key, b.rid):
+            lanes = [b.key, b.rid] + ([] if b.key_hi is None else [b.key_hi])
+            for lane in lanes:
                 if lane.dtype != torch.int32 or lane.dim() != 1:
                     raise ValueError(
                         f"{name} lanes must be 1-D int32 (uint32 bits), got "
@@ -143,31 +140,41 @@ class HashJoin:
                     raise ValueError(
                         f"{name} lanes live on {lane.device}, the engine "
                         f"on {self.device}")
-            if b.key.shape != b.rid.shape:
-                raise ValueError(f"{name} key and rid lanes differ in length")
+                if lane.shape != b.key.shape:
+                    raise ValueError(f"{name} lanes differ in length")
         if r.size + s.size >= 1 << 31:
             raise ValueError("the joins count positions in 32 bits: "
                              "|R| + |S| must stay below 2**31")
 
-    def _resolve_key_range(self, key_minmax: torch.Tensor,
-                           key_bound: Optional[int]) -> None:
-        """``key_range``: "narrow" takes the packed probe as is; "auto"
-        decides from the relations' static key bound when one is known,
-        else from the device (min, max) of both key lanes (one readback).
-        A full-range result is not ported yet."""
-        if self.config.key_range == "narrow":
-            return
+    def _check_key_width(self, r: TupleBatch, s: TupleBatch) -> None:
+        """``config.key_bits`` must match the lanes the batches carry: a
+        64-bit config joining lo-lane-only batches (or the reverse) would
+        run a join on truncated keys and report ok."""
+        for name, b in (("inner", r), ("outer", s)):
+            wide = b.key_hi is not None
+            if wide != (self.config.key_bits == 64):
+                raise ValueError(
+                    f"config.key_bits={self.config.key_bits} but the {name} "
+                    f"batch {'carries' if wide else 'lacks'} a key_hi lane; "
+                    f"refusing to run a silently-truncated join")
+
+    def _resolve_key_range(self, r: TupleBatch, s: TupleBatch,
+                           key_bound: Optional[int]) -> str:
+        """The sort probe's discipline for this join: "wide" for 64-bit
+        keys; else ``key_range`` — "narrow" (the packed 31-bit probe) or
+        "full" as set, and "auto" from the relations' static key bound when
+        one is known, else from the device max of both key lanes (one
+        readback)."""
+        cfg = self.config
+        if r.key_hi is not None:
+            return "wide"
+        if cfg.key_range != "auto":
+            return cfg.key_range
         if key_bound is not None:
             full = key_bound - 1 > MAX_MERGE_KEY
         else:
-            mm = key_minmax.cpu().numpy()
-            full = not _all_below(np.array([mm[:, 0].min(), mm[:, 1].max()]),
-                                  MAX_MERGE_KEY + 1)
-        if full:
-            raise NotImplementedError(
-                "keys above MAX_MERGE_KEY need the full-range probe, which "
-                "is not ported to PyTorch yet (ROADMAP.md A9); "
-                "key_range='narrow' flags them instead")
+            full = int(torch.maximum(_umax(r.key), _umax(s.key))) > MAX_MERGE_KEY
+        return "full" if full else "narrow"
 
     @staticmethod
     def _count_risk(max_weight: int, s_hist: np.ndarray) -> bool:
@@ -218,20 +225,38 @@ class HashJoin:
                          key_bound: Optional[int]) -> JoinResult:
         cfg = self.config
         num_p = cfg.network_partition_count
-        # (min, max) of both sentinel lanes: the contract check, and the
-        # key-range probe when no static bound is known
-        key_minmax = torch.stack([_minmax_i32(_sentinel_lane(r)),
-                                  _minmax_i32(_sentinel_lane(s))])
-        self._resolve_key_range(key_minmax, key_bound)
-        counts, maxw = merge_count_per_partition(
-            r.key, s.key, cfg.network_fanout_bits, return_max_weight=True)
+        fanout = cfg.network_fanout_bits
+        route = self._resolve_key_range(r, s, key_bound)
+        # the key contract on both sentinel lanes: on the narrow route every
+        # key below the packing cap (2**31 or less, so the signed (min, max)
+        # of each lane decides it in one pass), on the others every key
+        # below the pads
+        if route == "narrow":
+            key_stats = torch.cat([_minmax_i32(r.key), _minmax_i32(s.key)])
+        else:
+            key_stats = torch.stack([_umax(_sentinel_lane(r)),
+                                     _umax(_sentinel_lane(s))])
+        if route == "wide":
+            counts, maxw = merge_count_wide_per_partition(
+                r.key, r.key_hi, s.key, s.key_hi, fanout,
+                return_max_weight=True)
+        elif route == "full":
+            counts, maxw = merge_count_per_partition_full(
+                r.key, s.key, fanout, return_max_weight=True)
+        else:
+            counts, maxw = merge_count_per_partition(
+                r.key, s.key, fanout, return_max_weight=True)
         # the join's one readback: contract check, max weight, counts
-        host = torch.cat([key_minmax.flatten(), maxw.reshape(1).to(torch.int64),
+        host = torch.cat([key_stats, maxw.reshape(1).to(torch.int64),
                           counts.to(torch.int64)]).cpu().numpy()
-        keys_ok = (_all_below(host[0:2], MAX_MERGE_KEY + 1)
-                   and _all_below(host[2:4], MAX_MERGE_KEY + 1))
-        maxw = int(host[4]) & 0xFFFFFFFF
-        counts = (host[5:] & 0xFFFFFFFF).astype(np.uint32)
+        k = key_stats.numel()
+        if route == "narrow":
+            keys_ok = bool(host[0] >= 0 and host[2] >= 0
+                           and max(host[1], host[3]) <= MAX_MERGE_KEY)
+        else:
+            keys_ok = bool(max(host[0], host[1]) < R_PAD_KEY)
+        maxw = int(host[k]) & 0xFFFFFFFF
+        counts = (host[k + 1:] & 0xFFFFFFFF).astype(np.uint32)
         # overflow-risk bound: the scalar pre-test maxw * |S| < 2**32
         # clears every realistic workload with no extra pass; only a
         # suspect workload pays the per-partition histogram
@@ -351,16 +376,19 @@ class HashJoin:
 
     @staticmethod
     def _guarded_bucket_counts(inner_rows: torch.Tensor,
-                               outer_rows: torch.Tensor):
+                               outer_rows: torch.Tensor,
+                               inner_hi: Optional[torch.Tensor] = None,
+                               outer_hi: Optional[torch.Tensor] = None):
         """(counts, count-overflow risk): a bucket's count is at most
         lcap_r * lcap_s, so the max-weight bound runs only when that
-        product can reach 2**32."""
+        product can reach 2**32.  64-bit keys add their hi-lane rows."""
         lcap_r, lcap_s = inner_rows.shape[1], outer_rows.shape[1]
         if lcap_r * lcap_s < 1 << 32:
-            return (probe_count_bucketized(inner_rows, outer_rows),
+            return (probe_count_bucketized(inner_rows, outer_rows, inner_hi,
+                                           outer_hi),
                     torch.zeros((), dtype=torch.bool, device=inner_rows.device))
-        counts, maxw = probe_count_bucketized(inner_rows, outer_rows,
-                                              return_max_weight=True)
+        counts, maxw = probe_count_bucketized(inner_rows, outer_rows, inner_hi,
+                                              outer_hi, return_max_weight=True)
         return counts, widen(maxw) > 0xFFFFFFFF // lcap_s
 
     def _local_process(self, rp, sp, cap_r: int, cap_s: int,
@@ -375,8 +403,10 @@ class HashJoin:
                              cfg.local_fanout_bits, lcap_r, "inner")
         ls = local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
                              cfg.local_fanout_bits, lcap_s, "outer")
+        hi = (None, None) if lr.blocks.key_hi is None else (
+            lr.blocks.key_hi.view(nb, lcap_r), ls.blocks.key_hi.view(nb, lcap_s))
         counts, risk = self._guarded_bucket_counts(
-            lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s))
+            lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s), *hi)
         return counts, lr.overflow + ls.overflow, risk
 
     def _partitioned_attempt(self, r: TupleBatch, s: TupleBatch,
@@ -404,6 +434,10 @@ class HashJoin:
         """Generate a relation on the engine's device."""
         if rel.num_nodes != self.config.num_nodes:
             raise ValueError("relation num_nodes must match config.num_nodes")
+        if rel.key_bits != self.config.key_bits:
+            raise ValueError(
+                f"config.key_bits={self.config.key_bits} but the relation "
+                f"generates {rel.key_bits}-bit keys")
         batch = rel.generate(self.device)
         if self.device.type == "cuda":
             # generation is asynchronous: it must not finish inside a

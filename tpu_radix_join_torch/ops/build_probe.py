@@ -4,7 +4,9 @@ Counterpart of the counting half of ``tpu_radix_join/ops/build_probe.py``
 (``DENSE_BUCKET_LIMIT``, ``probe_count_bucketized``, ``bucket_rows_sort``,
 ``bucket_rows_count``, ``probe_count_bucketized_merge``).  Inputs are
 sentinel-padded key blocks, int32 [nb, bi] (inner) and [nb, bo] (outer)
-holding uint32 bits; the R and S pads differ, so padding never matches.
+holding uint32 bits, and for 64-bit keys their hi-lane blocks of the same
+shapes; the R and S pads differ (in the hi lane too), so padding never
+matches.
 
 The JAX row sort was a batched ``lax.sort`` along each row.  Here it is
 ``ops/sorting.sort_lex_rows_unstable``: one K2 radix sort of the
@@ -23,6 +25,8 @@ is gone.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpu_radix_join_torch.data.tuples import narrow, widen
@@ -38,59 +42,75 @@ ROW_CHUNK_ELEMS = 1 << 27
 
 def probe_count_bucketized(inner_blocks: torch.Tensor,
                            outer_blocks: torch.Tensor,
+                           inner_hi: Optional[torch.Tensor] = None,
+                           outer_hi: Optional[torch.Tensor] = None,
                            return_max_weight: bool = False):
     """Per-bucket match counts, int32 [nb] of uint32 bits; with
     ``return_max_weight`` also the largest single-outer-tuple match count
     (0-d int32).  Dense equality for tiny buckets, else the batched
-    sort-merge."""
+    sort-merge; 64-bit keys add their hi-lane blocks."""
     if max(inner_blocks.shape[1], outer_blocks.shape[1]) <= DENSE_BUCKET_LIMIT:
         eq = inner_blocks[:, :, None] == outer_blocks[:, None, :]
+        if inner_hi is not None:
+            eq &= inner_hi[:, :, None] == outer_hi[:, None, :]
         counts = narrow(eq.sum(dim=(1, 2)))
         if return_max_weight:
             return counts, narrow(eq.sum(dim=1).max())
         return counts
-    return probe_count_bucketized_merge(inner_blocks, outer_blocks,
+    return probe_count_bucketized_merge(inner_blocks, outer_blocks, inner_hi,
+                                        outer_hi,
                                         return_max_weight=return_max_weight)
 
 
-def bucket_rows_sort(inner_blocks: torch.Tensor, outer_blocks: torch.Tensor):
-    """BUILD stage: every (inner | outer) bucket row sorted by (key, tag),
-    tag 0 for inner and 1 for outer.  Returns (keys, tags), int32
-    [nb, bi + bo] each."""
+def bucket_rows_sort(inner_blocks: torch.Tensor, outer_blocks: torch.Tensor,
+                     inner_hi: Optional[torch.Tensor] = None,
+                     outer_hi: Optional[torch.Tensor] = None):
+    """BUILD stage: every (inner | outer) bucket row sorted by key — (hi,
+    key) for 64-bit keys — with the tag, 0 for inner and 1 for outer,
+    riding.  Returns (keys, tags), or (his, keys, tags) for 64-bit keys,
+    int32 [nb, bi + bo] each."""
     keys = torch.cat([inner_blocks, outer_blocks], dim=1)
     tag = torch.cat([torch.zeros_like(inner_blocks),
                      torch.ones_like(outer_blocks)], dim=1)
     # the row scan counts each equal-key run's tags, which does not depend
     # on their order within the run: the rows are sorted by key alone and
-    # the tag only rides along, costing no digit pass
+    # the tag only rides along, costing no digit pass.  With the row index
+    # the wide sort moves (row, hi, key, tag): four lanes, K2's limit.
+    if inner_hi is not None:
+        his = torch.cat([inner_hi, outer_hi], dim=1)
+        return sort_lex_rows_unstable(his, keys, tag, num_keys=2)
     return sort_lex_rows_unstable(keys, tag, num_keys=1)
 
 
-def bucket_rows_count(keys: torch.Tensor, tags: torch.Tensor,
+def bucket_rows_count(*sorted_lanes: torch.Tensor,
                       return_max_weight: bool = False):
     """PROBE stage: the merge weights of pre-sorted bucket rows (see the
-    module docstring); per-row counts (int32 [nb] of uint32 bits), and with
-    ``return_max_weight`` the largest weight (0-d int32)."""
-    nb, width = keys.shape
-    flat = keys.reshape(-1)
-    run_start = torch.ones_like(flat, dtype=torch.bool)
-    run_start[1:] = flat[1:] != flat[:-1]
+    module docstring) given as (keys, tags) or (his, keys, tags); per-row
+    counts (int32 [nb] of uint32 bits), and with ``return_max_weight`` the
+    largest weight (0-d int32).  A run is a stretch of equal (hi, key)."""
+    *key_lanes, tags = sorted_lanes
+    nb, width = tags.shape
+    first_lane, *more = [lane.reshape(-1) for lane in key_lanes]
+    run_start = torch.ones(nb * width, dtype=torch.bool, device=tags.device)
+    run_start[1:] = first_lane[1:] != first_lane[:-1]
+    for flat in more:
+        run_start[1:] |= flat[1:] != flat[:-1]
     run_start.view(nb, width)[:, 0] = True
     starts = torch.nonzero(run_start).squeeze(1)
-    ends = torch.cat([starts[1:], starts.new_full((1,), flat.numel())])
+    ends = torch.cat([starts[1:], starts.new_full((1,), nb * width)])
     # before[i]: outer slots before flat position i
-    before = torch.zeros(flat.numel() + 1, dtype=torch.int64,
-                         device=keys.device)
+    before = torch.zeros(nb * width + 1, dtype=torch.int64,
+                         device=tags.device)
     torch.cumsum(tags.reshape(-1), 0, dtype=torch.int64, out=before[1:])
     s_run = before[ends] - before[starts]
     r_run = ends - starts - s_run
     # runs are in flat order and every row begins one, so a row's count is
     # a difference of the prefix sums at its first run and the next row's
     total = torch.zeros(starts.numel() + 1, dtype=torch.int64,
-                        device=keys.device)
+                        device=tags.device)
     torch.cumsum(r_run * s_run, 0, out=total[1:])
     first = torch.searchsorted(starts, torch.arange(
-        nb + 1, dtype=torch.int64, device=keys.device) * width)
+        nb + 1, dtype=torch.int64, device=tags.device) * width)
     counts = total[first[1:]] - total[first[:-1]]
     if return_max_weight:
         return narrow(counts), narrow(torch.where(s_run > 0, r_run, 0).max())
@@ -99,6 +119,8 @@ def bucket_rows_count(keys: torch.Tensor, tags: torch.Tensor,
 
 def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
                                  outer_blocks: torch.Tensor,
+                                 inner_hi: Optional[torch.Tensor] = None,
+                                 outer_hi: Optional[torch.Tensor] = None,
                                  return_max_weight: bool = False):
     """:func:`bucket_rows_sort` then :func:`bucket_rows_count`, over groups
     of rows of at most :data:`ROW_CHUNK_ELEMS` slots each.  Rows are
@@ -108,9 +130,13 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
     nb = inner_blocks.shape[0]
     width = inner_blocks.shape[1] + outer_blocks.shape[1]
     step = max(1, ROW_CHUNK_ELEMS // max(1, width))
+
+    def rows(a, lo):
+        return None if a is None else a[lo:lo + step]
+
     parts = [bucket_rows_count(
-        *bucket_rows_sort(inner_blocks[lo:lo + step],
-                          outer_blocks[lo:lo + step]),
+        *bucket_rows_sort(rows(inner_blocks, lo), rows(outer_blocks, lo),
+                          rows(inner_hi, lo), rows(outer_hi, lo)),
         return_max_weight=True) for lo in range(0, nb, step)]
     counts = torch.cat([c for c, _ in parts])
     if return_max_weight:

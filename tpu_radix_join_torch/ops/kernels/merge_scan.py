@@ -45,6 +45,22 @@ def _weights(packed_sorted: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _run_weights(is_s, key != prev_key), key
 
 
+def scan_fanout_bits(num_partitions: int, length: int) -> int:
+    """log2 of ``num_partitions`` for a merge scan of ``length`` positions;
+    raises unless the partitions are a power of two the kernels' shared
+    bins hold and the positions count in 32 bits."""
+    if num_partitions < 1 or num_partitions & (num_partitions - 1):
+        raise ValueError("num_partitions must be a power of two")
+    fanout_bits = num_partitions.bit_length() - 1
+    if fanout_bits > MAX_FANOUT_BITS:
+        raise ValueError(f"num_partitions {num_partitions} > "
+                         f"{1 << MAX_FANOUT_BITS}")
+    if length >= 1 << 31:
+        raise ValueError("the merge scan counts in 32 bits: length must "
+                         "stay below 2**31")
+    return fanout_bits
+
+
 def merge_scan_plain(packed_sorted: torch.Tensor, fanout_bits: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K3: int64 cumsum/cummax weights, an integer per-partition sum,
@@ -91,15 +107,7 @@ def merge_scan_partitions(packed_sorted: torch.Tensor, *,
     (pid in the top log2(num_partitions) bits, then the key remainder, then
     the side tag).  CPU: plain; CUDA: K3."""
     check_lane(packed_sorted, "merge scan")
-    if num_partitions < 1 or num_partitions & (num_partitions - 1):
-        raise ValueError("num_partitions must be a power of two")
-    fanout_bits = num_partitions.bit_length() - 1
-    if fanout_bits > MAX_FANOUT_BITS:
-        raise ValueError(f"num_partitions {num_partitions} > "
-                         f"{1 << MAX_FANOUT_BITS}")
-    if packed_sorted.numel() >= 1 << 31:
-        raise ValueError("the merge scan counts in 32 bits: length must "
-                         "stay below 2**31")
+    fanout_bits = scan_fanout_bits(num_partitions, packed_sorted.numel())
     dev = packed_sorted.device
     if dev.type == "cpu":
         return merge_scan_plain(packed_sorted, fanout_bits)

@@ -1,15 +1,26 @@
 """Sort-merge match counting: the probe of the single-GPU join.
 
-Counterpart of ``tpu_radix_join/ops/merge_count.py``
-(``merge_count_per_partition`` on its fused-kernel path).  Both relations'
-keys are packed partition-major into one uint32 lane,
+Counterpart of ``tpu_radix_join/ops/merge_count.py`` on its fused-kernel
+paths.  Three disciplines, each one sort (K2) and one scan:
 
-    packed = pid << (32 - f) | (key >> f) << 1 | side      (R side 0, S side 1)
+  * narrow (``merge_count_per_partition``): both relations' keys packed
+    partition-major into one uint32 lane,
 
-sorted once (K2), and scanned once (K3): every outer tuple weighs the number
-of inner tuples with its key.  Keys must fit 31 bits; out-of-range keys map
-to the reserved pad slots, which match nothing (the join's key-contract
-check flags them).
+        packed = pid << (32 - f) | (key >> f) << 1 | side   (R 0, S 1)
+
+    scanned by K3.  Keys must fit 31 bits; out-of-range keys map to the
+    reserved pad slots, which match nothing (the join's key-contract check
+    flags them).
+  * full range (``merge_count_per_partition_full``): every uint32 key, the
+    pid rotated into the top bits, the side in a lane of its own; K5 with no
+    hi lane.
+  * wide (``merge_count_wide_per_partition``): 64-bit keys as (lo, hi)
+    lanes; K5 over (lo rotated, hi, side).
+
+Every outer tuple weighs the number of inner tuples with its key.  The JAX
+package sorts the side tag as the last key; here it rides as a value: K2
+is stable and the union is built ``[R..., S...]``, so R comes before S in
+every run of equal keys without a digit pass for it.
 """
 
 from __future__ import annotations
@@ -18,7 +29,9 @@ import torch
 
 from tpu_radix_join_torch.ops.kernels.merge_scan import (  # noqa: F401
     _run_weights, _weights, merge_scan_partitions)
-from tpu_radix_join_torch.ops.sorting import sort_unstable
+from tpu_radix_join_torch.ops.kernels.merge_scan_wide import (
+    merge_scan_partitions_wide)
+from tpu_radix_join_torch.ops.sorting import sort_lex_unstable, sort_unstable
 
 # Largest valid key for the merge path (inclusive): 31-bit packing with two
 # reserved pad key slots (0x7FFFFFFE, 0x7FFFFFFF) above it.
@@ -66,6 +79,63 @@ def merge_count_per_partition(r_keys: torch.Tensor, s_keys: torch.Tensor,
     packed = sort_unstable(_pack_pm(r_keys, s_keys, fanout_bits))
     counts, maxw = merge_scan_partitions(packed,
                                          num_partitions=1 << fanout_bits)
+    if return_max_weight:
+        return counts, maxw
+    return counts
+
+
+def _rotate_pid(lo: torch.Tensor, fanout_bits: int) -> torch.Tensor:
+    """Rotate the low key lane right by ``fanout_bits``, so the partition id
+    occupies the top bits: sorting by (lo_rot, hi) groups by partition
+    first, then by (key remainder, hi), and equal keys stay adjacent, which
+    is all the weight scan needs.  int32 arithmetic on the lane's bits, as
+    in :func:`_pack_pm`: ``>>`` is arithmetic there, so the shifted-in sign
+    bits are masked, and ``<<`` shifts only the non-negative low bits."""
+    if not fanout_bits:
+        return lo
+    rest = 32 - fanout_bits
+    return (((lo & ((1 << fanout_bits) - 1)) << rest)
+            | ((lo >> fanout_bits) & ((1 << rest) - 1)))
+
+
+def _side_tags(r_keys: torch.Tensor, s_keys: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.zeros_like(r_keys), torch.ones_like(s_keys)])
+
+
+def merge_count_per_partition_full(r_keys: torch.Tensor, s_keys: torch.Tensor,
+                                   fanout_bits: int,
+                                   return_max_weight: bool = False):
+    """Full-range uint32 merge count: every key joins, with no 31-bit
+    ``MAX_MERGE_KEY`` ceiling (the join's key contract still reserves the
+    pads 0xFFFFFFFE/0xFFFFFFFF).  A one-key sort of the rotated keys with
+    the side tag riding (4 passes, 2 lanes), then K5 with no hi lane.
+    Returns what :func:`merge_count_per_partition` returns."""
+    rot, tag = sort_lex_unstable(
+        torch.cat([_rotate_pid(r_keys, fanout_bits),
+                   _rotate_pid(s_keys, fanout_bits)]),
+        _side_tags(r_keys, s_keys), num_keys=1)
+    counts, maxw = merge_scan_partitions_wide(
+        rot, None, tag, num_partitions=1 << fanout_bits)
+    if return_max_weight:
+        return counts, maxw
+    return counts
+
+
+def merge_count_wide_per_partition(r_lo: torch.Tensor, r_hi: torch.Tensor,
+                                   s_lo: torch.Tensor, s_hi: torch.Tensor,
+                                   fanout_bits: int,
+                                   return_max_weight: bool = False):
+    """64-bit-key match counting on two uint32 lanes: a two-key sort of
+    (rotated lo, hi) with the side tag riding (8 passes, 3 lanes), then K5.
+    The pads sit in both lanes and the R and S pads differ in the hi lane,
+    so padding never matches.  Returns what
+    :func:`merge_count_per_partition` returns."""
+    lo_rot, hi, tag = sort_lex_unstable(
+        torch.cat([_rotate_pid(r_lo, fanout_bits),
+                   _rotate_pid(s_lo, fanout_bits)]),
+        torch.cat([r_hi, s_hi]), _side_tags(r_lo, s_lo), num_keys=2)
+    counts, maxw = merge_scan_partitions_wide(
+        lo_rot, hi, tag, num_partitions=1 << fanout_bits)
     if return_max_weight:
         return counts, maxw
     return counts

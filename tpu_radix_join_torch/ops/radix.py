@@ -59,15 +59,17 @@ def scatter_to_blocks(batch: TupleBatch, dest: torch.Tensor, num_blocks: int,
     Returns (blocks with [num_blocks * capacity] lanes, counts — int32 lane
     [num_blocks] of the *unclipped* per-destination demand, overflow — 0-d
     int64 count of tuples that did not fit).  A block keeps the first
-    ``capacity`` of its tuples in input order."""
+    ``capacity`` of its tuples in input order.  A ``key_hi`` lane moves with
+    the others, its pad slots holding the side's sentinel too."""
+    pad = pad_sentinel(side)
+    lanes, fills = [batch.key, batch.rid], [pad, PAD_RID]
     if batch.key_hi is not None:
-        raise NotImplementedError(
-            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+        lanes.append(batch.key_hi)
+        fills.append(pad)
     key = _group_key(dest, num_blocks, valid)
-    (k, r), counts = partition_scatter(
-        key, [batch.key, batch.rid], [pad_sentinel(side), PAD_RID],
-        num_groups=num_blocks, group_size=1, capacity=capacity)
-    return TupleBatch(key=k, rid=r), counts, _overflow(counts, capacity)
+    out, counts = partition_scatter(key, lanes, fills, num_groups=num_blocks,
+                                    group_size=1, capacity=capacity)
+    return TupleBatch(*out), counts, _overflow(counts, capacity)
 
 
 def reorder_by_partition(batch: TupleBatch, pid: torch.Tensor,
@@ -77,13 +79,16 @@ def reorder_by_partition(batch: TupleBatch, pid: torch.Tensor,
     within a partition; invalid (padding) slots go to a virtual partition
     after the real ones, so every tuple lands.  Returns (reordered batch,
     reordered pid, histogram, base offsets), the last two int32 lanes
-    [num_partitions] of uint32 values."""
+    [num_partitions] of uint32 values.  With a ``key_hi`` lane K4 moves
+    four lanes, its limit."""
+    lanes = [batch.key, batch.rid, pid]
     if batch.key_hi is not None:
-        raise NotImplementedError(
-            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+        lanes.append(batch.key_hi)
     key = _group_key(pid, num_partitions, valid)
-    (k, r, p), hist_x = partition_scatter(
-        key, [batch.key, batch.rid, pid], [0, 0, 0],
-        num_groups=num_partitions + 1, group_size=1, capacity=None)
+    out, hist_x = partition_scatter(
+        key, lanes, [0] * len(lanes), num_groups=num_partitions + 1,
+        group_size=1, capacity=None)
     hist = hist_x[:num_partitions]
-    return TupleBatch(key=k, rid=r), p, hist, exclusive_cumsum(hist)
+    hi = out[3] if batch.key_hi is not None else None
+    return (TupleBatch(key=out[0], rid=out[1], key_hi=hi), out[2], hist,
+            exclusive_cumsum(hist))

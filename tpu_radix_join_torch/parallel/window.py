@@ -42,8 +42,11 @@ class Window:
         n, c = self.world.size, self.capacity
         blocks, counts, overflow = scatter_to_blocks(batch, dest, n, c,
                                                      self.side, valid=valid)
-        received = TupleBatch(key=self.world.all_to_all(blocks.key, c),
-                              rid=self.world.all_to_all(blocks.rid, c))
+        # every lane goes through the all_to_all, the hi key lane included:
+        # a batch rebuilt without it would join truncated keys
+        received = TupleBatch(*(None if lane is None
+                                else self.world.all_to_all(lane, c)
+                                for lane in blocks))
         sent_counts = torch.clamp(widen(counts), max=c)
         return ExchangeResult(received, self.world.all_to_all(sent_counts, 1),
                               overflow)

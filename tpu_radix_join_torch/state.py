@@ -59,15 +59,17 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
 def batch_from_numpy(key: np.ndarray, rid: np.ndarray,
                      key_hi: Optional[np.ndarray] = None,
                      device="cuda") -> TupleBatch:
-    """A TupleBatch on ``device`` from uint32 numpy lanes (bits kept)."""
-    if key_hi is not None:
-        raise NotImplementedError(
-            "64-bit keys are not ported to PyTorch yet (ROADMAP.md A9)")
+    """A TupleBatch on ``device`` from uint32 numpy lanes (bits kept);
+    ``key_hi`` is the upper lane of 64-bit keys."""
     if np.shape(key) != np.shape(rid) or np.ndim(key) != 1:
         raise ValueError("key and rid must be 1-D lanes of one length")
+    if key_hi is not None and np.shape(key_hi) != np.shape(key):
+        raise ValueError("key_hi must be a lane of the key's length")
     dev = resolve_device(device)
     return TupleBatch(key=lane_from_numpy(key, dev),
-                      rid=lane_from_numpy(rid, dev))
+                      rid=lane_from_numpy(rid, dev),
+                      key_hi=None if key_hi is None
+                      else lane_from_numpy(key_hi, dev))
 
 
 def from_jax_state(config_dict: Mapping, key: np.ndarray, rid: np.ndarray,
