@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``tpu_radix_join_torch/csrc/``, holds
 each one bit-exact against its plain PyTorch version on the card (at the
 main path's shapes and at adversarial small shapes), times it beside its
 plain version, its memory bound and the nearest single PyTorch call, then
-drives two paths and checks their answers and that each kernel launched.
+drives the paths below and checks their answers, their counters and that
+each kernel launched (the counts are reset before each group of paths).
 The sort probe — ``HashJoin(JoinConfig()).join(inner, outer)``:
 
   (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
@@ -35,6 +36,19 @@ Full-range and 64-bit keys (the wide merge scan, K5):
   (i) the 64-bit partitioned join: (h)'s relations with
       ``probe_algorithm="bucket"``.
 
+The out-of-core grid (the per-window merge scan, K6) and its fallback:
+
+  (j) the pipelined grid, unique ⋈ unique, 2**30 tuples each in chunks of
+      2**27 (hpcjoin's 128M-tuple large-data chunk): an 8 x 8 grid, each
+      inner chunk sorted once per row (K2) and probed by binary search;
+  (k) the synchronous grid, unique ⋈ unique, 2**26 each in chunks of
+      2**25, slabs of 2**20: K2 and K6 on every slab's union; again with a
+      modulo(65536) inner, whose weights of 1024 exercise the window guard;
+  (l) ``fallback="chunked"``: (e)'s relations with no retries, so the
+      two-level attempt overflows and degrades to the chunked count;
+  (m) the 64-bit grid, 2**24 ⋈ 2**24 unique in chunks of 2**23,
+      pipelined: the wide slabs through K2 and K5.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -50,6 +64,10 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+#: tuples of each relation of cell (j): 8 x 8 chunks of 2**27
+GRID_J_TUPLES = 1 << 30
 
 
 def emit(obj) -> None:
@@ -69,8 +87,9 @@ def main() -> int:
     from tpu_radix_join_torch.data.relation import host_join_count
     from tpu_radix_join_torch.data.tuples import (PAD_RID, R_PAD_KEY,
                                                   S_PAD_KEY, TupleBatch,
-                                                  lane_to_numpy, narrow,
+                                                  lane_to_numpy, narrow, umax,
                                                   valid_mask, widen)
+    from tpu_radix_join_torch.operators.hash_join import FALLBACK_SLAB
     from tpu_radix_join_torch.operators.local_partitioning import (
         local_bucket_ids, local_partition)
     from tpu_radix_join_torch.ops import kernels
@@ -79,12 +98,16 @@ def main() -> int:
     from tpu_radix_join_torch.ops.kernels import _build
     from tpu_radix_join_torch.ops.kernels import histogram as k1
     from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import merge_scan_chunks as k6
     from tpu_radix_join_torch.ops.kernels import merge_scan_wide as k5
     from tpu_radix_join_torch.ops.kernels import partition as k4
     from tpu_radix_join_torch.ops.kernels import radix_sort as k2
-    from tpu_radix_join_torch.operators.hash_join import _umax
-    from tpu_radix_join_torch.ops.merge_count import (MAX_MERGE_KEY, _pack_pm,
-                                                      _rotate_pid, _side_tags)
+    from tpu_radix_join_torch.data.streaming import stream_chunks_device
+    from tpu_radix_join_torch.ops import chunked
+    from tpu_radix_join_torch.ops.merge_count import (MAX_MERGE_KEY, _pack,
+                                                      _pack_pm, _rotate_pid,
+                                                      _side_tags, presort_keys)
+    from tpu_radix_join_torch.performance.measurements import Measurements
     from tpu_radix_join_torch.parallel.window import Window
 
     dev = torch.device("cuda", 0)
@@ -471,6 +494,94 @@ def main() -> int:
           **results["merge_scan_wide"]})
     del sorted_h, sorted_g, sorted_sets, lo_h, hi_h, tag_h
 
+    # ------------------------------------------------- K6 per-window scan
+    # its main-path shapes, each a first slab's sorted union at 1024
+    # windows: (k)'s (one 2**25 inner chunk and a 2**20 outer slab), (k')'s
+    # (the same with the modulo inner, weights of 512) and (l)'s (the
+    # 20M inner and a FALLBACK_SLAB outer slab).  Beside them the TPU
+    # kernel's own width, TILE, on (a)'s sorted 40M union packed at fanout
+    # 0: merge_count_pallas's shape, which no grid path runs.
+    n_k, chunk_k, slab_size = 1 << 26, 1 << 25, 1 << 20
+    grid_k = (Relation(n_k, 1, "unique", seed=1234),
+              Relation(n_k, 1, "unique", seed=1235))
+    rel_km = (Relation(n_k, 1, "modulo", seed=1234, modulo=65536),
+              grid_k[1])
+    r_k = next(stream_chunks_device(grid_k[0], 0, chunk_k, dev))
+    s_k = next(stream_chunks_device(grid_k[1], 0, chunk_k, dev))
+    slab_k = k2.radix_sort([_pack(r_k.key, s_k.key[:slab_size])])[0]
+    m_k = slab_k.numel()
+    w_k = -(-m_k // chunked.SLAB_WINDOWS)
+    r_km = next(stream_chunks_device(rel_km[0], 0, chunk_k, dev))
+    slab_km = k2.radix_sort([_pack(r_km.key, s_k.key[:slab_size])])[0]
+    del r_km
+    rel_l = (Relation(n_main, 1, "unique", seed=1234),
+             Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
+                      key_domain=n_main))
+    outer_l = rel_l[1].generate(dev).key[:FALLBACK_SLAB]
+    slab_l = k2.radix_sort([_pack(rel_l[0].generate(dev).key, outer_l)])[0]
+    del outer_l
+    w_l = -(-slab_l.numel() // chunked.SLAB_WINDOWS)
+    union_a = k2.radix_sort([_pack(inner.generate(dev).key,
+                                   outer.generate(dev).key)])[0]
+
+    def k6_case(name, packed, w):
+        got = k6.merge_scan_chunks(packed, width=w)
+        ref = k6.merge_scan_chunks_plain(packed, w)
+        return [exact(got[0], ref[0], f"window sums, {name}"),
+                exact(got[1], ref[1], f"window max weight, {name}")]
+
+    def sorted_pack(r_keys, s_keys):
+        return k2.radix_sort_plain([_pack(r_keys, s_keys)])[0]
+
+    errs = k6_case("(k)'s slab union", slab_k, w_k)
+    errs += k6_case("(k')'s modulo-inner slab union", slab_km, w_k)
+    maxw_km = int(k6.merge_scan_chunks_plain(slab_km, w_k)[1])
+    if maxw_km <= 1:
+        raise AssertionError("(k')'s slab union has no weight above 1")
+    errs += k6_case("(l)'s first slab union", slab_l, w_l)
+    errs += k6_case("(a)'s union at TILE (merge_count_pallas)", union_a,
+                    k6.TILE)
+    key7 = narrow(torch.full((3 * k6.TILE,), 7, dtype=torch.int64)).to(dev)
+    spanning = sorted_pack(key7, key7[:2 * k6.TILE])
+    for w in (1, 1000, 4097, k6.TILE, w_k):
+        errs += k6_case(f"one key over many windows, width {w}", spanning, w)
+    pads = narrow(torch.full((100003,), 0xFFFFFFFF, dtype=torch.int64)).to(dev)
+    errs += k6_case("all pads", pads, 33)
+    key42 = narrow(torch.full((2 * k6.TILE,), 42, dtype=torch.int64)).to(dev)
+    r_run = sorted_pack(key42, torch.cat([key42[:100], narrow(torch.arange(
+        1000, 1000 + k6.TILE, dtype=torch.int64)).to(dev)]))
+    errs += k6_case("two-tile R run", r_run, k6.TILE)
+    for n in (1, 255, 32767, 32769, 1000003):
+        packed = sorted_pack(rand_lane(n // 2 + 1, hi=1 << 16),
+                             rand_lane(n - n // 2, hi=1 << 16))
+        for w in (1, 7, 15, 480, 977, 33792, k6.TILE, 5000000):
+            errs += k6_case(f"random {packed.numel()}, width {w}", packed, w)
+    dup = sorted_pack(rand_lane(500003, hi=97), rand_lane(500003, hi=97))
+    errs += k6_case("duplicate heavy, width 977", dup, 977)
+    results["merge_scan_chunks"] = {
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: k6.merge_scan_chunks(slab_k, width=w_k)),
+        "plain_ms": time_ms(lambda: k6.merge_scan_chunks_plain(slab_k, w_k),
+                            reps=3),
+        # the packed lane read once, the window sums written once
+        "bound_ms": (4 * m_k + 4 * -(-m_k // w_k)) / hbm_bytes_per_s * 1e3,
+        "library_ms": None,
+    }
+    m_a = union_a.numel()
+    emit({"phase": "kernel", "kernel": "merge_scan_chunks", "elements": m_k,
+          "width": w_k, "checks": len(errs),
+          "modulo_inner_max_weight": maxw_km,
+          "fallback_shape": {"elements": slab_l.numel(), "width": w_l},
+          "tile_shape": {
+              "elements": m_a, "width": k6.TILE,
+              "ms": time_ms(lambda: k6.merge_scan_chunks(union_a,
+                                                         width=k6.TILE)),
+              "bound_ms": (4 * m_a + 4 * -(-m_a // k6.TILE))
+              / hbm_bytes_per_s * 1e3},
+          **results["merge_scan_chunks"]})
+    del slab_k, slab_km, slab_l, union_a, spanning, r_run, dup, key7, key42
+    del pads
+
     # ---------------------------------------------------------- main path
     def cpu_agrees(cfg, inner_rel, outer_rel, flip=False):
         """A small join on the card equals the plain versions on the host
@@ -615,6 +726,179 @@ def main() -> int:
           n_main, ("histogram", "partition", "radix_pass"))
     launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
 
+    # the out-of-core grid: (j), (k), (l), (m).  A small grid on the card
+    # first equals the plain versions on the host and the host oracle.
+    def grid_on(rel_r, rel_s, chunk, where, pipeline, slab=None):
+        return chunked.chunked_join_grid(
+            stream_chunks_device(rel_r, 0, chunk, where),
+            lambda: stream_chunks_device(rel_s, 0, chunk, where),
+            slab or min(chunk, 1 << 20), pipeline=pipeline)
+
+    small_rels = (Relation(small, 1, "modulo", seed=7, modulo=4099),
+                  Relation(small, 1, "zipf", seed=8, zipf_theta=0.75))
+    small_oracle = host_join_count(*(lane_to_numpy(rel.generate("cpu").key)
+                                     for rel in small_rels))
+    for pipeline in ("off", "on"):
+        got = grid_on(*small_rels, small // 4, dev, pipeline, slab=4096)
+        ref = grid_on(*small_rels, small // 4, "cpu", pipeline, slab=4096)
+        if not got == ref == small_oracle:
+            raise AssertionError(f"small grid ({pipeline}) disagrees: card "
+                                 f"{got}, host {ref}, oracle {small_oracle}")
+
+    def grid_cell(name, run, expected, counters, want_launches, tuples):
+        """One main-path grid run: its total, its counters, the kernels it
+        launched (an int: exactly; None: at least once) and its time,
+        chunk generation included."""
+        meas = Measurements()
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = run(meas)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if total != expected:
+            raise AssertionError(f"{name}: {total} matches, expected "
+                                 f"{expected}")
+        for k, v in counters.items():
+            if meas.counters.get(k, 0) != v:
+                raise AssertionError(f"{name}: counter {k} is "
+                                     f"{meas.counters.get(k, 0)}, not {v}")
+        for k, v in want_launches.items():
+            if (delta[k] <= 0) if v is None else (delta[k] != v):
+                raise AssertionError(f"{name}: kernel {k} launched "
+                                     f"{delta[k]} times, expected "
+                                     f"{'some' if v is None else v}")
+        pairs = meas.counters.get("GRIDPAIRS", 0)
+        emit({"phase": "grid", "workload": name, "matches": total,
+              "expected": expected, "counters": dict(meas.counters),
+              "launches": delta, "grid_ms": grid_s * 1e3,
+              "tuples_per_s": tuples / grid_s, "pairs_per_s": pairs / grid_s,
+              "matches_per_s": total / grid_s,
+              "span_s": {k: round(v, 6) for k, v in meas.span_s.items()},
+              **card})
+        return grid_s
+
+    def grid_run(rels, chunk, pipeline, slab=None):
+        return lambda meas: chunked.chunked_join_grid(
+            stream_chunks_device(rels[0], 0, chunk, dev),
+            lambda: stream_chunks_device(rels[1], 0, chunk, dev),
+            slab or min(chunk, 1 << 20), pipeline=pipeline,
+            measurements=meas)
+
+    n_j, chunk_j = GRID_J_TUPLES, 1 << 27
+    rows_j = n_j // chunk_j
+    rel_j = (Relation(n_j, 1, "unique", seed=1234),
+             Relation(n_j, 1, "unique", seed=1235))
+    n_m, chunk_m = 1 << 24, 1 << 23
+    rel_m = (Relation(n_m, 1, "unique", seed=1234, key_bits=64),
+             Relation(n_m, 1, "unique", seed=1235, key_bits=64))
+    wide_keys = []
+    for rel in rel_m:
+        b = rel.generate(dev)
+        wide_keys.append((lane_to_numpy(b.key_hi).astype(np.uint64)
+                          << np.uint64(32)) | lane_to_numpy(b.key))
+    oracle_m = host_join_count(*wide_keys)
+    del wide_keys, b
+    pairs_k = (n_k // chunk_k) ** 2
+    slabs_k = pairs_k * (chunk_k // slab_size)
+    pairs_m = (n_m // chunk_m) ** 2
+    slabs_m = pairs_m * (chunk_m // min(chunk_m, slab_size))
+    kernels.reset_launches()
+    ms_grid = {}
+    ms_grid["j"] = grid_cell(
+        "j_pipelined_unique_grid", grid_run(rel_j, chunk_j, "auto"), n_j,
+        {"GRIDPAIRS": rows_j * rows_j, "SORTREUSE": rows_j * (rows_j - 1)},
+        {"radix_pass": 4 * rows_j, "merge_scan_chunks": 0, "merge_scan": 0},
+        2 * n_j)
+    ms_grid["k"] = grid_cell(
+        "k_sync_unique_2p26", grid_run(grid_k, chunk_k, "off", slab_size),
+        n_k, {"GRIDPAIRS": pairs_k, "SORTREUSE": 0},
+        {"merge_scan_chunks": slabs_k, "radix_pass": 4 * slabs_k,
+         "merge_scan": 0}, 2 * n_k)
+    ms_grid["k_modulo"] = grid_cell(
+        "k_sync_modulo_inner_2p26",
+        grid_run(rel_km, chunk_k, "off", slab_size), n_k,
+        {"GRIDPAIRS": pairs_k},
+        {"merge_scan_chunks": slabs_k, "merge_scan": 0}, 2 * n_k)
+    eng_l = HashJoin(JoinConfig(two_level=True, max_retries=0,
+                                fallback="chunked"))
+    slabs_l = -(-n_main // min(FALLBACK_SLAB, n_main))
+
+    def run_l(meas):
+        res = eng_l.join(*rel_l)
+        d = res.diagnostics
+        if not (res.ok and d["degraded"] == "chunked"
+                and "fallback_error" not in d):
+            raise AssertionError(f"l_fallback_chunked: {res}")
+        return res.matches
+
+    ms_grid["l"] = grid_cell(
+        "l_fallback_chunked_zipf_20M", run_l, n_main, {},
+        {"merge_scan_chunks": slabs_l, "histogram": None, "partition": 4,
+         "radix_pass": None, "merge_scan": 0}, 2 * n_main)
+    ms_grid["m"] = grid_cell(
+        "m_pipelined_wide_unique_2p24",
+        grid_run(rel_m, chunk_m, "auto"), oracle_m,
+        {"GRIDPAIRS": pairs_m, "SORTREUSE": 0},
+        {"merge_scan_wide": slabs_m, "radix_pass": 8 * slabs_m,
+         "merge_scan_chunks": 0, "merge_scan": 0}, 2 * n_m)
+    if oracle_m != n_m:
+        raise AssertionError(f"(m)'s uint64 oracle is {oracle_m}")
+    launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
+
+    # where the grids' time goes: each stage alone, CUDA events, at (j)'s
+    # and (k)'s shapes; "model" multiplies them by their counts in the run
+    gen_j = stream_chunks_device(rel_j[1], 0, chunk_j, dev)
+    s_j = next(gen_j)
+    r_j = next(stream_chunks_device(rel_j[0], 0, chunk_j, dev))
+    r_sorted = presort_keys(r_j.key)
+    slabs_j = chunk_j // min(chunk_j, slab_size)
+    probe_j = chunked._scan_probe_presorted(r_sorted, s_j.key, slabs_j)
+    stages = {
+        "generation": lambda: next(stream_chunks_device(rel_j[1], 0, chunk_j,
+                                                        dev)),
+        "presort": lambda: presort_keys(r_j.key),
+        "probe": lambda: chunked._scan_probe_presorted(r_sorted, s_j.key,
+                                                       slabs_j),
+        "bound": lambda: umax(s_j.key),
+        "readback": lambda: chunked._resolve(*probe_j),
+    }
+    stage_ms = {k: time_ms(f, reps=5) for k, f in stages.items()}
+    counts = {"generation": rows_j + rows_j * rows_j, "presort": rows_j,
+              "probe": rows_j * rows_j, "bound": rows_j + rows_j * rows_j,
+              "readback": rows_j * rows_j}
+    model = sum(stage_ms[k] * counts[k] for k in stages)
+    emit({"phase": "breakdown", "workload": "j_pipelined_unique_grid",
+          "stage_ms": stage_ms, "stage_count": counts, "model_ms": model,
+          "grid_ms": ms_grid["j"] * 1e3, **card})
+    del gen_j, s_j, r_j, r_sorted, probe_j
+    slab_s = s_k.key[:slab_size]
+    packed_k = _pack(r_k.key, slab_s)
+    sorted_k = k2.radix_sort([packed_k])[0]
+    per_pair = chunked._scan_probe(r_k.key, s_k.key, chunk_k // slab_size)
+    stages = {
+        "generation": lambda: next(stream_chunks_device(grid_k[1], 0, chunk_k,
+                                                        dev)),
+        "pack": lambda: _pack(r_k.key, slab_s),
+        "slab_sort": lambda: k2.radix_sort([packed_k]),
+        "merge_scan_chunks": lambda: k6.merge_scan_chunks(sorted_k,
+                                                          width=w_k),
+        "bound": lambda: umax(s_k.key),
+        "readback": lambda: chunked._resolve(*per_pair),
+    }
+    stage_ms = {k: time_ms(f, reps=5) for k, f in stages.items()}
+    rows_k = n_k // chunk_k
+    counts = {"generation": rows_k + pairs_k, "pack": slabs_k,
+              "slab_sort": slabs_k, "merge_scan_chunks": slabs_k,
+              "bound": 2 * rows_k, "readback": pairs_k}
+    model = sum(stage_ms[k] * counts[k] for k in stages)
+    emit({"phase": "breakdown", "workload": "k_sync_unique_2p26",
+          "stage_ms": stage_ms, "stage_count": counts, "model_ms": model,
+          "grid_ms": ms_grid["k"] * 1e3, **card})
+    del slab_s, packed_k, sorted_k, per_pair, r_k, s_k
+
     # join time alone, on placed inputs (not counted as the main path)
     def join_ms(eng, r, s, bound=None):
         times = []
@@ -723,7 +1007,7 @@ def main() -> int:
                 "radix_sort": lambda: k2.radix_sort(lanes, num_keys=2),
                 "merge_scan_wide": lambda: k5.merge_scan_partitions_wide(
                     *ordered, num_partitions=num_p),
-                "key_contract": lambda: (_umax(r.key_hi), _umax(s.key_hi)),
+                "key_contract": lambda: (umax(r.key_hi), umax(s.key_hi)),
                 "readback": lambda: torch.zeros(
                     num_p + 4, dtype=torch.int64, device=dev).cpu(),
             }
@@ -749,6 +1033,9 @@ def main() -> int:
         "merge_scan_wide": ("tpu_radix_join_torch/csrc/merge_scan_wide.cu",
                             "tpu_radix_join/ops/pallas/merge_scan.py:313",
                             "merge_scan_wide"),
+        "merge_scan_chunks": ("tpu_radix_join_torch/csrc/merge_scan_chunks.cu",
+                              "tpu_radix_join/ops/pallas/merge_scan.py:356",
+                              "merge_scan_chunks"),
     }
     table = []
     for name, (src, replaces, counter) in sources.items():

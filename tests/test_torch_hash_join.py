@@ -124,8 +124,8 @@ def test_raw_arrays_probe_the_key_range():
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_nodes", 4, "A7"), ("exchange_codec", "pack", "A13"),
-    ("fallback", "chunked", "A14"), ("verify", "check", "A15"),
-    ("skew_threshold", 2.0, "A10"), ("chunk_size", 1024, "A14"),
+    ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
+    ("chunk_size", 1024, "A7"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
     jcfg = jx.JoinConfig()
@@ -136,10 +136,12 @@ def test_settings_outside_the_slice_raise(field, value, item):
 
 
 @pytest.mark.parametrize("field,value", [("key_bits", 64),
-                                         ("key_range", "full")])
+                                         ("key_range", "full"),
+                                         ("fallback", "chunked")])
 def test_settings_of_the_slice_carry_across(field, value):
-    """64-bit keys and the full key range are ported: the JAX config
-    carries across unchanged, with the same sort-probe discipline."""
+    """64-bit keys, the full key range and the chunked fallback are
+    ported: the JAX config carries across unchanged, with the same
+    sort-probe discipline."""
     jcfg = jx.JoinConfig(**{field: value})
     cfg = config_from_jax(dataclasses.asdict(jcfg))
     assert cfg == tx.JoinConfig(**{field: value})

@@ -27,6 +27,18 @@ res = tx.HashJoin(tx.JoinConfig(), device="cpu").join(
 bucket = tx.HashJoin(tx.JoinConfig(probe_algorithm="bucket"), device="cpu").join(
     tx.Relation(3000, 1, "unique", seed=1),
     tx.Relation(3000, 1, "modulo", seed=2, modulo=700))
+from tpu_radix_join_torch.data.streaming import stream_chunks_device
+from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+grid = chunked_join_grid(
+    stream_chunks_device(tx.Relation(3000, 1, "unique", seed=1), 0, 1000,
+                         "cpu"),
+    lambda: stream_chunks_device(tx.Relation(3000, 1, "modulo", seed=2,
+                                             modulo=700), 0, 1000, "cpu"),
+    512, pipeline="on")
+degraded = tx.HashJoin(tx.JoinConfig(two_level=True, fallback="chunked"),
+                       device="cpu").join(
+    tx.Relation(3000, 1, "unique", seed=1),
+    tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
 raised = {}
 for name, call in [
         ("HashJoin", lambda: tx.HashJoin()),
@@ -34,7 +46,13 @@ for name, call in [
         ("batch_from_numpy", lambda: tx.batch_from_numpy([1], [2])),
         ("main", lambda: tx.main.main(["--tuples-per-node", "64"])),
         ("main --probe bucket", lambda: tx.main.main(
-            ["--probe", "bucket", "--tuples-per-node", "64"]))]:
+            ["--probe", "bucket", "--tuples-per-node", "64"])),
+        ("HashJoin fallback", lambda: tx.HashJoin(
+            tx.JoinConfig(fallback="chunked"))),
+        ("stream_chunks_device", lambda: next(stream_chunks_device(
+            tx.Relation(64), 0, 16))),
+        ("main --grid-chunk-tuples", lambda: tx.main.main(
+            ["--grid-chunk-tuples", "16", "--tuples-per-node", "64"]))]:
     try:
         call()
         raised[name] = None
@@ -43,7 +61,9 @@ for name, call in [
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "tpu_radix_join"))
 print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
-                  "raised": raised,
+                  "raised": raised, "grid": grid,
+                  "degraded": [degraded.matches, degraded.ok,
+                               degraded.diagnostics["degraded"]],
                   "bucket": [bucket.matches, bucket.ok,
                              len(bucket.partition_counts)]}))
 """
@@ -63,6 +83,8 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     assert got["leaked"] == []
     assert got["ok"] and got["matches"] == 3000
     assert got["bucket"] == [3000, True, 32]
+    assert got["grid"] == 3000
+    assert got["degraded"] == [3000, True, "chunked"]
     for name, msg in got["raised"].items():
         assert msg is not None and "no CUDA device" in msg, name
 

@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of tpu_radix_join: the one-GPU joins — the sort probe
 (narrow, full-range and 64-bit keys) and the partitioned (bucket /
-two-level) join.
+two-level) join with its chunked fallback — and the out-of-core grid
+(``ops/chunked.py``).
 
 The JAX package ``tpu_radix_join`` stays the reference; this package imports
 nothing of it (nor JAX).  Lanes are ``torch.int32`` tensors holding uint32

@@ -55,6 +55,8 @@ class JoinConfig:
         one partition pass (K4), so only "auto".
       * ``max_retries``: capacity-shortfall retries, each doubling what fell
         short; the sort probe has no capacity and never retries.
+      * ``fallback="chunked"``: a partitioned join still short of capacity
+        after its retries counts out of core instead (ops/chunked.py).
     """
 
     network_fanout_bits: int = 5
@@ -127,8 +129,6 @@ class JoinConfig:
             raise ValueError("max_retries must be >= 0")
         if self.fallback not in ("none", "chunked"):
             raise ValueError(f"unknown fallback mode {self.fallback!r}")
-        if self.fallback != "none":
-            raise _not_ported(f"fallback={self.fallback!r}", "A14")
         if self.verify not in ("off", "check", "repair"):
             raise ValueError(f"unknown verify mode {self.verify!r}")
         if self.verify != "off":

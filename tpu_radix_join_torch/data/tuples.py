@@ -50,6 +50,15 @@ def lane_to_numpy(lane: torch.Tensor) -> np.ndarray:
     return lane.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
+def umax(lane: torch.Tensor) -> torch.Tensor:
+    """0-d int64: the largest uint32 value of an int32 lane (0 if empty).
+    Flipping the sign bit makes signed order the unsigned one (``max`` of
+    the int32 lane itself is a signed max, which misreads keys >= 2**31)."""
+    if lane.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=lane.device)
+    return torch.bitwise_xor(lane, -(1 << 31)).max().to(torch.int64) + (1 << 31)
+
+
 def check_lane(x: torch.Tensor, what: str) -> None:
     """Raise unless ``x`` is a contiguous 1-D int32 lane."""
     if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():

@@ -5,7 +5,13 @@ defaults: the inner relation is unique with seed ``--seed``, the outer one
 of ``--outer-kind`` with seed ``--seed + 1``; the join runs through
 ``HashJoin(JoinConfig(...)).join_arrays`` on the placed relations.
 ``--probe bucket`` or ``--two-level`` select the partitioned join;
-``--key-range`` picks the sort probe's 32-bit discipline.
+``--key-range`` picks the sort probe's 32-bit discipline; ``--fallback
+chunked`` lets a partitioned join short of capacity count out of core.
+``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
+both relations streamed in device-generated chunks of N tuples, every
+chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
+``--resume`` continues from (a checkpoint of the JAX package's CLI
+resumes here too, and the reverse).
 
 Usage:
     python -m tpu_radix_join_torch.main --tuples-per-node 20000000
@@ -13,12 +19,15 @@ Usage:
     python -m tpu_radix_join_torch.main --probe bucket --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --two-level --outer-kind zipf --max-retries 2
     python -m tpu_radix_join_torch.main --device cpu --tuples-per-node 65536
+    python -m tpu_radix_join_torch.main --grid-chunk-tuples 134217728 --tuples-per-node 1073741824
+    python -m tpu_radix_join_torch.main --device cpu --grid-chunk-tuples 4096 --tuples-per-node 16384
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -47,7 +56,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--window-sizing", choices=["measured", "static"],
                    default="measured")
     p.add_argument("--max-retries", type=int, default=0,
-                   help="capacity-shortfall retries with doubled shapes")
+                   help="capacity-shortfall retries with doubled shapes "
+                        "(grid mode: transient-error retries of a pair)")
+    p.add_argument("--fallback", choices=["none", "chunked"], default="none",
+                   help="after --max-retries capacity doublings still "
+                        "overflow: 'chunked' degrades to the out-of-core "
+                        "count instead of returning ok=False")
+    p.add_argument("--grid-chunk-tuples", type=int, default=None,
+                   help="run the out-of-core grid join (ops/chunked.py), "
+                        "streaming both relations in chunks of this many "
+                        "tuples")
+    p.add_argument("--grid-pipeline", choices=["off", "on", "auto"],
+                   default="auto",
+                   help="grid engine: 'on' sorts each inner chunk once per "
+                        "row and overlaps prefetch, readbacks and "
+                        "checkpoint writes; 'off' is the synchronous loop; "
+                        "'auto' pipelines any grid larger than one pair")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="grid mode: directory of the checkpoint file, "
+                        "saved after every chunk pair (see --resume)")
+    p.add_argument("--resume", action="store_true",
+                   help="grid mode: resume from the checkpoint in "
+                        "--checkpoint-dir (default: a fresh run removes a "
+                        "stale checkpoint first)")
     p.add_argument("--outer-kind", choices=["unique", "modulo", "zipf"],
                    default="unique")
     p.add_argument("--modulo", type=int, default=None,
@@ -60,8 +91,75 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _run_grid(args, inner, outer, expected) -> int:
+    """Grid mode: both relations streamed in device-generated chunks,
+    every (inner, outer) chunk pair probed once; slabs of
+    ``min(chunk, 2**20)``.  Prints one JSON line; a classified failure
+    (``failure_class`` on the exception) prints it and returns 1."""
+    from tpu_radix_join_torch.core.device import resolve_device
+    from tpu_radix_join_torch.data.streaming import stream_chunks_device
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+    from tpu_radix_join_torch.performance.measurements import Measurements
+    from tpu_radix_join_torch.robustness.retry import RetryPolicy
+
+    dev = resolve_device(args.device)
+    chunk = args.grid_chunk_tuples
+    ckpt_path = None
+    if args.checkpoint_dir:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        ckpt_path = os.path.join(args.checkpoint_dir, "grid.ckpt")
+        if not args.resume and os.path.exists(ckpt_path):
+            os.remove(ckpt_path)   # a fresh run never resumes a stale file
+    # the JAX CLI's tag: everything that changes the grid's total
+    tag = (f"{args.outer_kind}:{inner.global_size}:{args.seed}:{chunk}:"
+           f"{args.key_range}")
+    policy = (RetryPolicy(max_attempts=args.max_retries + 1,
+                          base_delay_s=0.5, jitter=0.1)
+              if args.max_retries else None)
+    meas = Measurements()
+    cuda = dev.type == "cuda"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        total = chunked_join_grid(
+            stream_chunks_device(inner, 0, chunk, dev),
+            lambda: stream_chunks_device(outer, 0, chunk, dev),
+            min(chunk, 1 << 20), checkpoint_path=ckpt_path,
+            checkpoint_tag=tag, progress=True, key_range=args.key_range,
+            measurements=meas, retry_policy=policy,
+            pipeline=args.grid_pipeline)
+    except Exception as e:
+        cls = getattr(e, "failure_class", None)
+        if cls is None:
+            raise
+        print(json.dumps({"ok": False, "failure_class": cls,
+                          "error": str(e)}))
+        return 1
+    if cuda:
+        torch.cuda.synchronize(dev)
+    grid_s = time.perf_counter() - t0
+    pairs = meas.counters.get("GRIDPAIRS", 0)
+    ok = expected is None or total == expected
+    print(json.dumps({
+        "matches": total, "ok": ok, "expected": expected,
+        "grid_ms": grid_s * 1e3, "tuples": 2 * inner.global_size,
+        "tuples_per_s": 2 * inner.global_size / grid_s,
+        "pairs": pairs, "pairs_per_s": pairs / grid_s,
+        "matches_per_s": total / grid_s,
+        "counters": dict(meas.counters), "launches": kernels.launch_counts(),
+        "chunk_tuples": chunk, "grid_pipeline": args.grid_pipeline,
+        "key_range": args.key_range,
+        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+    }))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        parser.error("--resume reads the checkpoint under --checkpoint-dir")
     from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
 
     n = args.tuples_per_node
@@ -74,6 +172,8 @@ def main(argv=None) -> int:
         outer_kw["key_domain"] = n
     outer = Relation(n, 1, args.outer_kind, seed=args.seed + 1, **outer_kw)
     expected = inner.expected_matches(outer)
+    if args.grid_chunk_tuples is not None:
+        return _run_grid(args, inner, outer, expected)
 
     cfg = JoinConfig(network_fanout_bits=args.network_fanout,
                      local_fanout_bits=args.local_fanout,
@@ -81,7 +181,7 @@ def main(argv=None) -> int:
                      assignment_policy=args.assignment,
                      window_sizing=args.window_sizing,
                      key_range=args.key_range,
-                     max_retries=args.max_retries)
+                     max_retries=args.max_retries, fallback=args.fallback)
     engine = HashJoin(cfg, device=args.device)
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
@@ -100,6 +200,7 @@ def main(argv=None) -> int:
         "tuples_per_s": 2 * n / join_s,
         "failure_class": result.diagnostics["failure_class"],
         "retries": result.retries,
+        "degraded": result.diagnostics.get("degraded"),
         "pipeline": "sort_probe" if cfg.sort_probe else "partitioned",
         "key_range": args.key_range,
         "device": (torch.cuda.get_device_name(engine.device) if cuda

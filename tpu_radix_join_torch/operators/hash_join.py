@@ -33,7 +33,9 @@ is an identity, so the join is
      sort of every bucket (K2) and the merge-weight scan;
   4. the 7-entry flag vector, read back with the per-bucket counts; a
      capacity shortfall reruns the attempt with only the shape that fell
-     short doubled, up to ``max_retries`` times.
+     short doubled, up to ``max_retries`` times; with
+     ``fallback="chunked"`` a shortfall that outlasts them degrades to the
+     out-of-core count (``_fallback_chunked``).
 """
 
 from __future__ import annotations
@@ -47,12 +49,13 @@ from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.relation import Relation
 from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, TupleBatch,
-                                              _sentinel_lane, widen)
+                                              _sentinel_lane, umax, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_local_histogram,
                                              compute_partition_assignment)
 from tpu_radix_join_torch.operators.local_partitioning import local_partition
 from tpu_radix_join_torch.ops.build_probe import probe_count_bucketized
+from tpu_radix_join_torch.ops.chunked import chunked_join_count
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
     merge_count_wide_per_partition)
@@ -61,27 +64,12 @@ from tpu_radix_join_torch.parallel.network_partitioning import (
     network_partition)
 from tpu_radix_join_torch.parallel.window import Window
 from tpu_radix_join_torch.parallel.world import make_world
+from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
+                                                   RETRIES_EXHAUSTED,
+                                                   classify_diagnostics)
 
-# failure classes, in priority order (robustness/retry.classify_diagnostics
-# of the JAX package): fatal flags outrank capacity shortfalls
-_FATAL_FLAGS = (
-    ("key_contract_violations", "key_contract"),
-    ("conservation_violations", "conservation"),
-    ("data_corruption_partitions", "data_corruption"),
-    ("count_overflow_risk", "count_overflow_risk"),
-)
-_CAPACITY_FLAGS = ("shuffle_overflow_r_tuples", "shuffle_overflow_s_tuples",
-                   "local_overflow", "hot_overflow")
-
-
-def classify_diagnostics(diag: dict) -> str:
-    """Map a diagnostics dict to its failure-class string."""
-    for flag, cls in _FATAL_FLAGS:
-        if diag.get(flag, 0):
-            return cls
-    if any(diag.get(flag, 0) for flag in _CAPACITY_FLAGS):
-        return "capacity_overflow"
-    return "ok"
+#: slab of the chunked fallback's count (the JAX package's)
+FALLBACK_SLAB = 1 << 20
 
 
 class JoinResult(NamedTuple):
@@ -107,14 +95,6 @@ def _minmax_i32(lane: torch.Tensor) -> torch.Tensor:
         return torch.tensor([0, 0], dtype=torch.int64, device=lane.device)
     lo, hi = torch.aminmax(lane)
     return torch.stack([lo, hi]).to(torch.int64)
-
-
-def _umax(lane: torch.Tensor) -> torch.Tensor:
-    """0-d int64: the largest uint32 value of an int32 lane (0 if empty).
-    Flipping the sign bit makes signed order the unsigned one."""
-    if lane.numel() == 0:
-        return torch.zeros((), dtype=torch.int64, device=lane.device)
-    return torch.bitwise_xor(lane, -(1 << 31)).max().to(torch.int64) + (1 << 31)
 
 
 class HashJoin:
@@ -173,7 +153,7 @@ class HashJoin:
         if key_bound is not None:
             full = key_bound - 1 > MAX_MERGE_KEY
         else:
-            full = int(torch.maximum(_umax(r.key), _umax(s.key))) > MAX_MERGE_KEY
+            full = int(torch.maximum(umax(r.key), umax(s.key))) > MAX_MERGE_KEY
         return "full" if full else "narrow"
 
     @staticmethod
@@ -205,7 +185,7 @@ class HashJoin:
         """Capacity shortfalls are fixable with bigger shapes; key,
         conservation and count-overflow flags are not (classify_diagnostics
         ranks them first, so one in the same attempt is never retried)."""
-        return diag["failure_class"] == "capacity_overflow"
+        return diag["failure_class"] == CAPACITY_OVERFLOW
 
     # ------------------------------------------------------------- joins
     def join_arrays(self, r: TupleBatch, s: TupleBatch,
@@ -234,8 +214,8 @@ class HashJoin:
         if route == "narrow":
             key_stats = torch.cat([_minmax_i32(r.key), _minmax_i32(s.key)])
         else:
-            key_stats = torch.stack([_umax(_sentinel_lane(r)),
-                                     _umax(_sentinel_lane(s))])
+            key_stats = torch.stack([umax(_sentinel_lane(r)),
+                                     umax(_sentinel_lane(s))])
         if route == "wide":
             counts, maxw = merge_count_wide_per_partition(
                 r.key, r.key_hi, s.key, s.key_hi, fanout,
@@ -297,10 +277,38 @@ class HashJoin:
                 cap_s *= 2
             if diag["local_overflow"]:
                 local_slack *= 2
+        if (flags.any() and self._retryable(diag)
+                and self.config.fallback == "chunked"):
+            return self._fallback_chunked(r, s, diag, attempt)
         matches = int(counts.astype(np.uint64).sum())
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag,
                           retries=attempt)
+
+    @staticmethod
+    def _fallback_chunked(r: TupleBatch, s: TupleBatch, diag: dict,
+                          retries: int) -> JoinResult:
+        """Degrade instead of failing (``fallback="chunked"``): the
+        exchange windows could not be sized for this workload within
+        ``max_retries`` doublings, so count the join out of core
+        (``ops/chunked.chunked_join_count``), whose only capacity is the
+        slab chosen here.  The lanes stay on the device.  The diagnostics
+        keep the attempt's flags, marked ``degraded="chunked"``; an error of
+        the degraded path is reported in ``fallback_error``, never raised."""
+        diag = dict(diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked")
+        try:
+            matches = chunked_join_count(r, s, min(FALLBACK_SLAB, s.size),
+                                         key_range="auto")
+        except Exception as e:   # the degraded path never raises past here
+            diag["fallback_error"] = repr(e)
+            diag["failure_class"] = RETRIES_EXHAUSTED
+            return JoinResult(matches=0, ok=False,
+                              partition_counts=np.zeros(1, np.uint32),
+                              diagnostics=diag, retries=retries)
+        return JoinResult(matches=matches, ok=True,
+                          partition_counts=np.array([matches % (1 << 32)],
+                                                    np.uint32),
+                          diagnostics=diag, retries=retries)
 
     def _shuffle_plan(self, r: TupleBatch, s: TupleBatch) -> ShufflePlan:
         """The histograms (K1) and the assignment.  The JAX package computes
@@ -349,8 +357,8 @@ class HashJoin:
     def _keys_in_contract(self, r: TupleBatch, s: TupleBatch) -> torch.Tensor:
         """0-d bool: every key below the pads (the partitioned join has no
         packing cap)."""
-        return ((_umax(_sentinel_lane(r)) < R_PAD_KEY)
-                & (_umax(_sentinel_lane(s)) < R_PAD_KEY))
+        return ((umax(_sentinel_lane(r)) < R_PAD_KEY)
+                & (umax(_sentinel_lane(s)) < R_PAD_KEY))
 
     def _shuffle(self, r: TupleBatch, s: TupleBatch, plan: ShufflePlan,
                  win_r: Window, win_s: Window):

@@ -13,7 +13,8 @@ from typing import Dict
 
 #: launches on the card per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_pass": 0, "merge_scan": 0,
-                             "partition": 0, "merge_scan_wide": 0}
+                             "partition": 0, "merge_scan_wide": 0,
+                             "merge_scan_chunks": 0}
 
 
 def reset_launches() -> None:

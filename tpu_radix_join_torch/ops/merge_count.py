@@ -16,6 +16,12 @@ paths.  Three disciplines, each one sort (K2) and one scan:
     hi lane.
   * wide (``merge_count_wide_per_partition``): 64-bit keys as (lo, hi)
     lanes; K5 over (lo rotated, hi, side).
+  * chunked (``merge_count_chunks``, ``merge_count_pallas``): the narrow
+    packing at fanout 0, scanned by K6 into uint32 partial sums over
+    windows of positions (the out-of-core grid's count).
+
+The grid's pipelined engine also counts against an inner lane sorted once
+(``presort_keys``, K2) by binary search (``merge_count_presorted``).
 
 Every outer tuple weighs the number of inner tuples with its key.  The JAX
 package sorts the side tag as the last key; here it rides as a value: K2
@@ -27,8 +33,11 @@ from __future__ import annotations
 
 import torch
 
+from tpu_radix_join_torch.data.tuples import narrow
 from tpu_radix_join_torch.ops.kernels.merge_scan import (  # noqa: F401
     _run_weights, _weights, merge_scan_partitions)
+from tpu_radix_join_torch.ops.kernels.merge_scan_chunks import (
+    TILE, merge_scan_chunks)
 from tpu_radix_join_torch.ops.kernels.merge_scan_wide import (
     merge_scan_partitions_wide)
 from tpu_radix_join_torch.ops.sorting import sort_lex_unstable, sort_unstable
@@ -63,6 +72,86 @@ def _pack_pm(r_keys: torch.Tensor, s_keys: torch.Tensor,
 
     return torch.cat([pm(r_keys, _R_PACK_PAD >> 1, 0),
                       pm(s_keys, _S_PACK_PAD >> 1, 1)])
+
+
+def _pack(r_keys: torch.Tensor, s_keys: torch.Tensor) -> torch.Tensor:
+    """The packing ``key << 1 | side`` of both key lanes: the partition-major
+    packing at fanout 0."""
+    return _pack_pm(r_keys, s_keys, 0)
+
+
+def presort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Sort a raw key lane once (K2) for reuse across many probes: the inner
+    side of :func:`merge_count_presorted`.  No packing and no side tag, so
+    every key below the pads joins, with no ``MAX_MERGE_KEY`` ceiling."""
+    return sort_unstable(keys)
+
+
+def presorted_weights(r_sorted: torch.Tensor, s_keys: torch.Tensor
+                      ) -> torch.Tensor:
+    """Each outer key's match weight, ``upper_bound - lower_bound`` over an
+    already sorted inner lane (:func:`presort_keys`): an int32 tensor of
+    ``s_keys``' shape.  The lanes hold uint32 bits and K2 sorts them
+    unsigned, while ``torch.searchsorted`` compares int32 signed: flipping
+    bit 31 of both sides makes the signed order the unsigned one, so keys
+    >= 2**31 are found."""
+    flip = -(1 << 31)
+    r_flipped = torch.bitwise_xor(r_sorted, flip)
+    s_flipped = torch.bitwise_xor(s_keys, flip)
+    lb = torch.searchsorted(r_flipped, s_flipped, out_int32=True)
+    ub = torch.searchsorted(r_flipped, s_flipped, right=True, out_int32=True)
+    return ub - lb
+
+
+def merge_count_presorted(r_sorted: torch.Tensor, s_keys: torch.Tensor,
+                          return_max_weight: bool = False):
+    """Duplicate-aware match count of ``s_keys`` against an already sorted
+    inner lane: the uint32 total as a 0-d int32 (it wraps unless
+    ``max_weight * len(s_keys) < 2**32``, the grid's window guard);
+    ``return_max_weight`` also returns the largest single weight.  The
+    caller keeps real keys below the pads, so an outer pad never meets an
+    inner key."""
+    weight = presorted_weights(r_sorted, s_keys)
+    total = narrow(weight.sum())
+    if return_max_weight:
+        maxw = weight.max() if weight.numel() else weight.new_zeros(())
+        return total, maxw
+    return total
+
+
+def merge_count_chunks(r_keys: torch.Tensor, s_keys: torch.Tensor,
+                       num_chunks: int = 4096,
+                       return_max_weight: bool = False):
+    """Match count as ``num_chunks`` uint32 partial sums over equal windows
+    of positions of the sorted packed union (an int32 lane; the caller sums
+    them in uint64): K2, then K6 at width ``ceil(n / num_chunks)``, the
+    windows past the union's end zero.  Each partial is exact while every
+    window's weights stay below 2**32, which holds when the largest inner
+    multiplicity times the window width does; ``return_max_weight`` also
+    returns that multiplicity (0-d int32 of uint32 bits) so the caller can
+    check it (``ops/chunked.chunked_join_count``).  Keys above
+    ``MAX_MERGE_KEY`` pack to the pads and count nothing: the callers flag
+    them."""
+    packed = sort_unstable(_pack(r_keys, s_keys))
+    c = max(1, num_chunks)
+    counts, maxw = merge_scan_chunks(packed,
+                                     width=max(1, -(-packed.numel() // c)))
+    if counts.numel() < c:
+        counts = torch.cat([counts, counts.new_zeros(c - counts.numel())])
+    if return_max_weight:
+        return counts, maxw
+    return counts
+
+
+def merge_count_pallas(r_keys: torch.Tensor, s_keys: torch.Tensor
+                       ) -> torch.Tensor:
+    """The JAX package's fused count under its name: K2 on the packed union,
+    then K6 at the TPU tile width, so the uint32 per-tile partial counts
+    equal the TPU kernel's (an int32 lane [ceil(n / TILE)]; host uint64
+    sum).  The TPU path padded the union to a tile multiple with the S pad
+    before the sort; the pads sort last and weigh 0, so no pad is needed."""
+    return merge_scan_chunks(sort_unstable(_pack(r_keys, s_keys)),
+                             width=TILE)[0]
 
 
 def merge_count_per_partition(r_keys: torch.Tensor, s_keys: torch.Tensor,

@@ -36,8 +36,8 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
 
     ``sort_impl`` and ``partition_impl`` pick among implementations of the
     same kernel, and the port has one of each, so they map to "auto".
-    ``chunk_size`` (the out-of-core probe) is not ported; an unknown field
-    raises."""
+    ``chunk_size`` (the chunked probe after a multi-rank shuffle) is not
+    ported; an unknown field raises."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
@@ -47,7 +47,7 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
             if value is not None:
                 raise NotImplementedError(
                     "chunk_size is not ported to PyTorch yet "
-                    "(ROADMAP.md A14)")
+                    "(ROADMAP.md A7)")
             continue
         if name in own:
             kw[name] = value

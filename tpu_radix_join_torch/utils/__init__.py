@@ -1,1 +1,1 @@
-"""Integer helpers shared by the generators."""
+"""Integer helpers of the generators and the grid's coordination files."""
