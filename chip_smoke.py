@@ -9,6 +9,13 @@ main path's shapes and at adversarial small shapes), times it beside its
 plain version, its memory bound and the nearest single PyTorch call, then
 drives the paths below and checks their answers, their counters and that
 each kernel launched (the counts are reset before each group of paths).
+K2, the onesweep radix sort, is also held at tile edges, on lanes whose
+keys share one digit, with 1-4 lanes, under key bounds of 1 and 2 passes,
+at the row sort's 64 x 65536 shape and past 2**30 keys (2**30 + 4097, its
+order, stability and permutation checked without the plain version); its
+histogram table against a per-pass ``bincount``; and it is timed at five
+main-path shapes: (a)'s union, (h)'s, (d)'s row sort, (k)'s slab and (j)'s
+presort.  Its histogram launches, one a sort, count as ``radix_histogram``.
 The sort probe — ``HashJoin(JoinConfig()).join(inner, outer)``:
 
   (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
@@ -204,6 +211,106 @@ def main() -> int:
             errs.append(exact(k2.radix_pass_slots(x, shift=shift),
                               k2.radix_pass_slots_plain(x, shift),
                               f"radix pass shift {shift}, {name}"))
+    # the onesweep pass's edges: tile boundaries, look-back chains through
+    # tiles that count zero for every digit but one, 1-4 lanes, key bounds
+    # that leave 1 and 2 passes, and the row sort's three-lane shape
+    tile = k2.TILE_KEYS
+
+    def sort_case(name, lanes, num_keys=1, key_bounds=None):
+        got = k2.radix_sort(lanes, num_keys=num_keys, key_bounds=key_bounds)
+        ref = k2.radix_sort_plain(lanes, num_keys, key_bounds)
+        return [exact(g, r, f"radix sort lane {i}, {name}")
+                for i, (g, r) in enumerate(zip(got, ref))]
+
+    one_digit = {
+        "all_equal_1000003": narrow(torch.full((1000003,), 0x5A5A5A5A,
+                                               dtype=torch.int64)).to(dev),
+        "low_digit_equal_1000003": narrow(
+            (torch.randint(0, 1 << 24, (1000003,), generator=gen) << 8)
+            | 0x5A).to(dev),
+    }
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 17):
+        x = rand_lane(n)
+        errs += sort_case(f"n {n}", [x, narrow(torch.arange(n)).to(dev)])
+        for shift in (0, 24):
+            errs.append(exact(k2.radix_pass_slots(x, shift=shift),
+                              k2.radix_pass_slots_plain(x, shift),
+                              f"radix pass shift {shift}, n {n}"))
+    for name, x in one_digit.items():
+        errs += sort_case(name, [x, narrow(torch.arange(x.numel())).to(dev)])
+        errs.append(exact(k2.radix_pass_slots(x, shift=0),
+                          k2.radix_pass_slots_plain(x, 0),
+                          f"radix pass shift 0, {name}"))
+    lanes4 = [rand_lane(1000003) for _ in range(4)]
+    for k in (1, 2, 3, 4):
+        errs += sort_case(f"{k} lanes", lanes4[:k])
+    errs += sort_case("two keys, 4 lanes", lanes4, num_keys=2)
+    for bound in (256, 1 << 16):
+        errs += sort_case(f"key bound {bound}",
+                          [rand_lane(1000003, hi=bound), lanes4[1]],
+                          key_bounds=(bound,))
+    rows_n, width_n = 64, 65536
+    row = torch.arange(rows_n, dtype=torch.int32,
+                       device=dev).repeat_interleave(width_n)
+    errs += sort_case("row sort 64 x 65536",
+                      [row, rand_lane(rows_n * width_n),
+                       rand_lane(rows_n * width_n, hi=2)],
+                      num_keys=2, key_bounds=(rows_n, None))
+    del one_digit, lanes4, row
+
+    # the histogram kernel's table against a plain per-pass bincount, at
+    # (a)'s packed union and (h)'s two key lanes (lo rotated, hi)
+    def wide_union(r, s, f):
+        lanes = [torch.cat([_rotate_pid(r.key, f), _rotate_pid(s.key, f)])]
+        if r.key_hi is not None:
+            lanes.append(torch.cat([r.key_hi, s.key_hi]))
+        return lanes + [_side_tags(r.key, s.key)]
+
+    rel_h = (Relation(n_main, 1, "unique", seed=1234, key_bits=64),
+             Relation(n_main, 1, "unique", seed=1235, key_bits=64))
+    union_h = wide_union(*(rel.generate(dev) for rel in rel_h), fanout)
+    hist_checks = [exact(k2.radix_histograms([union]),
+                         k2.radix_histograms_plain([union]),
+                         "radix histograms @ (a)'s union"),
+                   exact(k2.radix_histograms(union_h[:2]),
+                         k2.radix_histograms_plain(union_h[:2]),
+                         "radix histograms @ (h)'s union")]
+    errs += hist_checks
+
+    # past 2**30: n = 2**30 + 4097 keys, all but 2048 of one value, so a
+    # digit of every pass holds more than 2**30 keys; the input index rides.
+    # Held without the plain version: keys non-decreasing, indices rising
+    # within equal keys, indices a permutation, and each key its index's.
+    def huge_check():
+        n = (1 << 30) + 4097
+        keys = torch.full((n,), 0x2A2A2A2A, dtype=torch.int32, device=dev)
+        at = torch.arange(2048, device=dev, dtype=torch.int64) * (n // 2048)
+        keys[at] = rand_lane(2048)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        out_k, out_i = k2.radix_sort([keys, idx])
+        del idx
+        f = torch.bitwise_xor(out_k, -(1 << 31))
+        ok = [bool((f[1:] >= f[:-1]).all())]
+        eq = out_k[1:] == out_k[:-1]
+        ok.append(bool(((out_i[1:] > out_i[:-1]) | ~eq).all()))
+        del f, eq
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        same = True
+        for c in range(0, n, 1 << 28):
+            i = out_i[c:c + (1 << 28)].to(torch.int64)
+            seen[i] = True
+            same &= bool(torch.equal(keys[i], out_k[c:c + (1 << 28)]))
+        ok += [bool(seen.all()), same]
+        if not all(ok):
+            raise AssertionError(f"radix sort of {n} keys: sorted, stable, "
+                                 f"permutation, keys ride: {ok}")
+        return {"elements": n, "largest_digit_count": n - 2048,
+                "checks": len(ok)}
+
+    huge = huge_check()
+    errs += [0] * huge["checks"]
+    torch.cuda.empty_cache()
+
     m = union.numel()
     flipped = torch.bitwise_xor(union, -(1 << 31))   # uint32 order as int32
     results["radix_sort"] = {
@@ -213,8 +320,39 @@ def main() -> int:
         "bound_ms": 8 * m / hbm_bytes_per_s * 1e3,
         "library_ms": time_ms(lambda: torch.sort(flipped)),
     }
+    k2_shapes = {}
+
+    def k2_shape(name, lanes, num_keys=1, key_bounds=None, ms=None):
+        """K2's time at one main-path shape beside its bound (each lane
+        read and written once), its pass floor (that, every pass) and,
+        for one lane, torch.sort of the same keys."""
+        n, k = lanes[0].numel(), len(lanes)
+        passes = len(k2.pass_plan(num_keys, key_bounds))
+        if ms is None:
+            ms = time_ms(lambda: k2.radix_sort(lanes, num_keys=num_keys,
+                                               key_bounds=key_bounds))
+        lib = None
+        if k == 1:
+            signed = torch.bitwise_xor(lanes[0], -(1 << 31))
+            lib = time_ms(lambda: torch.sort(signed))
+            del signed
+        k2_shapes[name] = {
+            "elements": n, "lanes": k, "passes": passes, "ms": ms,
+            "bound_ms": k * 8 * n / hbm_bytes_per_s * 1e3,
+            "pass_floor_ms": passes * k * 8 * n / hbm_bytes_per_s * 1e3,
+            "library_ms": lib}
+
+    k2_shape("a_packed_union", [union], ms=results["radix_sort"]["ms"])
+    k2_shape("h_wide_union", union_h, num_keys=2)
     emit({"phase": "kernel", "kernel": "radix_sort", "elements": m,
-          "checks": len(errs), **results["radix_sort"]})
+          "checks": len(errs), "histogram_checks": len(hist_checks),
+          "histogram_ms": time_ms(lambda: k2.radix_histograms([union])),
+          "past_2p30": huge, "tile_keys": tile,
+          "lookback_bytes": {
+              "a": 8 * k2.scratch_layout(m, 4).lookback_words,
+              "past_2p30": 8 * k2.scratch_layout(huge["elements"],
+                                                 4).lookback_words},
+          **results["radix_sort"]})
 
     # ---------------------------------------------------------- K3 probe
     errs = []
@@ -392,18 +530,9 @@ def main() -> int:
         b = rel.generate(where)
         return TupleBatch(key=torch.bitwise_xor(b.key, -(1 << 31)), rid=b.rid)
 
-    def wide_union(r, s, f):
-        lanes = [torch.cat([_rotate_pid(r.key, f), _rotate_pid(s.key, f)])]
-        if r.key_hi is not None:
-            lanes.append(torch.cat([r.key_hi, s.key_hi]))
-        return lanes + [_side_tags(r.key, s.key)]
-
-    rel_h = (Relation(n_main, 1, "unique", seed=1234, key_bits=64),
-             Relation(n_main, 1, "unique", seed=1235, key_bits=64))
     rel_g = (Relation(n_main, 1, "unique", seed=1234),
              Relation(n_main, 1, "zipf", seed=1235, zipf_theta=0.75,
                       key_domain=n_main))
-    union_h = wide_union(*(rel.generate(dev) for rel in rel_h), fanout)
     union_g = wide_union(*(flipped(rel) for rel in rel_g), fanout)
     # K2 on the wide sort's shape, once: the plain version takes seconds
     errs = []
@@ -413,7 +542,7 @@ def main() -> int:
         errs.append(exact(g, r, f"radix sort lane {i}, (h)'s wide union"))
     sorted_g = k2.radix_sort(union_g, num_keys=1)
     m5 = sorted_h[0].numel()
-    k2_wide_ms = time_ms(lambda: k2.radix_sort(union_h, num_keys=2))
+    k2_wide_ms = k2_shapes["h_wide_union"]["ms"]
     del union_h, union_g
 
     def wide_case(name, lo_rot, hi, tag, f):
@@ -666,7 +795,8 @@ def main() -> int:
     kernels.reset_launches()
     for name, inner_rel, outer_rel, expected, extra in workloads:
         drive(engine, name, lambda: engine.join(inner_rel, outer_rel),
-              expected, ("radix_pass", "merge_scan", *extra))
+              expected, ("radix_histogram", "radix_pass", "merge_scan",
+                         *extra))
     launches = kernels.launch_counts()
 
     # the partitioned join: (d), (e), (f).  (e) needs four retries: the
@@ -698,11 +828,12 @@ def main() -> int:
     for name, cfg, inner_rel, outer_rel, expected, retries in partitioned:
         eng = HashJoin(cfg)
         drive(eng, name, lambda: eng.join(inner_rel, outer_rel), expected,
-              ("histogram", "partition", "radix_pass"), retries)
+              ("histogram", "partition", "radix_histogram", "radix_pass"),
+              retries)
     eng = HashJoin(cfg_b)
     drive(eng, "bucket_full_range_2p24",
           lambda: eng.join_arrays(r_full, s_full), full_oracle,
-          ("histogram", "partition", "radix_pass"))
+          ("histogram", "partition", "radix_histogram", "radix_pass"))
     launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
     del r_full, s_full
 
@@ -717,13 +848,14 @@ def main() -> int:
     kernels.reset_launches()
     before = kernels.launch_counts()
     drive(eng_g, "full_range_zipf_20M", lambda: eng_g.join_arrays(r_g, s_g),
-          n_main, ("radix_pass", "merge_scan_wide"))
+          n_main, ("radix_histogram", "radix_pass", "merge_scan_wide"))
     if kernels.launch_counts()["merge_scan"] != before["merge_scan"]:
         raise AssertionError("full_range_zipf_20M: the narrow probe ran")
     drive(eng_h, "wide_unique_20M", lambda: eng_h.join(*rel_h), n_main,
-          ("radix_pass", "merge_scan_wide"))
+          ("radix_histogram", "radix_pass", "merge_scan_wide"))
     drive(eng_i, "bucket_wide_unique_20M", lambda: eng_i.join(*rel_h),
-          n_main, ("histogram", "partition", "radix_pass"))
+          n_main, ("histogram", "partition", "radix_histogram",
+                   "radix_pass"))
     launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
 
     # the out-of-core grid: (j), (k), (l), (m).  A small grid on the card
@@ -810,13 +942,14 @@ def main() -> int:
     ms_grid["j"] = grid_cell(
         "j_pipelined_unique_grid", grid_run(rel_j, chunk_j, "auto"), n_j,
         {"GRIDPAIRS": rows_j * rows_j, "SORTREUSE": rows_j * (rows_j - 1)},
-        {"radix_pass": 4 * rows_j, "merge_scan_chunks": 0, "merge_scan": 0},
+        {"radix_histogram": rows_j, "radix_pass": 4 * rows_j,
+         "merge_scan_chunks": 0, "merge_scan": 0},
         2 * n_j)
     ms_grid["k"] = grid_cell(
         "k_sync_unique_2p26", grid_run(grid_k, chunk_k, "off", slab_size),
         n_k, {"GRIDPAIRS": pairs_k, "SORTREUSE": 0},
-        {"merge_scan_chunks": slabs_k, "radix_pass": 4 * slabs_k,
-         "merge_scan": 0}, 2 * n_k)
+        {"merge_scan_chunks": slabs_k, "radix_histogram": slabs_k,
+         "radix_pass": 4 * slabs_k, "merge_scan": 0}, 2 * n_k)
     ms_grid["k_modulo"] = grid_cell(
         "k_sync_modulo_inner_2p26",
         grid_run(rel_km, chunk_k, "off", slab_size), n_k,
@@ -837,13 +970,15 @@ def main() -> int:
     ms_grid["l"] = grid_cell(
         "l_fallback_chunked_zipf_20M", run_l, n_main, {},
         {"merge_scan_chunks": slabs_l, "histogram": None, "partition": 4,
-         "radix_pass": None, "merge_scan": 0}, 2 * n_main)
+         "radix_histogram": None, "radix_pass": None, "merge_scan": 0},
+        2 * n_main)
     ms_grid["m"] = grid_cell(
         "m_pipelined_wide_unique_2p24",
         grid_run(rel_m, chunk_m, "auto"), oracle_m,
         {"GRIDPAIRS": pairs_m, "SORTREUSE": 0},
-        {"merge_scan_wide": slabs_m, "radix_pass": 8 * slabs_m,
-         "merge_scan_chunks": 0, "merge_scan": 0}, 2 * n_m)
+        {"merge_scan_wide": slabs_m, "radix_histogram": slabs_m,
+         "radix_pass": 8 * slabs_m, "merge_scan_chunks": 0,
+         "merge_scan": 0}, 2 * n_m)
     if oracle_m != n_m:
         raise AssertionError(f"(m)'s uint64 oracle is {oracle_m}")
     launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
@@ -866,6 +1001,7 @@ def main() -> int:
         "readback": lambda: chunked._resolve(*probe_j),
     }
     stage_ms = {k: time_ms(f, reps=5) for k, f in stages.items()}
+    k2_shape("j_presort", [r_j.key], ms=stage_ms["presort"])
     counts = {"generation": rows_j + rows_j * rows_j, "presort": rows_j,
               "probe": rows_j * rows_j, "bound": rows_j + rows_j * rows_j,
               "readback": rows_j * rows_j}
@@ -889,6 +1025,7 @@ def main() -> int:
         "readback": lambda: chunked._resolve(*per_pair),
     }
     stage_ms = {k: time_ms(f, reps=5) for k, f in stages.items()}
+    k2_shape("k_slab_union", [packed_k], ms=stage_ms["slab_sort"])
     rows_k = n_k // chunk_k
     counts = {"generation": rows_k + pairs_k, "pack": slabs_k,
               "slab_sort": slabs_k, "merge_scan_chunks": slabs_k,
@@ -986,7 +1123,19 @@ def main() -> int:
           "stage_ms": {k: time_ms(f) for k, f in stages.items()},
           "row_sort_elements": sorted_rows[0].numel(),
           "caps": [cap_r, cap_s, lcap_r, lcap_s], "join_ms": ms, **card})
-    del r, s, plan, rp, sp, lr, ls, rows, sorted_rows
+    del sorted_rows
+    # K2 alone at the row sort's lanes, as sort_lex_rows_unstable gives
+    # them: (row, key, tag), the row index a one-pass key
+    nb_d = rows[0].shape[0]
+    width_d = rows[0].shape[1] + rows[1].shape[1]
+    k2_shape("d_row_sort",
+             [torch.arange(nb_d, dtype=torch.int32,
+                           device=dev).repeat_interleave(width_d),
+              torch.cat(rows, dim=1).reshape(-1),
+              torch.cat([torch.zeros_like(rows[0]), torch.ones_like(rows[1])],
+                        dim=1).reshape(-1)],
+             num_keys=2, key_bounds=(nb_d, None))
+    del r, s, plan, rp, sp, lr, ls, rows
 
     # (g), (h), (i): join time; (h)'s stages alone
     ms = join_ms(eng_g, r_g, s_g)
@@ -1037,6 +1186,10 @@ def main() -> int:
                               "tpu_radix_join/ops/pallas/merge_scan.py:356",
                               "merge_scan_chunks"),
     }
+    emit({"phase": "kernel_shapes", "kernel": "radix_sort",
+          "shapes": k2_shapes, **card})
+    results["radix_sort"]["shapes"] = k2_shapes
+    results["radix_sort"]["histogram_launches"] = launches["radix_histogram"]
     table = []
     for name, (src, replaces, counter) in sources.items():
         r = results[name]
@@ -1044,7 +1197,9 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[counter],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": "bytes", "library_ms": r["library_ms"]})
+                     "bound_by": "bytes", "library_ms": r["library_ms"],
+                     **{k: r[k] for k in ("shapes", "histogram_launches")
+                        if k in r}})
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

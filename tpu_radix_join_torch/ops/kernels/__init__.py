@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 #: launches on the card per wrapper since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_pass": 0, "merge_scan": 0,
+LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_histogram": 0,
+                             "radix_pass": 0, "merge_scan": 0,
                              "partition": 0, "merge_scan_wide": 0,
                              "merge_scan_chunks": 0}
 
