@@ -16,6 +16,15 @@ order, stability and permutation checked without the plain version); its
 histogram table against a per-pass ``bincount``; and it is timed at five
 main-path shapes: (a)'s union, (h)'s, (d)'s row sort, (k)'s slab and (j)'s
 presort.  Its histogram launches, one a sort, count as ``radix_histogram``.
+K4, the onesweep grouping pass (a histogram and a onesweep launch a call),
+is also held with every id in one group, at capacity 1 and with every id
+invalid at the local-partition shape, at tile edges, and in slots mode
+past 2**31 ids (2**31 + 4097, held without the plain version: its
+histogram and every slot).  K6, the single-pass per-window scan, is also
+held at its tile counter's edges, at widths under a thread's items and on
+one key's run over five tiles.  The run prints the ``-Xptxas -v``
+registers, shared memory and spills of K4's and K6's kernels, and their
+device time by kernel under ``torch.profiler`` beside the event times.
 The sort probe — ``HashJoin(JoinConfig()).join(inner, outer)``:
 
   (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
@@ -71,14 +80,34 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 
 #: tuples of each relation of cell (j): 8 x 8 chunks of 2**27
 GRID_J_TUPLES = 1 << 30
 
 
+#: the sources whose registers, shared memory and spills the run prints
+PTXAS_SOURCES = ("partition", "merge_scan_chunks")
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_summary(log: str) -> dict:
+    """``-Xptxas -v``'s registers, shared memory and spills per kernel."""
+    names = {"chunks_kernel": "chunks_kernel",
+             "onesweep_kernelILb1": "onesweep_kernel<slots>",
+             "onesweep_kernelILb0": "onesweep_kernel<moving>",
+             "histogram_kernel": "histogram_kernel"}
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((v for k, v in names.items() if k in line), line)
+        elif name and ("Used" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":")[-1].strip())
+    return out
 
 
 def main() -> int:
@@ -128,9 +157,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.build()
+    with ThreadPoolExecutor(1) as pool:   # every nvcc starts at once
+        verbose = pool.submit(_build.build, PTXAS_SOURCES, True)
+        _build.build()
+        ptxas_logs = verbose.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(_build.SOURCES)})
+    emit({"phase": "ptxas", "kernels": {
+        name: ptxas_summary(log) for name, log in ptxas_logs.items()}})
 
     hbm_bytes_per_s = 3.35e12        # H100 SXM, NVIDIA data sheet
     gen = torch.Generator(device="cpu").manual_seed(20240601)
@@ -164,6 +198,24 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(stop))
         return statistics.median(times)
+
+    def device_us(fn, reps=10) -> dict:
+        """Device time a call, by kernel (torch.profiler's CUDA activity):
+        what the event times of ``time_ms`` hold besides the host's gaps."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or 0
+            if us > 0:
+                name = e.key.replace("(anonymous namespace)::", "")
+                out[name.replace("void ", "").split("(")[0][:40]] = us / reps
+        return out
 
     # ---------------------------------------------------- main-path inputs
     n_main = 20_000_000
@@ -496,6 +548,21 @@ def main() -> int:
         for cap in (None, 1000, 60000):
             errs += k4_case(f"{name}, capacity {cap}", ids, lanes, 256, 1,
                             cap)
+    # the onesweep pass's edges at the local shape: every id in one group
+    # (one look-back chain, a run of 2**25), capacity 1 (all but 32 clipped)
+    # and dense mode with every id invalid, so the pads fill every slot
+    rx_lanes = [rx_key, rx_rid]
+    errs += k4_case("one group @ local shape", torch.zeros_like(loc_ids),
+                    rx_lanes, n_buckets, 1, lcap)
+    errs += k4_case("capacity 1 @ local shape", loc_ids, rx_lanes, n_buckets,
+                    1, 1)
+    errs += k4_case("all invalid, dense @ local shape",
+                    torch.full_like(loc_ids, n_buckets), rx_lanes, n_buckets,
+                    1, None)
+    for n in (k4.TILE_IDS - 1, k4.TILE_IDS, k4.TILE_IDS + 1):
+        lanes = [rand_lane(n) for _ in range(2)]
+        errs += k4_case(f"{n} ids, 32 groups", rand_lane(n, hi=33), lanes,
+                        32, 1, n // 40 + 1)
     ids, lanes, groups, gsize, cap = k4_shapes["local"]
     m4, out4 = ids.numel(), k4.out_size(ids.numel(), groups, gsize, cap)
     ex_ms = time_ms(lambda: k4.partition_scatter(
@@ -512,15 +579,64 @@ def main() -> int:
         / hbm_bytes_per_s * 1e3,
         "library_ms": time_ms(lambda: torch.argsort(ids, stable=True)),
     }
-    emit({"phase": "kernel", "kernel": "partition", "elements": m4,
-          "out_slots": out4, "checks": len(errs),
-          "exchange_shape": {
-              "elements": n_main, "out_slots": cap_x, "ms": ex_ms,
-              "bound_ms": (4 * n_main + 2 * 4 * n_main + 2 * 4 * cap_x + 4)
-              / hbm_bytes_per_s * 1e3},
-          **results["partition"]})
-    del (r_main, s_main, ex_ids, rx_key, rx_rid, received, loc_ids,
+    exchange_shape = {
+        "elements": n_main, "out_slots": cap_x, "ms": ex_ms,
+        "bound_ms": (4 * n_main + 2 * 4 * n_main + 2 * 4 * cap_x + 4)
+        / hbm_bytes_per_s * 1e3,
+        "library_ms": time_ms(lambda: torch.argsort(ex_ids, stable=True)),
+        "device_us": device_us(lambda: k4.partition_scatter(
+            ex_ids, [r_main.key, r_main.rid], fills, num_groups=1,
+            capacity=cap_x))}
+    local_device_us = device_us(lambda: k4.partition_scatter(
+        ids, lanes, fills, num_groups=groups, capacity=cap))
+    del (r_main, s_main, ex_ids, rx_key, rx_rid, rx_lanes, received, loc_ids,
          k4_shapes, ids, lanes)
+    torch.cuda.empty_cache()
+
+    # past 2**31 ids in slots mode: 2**31 + 4097 ids, all but 2048 in group
+    # 0, so group 0's look-back counts pass 2**31.  Held without the plain
+    # version: the histogram, group 0's slots (each position less the
+    # others before it) and the others' slots (their group's start plus
+    # their rank), in chunks.
+    def k4_huge_check():
+        n = (1 << 31) + 4097
+        ids = torch.zeros(n, dtype=torch.int32, device=dev)
+        at = torch.arange(2048, device=dev, dtype=torch.int64) * (n // 2048) + 3
+        g_at = torch.randint(1, 4, (2048,), generator=gen)
+        ids[at] = g_at.to(dev).to(torch.int32)
+        slots, hist = k4.partition_slots(ids, num_groups=4)
+        want_hist = torch.bincount(g_at, minlength=4)
+        want_hist[0] = n - 2048
+        ok = [bool(torch.equal(widen(hist).cpu(), want_hist))]
+        zeros_ok = True
+        for c in range(0, n, 1 << 28):
+            i = torch.arange(c, min(n, c + (1 << 28)), device=dev)
+            zero = ids[c:c + (1 << 28)] == 0
+            zeros_ok &= bool(torch.equal(widen(slots[c:c + (1 << 28)])[zero],
+                                         (i - torch.searchsorted(at, i))[zero]))
+            del i, zero
+        ok.append(zeros_ok)
+        start = torch.cumsum(want_hist, 0) - want_hist
+        want_at = torch.empty(2048, dtype=torch.int64)
+        for g in range(1, 4):
+            sel = (g_at == g).nonzero().flatten()
+            want_at[sel] = start[g] + torch.arange(sel.numel())
+        ok.append(bool(torch.equal(widen(slots[at]).cpu(), want_at)))
+        if not all(ok):
+            raise AssertionError(f"partition slots of {n} ids: hist, group "
+                                 f"0's slots, the others' slots: {ok}")
+        return {"elements": n, "largest_group": n - 2048, "checks": len(ok)}
+
+    huge4 = k4_huge_check()
+    errs += [0] * huge4["checks"]
+    torch.cuda.empty_cache()
+    results["partition"]["max_abs_err"] = max(errs)
+    emit({"phase": "kernel", "kernel": "partition", "elements": m4,
+          "out_slots": out4, "checks": len(errs), "past_2p31": huge4,
+          "scratch_bytes": {"local": k4.scratch_layout(m4, groups).bytes,
+                            "exchange": k4.scratch_layout(n_main, 1).bytes},
+          "exchange_shape": exchange_shape, "device_us": local_device_us,
+          **results["partition"]})
 
     # ------------------------------------------------------ K5 wide probe
     # its two main-path shapes: (h)'s sorted 40M three-lane union (lo
@@ -687,6 +803,20 @@ def main() -> int:
             errs += k6_case(f"random {packed.numel()}, width {w}", packed, w)
     dup = sorted_pack(rand_lane(500003, hi=97), rand_lane(500003, hi=97))
     errs += k6_case("duplicate heavy, width 977", dup, 977)
+    # the single pass's edges: lengths at the tile counter's (a tile of
+    # SCAN_TILE positions, 39 a thread), widths under a thread's items, and
+    # one key's run over more than three tiles
+    scan_tile = k6.SCAN_TILE
+    for n in (scan_tile - 1, scan_tile, scan_tile + 1):
+        packed = sorted_pack(rand_lane(n // 2, hi=1 << 12),
+                             rand_lane(n - n // 2, hi=1 << 12))
+        for w in (1, 7, 38, 39, 977, scan_tile - 1, scan_tile,
+                  scan_tile + 1):
+            errs += k6_case(f"{n} positions, width {w}", packed, w)
+    key9 = narrow(torch.full((4 * scan_tile,), 9, dtype=torch.int64)).to(dev)
+    run4 = sorted_pack(key9, key9[:scan_tile + 5])
+    for w in (1, 38, 4099, scan_tile, 33792):
+        errs += k6_case(f"one run over 5 tiles, width {w}", run4, w)
     results["merge_scan_chunks"] = {
         "max_abs_err": max(errs),
         "ms": time_ms(lambda: k6.merge_scan_chunks(slab_k, width=w_k)),
@@ -698,7 +828,10 @@ def main() -> int:
     }
     m_a = union_a.numel()
     emit({"phase": "kernel", "kernel": "merge_scan_chunks", "elements": m_k,
-          "width": w_k, "checks": len(errs),
+          "width": w_k, "checks": len(errs), "scan_tile": scan_tile,
+          "scratch_bytes": k6.scratch_layout(m_k, w_k).bytes,
+          "device_us": device_us(lambda: k6.merge_scan_chunks(slab_k,
+                                                              width=w_k)),
           "modulo_inner_max_weight": maxw_km,
           "fallback_shape": {"elements": slab_l.numel(), "width": w_l},
           "tile_shape": {
@@ -709,7 +842,7 @@ def main() -> int:
               / hbm_bytes_per_s * 1e3},
           **results["merge_scan_chunks"]})
     del slab_k, slab_km, slab_l, union_a, spanning, r_run, dup, key7, key42
-    del pads
+    del pads, run4, key9, packed
 
     # ---------------------------------------------------------- main path
     def cpu_agrees(cfg, inner_rel, outer_rel, flip=False):

@@ -125,7 +125,8 @@ def test_raw_arrays_probe_the_key_range():
 @pytest.mark.parametrize("field,value,item", [
     ("num_nodes", 4, "A7"), ("exchange_codec", "pack", "A13"),
     ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
-    ("chunk_size", 1024, "A7"),
+    ("chunk_size", 1024, "A7"), ("debug_checks", True, "A7"),
+    ("network_fanout_bits", 8, "A19"), ("local_fanout_bits", 9, "A19"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
     jcfg = jx.JoinConfig()

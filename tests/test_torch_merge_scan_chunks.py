@@ -7,6 +7,7 @@ Every comparison is exact."""
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -244,3 +245,204 @@ def test_presorted_count_equals_jax(case):
     assert int(want_t) == host_join_count(r, s) % (1 << 32)
     assert int(lane_to_numpy(tmc.merge_count_presorted(
         r_sorted, lane_from_numpy(s, "cpu")).reshape(1))[0]) == int(want_t)
+
+
+# ------------------------------------------- the single-pass carry of K6
+# The card's K6 is one launch: a tile's summary (R, B), its look-back word,
+# and the composition of every tile before it in tile order.  These hold that
+# arithmetic: a plain emulation of the tiles, the threads inside a tile and
+# the warp look-back (32 words a round, the nearest inclusive word ending the
+# walk, some tiles leaving only their aggregate) against the plain weights
+# and the interpreted TPU kernel.  The carry and its word as
+# csrc/merge_scan_lookback.cuh computes them:
+CARRY_IDENTITY = (0, -1)
+AGGREGATE, INCLUSIVE = 1, 2
+_FIELD = (1 << 31) - 1
+
+
+def _compose(a, b):
+    """``a`` then ``b`` in position order: (R1 + R2, max(B1, R1 + B2)),
+    -1 for "no run starts here"."""
+    return (a[0] + b[0], max(a[1], a[0] + b[1] if b[1] >= 0 else -1))
+
+
+def _status_word(flag, carry):
+    """The 64-bit look-back word: flag in bits 62-63, R in 31-61, B + 1 in
+    0-30 (kFlagShift, kRShift, kField)."""
+    r, b = carry
+    if not (0 <= r <= _FIELD and -1 <= b < _FIELD and flag in (1, 2)):
+        raise ValueError(f"no status word holds ({flag}, {r}, {b})")
+    return (flag << 62) | (r << 31) | (b + 1)
+
+
+def _status_fields(word):
+    return word >> 62, ((word >> 31) & _FIELD, (word & _FIELD) - 1)
+
+
+def _summary(packed, prev_key):
+    """(R, B) of a run of positions: its R count and the R count before its
+    last run start (-1 when none starts there)."""
+    keys = packed >> 1
+    is_r = 1 - (packed & 1).astype(np.int64)
+    prev = np.concatenate([[prev_key], keys[:-1]])
+    starts = np.flatnonzero(keys != prev)
+    before = np.cumsum(is_r) - is_r
+    return int(is_r.sum()), int(before[starts[-1]]) if len(starts) else -1
+
+
+def _emulate_chunks(packed, width, tile, items=39, inclusive_p=0.5, seed=0):
+    """K6 as the kernel computes it: per-thread summaries composed into the
+    tile's, published as look-back words; each tile composes its
+    predecessors' words in tile order, 32 at a time back to the nearest
+    inclusive one, then weighs its positions from the carried state."""
+    rng = np.random.default_rng(seed)
+    m = len(packed)
+    keys = packed.astype(np.int64) >> 1
+    words = []                       # what each tile left in its slot
+    sums = np.zeros(-(-m // width), np.uint64)
+    maxw = 0
+    for t in range(-(-m // tile)):
+        lo, hi = t * tile, min((t + 1) * tile, m)
+        prev_key = keys[lo - 1] if lo else 0xFFFFFFFF
+        agg = CARRY_IDENTITY
+        for a in range(lo, hi, items):           # the tile's threads
+            b = min(a + items, hi)
+            agg = _compose(agg, _summary(packed[a:b],
+                                           keys[a - 1] if a else prev_key))
+        if t == 0:
+            before = CARRY_IDENTITY
+            words.append(_status_word(INCLUSIVE, agg))
+        else:
+            words.append(_status_word(AGGREGATE, agg))
+            before, j = CARRY_IDENTITY, t - 1
+            while True:
+                window = [_status_fields(words[k]) for k in
+                          range(j, max(j - 32, -1), -1)]
+                last = next((i for i, (f, _) in enumerate(window)
+                             if f == INCLUSIVE), None)
+                acc = CARRY_IDENTITY
+                for _, c in reversed(window[:len(window) if last is None
+                                            else last + 1]):
+                    acc = _compose(acc, c)     # earliest tile first
+                before = _compose(acc, before)
+                if last is not None:
+                    break
+                j -= 32
+            if rng.random() < inclusive_p:
+                words[t] = _status_word(INCLUSIVE,
+                                          _compose(before, agg))
+        # weights from the carried (c_r, base_run) and the previous key
+        c_r, base = before[0], max(before[1], 0)
+        prev = prev_key
+        for i in range(lo, hi):
+            p = int(packed[i])
+            c_r += 1 - (p & 1)
+            if p >> 1 != prev:
+                base = c_r - (1 - (p & 1))
+            prev = p >> 1
+            w = (p & 1) * (c_r - base)
+            sums[i // width] += w
+            maxw = max(maxw, w)
+    return (sums & np.uint64(0xFFFFFFFF)).astype(np.uint32), maxw
+
+
+def _emulation_family(name, rng, n):
+    if name == "runs_over_tiles":                # runs longer than two tiles
+        return _sorted_pack(rng.integers(0, 3, n // 3).astype(np.uint32),
+                            rng.integers(0, 3, n - n // 3).astype(np.uint32))
+    if name == "all_r":
+        return _sorted_pack(rng.integers(0, 40, n).astype(np.uint32),
+                            np.zeros(0, np.uint32))
+    if name == "all_s":
+        return _sorted_pack(np.zeros(0, np.uint32),
+                            rng.integers(0, 40, n).astype(np.uint32))
+    if name == "all_pads":
+        return np.full(n, 0xFFFFFFFF, np.uint32)
+    return _sorted_pack(*_family("duplicate_heavy", rng))[:n]
+
+
+@pytest.mark.parametrize("tile", [1, 7, 1000, 3840, k6.SCAN_TILE])
+@pytest.mark.parametrize("family", ["runs_over_tiles", "all_r", "all_s",
+                                    "all_pads", "duplicate_heavy"])
+def test_lookback_emulation_equals_the_plain_weights(tile, family):
+    """Tile sizes of 1, 7, 3,840, the kernel's own and 1,000 (which divides
+    neither the lane nor the window): the emulated carry gives the plain
+    window sums and max weight, whichever tiles leave only aggregates."""
+    rng = np.random.default_rng(tile)
+    n = 1500 if tile < 100 else 3 * k6.SCAN_TILE + 17
+    packed = _emulation_family(family, rng, n)
+    # few inclusive words at small tiles: walks of more than 32 words
+    inclusive_p = 0.03 if tile < 100 else 0.5
+    for width in (7, 1024, n):
+        got = _emulate_chunks(packed, width, tile, inclusive_p=inclusive_p,
+                              seed=width)
+        want = _k6(packed, width)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+
+
+@pytest.mark.parametrize("tile", [3840, k6.SCAN_TILE])
+def test_lookback_emulation_equals_pallas_interpret(tile):
+    """At the TPU's tile width, on the TPU's padded lane, a run of one key
+    spanning many of the card's tiles."""
+    r = np.full(3 * tile, 9, np.uint32)
+    s = np.concatenate([np.full(50, 9, np.uint32),
+                        np.arange(100, 100 + TILE - 3 * tile,
+                                  dtype=np.uint32)])
+    packed = _padded(_sorted_pack(r, s), LENGTHS[0])
+    want = np.asarray(jax_chunks(jnp.asarray(packed), interpret=True))
+    got, maxw = _emulate_chunks(packed, TILE, tile, inclusive_p=0.2)
+    np.testing.assert_array_equal(got, want)
+    assert maxw == 3 * tile
+
+
+_carries = st.tuples(st.integers(0, 1 << 20), st.integers(-1, 1 << 20)).map(
+    lambda c: (c[0], min(c[1], c[0] - 1) if c[0] else -1))
+
+
+@settings(max_examples=300, deadline=None)
+@given(_carries, _carries, _carries)
+def test_carry_composition_is_associative(a, b, c):
+    """(R, B) with B < R or -1, as a tile's summary is; not commutative."""
+    assert _compose(_compose(a, b), c) == _compose(a, _compose(b, c))
+    assert _compose(CARRY_IDENTITY, a) == a == _compose(
+        a, CARRY_IDENTITY)
+
+
+@pytest.mark.parametrize("flag", [AGGREGATE, INCLUSIVE])
+@pytest.mark.parametrize("carry", [((1 << 31) - 1, -1), ((1 << 31) - 1,
+                                                          (1 << 31) - 2),
+                                   (0, -1), (5, 0), (12345, 678)])
+def test_status_word_round_trip(flag, carry):
+    word = _status_word(flag, carry)
+    assert 0 < word < 1 << 64
+    assert _status_fields(word) == (flag, carry)
+
+
+def test_status_word_rejects_what_does_not_fit():
+    for carry in ((1 << 31, 0), (0, (1 << 31) - 1), (-1, -1), (0, -2)):
+        with pytest.raises(ValueError):
+            _status_word(AGGREGATE, carry)
+
+
+@pytest.mark.parametrize("m, width, tiles, windows", [
+    (0, 1, 0, 0), (1, 1, 1, 1), (k6.SCAN_TILE, 33792, 1, 1),
+    (k6.SCAN_TILE + 1, 7, 2, -(-(k6.SCAN_TILE + 1) // 7)),
+    ((1 << 31) - 1, 1 << 20, -(-((1 << 31) - 1) // k6.SCAN_TILE), 2048)])
+def test_scratch_layout(m, width, tiles, windows):
+    lay = k6.scratch_layout(m, width)
+    assert (lay.tiles, lay.windows) == (tiles, windows)
+    assert lay.word_bytes == 8 and lay.lookback_words == tiles
+    # look-back words, the tile counter, the max weight, the window sums
+    assert lay.bytes == 8 * tiles + 4 + 4 + 4 * windows
+    assert (lay.counter_offset, lay.max_offset, lay.sums_offset) == (
+        2 * tiles, 2 * tiles + 1, 2 * tiles + 2)
+
+
+def test_scratch_layout_sizes_stated_in_perf():
+    # (k)'s slab union: 2**25 + 2**20 positions in 1,024 windows
+    lay = k6.scratch_layout(34_603_008, 33_792)
+    assert (lay.tiles, lay.windows) == (3_466, 1_024)
+    assert 8 * lay.lookback_words == 27_728 and lay.bytes == 31_832
+    with pytest.raises(ValueError):
+        k6.scratch_layout(1 << 31, 1)

@@ -22,6 +22,7 @@ from tpu_radix_join_torch.data.tuples import (  # noqa: E402
     PAD_RID, R_PAD_KEY, S_PAD_KEY, TupleBatch, lane_from_numpy,
     lane_to_numpy)
 from tpu_radix_join_torch.ops import radix as tradix  # noqa: E402
+from tpu_radix_join_torch.ops.kernels import partition as k4  # noqa: E402
 from tpu_radix_join_torch.ops.kernels.partition import (  # noqa: E402
     DROPPED, partition_scatter, partition_slots)
 
@@ -211,3 +212,161 @@ def test_exclusive_cumsum_equals_jax():
     hist = np.random.default_rng(1).integers(0, 1 << 30, 40).astype(np.uint32)
     _eq(tradix.exclusive_cumsum(_lane(hist)),
         jradix.exclusive_cumsum(jnp.asarray(hist)))
+
+
+# ------------------------------------------------ the onesweep pass of K4
+# The card's K4 is a histogram launch and a onesweep launch: per-tile group
+# counts published as look-back words, each group's offset summed over the
+# tiles before by lanes that read kLookBack words a round, group starts
+# that restart every group_size groups, the clip, and the pad tails every
+# block writes its share of.  These hold that arithmetic in a plain
+# emulation against the plain version and the interpreted TPU kernel.
+
+def _emulate_partition(ids, num_groups, group_size=1, capacity=None,
+                       tile=k4.TILE_IDS, inclusive_p=0.5, seed=0):
+    """(slots, hist, pad tails) as the kernel computes them."""
+    rng = np.random.default_rng(seed)
+    n = len(ids)
+    g = np.where(ids < num_groups, ids, num_groups).astype(np.int64)
+    hist = np.bincount(g, minlength=num_groups + 1)[:num_groups]
+    start = np.cumsum(hist) - hist
+    lead = (np.arange(num_groups) // group_size) * group_size
+    start_rel = start if capacity is None else start - start[lead]
+    sub = 32                        # look-back lanes a group
+    while sub > 1 and sub * num_groups > 256:
+        sub //= 2
+    step = sub * 8                  # words a round reaches
+    words = []                      # (flag, count) per tile and group
+    slots = np.full(n, DROPPED, np.int64)
+    for t in range(-(-n // tile)):
+        gt = g[t * tile:(t + 1) * tile]
+        count = np.bincount(gt, minlength=num_groups + 1)[:num_groups]
+        words.append([(2 if t == 0 else 1, int(c)) for c in count])
+        before = np.zeros(num_groups, np.int64)
+        for grp in range(num_groups):
+            j = t - 1
+            while j >= 0:
+                got = [words[k][grp] for k in range(j, max(j - step, -1), -1)]
+                last = next((i for i, (f, _) in enumerate(got) if f == 2),
+                            None)
+                before[grp] += sum(c for _, c in got[:None if last is None
+                                                      else last + 1])
+                if last is not None:
+                    break
+                j -= step
+            if t and rng.random() < inclusive_p:
+                words[t][grp] = (2, int(before[grp] + count[grp]))
+        # the stable in-tile rank: input order within a group
+        rank = np.zeros(len(gt), np.int64)
+        for grp in range(num_groups):
+            at = np.flatnonzero(gt == grp)
+            rank[at] = np.arange(len(at))
+        ok = gt < num_groups
+        pos = start_rel[gt[ok]] + before[gt[ok]] + rank[ok]
+        idx = np.flatnonzero(ok) + t * tile
+        if capacity is None:
+            slots[idx] = pos
+        else:
+            fit = pos < capacity
+            slots[idx[fit]] = (gt[ok][fit] // group_size) * capacity + pos[fit]
+    # the pads: region b's tail ends at (b + 1) * capacity (dense: at n);
+    # each of `blocks` blocks writes its share of the regions' pads in turn
+    if capacity is None:
+        pads, ends = [n - int(hist.sum())], [n]
+    else:
+        blocks_of = np.add.reduceat(hist, np.arange(0, num_groups,
+                                                    group_size))
+        pads = [capacity - min(int(c), capacity) for c in blocks_of]
+        ends = [(b + 1) * capacity for b in range(len(pads))]
+    pad_before = np.concatenate([[0], np.cumsum(pads)])
+    total = int(pad_before[-1])
+    blocks = max(-(-n // tile), -(-sum(ends[-1:]) // (4 * tile)))
+    share = -(-total // blocks) if blocks else 0
+    tails = []
+    for blk in range(blocks):
+        lo, hi = blk * share, min(blk * share + share, total)
+        for b in range(len(pads)):
+            pb, pe = int(pad_before[b]), int(pad_before[b + 1])
+            if pe <= lo or pb >= hi:
+                continue
+            first = ends[b] - (pe - pb)
+            tails.append(np.arange(first + max(lo, pb) - pb,
+                                   first + min(hi, pe) - pb))
+    tails = np.concatenate(tails) if tails else np.zeros(0, np.int64)
+    return slots.astype(np.uint32), hist.astype(np.uint32), tails
+
+
+EMULATED = [
+    ("dense", _ids(5000, 7, 2), dict(num_groups=7)),
+    ("dense_invalid", _ids(5000, 10, 3), dict(num_groups=7)),
+    ("blocked_group4_overflow_invalid", _ids(3000, 18, 7),
+     dict(num_groups=16, group_size=4, capacity=600)),
+    ("capacity_1", _ids(3000, 18, 7), dict(num_groups=16, group_size=4,
+                                           capacity=1)),
+    ("all_invalid_dense", np.full(2000, 9, np.uint32), dict(num_groups=5)),
+    ("all_invalid_blocked", _ids(2000, 1 << 20, 8) + 5,
+     dict(num_groups=5, capacity=64)),
+    ("id_256_of_256", np.array([256, 0, 255] * 1667, np.uint32)[:5000],
+     dict(num_groups=256)),
+    ("groups_256_blocked", _ids(5000, 257, 10),
+     dict(num_groups=256, capacity=16)),
+    ("one_group", np.zeros(5000, np.uint32), dict(num_groups=1,
+                                                  capacity=8192)),
+]
+
+
+@pytest.mark.parametrize("tile", [64, k4.TILE_IDS])
+@pytest.mark.parametrize("case,ids,kw", EMULATED)
+def test_onesweep_emulation_equals_the_plain_version(case, ids, kw, tile):
+    """Tiles of 64 ids (many tiles, walks of several rounds when few tiles
+    leave an inclusive word) and the kernel's own: slots and hist of the
+    plain version; the written slots and the pad tails cover every output
+    slot exactly once."""
+    slots, hist, tails = _emulate_partition(ids, **kw, tile=tile,
+                                            inclusive_p=0.1)
+    want = partition_slots(_lane(ids), **kw)
+    np.testing.assert_array_equal(slots, lane_to_numpy(want[0]))
+    np.testing.assert_array_equal(hist, lane_to_numpy(want[1]))
+    size = k4.out_size(len(ids), kw["num_groups"], kw.get("group_size", 1),
+                       kw.get("capacity"))
+    written = slots[slots != DROPPED].astype(np.int64)
+    cover = np.bincount(np.concatenate([written, tails]), minlength=size)
+    assert len(cover) == size and (cover == 1).all()
+    (out,), _ = partition_scatter(_lane(ids), [_lane(np.arange(len(ids)))],
+                                  [0xABCDEF], **kw)
+    out = lane_to_numpy(out)
+    assert (out[tails] == 0xABCDEF).all()
+    np.testing.assert_array_equal(out[written],
+                                  np.flatnonzero(slots != DROPPED))
+
+
+@pytest.mark.parametrize("case,ids,kw", [e for e in EMULATED if e[0] in (
+    "dense", "blocked_group4_overflow_invalid", "capacity_1",
+    "id_256_of_256")])
+def test_onesweep_emulation_equals_the_tpu_kernel(case, ids, kw):
+    slots, hist, _ = _emulate_partition(ids, **kw, tile=512, seed=3)
+    want = partition_slots_pallas(jnp.asarray(ids), interpret=True, **kw)
+    _eq(_lane(slots), want[0])
+    _eq(_lane(hist), want[1])
+
+
+@pytest.mark.parametrize("n, groups, tiles", [
+    (0, 1, 0), (1, 256, 1), (k4.TILE_IDS, 32, 1), (k4.TILE_IDS + 1, 5, 2),
+    ((1 << 31) + 4097, 4, (1 << 19) + 2), ((1 << 32) - 1, 256, 1 << 20)])
+def test_scratch_layout(n, groups, tiles):
+    lay = k4.scratch_layout(n, groups)
+    assert lay.tiles == tiles and lay.lookback_words == tiles * groups
+    # 64-bit words: a flag over a 32-bit count that reaches n
+    assert lay.word_bytes == 8 and n < 1 << 32
+    assert lay.totals_words == 256
+    assert lay.bytes == 8 * tiles * groups + 4 * 256 + 8
+    assert lay.totals_offset == 2 * tiles * groups
+
+
+def test_scratch_layout_sizes_stated_in_perf():
+    # (d)'s local pass (2**25 ids, 32 groups) and its exchange (20M, 1)
+    assert k4.scratch_layout(1 << 25, 32).bytes == 2_098_184
+    assert k4.scratch_layout(20_000_000, 1).bytes == 40_096
+    for bad in ((1 << 32, 1), (5, 0), (5, 257)):
+        with pytest.raises(ValueError):
+            k4.scratch_layout(*bad)

@@ -84,12 +84,12 @@ class JoinConfig:
             raise _not_ported(
                 f"network_fanout_bits={self.network_fanout_bits} (the "
                 f"kernels hold {1 << MAX_NETWORK_FANOUT_BITS} partitions)",
-                "queue A, wider fanout")
+                "queue A, A19: wider fanout")
         if self.local_fanout_bits > MAX_LOCAL_FANOUT_BITS:
             raise _not_ported(
                 f"local_fanout_bits={self.local_fanout_bits} (K4 groups "
                 f"{1 << MAX_LOCAL_FANOUT_BITS} buckets)",
-                "queue A, wider fanout")
+                "queue A, A19: wider fanout")
         if self.num_nodes < 1:
             raise ValueError("num_nodes must be >= 1")
         if self.num_nodes > 1:

@@ -16,7 +16,7 @@ requirement.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,6 +27,8 @@ from tpu_radix_join_torch.ops.kernels.merge_scan import _weights
 
 #: the TPU kernel's tile, 256 x 128 positions: its per-tile window width
 TILE = 256 * 128
+#: positions a tile of the card's kernel holds (kTile in the CUDA source)
+SCAN_TILE = 256 * 39
 
 
 def merge_scan_chunks_plain(packed_sorted: torch.Tensor, width: int
@@ -43,26 +45,65 @@ def merge_scan_chunks_plain(packed_sorted: torch.Tensor, width: int
     return narrow(sums), narrow(maxw)
 
 
+class ScratchLayout(NamedTuple):
+    """The one scratch block of a K6 call over ``m`` positions, zeroed by
+    one memset, in int32 words: the look-back table (``tiles`` words of
+    ``word_bytes``), the tile counter, the max weight and the ``windows``
+    window sums."""
+
+    tiles: int
+    lookback_words: int
+    word_bytes: int
+    windows: int
+
+    @property
+    def counter_offset(self) -> int:
+        return self.lookback_words * self.word_bytes // 4
+
+    @property
+    def max_offset(self) -> int:
+        return self.counter_offset + 1
+
+    @property
+    def sums_offset(self) -> int:
+        return self.counter_offset + 2
+
+    @property
+    def words(self) -> int:
+        return self.sums_offset + self.windows
+
+    @property
+    def bytes(self) -> int:
+        return 4 * self.words
+
+
+def scratch_layout(m: int, width: int) -> ScratchLayout:
+    """The scratch of K6 over ``m`` positions and windows of ``width``: one
+    tile per :data:`SCAN_TILE` positions, one look-back word of 8 bytes a
+    tile (a 2-bit flag, R and B + 1 in 31 bits each)."""
+    if not 0 <= m < 1 << 31 or width < 1:
+        raise ValueError(f"K6 takes 0 <= m < 2**31 and width >= 1, got "
+                         f"{m}, {width}")
+    tiles = -(-m // SCAN_TILE)
+    return ScratchLayout(tiles=tiles, lookback_words=tiles, word_bytes=8,
+                         windows=-(-m // width))
+
+
 def _merge_scan_chunks_cuda(packed_sorted: torch.Tensor, width: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     m = packed_sorted.numel()
-    num_tiles = c_function("merge_scan_chunks",
-                           "rj_merge_scan_chunks_num_tiles",
-                           [ctypes.c_longlong], ctypes.c_longlong)(m)
+    lay = scratch_layout(m, width)
     fn = c_function("merge_scan_chunks", "rj_merge_scan_chunks",
                     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p])
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     dev = packed_sorted.device
-    sums = torch.empty(-(-m // width), dtype=torch.int32, device=dev)
-    maxw = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, 4 * num_tiles), dtype=torch.int32, device=dev)
-    err = fn(packed_sorted.data_ptr(), m, width, sums.data_ptr(),
-             maxw.data_ptr(), scratch.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    scratch = torch.empty(lay.words, dtype=torch.int32, device=dev)
+    err = fn(packed_sorted.data_ptr(), m, width, scratch.data_ptr(),
+             lay.bytes, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "merge scan chunks kernel")
     LAUNCHES["merge_scan_chunks"] += 1
-    return sums, maxw
+    return (scratch[lay.sums_offset:lay.words],
+            scratch[lay.max_offset].reshape(()))
 
 
 def merge_scan_chunks(packed_sorted: torch.Tensor, *, width: int = TILE

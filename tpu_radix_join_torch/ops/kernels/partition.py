@@ -11,16 +11,16 @@ nowhere and dropped.
 
 :func:`partition_slots` exposes the contract; :func:`partition_scatter` is
 what the join calls: it groups lanes into pad-filled outputs.  On the card
-K4 moves the lanes itself; on the CPU :func:`partition_scatter_plain`
-applies the plain slots with the dropped ones masked out first (a torch
-index of -1, the int32 view of ``0xFFFFFFFF``, would write the last
-element).
+K4 moves the lanes and writes the pads itself; on the CPU
+:func:`partition_scatter_plain` applies the plain slots with the dropped
+ones masked out first (a torch index of -1, the int32 view of
+``0xFFFFFFFF``, would write the last element).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +30,7 @@ from tpu_radix_join_torch.ops.kernels._build import c_function, check
 
 MAX_GROUPS = 256   # MAX_PARTITIONS of the TPU kernel, the kernel's shared bins
 MAX_LANES = 4      # lanes one pass on the card moves (csrc/partition.cu)
+TILE_IDS = 4096    # ids a tile of the onesweep launch holds (kTile there)
 DROPPED = U32_MASK
 
 
@@ -87,11 +88,6 @@ def partition_slots_plain(ids: torch.Tensor, num_groups: int,
             narrow(full[:num_groups]))
 
 
-def _filled(size: int, fills: Sequence[int], device) -> List[torch.Tensor]:
-    return [torch.full((size,), int(narrow(torch.tensor(f))),
-                       dtype=torch.int32, device=device) for f in fills]
-
-
 def partition_scatter_plain(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
                             fills: Sequence[int], num_groups: int,
                             group_size: int = 1,
@@ -101,8 +97,9 @@ def partition_scatter_plain(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     ones masked out before the lanes are written (a torch index of -1, the
     int32 view of ``0xFFFFFFFF``, would write the last slot)."""
     slots, hist = partition_slots_plain(ids, num_groups, group_size, capacity)
-    outs = _filled(out_size(ids.numel(), num_groups, group_size, capacity),
-                   fills, ids.device)
+    size = out_size(ids.numel(), num_groups, group_size, capacity)
+    outs = [torch.full((size,), int(narrow(torch.tensor(f))),
+                       dtype=torch.int32, device=ids.device) for f in fills]
     keep = slots != narrow(torch.tensor(DROPPED))
     dest = widen(slots[keep])
     for lane, out in zip(lanes, outs):
@@ -112,33 +109,77 @@ def partition_scatter_plain(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
 
 # ------------------------------------------------------------------ card
 
+class ScratchLayout(NamedTuple):
+    """The one scratch block of a K4 call over ``n`` ids, zeroed by one
+    memset: the look-back table (``tiles`` x ``num_groups`` words of
+    ``word_bytes``), then ``totals_words`` uint32 group totals and the tile
+    counter, packed into ``words`` int64 words."""
+
+    tiles: int
+    lookback_words: int
+    word_bytes: int
+    totals_words: int
+
+    @property
+    def totals_offset(self) -> int:
+        """Where the totals start, in int32 words."""
+        return self.lookback_words * self.word_bytes // 4
+
+    @property
+    def words(self) -> int:
+        return self.lookback_words + (self.totals_words + 2) // 2
+
+    @property
+    def bytes(self) -> int:
+        return 8 * self.words
+
+
+def scratch_layout(n: int, num_groups: int) -> ScratchLayout:
+    """The scratch of K4 over ``n`` ids into ``num_groups`` groups: one tile
+    per :data:`TILE_IDS` ids, one look-back word of 8 bytes a tile and group
+    (a flag over a 32-bit count that reaches n < 2**32), the 256 totals and
+    the counter."""
+    if not 0 <= n < 1 << 32 or not 1 <= num_groups <= MAX_GROUPS:
+        raise ValueError(f"K4 takes 0 <= n < 2**32 ids and 1..{MAX_GROUPS} "
+                         f"groups, got {n}, {num_groups}")
+    tiles = -(-n // TILE_IDS)
+    return ScratchLayout(tiles=tiles, lookback_words=tiles * num_groups,
+                         word_bytes=8, totals_words=MAX_GROUPS)
+
+
 def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
                     capacity: Optional[int], lanes: Sequence[torch.Tensor],
-                    outs: Sequence[torch.Tensor], with_slots: bool
-                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+                    fills: Sequence[int], with_slots: bool
+                    ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
+                               torch.Tensor]:
+    """One K4 call: (slots or None, the moved lanes, hist)."""
     n = ids.numel()
-    num_blocks = c_function("partition", "rj_partition_num_blocks",
-                            [ctypes.c_longlong], ctypes.c_longlong)(n)
     fn = c_function("partition", "rj_partition",
                     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_void_p])
     dev = ids.device
+    size = out_size(n, num_groups, group_size, capacity)
     slots = torch.empty(n, dtype=torch.int32, device=dev) if with_slots else None
-    counts = torch.empty(max(1, num_groups * num_blocks), dtype=torch.int32,
-                         device=dev)
-    totals = torch.empty(MAX_GROUPS, dtype=torch.int32, device=dev)
+    outs = [torch.empty(size, dtype=torch.int32, device=dev) for _ in lanes]
+    lay = scratch_layout(n, num_groups)
+    scratch = torch.empty(lay.words, dtype=torch.int64, device=dev)
     ptrs_in = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in lanes])
     ptrs_out = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in outs])
+    fill_words = (ctypes.c_uint32 * MAX_LANES)(*[int(f) & U32_MASK
+                                                 for f in fills])
     err = fn(ids.data_ptr(), n, num_groups, group_size,
              -1 if capacity is None else capacity,
              slots.data_ptr() if slots is not None else None,
-             len(lanes), ptrs_in, ptrs_out, counts.data_ptr(),
-             totals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             len(lanes), ptrs_in, ptrs_out, fill_words, scratch.data_ptr(),
+             lay.bytes, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "partition kernel")
     LAUNCHES["partition"] += 1
-    return slots, totals[:num_groups]
+    totals = scratch.view(torch.int32)[lay.totals_offset:
+                                       lay.totals_offset + num_groups]
+    return slots, outs, totals
 
 
 # --------------------------------------------------------------- wrappers
@@ -152,8 +193,9 @@ def partition_slots(ids: torch.Tensor, *, num_groups: int,
     if ids.device.type == "cpu":
         return partition_slots_plain(ids, num_groups, group_size, capacity)
     if ids.device.type == "cuda":
-        return _partition_cuda(ids, num_groups, group_size, capacity, [], [],
-                               with_slots=True)
+        slots, _, hist = _partition_cuda(ids, num_groups, group_size,
+                                         capacity, [], [], with_slots=True)
+        return slots, hist
     raise ValueError(f"partition runs on cpu or cuda, not {ids.device}")
 
 
@@ -162,9 +204,11 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
                       group_size: int = 1, capacity: Optional[int] = None
                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(outs, hist): every lane grouped into an output of
-    :func:`out_size` slots pre-filled with its entry of ``fills`` (uint32
-    values); dropped tuples are not written.  CPU: plain slots, masked
-    and applied; CUDA: one K4 launch that moves the lanes (at most four)."""
+    :func:`out_size` slots whose other slots hold its entry of ``fills``
+    (uint32 values); dropped tuples are not written.  CPU: plain slots,
+    masked and applied over filled outputs; CUDA: one K4 call (a histogram
+    and a onesweep launch) that moves the lanes (at most four) and writes
+    the pads itself."""
     _check_geometry(ids, num_groups, group_size, capacity)
     lanes = list(lanes)
     if len(fills) != len(lanes):
@@ -182,8 +226,6 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     if len(lanes) > MAX_LANES:
         raise ValueError(f"a partition pass on the card moves at most "
                          f"{MAX_LANES} lanes, got {len(lanes)}")
-    outs = _filled(out_size(ids.numel(), num_groups, group_size, capacity),
-                   fills, ids.device)
-    _, hist = _partition_cuda(ids, num_groups, group_size, capacity, lanes,
-                              outs, with_slots=False)
+    _, outs, hist = _partition_cuda(ids, num_groups, group_size, capacity,
+                                    lanes, fills, with_slots=False)
     return outs, hist

@@ -24,8 +24,11 @@ _UNREAD_AT_ONE_NODE = frozenset({
     "payload_bits", "num_hosts", "mesh_axis", "result_aggregation_node",
     "exchange_stages", "match_rate_cap", "grid_pipeline",
     "retry_backoff_s", "retry_backoff_mult", "retry_backoff_max_s",
-    "retry_jitter", "generation", "debug_checks", "measure_phases",
+    "retry_jitter", "generation", "measure_phases",
 })
+#: JAX config fields whose non-default values the port does not run yet:
+#: field -> (the value it runs, the ROADMAP.md item that ports the rest)
+_NOT_PORTED = {"chunk_size": (None, "A7"), "debug_checks": (False, "A7")}
 #: implementation choices among versions of the same kernel: the port has
 #: one of each, so they map to "auto"
 _ONE_IMPL = frozenset({"sort_impl", "partition_impl"})
@@ -36,18 +39,21 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
 
     ``sort_impl`` and ``partition_impl`` pick among implementations of the
     same kernel, and the port has one of each, so they map to "auto".
-    ``chunk_size`` (the chunked probe after a multi-rank shuffle) is not
-    ported; an unknown field raises."""
+    ``chunk_size`` (the chunked probe after a multi-rank shuffle) and
+    ``debug_checks=True`` (the shuffle's conservation checks) are not
+    ported and raise ``NotImplementedError``; an unknown field raises
+    ``ValueError``."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
         if name in _ONE_IMPL:
             continue
-        if name == "chunk_size":
-            if value is not None:
+        if name in _NOT_PORTED:
+            runs, item = _NOT_PORTED[name]
+            if value != runs:
                 raise NotImplementedError(
-                    "chunk_size is not ported to PyTorch yet "
-                    "(ROADMAP.md A7)")
+                    f"{name}={value!r} is not ported to PyTorch yet "
+                    f"(ROADMAP.md {item})")
             continue
         if name in own:
             kw[name] = value
