@@ -22,9 +22,14 @@ invalid at the local-partition shape, at tile edges, and in slots mode
 past 2**31 ids (2**31 + 4097, held without the plain version: its
 histogram and every slot).  K6, the single-pass per-window scan, is also
 held at its tile counter's edges, at widths under a thread's items and on
-one key's run over five tiles.  The run prints the ``-Xptxas -v``
-registers, shared memory and spills of K4's and K6's kernels, and their
-device time by kernel under ``torch.profiler`` beside the event times.
+one key's run over five tiles.  K3 and K5, the single-pass partition scans
+(``csrc/merge_scan_partitions.cuh``), are also held at their tile's edges,
+on one key's run over more than three tiles, with 128 partitions of a few
+positions each and on lanes offset by one element (the 4-byte load path);
+the run prints their scratch size at (a)'s and (h)'s unions.  The run
+prints the ``-Xptxas -v`` registers, shared memory and spills of K3's,
+K4's, K5's and K6's kernels, and their device time by kernel under
+``torch.profiler`` beside the event times.
 The sort probe — ``HashJoin(JoinConfig()).join(inner, outer)``:
 
   (a) unique ⋈ unique, 20,000,000 tuples each (hpcjoin's per-node size);
@@ -88,7 +93,8 @@ GRID_J_TUPLES = 1 << 30
 
 
 #: the sources whose registers, shared memory and spills the run prints
-PTXAS_SOURCES = ("partition", "merge_scan_chunks")
+PTXAS_SOURCES = ("partition", "merge_scan_chunks", "merge_scan",
+                 "merge_scan_wide")
 
 
 def emit(obj) -> None:
@@ -100,7 +106,10 @@ def ptxas_summary(log: str) -> dict:
     names = {"chunks_kernel": "chunks_kernel",
              "onesweep_kernelILb1": "onesweep_kernel<slots>",
              "onesweep_kernelILb0": "onesweep_kernel<moving>",
-             "histogram_kernel": "histogram_kernel"}
+             "histogram_kernel": "histogram_kernel",
+             "PackedLane": "scan_kernel<packed>",
+             "LanesILb1": "scan_kernel<lo, hi, tag>",
+             "LanesILb0": "scan_kernel<lo, tag>"}
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -440,6 +449,32 @@ def main() -> int:
                               f"pack fanout {f}"))
     dup = rand_lane(500003, hi=97)
     errs += probe_case("duplicate_heavy", dup, rand_lane(500003, hi=97), 3)
+    # the single pass's edges: lengths at its tile (SCAN_TILE positions),
+    # one key's run over more than three tiles, 128 partitions of a few
+    # positions each, and lanes offset by one element (4-byte loads)
+    scan_tile = k3.SCAN_TILE
+
+    def packed_case(name, packed, f):
+        g = k3.merge_scan_partitions(packed, num_partitions=1 << f)
+        p = k3.merge_scan_plain(packed, f)
+        return [exact(g[0], p[0], f"merge scan counts, {name}"),
+                exact(g[1], p[1], f"merge scan max weight, {name}")]
+
+    for f in (0, 5, 7):
+        for n in (scan_tile - 1, scan_tile, scan_tile + 1):
+            errs += probe_case(f"{n} positions, fanout {f}",
+                               rand_lane(n // 2, hi=1 << 12),
+                               rand_lane(n - n // 2, hi=1 << 12), f)
+        run4 = narrow(torch.full((2 * scan_tile + 17,), 7,
+                                 dtype=torch.int64)).to(dev)
+        errs += probe_case(f"one run over 4 tiles, fanout {f}", run4, run4, f)
+    few = rand_lane(3000, hi=1 << 11)
+    errs += probe_case("128 partitions of a few positions", few[:1400],
+                       few[1000:], 7)
+    errs += packed_case("(a)'s union offset by one", sorted_union[1:],
+                        fanout)
+    errs += packed_case("3 tiles + 17 offset by one",
+                        sorted_union[1:3 * scan_tile + 18], fanout)
     results["merge_scan"] = {
         "max_abs_err": max(errs),
         "ms": time_ms(lambda: k3.merge_scan_partitions(
@@ -450,7 +485,11 @@ def main() -> int:
         "library_ms": None,
     }
     emit({"phase": "kernel", "kernel": "merge_scan", "elements": m,
-          "checks": len(errs), **results["merge_scan"]})
+          "checks": len(errs), "scan_tile": scan_tile,
+          "scratch_bytes": k3.scratch_layout(m, fanout).bytes,
+          "device_us": device_us(lambda: k3.merge_scan_partitions(
+              sorted_union, num_partitions=num_p)),
+          **results["merge_scan"]})
 
     # ------------------------------------------------------ K1 histogram
     errs = [exact(k1.histogram(s_pid, num_bins=num_p),
@@ -715,6 +754,46 @@ def main() -> int:
                       torch.ones(70001, dtype=torch.int32, device=dev), fanout)
     errs += wide_case("duplicate_heavy", rand_lane(500003, hi=97),
                       rand_lane(500003, hi=3), sides(500003), 3)
+    # the single pass's edges, as K3's: its tile's lengths, one key's run
+    # over more than three tiles, 128 partitions of a few positions each,
+    # and each lane offset by one element alone (4-byte loads)
+    for f in (0, 5, 7):
+        for n in (scan_tile - 1, scan_tile, scan_tile + 1):
+            for hi in (rand_lane(n, hi=4), None):
+                errs += wide_case(f"{n} positions, fanout {f}, hi "
+                                  f"{hi is not None}", rand_lane(n, hi=1 << 12),
+                                  hi, sides(n), f)
+        key4 = narrow(torch.full((4 * scan_tile + 34,), 0x12345678,
+                                 dtype=torch.int64)).to(dev)
+        errs += wide_case(f"one run over 4 tiles, fanout {f}", key4, key4,
+                          sides(key4.numel()), f)
+        errs += wide_case(f"one run over 4 tiles, no hi, fanout {f}", key4,
+                          None, sides(key4.numel()), f)
+    few = rand_lane(3000, hi=1 << 11)
+    for hi in (rand_lane(3000, hi=2), None):
+        errs += wide_case(f"128 partitions of a few positions, hi "
+                          f"{hi is not None}", narrow(widen(few) << 21), hi,
+                          sides(3000), 7)
+
+    def offset_case(name, lanes):
+        g = k5.merge_scan_partitions_wide(*lanes, num_partitions=num_p)
+        p = k5.merge_scan_wide_plain(*lanes, fanout)
+        return [exact(g[0], p[0], f"wide merge scan counts, {name}"),
+                exact(g[1], p[1], f"wide merge scan max weight, {name}")]
+
+    # each lane copied one element off its 16-byte alignment, the others
+    # left aligned: the tile takes the 4-byte path for that lane alone
+    cut = 3 * scan_tile + 17
+    for i in range(3):
+        lanes = [x[:cut] for x in sorted_h]
+        moved = torch.empty(cut + 1, dtype=torch.int32, device=dev)
+        moved[1:] = lanes[i]
+        lanes[i] = moved[1:]
+        errs += offset_case(f"(h)'s lane {i} offset by one", lanes)
+    errs += offset_case("(h)'s union offset by one",
+                        [x[1:] for x in sorted_h])
+    errs += offset_case("(g)'s union offset by one",
+                        [sorted_g[0][1:], None, sorted_g[1][1:]])
     lo_h, hi_h, tag_h = sorted_h
     results["merge_scan_wide"] = {
         "max_abs_err": max(errs),
@@ -727,10 +806,15 @@ def main() -> int:
         "library_ms": None,
     }
     emit({"phase": "kernel", "kernel": "merge_scan_wide", "elements": m5,
-          "checks": len(errs),
+          "checks": len(errs), "scan_tile": scan_tile,
+          "scratch_bytes": k5.scratch_layout(m5, fanout).bytes,
+          "device_us": device_us(lambda: k5.merge_scan_partitions_wide(
+              lo_h, hi_h, tag_h, num_partitions=num_p)),
           "full_range_shape": {
               "elements": sorted_g[0].numel(),
               "ms": time_ms(lambda: k5.merge_scan_partitions_wide(
+                  sorted_g[0], None, sorted_g[1], num_partitions=num_p)),
+              "device_us": device_us(lambda: k5.merge_scan_partitions_wide(
                   sorted_g[0], None, sorted_g[1], num_partitions=num_p)),
               "bound_ms": (2 * 4 * sorted_g[0].numel() + 4 * (num_p + 1))
               / hbm_bytes_per_s * 1e3},

@@ -15,7 +15,7 @@ import math
 from typing import Optional
 
 #: the kernels' shared bins hold 128 partitions (csrc/histogram.cu,
-#: csrc/merge_scan.cu)
+#: csrc/merge_scan_partitions.cuh)
 MAX_NETWORK_FANOUT_BITS = 7
 #: K4 groups at most 256 buckets (csrc/partition.cu)
 MAX_LOCAL_FANOUT_BITS = 8

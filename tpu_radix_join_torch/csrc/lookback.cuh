@@ -1,4 +1,4 @@
-// Look-back words of the single-pass kernels (K4, K6): 64-bit words that a
+// Look-back words of the single-pass kernels (K3-K6): 64-bit words that a
 // block publishes and its successors read while it may still be running.
 //
 // A word carries its whole message (status and value together), so a reader

@@ -1,5 +1,5 @@
-// The single-pass tile carry of the packed merge scans (K6; K3 and K5 keep
-// merge_scan_tiles.cuh for now).
+// The single-pass tile carry of the merge scans: K6 (merge_scan_chunks.cu),
+// K3 and K5 (merge_scan_partitions.cuh).
 //
 // Over a sorted packed union (key << 1 | side, side 0 for R and 1 for S),
 // every S position weighs the number of R tuples in its equal-key run:
@@ -12,7 +12,8 @@
 //   (R1, B1) + (R2, B2) = (R1 + R2, max(B1, B2 >= 0 ? R1 + B2 : -1)),
 // which is associative but not commutative, with identity (0, -1).  The
 // composition of every tile before a tile is the (c_r, base_run) carried
-// into it.  The previous key needs no carry: it is packed[start - 1] >> 1.
+// into it.  The previous key needs no carry: it is read from memory at
+// position start - 1.
 //
 // A block publishes its tile's summary, then looks back over its
 // predecessors by decoupled look-back (Merrill & Garland, 2016), one warp

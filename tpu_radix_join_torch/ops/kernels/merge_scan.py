@@ -10,7 +10,7 @@ the tile multiple was Mosaic's requirement.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -19,6 +19,11 @@ from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 
 MAX_FANOUT_BITS = 7   # 128 partitions: the kernel's shared bins
+#: positions a tile of the card's kernel holds (kTile in
+#: csrc/merge_scan_partitions.cuh, shared with K5)
+SCAN_TILE = 256 * 39
+#: bytes of one look-back word (a 2-bit flag, R and B + 1 in 31 bits each)
+LOOKBACK_WORD_BYTES = 8
 
 
 def _run_weights(is_s: torch.Tensor, run_start: torch.Tensor) -> torch.Tensor:
@@ -77,25 +82,67 @@ def merge_scan_plain(packed_sorted: torch.Tensor, fanout_bits: int
     return narrow(counts), narrow(maxw)
 
 
+class ScratchLayout(NamedTuple):
+    """The one scratch block of a K3 or K5 call over ``m`` positions, zeroed
+    by one memset, in int32 words: the look-back table (``tiles`` words of
+    ``word_bytes``), the tile counter, the max weight and the ``bins``
+    partition counts."""
+
+    tiles: int
+    lookback_words: int
+    word_bytes: int
+    bins: int
+
+    @property
+    def counter_offset(self) -> int:
+        return self.lookback_words * self.word_bytes // 4
+
+    @property
+    def max_offset(self) -> int:
+        return self.counter_offset + 1
+
+    @property
+    def counts_offset(self) -> int:
+        return self.counter_offset + 2
+
+    @property
+    def words(self) -> int:
+        return self.counts_offset + self.bins
+
+    @property
+    def bytes(self) -> int:
+        return 4 * self.words
+
+
+def scratch_layout(m: int, fanout_bits: int) -> ScratchLayout:
+    """The scratch of K3 (and K5) over ``m`` positions and ``2**fanout_bits``
+    partitions: one tile per :data:`SCAN_TILE` positions, one look-back word
+    a tile.  The C entry refuses any other size."""
+    if not 0 <= m < 1 << 31 or not 0 <= fanout_bits <= MAX_FANOUT_BITS:
+        raise ValueError(f"the merge scan takes 0 <= m < 2**31 and 0 <= "
+                         f"fanout_bits <= {MAX_FANOUT_BITS}, got {m}, "
+                         f"{fanout_bits}")
+    tiles = -(-m // SCAN_TILE)
+    return ScratchLayout(tiles=tiles, lookback_words=tiles,
+                         word_bytes=LOOKBACK_WORD_BYTES,
+                         bins=1 << fanout_bits)
+
+
 def _merge_scan_cuda(packed_sorted: torch.Tensor, fanout_bits: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     m = packed_sorted.numel()
-    num_tiles = c_function("merge_scan", "rj_merge_scan_num_tiles",
-                           [ctypes.c_longlong], ctypes.c_longlong)(m)
+    lay = scratch_layout(m, fanout_bits)
     fn = c_function("merge_scan", "rj_merge_scan",
                     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p])
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     dev = packed_sorted.device
-    counts = torch.empty(1 << fanout_bits, dtype=torch.int32, device=dev)
-    maxw = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, 4 * num_tiles), dtype=torch.int32, device=dev)
-    err = fn(packed_sorted.data_ptr(), m, fanout_bits, counts.data_ptr(),
-             maxw.data_ptr(), scratch.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    scratch = torch.empty(lay.words, dtype=torch.int32, device=dev)
+    err = fn(packed_sorted.data_ptr(), m, fanout_bits, scratch.data_ptr(),
+             lay.bytes, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "merge scan kernel")
     LAUNCHES["merge_scan"] += 1
-    return counts, maxw
+    return (scratch[lay.counts_offset:lay.words],
+            scratch[lay.max_offset].reshape(()))
 
 
 def merge_scan_partitions(packed_sorted: torch.Tensor, *,

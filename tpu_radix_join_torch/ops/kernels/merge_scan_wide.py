@@ -23,8 +23,9 @@ import torch
 from tpu_radix_join_torch.data.tuples import U32_MASK, check_lane, narrow, widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
-from tpu_radix_join_torch.ops.kernels.merge_scan import (_run_weights,
-                                                         scan_fanout_bits)
+# K5 shares K3's tile and scratch layout (csrc/merge_scan_partitions.cuh)
+from tpu_radix_join_torch.ops.kernels.merge_scan import (  # noqa: F401
+    SCAN_TILE, _run_weights, scan_fanout_bits, scratch_layout)
 
 
 def merge_scan_wide_plain(lo_rot: torch.Tensor, hi: Optional[torch.Tensor],
@@ -52,23 +53,20 @@ def _merge_scan_wide_cuda(lo_rot: torch.Tensor, hi: Optional[torch.Tensor],
                           tag: torch.Tensor, fanout_bits: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     m = lo_rot.numel()
-    num_tiles = c_function("merge_scan_wide", "rj_merge_scan_wide_num_tiles",
-                           [ctypes.c_longlong], ctypes.c_longlong)(m)
+    lay = scratch_layout(m, fanout_bits)
     fn = c_function("merge_scan_wide", "rj_merge_scan_wide",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                     ctypes.c_longlong, ctypes.c_void_p])
     dev = lo_rot.device
-    counts = torch.empty(1 << fanout_bits, dtype=torch.int32, device=dev)
-    maxw = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, 4 * num_tiles), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lay.words, dtype=torch.int32, device=dev)
     err = fn(lo_rot.data_ptr(), None if hi is None else hi.data_ptr(),
-             tag.data_ptr(), m, fanout_bits, counts.data_ptr(),
-             maxw.data_ptr(), scratch.data_ptr(),
+             tag.data_ptr(), m, fanout_bits, scratch.data_ptr(), lay.bytes,
              torch.cuda.current_stream(dev).cuda_stream)
     check(err, "wide merge scan kernel")
     LAUNCHES["merge_scan_wide"] += 1
-    return counts, maxw
+    return (scratch[lay.counts_offset:lay.words],
+            scratch[lay.max_offset].reshape(()))
 
 
 def merge_scan_partitions_wide(lo_rot_sorted: torch.Tensor,
