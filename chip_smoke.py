@@ -70,6 +70,22 @@ The out-of-core grid (the per-window merge scan, K6) and its fallback:
   (m) the 64-bit grid, 2**24 ⋈ 2**24 unique in chunks of 2**23,
       pipelined: the wide slabs through K2 and K5.
 
+The distributed main path's generic body over a ``torch.distributed`` NCCL
+process group of one rank (one card holds one NCCL rank), 20,000,000 ⋈
+20,000,000 unique tuples a rank (phase_n):
+
+  (n1) ``probe_algorithm="bucket"`` through ``HashJoin.join``, equal to (d);
+  (n2) the shuffled narrow sort probe (``join_shuffled``): K1 sizing, K4
+       into one block of 2**25 slots a side, ``all_to_all_single``, then K2
+       and K3 over the 67.1M-position pad-filled union, equal to (a);
+  (n3) the same with ``key_bits=64``: K2 with three lanes, then K5, equal
+       to (h);
+  (n4) (n2) with ``debug_checks=True``.
+
+K4 is also held at the exchange call of a 4- and an 8-rank world (20M ids
+into 4 groups of 2**23 slots and 8 of 2**22), and K1's device time is
+printed beside its event time.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -117,6 +133,189 @@ def ptxas_summary(log: str) -> dict:
         elif name and ("Used" in line or "spill" in line):
             out.setdefault(name, []).append(line.split(":")[-1].strip())
     return out
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
+    """Cell (n): the generic body over a process group of one rank (NCCL
+    on the card, gloo on the CPU) at ``n`` ⋈ ``n`` unique tuples a rank.
+    ``refs`` maps each join to the one-rank result whose counts it must
+    equal; ``time_ms(fn, reps)`` times a call, ``device_us(fn, reps)``
+    gives its device time by kernel.  Each join runs once with the launch
+    counts set to 0 (the main path), then 1 + 3 times for its median, then
+    under the profiler (its device busy time, so the idle share of the
+    median), then stage by stage.  Returns the main path's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import merge_scan_wide as k5
+    from tpu_radix_join_torch.ops.merge_count import (_pack_pm, _rotate_pid,
+                                                      _side_tags)
+    from tpu_radix_join_torch.ops.sorting import (sort_lex_unstable,
+                                                  sort_unstable)
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.parallel.window import Window
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    multihost.initialize(init_method=f"tcp://127.0.0.1:{free_port()}",
+                         world_size=1, rank=0, local_rank=dev.index or 0,
+                         device=dev, timeout_s=300)
+    group = dist.group.WORLD
+    rels32 = (Relation(n, 1, "unique", seed=1234),
+              Relation(n, 1, "unique", seed=1235))
+    rels64 = (Relation(n, 1, "unique", seed=1234, key_bits=64),
+              Relation(n, 1, "unique", seed=1235, key_bits=64))
+    cells = {
+        "n1": ("n1_bucket_unique_20M", JoinConfig(probe_algorithm="bucket"),
+               rels32),
+        "n2": ("n2_shuffled_narrow_unique_20M", JoinConfig(), rels32),
+        "n3": ("n3_shuffled_wide_unique_20M", JoinConfig(key_bits=64),
+               rels64),
+        "n4": ("n4_shuffled_narrow_debug_unique_20M",
+               JoinConfig(debug_checks=True), rels32),
+    }
+    try:
+        engines = {k: HashJoin(cfg, dev, group=group)
+                   for k, (_, cfg, _) in cells.items()}
+        placed = {k: tuple(engines[k].place(rel) for rel in rels)
+                  for k, (_, _, rels) in cells.items() if k != "n1"}
+        setup_s = time.perf_counter() - t0
+
+        def run(k, r=None, s=None):
+            """(n1) through ``join`` (placing its relations) unless given
+            placed lanes, the others through ``join_shuffled``."""
+            rels = cells[k][2]
+            bound = max(rel.key_bound() for rel in rels)
+            if k == "n1":
+                if r is None:
+                    return engines[k].join(*rels)
+                return engines[k].join_arrays(r, s, key_bound=bound)
+            return engines[k].join_shuffled(*placed[k], key_bound=bound)
+
+        sync()
+        kernels.reset_launches()
+        before = {k: dict(e.world.counts) for k, e in engines.items()}
+        results = {k: run(k) for k in cells}
+        sync()
+        launches = kernels.launch_counts()
+        collectives = {k: {c: e.world.counts[c] - before[k][c]
+                           for c in e.world.counts}
+                       for k, e in engines.items()}
+        for k, res in results.items():
+            ref = refs[k]
+            if not (res.matches == n and res.ok and res.retries == 0
+                    and np.array_equal(res.partition_counts,
+                                       ref.partition_counts)):
+                raise AssertionError(f"{cells[k][0]}: {res}, one rank "
+                                     f"without the shuffle: {ref}")
+        for k in ("n1", "n2"):
+            if collectives[k]["all_to_all"] < 6:
+                raise AssertionError(f"{cells[k][0]}: {collectives[k]} "
+                                     "collectives")
+        for name in ("histogram", "partition", "radix_histogram",
+                     "radix_pass", "merge_scan", "merge_scan_wide"):
+            if launches[name] <= 0:
+                raise AssertionError(f"cell (n): kernel {name} did not "
+                                     "launch")
+        emit({"phase": "distributed", "cell": "n", "world_size": 1,
+              "backend": engines["n1"].world.backend, "setup_s": setup_s,
+              "launches": launches, "collectives": collectives,
+              "matches": {cells[k][0]: res.matches
+                          for k, res in results.items()}, **card})
+
+        fanout = JoinConfig().network_fanout_bits
+        for k, (name, cfg, rels) in cells.items():
+            eng = engines[k]
+            r, s = placed.get(k) or tuple(eng.place(rel) for rel in rels)
+            times = []
+            for _ in range(4):
+                sync()
+                t1 = time.perf_counter()
+                run(k, r, s)
+                sync()
+                times.append(time.perf_counter() - t1)
+            join_ms = statistics.median(times[1:]) * 1e3
+            by_kernel = device_us(lambda: run(k, r, s), 3)
+            busy_ms = sum(by_kernel.values()) / 1e3
+            plan = eng._shuffle_plan(r, s)
+            cap_r, cap_s = eng._measure_capacities(r, s, plan)
+            win_r = Window(eng.world, cap_r, "inner")
+            win_s = Window(eng.world, cap_s, "outer")
+            rp, sp, lost_r, lost_s, _ = eng._shuffle(r, s, plan, win_r,
+                                                     win_s)
+            lane = rp.batch.key
+            small = torch.zeros((2, 32), dtype=torch.int64, device=dev)
+            stages = {
+                "sizing": lambda: eng._measure_capacities(
+                    r, s, eng._shuffle_plan(r, s)),
+                "exchange": lambda: eng._shuffle(r, s, plan, win_r, win_s),
+                "nccl_all_to_all_one_lane": lambda: eng.world.all_to_all(
+                    lane, cap_r),
+                "nccl_all_reduce_2x32": lambda: eng.world.all_reduce(
+                    small, op="max"),
+                "nccl_all_gather_32": lambda: eng.world.all_gather(small[0]),
+            }
+            if k == "n1":
+                stages["local_process"] = lambda: eng._local_process(
+                    rp, sp, cap_r, cap_s, 1)
+            elif k == "n3":
+                lanes = [torch.cat([_rotate_pid(rp.batch.key, fanout),
+                                    _rotate_pid(sp.batch.key, fanout)]),
+                         torch.cat([rp.batch.key_hi, sp.batch.key_hi]),
+                         _side_tags(rp.batch.key, sp.batch.key)]
+                ordered = sort_lex_unstable(*lanes, num_keys=2)
+                stages.update({
+                    "rotate_concat": lambda: (
+                        _rotate_pid(rp.batch.key, fanout),
+                        _rotate_pid(sp.batch.key, fanout)),
+                    "sort": lambda: sort_lex_unstable(*lanes, num_keys=2),
+                    "scan": lambda: k5.merge_scan_partitions_wide(
+                        *ordered, num_partitions=1 << fanout)})
+            else:
+                packed = _pack_pm(rp.batch.key, sp.batch.key, fanout)
+                ordered = sort_unstable(packed)
+                stages.update({
+                    "pack": lambda: _pack_pm(rp.batch.key, sp.batch.key,
+                                             fanout),
+                    "sort": lambda: sort_unstable(packed),
+                    "scan": lambda: k3.merge_scan_partitions(
+                        ordered, num_partitions=1 << fanout)})
+                if k == "n4":
+                    stages["debug_checks"] = lambda: eng._debug_checks(
+                        rp, sp, plan, lost_r, lost_s)
+            stage_ms = {st: time_ms(f, 5) for st, f in stages.items()}
+            emit({"phase": "join_time", "workload": name, "join_ms": join_ms,
+                  "join_runs_ms": [t * 1e3 for t in times],
+                  "tuples_per_s": 2 * n / join_ms * 1e3,
+                  "device_busy_ms": busy_ms,
+                  "idle_share": 1 - busy_ms / join_ms,
+                  "device_us_by_kernel": dict(sorted(
+                      by_kernel.items(), key=lambda kv: -kv[1])[:12]),
+                  "caps": [cap_r, cap_s],
+                  "union_positions": rp.batch.key.numel()
+                  + sp.batch.key.numel(),
+                  "pad_share": 1 - 2 * n / (rp.batch.key.numel()
+                                            + sp.batch.key.numel()),
+                  "nccl_lane_bytes": 4 * cap_r, **card})
+            emit({"phase": "breakdown", "workload": name,
+                  "stage_ms": stage_ms, "join_ms": join_ms, **card})
+    finally:
+        multihost.shutdown()
+    return launches
 
 
 def main() -> int:
@@ -516,7 +715,9 @@ def main() -> int:
         "library_ms": time_ms(lambda: torch.bincount(s_pid, minlength=num_p)),
     }
     emit({"phase": "kernel", "kernel": "histogram", "elements": n_main,
-          "checks": len(errs), **results["histogram"]})
+          "checks": len(errs),
+          "device_us": device_us(lambda: k1.histogram(s_pid, num_bins=num_p)),
+          **results["histogram"]})
     del union, flipped, sorted_union, s_pid
 
     # ------------------------------------------------------ K4 partition
@@ -564,6 +765,22 @@ def main() -> int:
     for name, (ids, lanes, groups, gsize, cap) in k4_shapes.items():
         errs += k4_case(f"{name} @ main shape", ids, lanes, groups, gsize,
                         cap)
+    # the exchange call of a 4- and an 8-rank world, as network_partition
+    # gives it: 20M ids, dest = round-robin assignment[pid], into 4 blocks
+    # of 2**23 slots and 8 of 2**22
+    r_pid = torch.bitwise_and(r_main.key, num_p - 1)
+    exchange_groups = {}
+    for groups, cap in ((4, 1 << 23), (8, 1 << 22)):
+        assign = torch.arange(num_p, dtype=torch.int32, device=dev) % groups
+        dest = torch.index_select(assign, 0, r_pid)
+        errs += k4_case(f"exchange into {groups} groups of {cap}", dest,
+                        [r_main.key, r_main.rid], groups, 1, cap)
+        exchange_groups[groups] = {
+            "elements": n_main, "out_slots": groups * cap,
+            "ms": time_ms(lambda: k4.partition_scatter(
+                dest, [r_main.key, r_main.rid], fills, num_groups=groups,
+                capacity=cap))}
+    del r_pid, dest
     # dense mode with the pads as a real last group: reorder_by_partition's
     # call, on the main path's ids
     errs += k4_case("dense reorder @ main shape", loc_ids, [rx_key, rx_rid],
@@ -675,6 +892,7 @@ def main() -> int:
           "scratch_bytes": {"local": k4.scratch_layout(m4, groups).bytes,
                             "exchange": k4.scratch_layout(n_main, 1).bytes},
           "exchange_shape": exchange_shape, "device_us": local_device_us,
+          "exchange_groups": exchange_groups,
           **results["partition"]})
 
     # ------------------------------------------------------ K5 wide probe
@@ -972,6 +1190,8 @@ def main() -> int:
                    Relation(small, 1, "modulo", seed=8, modulo=4099,
                             key_bits=64))
 
+    one_rank = {}   # the joins' results: cell (n) must equal some
+
     def drive(engine, name, run, expected, needed, retries=0):
         """One main-path join, its answer and the kernels it launched."""
         before = kernels.launch_counts()
@@ -995,6 +1215,7 @@ def main() -> int:
               "expected": expected, "ok": res.ok, "retries": res.retries,
               "failure_class": res.diagnostics["failure_class"],
               "launches": delta, "join_with_generation_ms": total_s * 1e3})
+        one_rank[name] = res
 
     # the sort probe: (a), (b), (c)
     workloads = [
@@ -1326,7 +1547,7 @@ def main() -> int:
             ls.blocks.key.view(n_buckets, lcap_s))
     sorted_rows = bucket_rows_sort(*rows)
     stages = {
-        "key_contract": lambda: eng._keys_in_contract(r, s),
+        "key_contract": lambda: eng._keys_in_contract(r, s, False),
         "sizing_histograms": lambda: eng._measure_capacities(
             r, s, eng._shuffle_plan(r, s)),
         "exchange": lambda: eng._shuffle(r, s, plan, win_r, win_s),
@@ -1382,6 +1603,14 @@ def main() -> int:
                   "join_ms": ms, **card})
             del lanes, ordered
     del r, s
+
+    # (n): the generic body on an NCCL group of one rank
+    torch.cuda.empty_cache()
+    launches_n = phase_n(dev, n_main, {
+        "n1": one_rank["bucket_unique_20M"], "n2": one_rank["unique_20M"],
+        "n3": one_rank["wide_unique_20M"], "n4": one_rank["unique_20M"]},
+        time_ms, device_us, card)
+    launches = {k: v + launches[k] for k, v in launches_n.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

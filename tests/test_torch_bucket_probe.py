@@ -162,7 +162,9 @@ def test_one_rank_exchange_is_the_block_scatter(cap):
 
 
 def test_world_beyond_one_rank_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
+    """A world of more ranks needs a process group: without one,
+    make_world raises and names the bootstrap that starts it."""
+    with pytest.raises(ValueError, match="multihost.initialize"):
         make_world(2)
     with pytest.raises(ValueError, match="size"):
         make_world(1).all_to_all(torch.zeros(6), 4)

@@ -129,10 +129,22 @@ def test_raw_arrays_probe_the_key_range():
     ("network_fanout_bits", 8, "A19"), ("local_fanout_bits", 9, "A19"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
+    """A setting the port does not run raises, naming its ROADMAP item.
+    A7, the distributed main path, is ported: ``num_nodes`` and
+    ``debug_checks`` carry across (a world of 4 then needs its process
+    group), and ``chunk_size``, left out of A7, names A7b."""
     jcfg = jx.JoinConfig()
     d = dataclasses.asdict(jcfg)
     d[field] = value
-    with pytest.raises(NotImplementedError, match=item):
+    if field in ("num_nodes", "debug_checks"):
+        cfg = config_from_jax(d)
+        assert getattr(cfg, field) == value
+        if field == "num_nodes":
+            with pytest.raises(ValueError, match="initialize"):
+                tx.HashJoin(cfg, device="cpu")
+        return
+    with pytest.raises(NotImplementedError,
+                       match="A7b" if field == "chunk_size" else item):
         config_from_jax(d)
 
 

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and an
-entry point given no device runs on the card or raises — it never falls
-back to the CPU on its own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (every
+module of it, the distributed ones included, and ``chip_smoke.py``), and
+an entry point given no device runs on the card or raises — it never falls
+back to the CPU, or to gloo, on its own."""
 
 import ast
 import json
@@ -29,6 +30,7 @@ bucket = tx.HashJoin(tx.JoinConfig(probe_algorithm="bucket"), device="cpu").join
     tx.Relation(3000, 1, "modulo", seed=2, modulo=700))
 from tpu_radix_join_torch.data.streaming import stream_chunks_device
 from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+from tpu_radix_join_torch.parallel import multihost
 grid = chunked_join_grid(
     stream_chunks_device(tx.Relation(3000, 1, "unique", seed=1), 0, 1000,
                          "cpu"),
@@ -49,6 +51,10 @@ for name, call in [
             ["--probe", "bucket", "--tuples-per-node", "64"])),
         ("HashJoin fallback", lambda: tx.HashJoin(
             tx.JoinConfig(fallback="chunked"))),
+        ("HashJoin num_nodes=2", lambda: tx.HashJoin(
+            tx.JoinConfig(num_nodes=2))),
+        ("multihost.initialize", lambda: multihost.initialize(
+            init_method="tcp://127.0.0.1:1", world_size=2, rank=0)),
         ("stream_chunks_device", lambda: next(stream_chunks_device(
             tx.Relation(64), 0, 16))),
         ("main --grid-chunk-tuples", lambda: tx.main.main(

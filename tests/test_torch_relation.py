@@ -93,11 +93,17 @@ def test_key_bounds_and_oracles_match_jax():
 
 
 def test_out_of_slice_relations_raise():
+    """64-bit relations and multi-rank shards are in the slice now: a
+    rank's shard equals the JAX package's ``shard_np(rank)``.  A modulo
+    relation without its modulo still raises."""
     wide = trel.Relation(1024, key_bits=64).generate("cpu")
     np.testing.assert_array_equal(
         lane_to_numpy(wide.key_hi),
         jrel.Relation(1024, key_bits=64).shard_np(0)[1])
-    with pytest.raises(NotImplementedError, match="A7"):
-        trel.Relation(1024, num_nodes=2)
+    for rank in range(2):
+        shard = trel.Relation(1024, num_nodes=2).shard(rank, "cpu")
+        want = jrel.Relation(1024, num_nodes=2).shard_np(rank)
+        np.testing.assert_array_equal(lane_to_numpy(shard.key), want[0])
+        np.testing.assert_array_equal(lane_to_numpy(shard.rid), want[1])
     with pytest.raises(ValueError):
         trel.Relation(1024, kind="modulo")

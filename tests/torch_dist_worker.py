@@ -1,0 +1,226 @@
+"""One rank of the port's gloo world for the multi-process tests.
+
+    python tests/torch_dist_worker.py RANK WORLD_SIZE INIT_METHOD
+
+Joins the process group through ``parallel/multihost.initialize`` with
+``device="cpu"`` (gloo), then reads one JSON task a line from standard input
+and writes one JSON result a line to standard output, until ``{"kind":
+"exit"}`` or the end of its input.  Every rank of the world receives the
+same task; a task that raises answers ``{"error": ...}``.  Imports torch and
+the port only.  :class:`WorkerPool` starts such a world and talks to it
+under a deadline.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _np(x):
+    """A tensor (int32 lanes as uint32) or an int64 tensor as a list."""
+    import torch
+    from tpu_radix_join_torch.data.tuples import lane_to_numpy
+    if x.dtype == torch.int32:
+        return lane_to_numpy(x).tolist()
+    return x.cpu().tolist()
+
+
+def _lane(values):
+    """A list of uint32 values as a CPU lane."""
+    import numpy as np
+    from tpu_radix_join_torch.data.tuples import lane_from_numpy
+    return lane_from_numpy(np.asarray(values, np.uint32), "cpu")
+
+
+def _join(task, world_group):
+    import torch
+    import tpu_radix_join_torch as tx
+    cfg = tx.JoinConfig(**task["config"])
+    eng = tx.HashJoin(cfg, device="cpu", group=world_group)
+    inner, outer = (tx.Relation(**task[k]) for k in ("inner", "outer"))
+    if task["flip"]:
+        # this rank's shards with bit 31 of every key set, as raw lanes
+        r, s = (b._replace(key=torch.bitwise_xor(b.key, -(1 << 31)))
+                for b in (eng.place(inner), eng.place(outer)))
+        res = eng.join_arrays(r, s)
+    else:
+        res = eng.join(inner, outer)
+    return {"matches": res.matches, "ok": res.ok,
+            "partition_counts": res.partition_counts.tolist(),
+            "diagnostics": res.diagnostics, "retries": res.retries,
+            "collectives": dict(eng.world.counts)}
+
+
+def _offsets(task, world):
+    from tpu_radix_join_torch.histograms import compute_offsets
+    offs = compute_offsets(_lane(task["local_hists"][world.rank]),
+                           _lane(task["global_hist"]),
+                           _lane(task["assignment"]), world)
+    return {k: _np(v) for k, v in offs._asdict().items()}
+
+
+def _collectives(task, world):
+    import torch
+    rank, n = world.rank, world.size
+    x = torch.tensor([rank + 1, 10 * rank, -rank], dtype=torch.int64)
+    blocks = torch.arange(n * 3, dtype=torch.int32) + 100 * rank
+    return {"sum": _np(world.all_reduce(x)),
+            "max": _np(world.all_reduce(x, op="max")),
+            "gather": _np(world.all_gather(x)),
+            "to_all": _np(world.all_to_all(blocks, 3)),
+            "input_kept": _np(x)}
+
+
+def _exchange(task, world):
+    from tpu_radix_join_torch.parallel.network_partitioning import (
+        network_partition)
+    from tpu_radix_join_torch.parallel.window import Window
+    from tpu_radix_join_torch.data.tuples import TupleBatch
+    batch = TupleBatch(key=_lane(task["key"][world.rank]),
+                       rid=_lane(task["rid"][world.rank]))
+    assignment = _lane(task["assignment"])
+    win = Window(world, task["capacity"], task["side"])
+    res = network_partition(batch, task["fanout"], assignment, win)
+    ghist = _lane(task["global_hist"])
+    lost, bad = win.diagnostics(res, ghist, assignment)
+    return {"key": _np(res.batch.key), "rid": _np(res.batch.rid),
+            "valid": res.valid.tolist(), "pid": _np(res.pid),
+            "recv_counts": _np(res.recv_counts),
+            "send_overflow": int(res.send_overflow), "lost": int(lost),
+            "bad": bool(bad),
+            "all_written": bool(win.assert_all_tuples_written(
+                res, ghist, assignment))}
+
+
+def worker(rank: int, world_size: int, init_method: str) -> None:
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.parallel.world import DistWorld
+    multihost.initialize(init_method=init_method, world_size=world_size,
+                         rank=rank, device="cpu", timeout_s=120)
+    group = dist.group.WORLD
+    kinds = {"join": lambda t: _join(t, group),
+             "offsets": lambda t: _offsets(t, DistWorld(group)),
+             "collectives": lambda t: _collectives(t, DistWorld(group)),
+             "exchange": lambda t: _exchange(t, DistWorld(group))}
+    for line in sys.stdin:
+        task = json.loads(line)
+        if task["kind"] == "exit":
+            break
+        try:
+            out = kinds[task["kind"]](task)
+        except Exception as e:   # reported to the test, which fails on it
+            out = {"error": repr(e), "traceback": traceback.format_exc()}
+        print(json.dumps(out), flush=True)
+    multihost.shutdown()
+
+
+class WorkerPool:
+    """``size`` worker processes forming one gloo world, rendezvous through
+    a file under ``tmp_dir``.  :meth:`run` sends a task to every rank and
+    returns their results in rank order, or kills the world and raises
+    ``AssertionError`` when ``deadline_s`` passes; the next :meth:`run`
+    then starts a new world."""
+
+    def __init__(self, size: int, tmp_dir, deadline_s: float = 180.0):
+        self.size = size
+        self.tmp_dir = Path(tmp_dir)
+        self.deadline_s = deadline_s
+        self.procs = []
+        self.generation = 0
+
+    def _start(self) -> None:
+        self.generation += 1
+        rendezvous = self.tmp_dir / f"rendezvous_{self.generation}"
+        env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        self.queues = []
+        self.logs = []
+        for rank in range(self.size):
+            log = tempfile.TemporaryFile(mode="w+", dir=self.tmp_dir)
+            proc = subprocess.Popen(
+                [sys.executable, __file__, str(rank), str(self.size),
+                 f"file://{rendezvous}"], cwd=ROOT, env=env,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+                text=True)
+            q = queue.Queue()
+            threading.Thread(target=self._pump, args=(proc.stdout, q),
+                             daemon=True).start()
+            self.procs.append(proc)
+            self.queues.append(q)
+            self.logs.append(log)
+
+    @staticmethod
+    def _pump(stream, q) -> None:
+        for line in stream:
+            q.put(line)
+        q.put(None)
+
+    def _stderr(self, rank: int) -> str:
+        log = self.logs[rank]
+        log.seek(0)
+        return log.read()[-3000:]
+
+    def run(self, task: dict) -> list:
+        if not self.procs:
+            self._start()
+        line = json.dumps(task) + "\n"
+        for proc in self.procs:
+            proc.stdin.write(line)
+            proc.stdin.flush()
+        end = time.monotonic() + self.deadline_s
+        out = []
+        for rank, q in enumerate(self.queues):
+            try:
+                got = q.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                got = "deadline"
+            if got is None or got == "deadline":
+                why = ("passed its deadline" if got == "deadline"
+                       else "exited")
+                err = self._stderr(rank)
+                self.close()
+                raise AssertionError(f"rank {rank} {why} on {task['kind']}:"
+                                     f"\n{err}")
+            out.append(json.loads(got))
+        for rank, res in enumerate(out):
+            if "error" in res:
+                raise AssertionError(f"rank {rank}: {res['traceback']}")
+        return out
+
+    def close(self) -> None:
+        """Ask every rank to exit; kill any still running after 20 s."""
+        for proc in self.procs:
+            try:
+                proc.stdin.write(json.dumps({"kind": "exit"}) + "\n")
+                proc.stdin.close()
+            except (BrokenPipeError, ValueError, OSError):
+                pass
+        end = time.monotonic() + 20
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=max(0.1, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for log in self.logs if self.procs else []:
+            log.close()
+        self.procs = []
+
+
+if __name__ == "__main__":
+    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -1,6 +1,8 @@
-"""PyTorch + CUDA port of tpu_radix_join: the one-GPU joins — the sort probe
+"""PyTorch + CUDA port of tpu_radix_join: the joins — the sort probe
 (narrow, full-range and 64-bit keys) and the partitioned (bucket /
-two-level) join with its chunked fallback — and the out-of-core grid
+two-level) join with its chunked fallback — on one GPU or over a
+``torch.distributed`` process group of N (``parallel/multihost.py``,
+``HashJoin(config, group=...)``), and the out-of-core grid
 (``ops/chunked.py``).
 
 The JAX package ``tpu_radix_join`` stays the reference; this package imports

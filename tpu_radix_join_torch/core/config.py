@@ -1,8 +1,9 @@
 """Typed runtime configuration of the port.
 
 The port's own copy of the fields of ``tpu_radix_join/core/config.py`` that
-the one-GPU joins read — the sort probe and the partitioned (bucket /
-two-level) join — each with the JAX package's default, and the derived
+its joins read — the sort probe and the partitioned (bucket / two-level)
+join, on one GPU or over ``num_nodes`` ranks of a ``torch.distributed``
+process group — each with the JAX package's default, and the derived
 geometry (``config.py:300-359``).  A setting the port does not run yet
 raises ``NotImplementedError`` naming the ROADMAP item that will port it;
 nothing falls back quietly.
@@ -28,7 +29,13 @@ def _not_ported(setting: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class JoinConfig:
-    """Knobs of the one-GPU joins.
+    """Knobs of the joins.
+
+      * ``num_nodes``: the ranks of the process group the join runs over
+        (``HashJoin(config, group=...)``); 1 is the one-GPU join.
+      * ``debug_checks``: the shuffle's per-partition conservation check and
+        the OffsetMap invariant (``hash_join.py:1269-1302``), one K1 pass
+        over each receive buffer and two ``all_gather``s a join attempt.
 
       * ``network_fanout_bits`` -> NETWORK_PARTITIONING_FANOUT
         (Configuration.h:30): the sort probe reports 1 << bits partition
@@ -63,6 +70,7 @@ class JoinConfig:
     local_fanout_bits: int = 5
     two_level: bool = False
     num_nodes: int = 1
+    num_hosts: int = 1
     key_bits: int = 32
     key_range: str = "auto"
     window_sizing: str = "measured"
@@ -76,6 +84,8 @@ class JoinConfig:
     fallback: str = "none"
     verify: str = "off"
     skew_threshold: Optional[float] = None
+    chunk_size: Optional[int] = None
+    debug_checks: bool = False
 
     def __post_init__(self):
         if self.network_fanout_bits < 0 or self.local_fanout_bits < 0:
@@ -92,9 +102,11 @@ class JoinConfig:
                 "queue A, A19: wider fanout")
         if self.num_nodes < 1:
             raise ValueError("num_nodes must be >= 1")
-        if self.num_nodes > 1:
-            raise _not_ported(f"num_nodes={self.num_nodes}",
-                              "A7, the distributed main path")
+        if self.num_hosts < 1 or self.num_nodes % self.num_hosts:
+            raise ValueError("num_nodes must divide evenly over num_hosts")
+        if self.num_hosts > 1:
+            raise _not_ported(f"num_hosts={self.num_hosts} (the "
+                              "hierarchical exchange)", "A10")
         if self.key_bits not in (32, 64):
             raise ValueError("key_bits must be 32 or 64")
         if self.key_range not in ("auto", "narrow", "full"):
@@ -135,6 +147,9 @@ class JoinConfig:
             raise _not_ported(f"verify={self.verify!r}", "A15")
         if self.skew_threshold is not None:
             raise _not_ported("skew_threshold", "A10")
+        if self.chunk_size is not None:
+            raise _not_ported(f"chunk_size={self.chunk_size} (the chunked "
+                              "probe after the shuffle)", "A7b")
 
     # --- derived geometry ------------------------------------------------
     @property

@@ -12,7 +12,10 @@ to the JAX package's device generators for the same spec:
     tables built once on the host (:func:`zipf_tables`, copied verbatim),
     then pure uint32 arithmetic.
 
-``rid`` is the dense global tuple index.  ``key_bits=64`` adds the hi lane
+``rid`` is the dense global tuple index.  :meth:`Relation.shard` generates
+node i's slice, the global index range ``[i * local, (i + 1) * local)``,
+as the JAX package's ``shard_np`` / ``shard`` do; :meth:`Relation.generate`
+the whole relation.  ``key_bits=64`` adds the hi lane
 :func:`key_hi_lane` of each key.  Generation is plain PyTorch on int64
 tensors holding uint32 values; the lanes it returns are int32
 (data/tuples.py).
@@ -141,9 +144,8 @@ def unique_keys(start: int, n: int, global_size: int, seed: int,
 class Relation:
     """A logical relation: a global keyspace spec plus its generator.
 
-    ``num_nodes`` keeps the JAX package's signature; the port generates
-    single-node relations and raises for more nodes.  ``key_bits=64`` adds
-    the hi lane."""
+    ``num_nodes`` splits it into equal shards, one a rank (:meth:`shard`).
+    ``key_bits=64`` adds the hi lane."""
 
     def __init__(
         self,
@@ -166,9 +168,6 @@ class Relation:
             raise ValueError("zipf kind requires zipf_theta= > 0")
         if key_bits not in (32, 64):
             raise ValueError("key_bits must be 32 or 64")
-        if num_nodes > 1:
-            raise NotImplementedError(
-                "num_nodes > 1 is not ported to PyTorch yet (ROADMAP.md A7)")
         if key_bits == 32 and global_size > (1 << 31) - 2:
             raise ValueError(
                 "32-bit keys cap global_size at 2**31 - 2 (31-bit merge-count "
@@ -218,14 +217,26 @@ class Relation:
         return zipf_range(start, n, head_cdf, tail_keys, self.key_domain,
                           self.seed, device)
 
+    def _batch(self, start: int, n: int, device) -> TupleBatch:
+        dev = resolve_device(device)
+        key = self.keys_range(start, n, dev)
+        rid = torch.arange(start, start + n, dtype=torch.int64, device=dev)
+        hi = narrow(key_hi_lane(key)) if self.key_bits == 64 else None
+        return TupleBatch(key=narrow(key), rid=narrow(rid), key_hi=hi)
+
     def generate(self, device="cuda") -> TupleBatch:
         """The whole relation as a TupleBatch on ``device`` (cuda unless the
         caller asks for cpu); 64-bit relations carry ``key_hi``."""
-        dev = resolve_device(device)
-        key = self.keys_range(0, self.global_size, dev)
-        rid = torch.arange(self.global_size, dtype=torch.int64, device=dev)
-        hi = narrow(key_hi_lane(key)) if self.key_bits == 64 else None
-        return TupleBatch(key=narrow(key), rid=narrow(rid), key_hi=hi)
+        return self._batch(0, self.global_size, device)
+
+    def shard(self, node: int, device="cuda") -> TupleBatch:
+        """Node ``node``'s shard, global indices ``[node * local_size,
+        (node + 1) * local_size)``: the JAX package's ``shard_np(node)``
+        (``relation.py:426-467``) as a TupleBatch on ``device``."""
+        if not 0 <= node < self.num_nodes:
+            raise ValueError(f"node must be in [0, {self.num_nodes}), got "
+                             f"{node}")
+        return self._batch(node * self.local_size, self.local_size, device)
 
     def expected_matches(self, outer: "Relation") -> Optional[int]:
         """Closed-form expected |self ⋈ outer| where derivable: unique ⋈

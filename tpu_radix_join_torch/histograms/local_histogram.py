@@ -11,9 +11,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpu_radix_join_torch.data.tuples import TupleBatch, partition_ids
+from tpu_radix_join_torch.data.tuples import (TupleBatch, narrow,
+                                              partition_ids, widen)
 from tpu_radix_join_torch.ops.radix import local_histogram
-from tpu_radix_join_torch.parallel.world import OneRankWorld
 
 
 def compute_local_histogram(batch: TupleBatch, fanout_bits: int,
@@ -26,6 +26,11 @@ def compute_local_histogram(batch: TupleBatch, fanout_bits: int,
 
 
 def compute_global_histogram(local_hist: torch.Tensor,
-                             world: OneRankWorld) -> torch.Tensor:
-    """The local histograms summed over every rank of ``world``."""
-    return world.all_reduce(local_hist)
+                             world) -> torch.Tensor:
+    """The local histograms summed over every rank of ``world``
+    (parallel/world.py): an int64 ``all_reduce`` handed back as uint32
+    bits, so it equals the JAX package's uint32 ``psum`` wherever that does
+    not wrap.  A world of one rank returns ``local_hist`` itself."""
+    if world.size == 1:
+        return local_hist
+    return narrow(world.all_reduce(widen(local_hist)))

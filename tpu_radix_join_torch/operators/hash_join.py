@@ -1,11 +1,14 @@
-"""The one-GPU join engine.
+"""The join engine, on one GPU or over a process group of N ranks.
 
-Counterpart of ``tpu_radix_join/operators/hash_join.py`` at
-``num_nodes == 1`` (``_pipeline_fn``, ``join``, ``join_arrays``, ``place``,
-``_finish_join``).  The config picks one of two pipelines.
+Counterpart of ``tpu_radix_join/operators/hash_join.py`` (``_pipeline_fn``,
+``_shuffle``, ``_local_process``, ``_join_arrays_inner``, ``join``,
+``join_arrays``, ``place``, ``_finish_join``).  The world
+(parallel/world.py) is a ``OneRankWorld`` by default, or a ``DistWorld``
+over the ``torch.distributed`` group the caller passes: every rank runs the
+same program on its own shard and returns the same result.
 
-**Sort probe** (the default; ``_pipeline_fn``'s n == 1 branch): the shuffle
-is an identity, so the join is
+**Sort probe at one rank** (the default; ``_pipeline_fn``'s ``n == 1 and
+sort_probe`` specialization): the shuffle is an identity, so the join is
 
   1. the discipline (``_resolve_key_range``): "wide" for 64-bit keys, else
      ``key_range``'s "narrow" or "full";
@@ -19,23 +22,35 @@ is an identity, so the join is
      (K1) only when the one scalar readback says a count might wrap;
   5. a host uint64 sum of the per-partition counts.
 
-**Partitioned join** (``probe_algorithm="bucket"`` or ``two_level``;
-``_pipeline_fn``'s generic body, hpcjoin's own algorithm at one node):
+**The generic body** (``_pipeline_fn``'s shuffle path: every world larger
+than one rank, and the partitioned join ``probe_algorithm="bucket"`` or
+``two_level`` at any size; :meth:`HashJoin.join_shuffled` runs it at one
+rank too):
 
-  1. window sizing: the local histograms (K1), the assignment, and each
-     relation's worst per-destination demand rounded up to a power of two
-     (or the ``allocation_factor`` estimate, ``window_sizing="static"``);
-     the histograms and the assignment are computed once a join and
-     shared by every attempt;
+  1. window sizing: the local histograms (K1), their ``all_reduce``, the
+     assignment, and each relation's worst per-destination demand over all
+     ranks (``all_reduce`` max) rounded up to a power of two (or the
+     ``allocation_factor`` estimate, ``window_sizing="static"``); computed
+     once a join and shared by every attempt;
   2. the exchange (``_shuffle``): ``network_partition`` into one block per
-     rank (K4), the all_to_all, and the conservation check;
-  3. local processing: the second radix pass into buckets (K4), the row
-     sort of every bucket (K2) and the merge-weight scan;
-  4. the 7-entry flag vector, read back with the per-bucket counts; a
-     capacity shortfall reruns the attempt with only the shape that fell
-     short doubled, up to ``max_retries`` times; with
-     ``fallback="chunked"`` a shortfall that outlasts them degrades to the
-     out-of-core count (``_fallback_chunked``).
+     rank (K4), an ``all_to_all`` of every lane and of the counts, the
+     conservation check, and with ``debug_checks`` the per-partition check
+     (K1 on the receive buffers) and the OffsetMap invariant;
+  3. local processing on the ``N * cap`` pad-filled receive buffers: the
+     sort probe (K2 then K3, or K5 for full-range and 64-bit keys), or the
+     second radix pass into buckets (K4), the row sort of every bucket (K2)
+     and the merge-weight scan;
+  4. the 7-entry flag vector, summed over the ranks in one ``all_reduce``,
+     and the per-partition (or per-bucket) counts gathered in rank order
+     into ``[N * P]``, read back together; a capacity shortfall reruns the
+     attempt on every rank with only the shape that fell short doubled, up
+     to ``max_retries`` times; with ``fallback="chunked"`` a shortfall that
+     outlasts them degrades to the out-of-core count
+     (``_fallback_chunked``).
+
+Every rank issues the same collectives in the same order: each host
+decision that precedes a collective reads an all-reduced value or the
+configuration.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, TupleBatch,
                                               _sentinel_lane, umax, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_local_histogram,
+                                             compute_offsets,
                                              compute_partition_assignment)
 from tpu_radix_join_torch.operators.local_partitioning import local_partition
 from tpu_radix_join_torch.ops.build_probe import probe_count_bucketized
@@ -75,7 +91,8 @@ FALLBACK_SLAB = 1 << 20
 class JoinResult(NamedTuple):
     matches: int                  # exact match count (host uint64 sum)
     ok: bool                      # no flag raised
-    partition_counts: np.ndarray  # uint32 [P] per-partition (or bucket) counts
+    partition_counts: np.ndarray  # uint32 [N * P] per-rank per-partition (or
+                                  # bucket) counts, in rank order
     diagnostics: Optional[dict] = None   # failure breakdown (_flags_to_diag)
     retries: int = 0              # capacity retries the join took
 
@@ -99,12 +116,25 @@ def _minmax_i32(lane: torch.Tensor) -> torch.Tensor:
 
 class HashJoin:
     """The join engine; ``device`` is "cuda" unless the caller asks for
-    "cpu", where every kernel takes its plain PyTorch version."""
+    "cpu", where every kernel takes its plain PyTorch version.
 
-    def __init__(self, config: Optional[JoinConfig] = None, device="cuda"):
+    ``group`` is the ``torch.distributed`` process group of a join over
+    ``config.num_nodes`` ranks (``parallel/multihost.initialize`` starts
+    one; ``torch.distributed.group.WORLD`` names it): NCCL for a CUDA
+    device, gloo for the CPU.  Without a group the world is one rank, and
+    ``num_nodes > 1`` raises, as does a group of another size."""
+
+    def __init__(self, config: Optional[JoinConfig] = None, device="cuda",
+                 group=None):
         self.config = config if config is not None else JoinConfig()
         self.device = resolve_device(device)
-        self.world = make_world(self.config.num_nodes)
+        self.world = make_world(self.config.num_nodes, group)
+        if group is not None:
+            want = "nccl" if self.device.type == "cuda" else "gloo"
+            if self.world.backend != want:
+                raise ValueError(
+                    f"a join on {self.device.type} runs over a {want} "
+                    f"process group, not {self.world.backend}")
 
     # ------------------------------------------------------------- checks
     def _check_batches(self, r: TupleBatch, s: TupleBatch) -> None:
@@ -143,8 +173,9 @@ class HashJoin:
         """The sort probe's discipline for this join: "wide" for 64-bit
         keys; else ``key_range`` — "narrow" (the packed 31-bit probe) or
         "full" as set, and "auto" from the relations' static key bound when
-        one is known, else from the device max of both key lanes (one
-        readback)."""
+        one is known, else from the device max of both key lanes over every
+        rank (one ``all_reduce`` and one readback).  ``key_bound`` must be
+        the same on every rank."""
         cfg = self.config
         if r.key_hi is not None:
             return "wide"
@@ -153,7 +184,9 @@ class HashJoin:
         if key_bound is not None:
             full = key_bound - 1 > MAX_MERGE_KEY
         else:
-            full = int(torch.maximum(umax(r.key), umax(s.key))) > MAX_MERGE_KEY
+            full = int(self.world.all_reduce(
+                torch.maximum(umax(r.key), umax(s.key)), op="max")
+            ) > MAX_MERGE_KEY
         return "full" if full else "narrow"
 
     @staticmethod
@@ -167,7 +200,8 @@ class HashJoin:
     @staticmethod
     def _flags_to_diag(flags: np.ndarray) -> dict:
         """Failure breakdown from the 7-entry flag vector (the JAX
-        package's layout: the shuffle and local entries stay 0 here)."""
+        package's layout; ``hot_overflow`` belongs to the skew split and
+        stays 0).  Each entry is summed over the ranks."""
         diag = {
             "key_contract_violations": int(flags[0]),
             "shuffle_overflow_r_tuples": int(flags[1]),
@@ -190,16 +224,26 @@ class HashJoin:
     # ------------------------------------------------------------- joins
     def join_arrays(self, r: TupleBatch, s: TupleBatch,
                     key_bound: Optional[int] = None) -> JoinResult:
-        """Join two placed batches (lanes on the engine's device).
-        ``key_bound``, when known, is an exclusive bound on both relations'
-        keys; with ``key_range="auto"`` it spares the sort probe the device
+        """Join two placed batches (lanes on the engine's device): over a
+        process group, this rank's shards.  ``key_bound``, when known, is
+        an exclusive bound on both relations' keys, the same on every rank;
+        with ``key_range="auto"`` it spares the sort probe the device
         max-key probe (:meth:`join` passes the relations' static bounds).
         The partitioned join takes every key below the pads and needs no
-        bound."""
+        bound.  One rank's sort probe skips the shuffle; everything else
+        runs the generic body."""
         self._check_batches(r, s)
-        if self.config.sort_probe:
+        if self.config.sort_probe and self.world.size == 1:
             return self._sort_probe_join(r, s, key_bound)
-        return self._partitioned_join(r, s)
+        return self._shuffled_join(r, s, key_bound)
+
+    def join_shuffled(self, r: TupleBatch, s: TupleBatch,
+                      key_bound: Optional[int] = None) -> JoinResult:
+        """The generic body whatever the world's size: at one rank the sort
+        probe then runs on the exchange's pad-filled receive buffers, as a
+        rank of an N-rank world does, instead of on the relations."""
+        self._check_batches(r, s)
+        return self._shuffled_join(r, s, key_bound)
 
     def _sort_probe_join(self, r: TupleBatch, s: TupleBatch,
                          key_bound: Optional[int]) -> JoinResult:
@@ -207,15 +251,7 @@ class HashJoin:
         num_p = cfg.network_partition_count
         fanout = cfg.network_fanout_bits
         route = self._resolve_key_range(r, s, key_bound)
-        # the key contract on both sentinel lanes: on the narrow route every
-        # key below the packing cap (2**31 or less, so the signed (min, max)
-        # of each lane decides it in one pass), on the others every key
-        # below the pads
-        if route == "narrow":
-            key_stats = torch.cat([_minmax_i32(r.key), _minmax_i32(s.key)])
-        else:
-            key_stats = torch.stack([umax(_sentinel_lane(r)),
-                                     umax(_sentinel_lane(s))])
+        keys_ok = self._keys_in_contract(r, s, route == "narrow")
         if route == "wide":
             counts, maxw = merge_count_wide_per_partition(
                 r.key, r.key_hi, s.key, s.key_hi, fanout,
@@ -227,16 +263,10 @@ class HashJoin:
             counts, maxw = merge_count_per_partition(
                 r.key, s.key, fanout, return_max_weight=True)
         # the join's one readback: contract check, max weight, counts
-        host = torch.cat([key_stats, maxw.reshape(1).to(torch.int64),
-                          counts.to(torch.int64)]).cpu().numpy()
-        k = key_stats.numel()
-        if route == "narrow":
-            keys_ok = bool(host[0] >= 0 and host[2] >= 0
-                           and max(host[1], host[3]) <= MAX_MERGE_KEY)
-        else:
-            keys_ok = bool(max(host[0], host[1]) < R_PAD_KEY)
-        maxw = int(host[k]) & 0xFFFFFFFF
-        counts = (host[k + 1:] & 0xFFFFFFFF).astype(np.uint32)
+        host = torch.cat([(~keys_ok).to(torch.int64).reshape(1),
+                          widen(maxw).reshape(1), widen(counts)]).cpu().numpy()
+        keys_bad, maxw = int(host[0]), int(host[1])
+        counts = host[2:].astype(np.uint32)
         # overflow-risk bound: the scalar pre-test maxw * |S| < 2**32
         # clears every realistic workload with no extra pass; only a
         # suspect workload pays the per-partition histogram
@@ -248,7 +278,7 @@ class HashJoin:
                 maxw, s_hist.cpu().numpy().view(np.uint32))
         else:
             count_risk = False
-        flags = np.array([int(not keys_ok), 0, 0, 0, 0, 0, int(count_risk)],
+        flags = np.array([keys_bad, 0, 0, 0, 0, 0, int(count_risk)],
                          dtype=np.uint32)
         diag = self._flags_to_diag(flags)
         # host uint64 sum: a device sum of uint32 counts would wrap at scale
@@ -256,18 +286,23 @@ class HashJoin:
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag)
 
-    # ------------------------------------------------- partitioned join
-    def _partitioned_join(self, r: TupleBatch, s: TupleBatch) -> JoinResult:
-        """The retry loop around :meth:`_partitioned_attempt`
+    # ------------------------------------------------------ generic body
+    def _shuffled_join(self, r: TupleBatch, s: TupleBatch,
+                       key_bound: Optional[int]) -> JoinResult:
+        """The retry loop around :meth:`_shuffled_attempt`
         (``_join_arrays_inner``, hash_join.py:1912-1948): a capacity
         shortfall doubles only what fell short — ``cap_r``, ``cap_s`` or
-        the local slack — and reruns the attempt."""
+        the local slack — and reruns the attempt.  The flags are summed
+        over the ranks, so every rank retries or stops together."""
+        cfg = self.config
+        route = (self._resolve_key_range(r, s, key_bound) if cfg.sort_probe
+                 else None)
         plan = self._shuffle_plan(r, s)
         cap_r, cap_s = self._measure_capacities(r, s, plan)
         local_slack = 1
-        for attempt in range(self.config.max_retries + 1):
-            counts, flags = self._partitioned_attempt(r, s, plan, cap_r,
-                                                      cap_s, local_slack)
+        for attempt in range(cfg.max_retries + 1):
+            counts, flags = self._shuffled_attempt(r, s, plan, route, cap_r,
+                                                   cap_s, local_slack)
             diag = self._flags_to_diag(flags)
             if not flags.any() or not self._retryable(diag):
                 break
@@ -278,24 +313,35 @@ class HashJoin:
             if diag["local_overflow"]:
                 local_slack *= 2
         if (flags.any() and self._retryable(diag)
-                and self.config.fallback == "chunked"):
+                and cfg.fallback == "chunked"):
             return self._fallback_chunked(r, s, diag, attempt)
         matches = int(counts.astype(np.uint64).sum())
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag,
                           retries=attempt)
 
-    @staticmethod
-    def _fallback_chunked(r: TupleBatch, s: TupleBatch, diag: dict,
+    def _whole(self, b: TupleBatch) -> TupleBatch:
+        """The whole relation, every rank's shard in rank order (an
+        ``all_gather`` of each lane; the shards must have one size)."""
+        if self.world.size == 1:
+            return b
+        return TupleBatch(*(None if lane is None
+                            else self.world.all_gather(lane).reshape(-1)
+                            for lane in b))
+
+    def _fallback_chunked(self, r: TupleBatch, s: TupleBatch, diag: dict,
                           retries: int) -> JoinResult:
         """Degrade instead of failing (``fallback="chunked"``): the
         exchange windows could not be sized for this workload within
         ``max_retries`` doublings, so count the join out of core
         (``ops/chunked.chunked_join_count``), whose only capacity is the
-        slab chosen here.  The lanes stay on the device.  The diagnostics
-        keep the attempt's flags, marked ``degraded="chunked"``; an error of
-        the degraded path is reported in ``fallback_error``, never raised."""
+        slab chosen here.  Over N ranks every rank gathers both relations
+        and counts them whole, as every JAX process does.  The lanes stay
+        on the device.  The diagnostics keep the attempt's flags, marked
+        ``degraded="chunked"``; an error of the count is reported in
+        ``fallback_error``, never raised."""
         diag = dict(diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked")
+        r, s = self._whole(r), self._whole(s)
         try:
             matches = chunked_join_count(r, s, min(FALLBACK_SLAB, s.size),
                                          key_range="auto")
@@ -311,10 +357,12 @@ class HashJoin:
                           diagnostics=diag, retries=retries)
 
     def _shuffle_plan(self, r: TupleBatch, s: TupleBatch) -> ShufflePlan:
-        """The histograms (K1) and the assignment.  The JAX package computes
-        them twice, in its sizing program (``_histogram_fn``) and again in
-        every attempt's ``_shuffle``; they depend on the relations alone, so
-        here the sizing pass and every attempt share one computation."""
+        """The histograms (K1), their sums over the ranks and the
+        assignment.  The JAX package computes them twice, in its sizing
+        program (``_histogram_fn``) and again in every attempt's
+        ``_shuffle``; they depend on the relations alone, so here the
+        sizing pass and every attempt share one computation.  Every rank
+        computes the same assignment from the same global histograms."""
         cfg = self.config
         _, r_hist = compute_local_histogram(r, cfg.network_fanout_bits)
         _, s_hist = compute_local_histogram(s, cfg.network_fanout_bits)
@@ -327,8 +375,8 @@ class HashJoin:
 
     def _sizing_demands(self, plan: ShufflePlan):
         """The sizing pass (``_histogram_fn`` without hot bits or the
-        codec's key max): each relation's per-destination send demand,
-        int64 [num_nodes] on the device."""
+        codec's key max): this rank's per-destination send demand of each
+        relation, int64 [num_nodes] on the device."""
         n = self.config.num_nodes
         assignment = plan.assignment
         dest_onehot = (widen(assignment)[None, :]
@@ -339,14 +387,18 @@ class HashJoin:
     def _measure_capacities(self, r: TupleBatch, s: TupleBatch,
                             plan: ShufflePlan):
         """(cap_r, cap_s): the static exchange block sizes — the next power
-        of two at or above the worst (sender, destination) demand, or the
-        ``allocation_factor`` estimate with ``window_sizing="static"``."""
+        of two at or above the worst (sender, destination) demand over all
+        ranks (``all_reduce`` max), or the ``allocation_factor`` estimate of
+        the largest shard with ``window_sizing="static"``."""
         cfg = self.config
-        n = cfg.num_nodes
         if cfg.window_sizing == "static":
-            return (cfg.shuffle_block_capacity(r.size // n),
-                    cfg.shuffle_block_capacity(s.size // n))
-        demands = torch.stack(self._sizing_demands(plan)).cpu()
+            sizes = self.world.all_reduce(torch.tensor(
+                [r.size, s.size], dtype=torch.int64, device=self.device),
+                op="max").cpu()
+            return (cfg.shuffle_block_capacity(int(sizes[0])),
+                    cfg.shuffle_block_capacity(int(sizes[1])))
+        demands = self.world.all_reduce(
+            torch.stack(self._sizing_demands(plan)), op="max").cpu()
 
         def cap(demand):
             worst = max(1, int(demand.max()))
@@ -354,26 +406,59 @@ class HashJoin:
 
         return cap(demands[0]), cap(demands[1])
 
-    def _keys_in_contract(self, r: TupleBatch, s: TupleBatch) -> torch.Tensor:
-        """0-d bool: every key below the pads (the partitioned join has no
-        packing cap)."""
+    @staticmethod
+    def _keys_in_contract(r: TupleBatch, s: TupleBatch,
+                          narrow_route: bool) -> torch.Tensor:
+        """0-d bool: every key of this rank's shards below the narrow sort
+        probe's packing cap (``MAX_MERGE_KEY``, judged on the signed
+        (min, max) of each lane), or below the pads on every other route."""
+        if narrow_route:
+            st = torch.stack([_minmax_i32(r.key), _minmax_i32(s.key)])
+            return (st[:, 0] >= 0).all() & (st[:, 1] <= MAX_MERGE_KEY).all()
         return ((umax(_sentinel_lane(r)) < R_PAD_KEY)
                 & (umax(_sentinel_lane(s)) < R_PAD_KEY))
 
     def _shuffle(self, r: TupleBatch, s: TupleBatch, plan: ShufflePlan,
                  win_r: Window, win_s: Window):
         """Exchange and conservation checks (the non-skew branch of
-        ``_shuffle``, on the histograms and assignment of ``plan``).
-        Returns (rp, sp, lost_r, lost_s, conserve_bad), the last three 0-d
-        device tensors."""
-        fanout = self.config.network_fanout_bits
+        ``_shuffle``, hash_join.py:1187-1306, on the histograms and
+        assignment of ``plan``).  Returns (rp, sp, lost_r, lost_s, bad):
+        the lost tuples of each window summed over the ranks, and this
+        rank's conservation violations (0, 1 or 2), all 0-d int64."""
+        cfg = self.config
+        fanout = cfg.network_fanout_bits
         rp = network_partition(r, fanout, plan.assignment, win_r)
         sp = network_partition(s, fanout, plan.assignment, win_s)
         lost_r, bad_r = win_r.diagnostics(rp, plan.r_ghist, plan.assignment)
         lost_s, bad_s = win_s.diagnostics(sp, plan.s_ghist, plan.assignment)
-        conserve_bad = self.world.all_reduce(bad_r.to(torch.int64)
-                                             + bad_s.to(torch.int64))
-        return rp, sp, lost_r, lost_s, conserve_bad
+        if cfg.debug_checks:
+            bad_r = bad_r | self._debug_checks(rp, sp, plan, lost_r, lost_s)
+        return rp, sp, lost_r, lost_s, (bad_r.to(torch.int64)
+                                         + bad_s.to(torch.int64))
+
+    def _debug_checks(self, rp, sp, plan: ShufflePlan, lost_r: torch.Tensor,
+                      lost_s: torch.Tensor) -> torch.Tensor:
+        """``debug_checks`` (hash_join.py:1269-1302), 0-d bool:
+        per-partition conservation — the valid received tuples of each
+        partition (K1 over the receive buffer) equal its global histogram
+        entry where this rank owns it and 0 elsewhere, judged where nothing
+        overflowed — and the OffsetMap invariant ``relative + local <=
+        global`` (histograms/offset_map.py), which a disagreement between
+        the ``all_reduce`` and the ``all_gather`` would break."""
+        num_p = self.config.network_partition_count
+        mine = widen(plan.assignment) == self.world.rank
+        bad = torch.zeros((), dtype=torch.bool, device=self.device)
+        for part, ghist, lost in ((rp, plan.r_ghist, lost_r),
+                                  (sp, plan.s_ghist, lost_s)):
+            got = widen(local_histogram(part.pid, num_p, part.valid))
+            want = torch.where(mine, widen(ghist), 0)
+            bad = bad | ((got != want).any() & (lost == 0))
+        for lhist, ghist in ((plan.r_hist, plan.r_ghist),
+                             (plan.s_hist, plan.s_ghist)):
+            offs = compute_offsets(lhist, ghist, plan.assignment, self.world)
+            bad = bad | (widen(offs.relative) + widen(lhist)
+                         > widen(ghist)).any()
+        return bad
 
     def _bucket_caps(self, cap_r: int, cap_s: int, local_slack: int):
         """Per-bucket capacities of the second radix pass."""
@@ -417,36 +502,72 @@ class HashJoin:
             lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s), *hi)
         return counts, lr.overflow + ls.overflow, risk
 
-    def _partitioned_attempt(self, r: TupleBatch, s: TupleBatch,
-                             plan: ShufflePlan, cap_r: int, cap_s: int,
-                             local_slack: int):
-        """One attempt at the given capacities: (per-bucket uint32 counts,
-        uint32 [7] flags), both from one readback."""
-        keys_ok = self._keys_in_contract(r, s)
-        rp, sp, lost_r, lost_s, conserve_bad = self._shuffle(
+    def _local_probe(self, rp, sp, route: str, s_ghist: torch.Tensor):
+        """The non-bucket branch of ``_local_process`` (hash_join.py:
+        1154-1185): the sort probe on the pad-filled receive buffers —
+        narrow (K2 then K3), full (K2 then K5) or wide (K2 with three lanes,
+        then K5).  The pads sort with the tuples and match nothing.  The
+        overflow-risk bound reads the shuffle's global outer histogram, the
+        same on every rank.  Returns (per-partition counts, local overflow
+        0, count-overflow risk)."""
+        fanout = self.config.network_fanout_bits
+        r, s = rp.batch, sp.batch
+        if route == "wide":
+            counts, maxw = merge_count_wide_per_partition(
+                r.key, r.key_hi, s.key, s.key_hi, fanout,
+                return_max_weight=True)
+        elif route == "full":
+            counts, maxw = merge_count_per_partition_full(
+                r.key, s.key, fanout, return_max_weight=True)
+        else:
+            counts, maxw = merge_count_per_partition(
+                r.key, s.key, fanout, return_max_weight=True)
+        limit = 0xFFFFFFFF // torch.clamp(widen(maxw), min=1)
+        zero = torch.zeros((), dtype=torch.int64, device=counts.device)
+        return counts, zero, (widen(s_ghist) > limit).any()
+
+    def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
+                          plan: ShufflePlan, route: Optional[str], cap_r: int,
+                          cap_s: int, local_slack: int):
+        """One attempt at the given capacities: (per-rank per-partition
+        uint32 counts [N * P] in rank order, uint32 [7] flags summed over
+        the ranks), both from one readback."""
+        n = self.world.size
+        if n * (cap_r + cap_s) >= 1 << 31:
+            raise ValueError(
+                f"the receive buffers hold {n} * ({cap_r} + {cap_s}) "
+                "positions; the joins count positions in 32 bits")
+        keys_ok = self._keys_in_contract(r, s, route == "narrow")
+        rp, sp, lost_r, lost_s, bad = self._shuffle(
             r, s, plan, Window(self.world, cap_r, "inner"),
             Window(self.world, cap_s, "outer"))
-        counts, local_overflow, risk = self._local_process(
-            rp, sp, cap_r, cap_s, local_slack)
-        zero = torch.zeros((), dtype=torch.int64, device=counts.device)
-        flags = torch.stack([
-            self.world.all_reduce((~keys_ok).to(torch.int64)),
-            lost_r, lost_s, conserve_bad,
-            self.world.all_reduce(local_overflow), zero,
-            self.world.all_reduce(risk.to(torch.int64))])
-        host = torch.cat([flags, widen(counts)]).cpu().numpy()
+        if route is None:
+            counts, local_overflow, risk = self._local_process(
+                rp, sp, cap_r, cap_s, local_slack)
+        else:
+            counts, local_overflow, risk = self._local_probe(
+                rp, sp, route, plan.s_ghist)
+        summed = self.world.all_reduce(torch.stack([
+            (~keys_ok).to(torch.int64), bad, widen(local_overflow),
+            risk.to(torch.int64)]))
+        zero = torch.zeros((), dtype=torch.int64, device=summed.device)
+        flags = torch.stack([summed[0], lost_r, lost_s, summed[1], summed[2],
+                             zero, summed[3]])
+        gathered = self.world.all_gather(counts).reshape(-1)
+        host = torch.cat([flags, widen(gathered)]).cpu().numpy()
         return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
                 (host[:7] & 0xFFFFFFFF).astype(np.uint32))
 
     def place(self, rel: Relation) -> TupleBatch:
-        """Generate a relation on the engine's device."""
+        """Generate this rank's shard of a relation on the engine's
+        device."""
         if rel.num_nodes != self.config.num_nodes:
             raise ValueError("relation num_nodes must match config.num_nodes")
         if rel.key_bits != self.config.key_bits:
             raise ValueError(
                 f"config.key_bits={self.config.key_bits} but the relation "
                 f"generates {rel.key_bits}-bit keys")
-        batch = rel.generate(self.device)
+        batch = rel.shard(self.world.rank, self.device)
         if self.device.type == "cuda":
             # generation is asynchronous: it must not finish inside a
             # later join's timers

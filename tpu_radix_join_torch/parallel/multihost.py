@@ -1,0 +1,155 @@
+"""Joining a ``torch.distributed`` process group: the ``MPI_Init`` analog.
+
+Counterpart of ``tpu_radix_join/parallel/multihost.py:42-169``
+(``initialize``, ``process_info``, ``CoordinatorTimeout``).  A distributed
+join of the port is N processes, one GPU each, launched by ``torchrun`` (or
+by hand with an explicit address, world size and rank); after
+:func:`initialize` each passes ``torch.distributed.group.WORLD`` to
+``HashJoin(config, group=...)``.
+
+  * Opt-in: with no ``init_method`` argument and no torchrun environment
+    (``MASTER_ADDR`` and ``MASTER_PORT``) it does nothing and returns
+    False, so an entry point may call it unconditionally.  ``RANK``,
+    ``WORLD_SIZE`` and ``LOCAL_RANK`` fill what the arguments leave out.
+  * The backend follows the device: NCCL for ``cuda`` (the default), after
+    ``torch.cuda.set_device(local_rank)``; gloo only for ``device="cpu"``.
+    A CUDA device without NCCL raises; nothing switches to gloo.
+  * The connect runs under a :class:`~..robustness.retry.RetryPolicy`: a
+    rank that races ahead of a slow rendezvous backs off and retries, and
+    one that never connects raises :class:`CoordinatorTimeout` (failure
+    class ``coordinator_timeout``) after a bounded schedule.  Knobs:
+    ``TPU_RJ_COORD_ATTEMPTS``, ``TPU_RJ_COORD_BACKOFF_S``,
+    ``TPU_RJ_COORD_TIMEOUT_S``, or the arguments.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from tpu_radix_join_torch.core.device import resolve_device
+from tpu_radix_join_torch.robustness import faults as _faults
+from tpu_radix_join_torch.robustness.retry import (COORDINATOR_TIMEOUT,
+                                                   RetriesExhausted,
+                                                   RetryPolicy, execute)
+
+#: seconds a connect attempt (and each collective of the group) may take
+DEFAULT_TIMEOUT_S = 300.0
+
+
+class CoordinatorTimeout(ConnectionError):
+    """Could not join the process group within policy.  ``attempts`` and
+    ``backoff_s`` (seconds slept between attempts) carry the retry
+    history."""
+
+    failure_class = COORDINATOR_TIMEOUT
+
+    def __init__(self, msg: str, attempts: int = 1, backoff_s: float = 0.0):
+        super().__init__(msg)
+        self.attempts = attempts
+        self.backoff_s = backoff_s
+
+
+def _default_policy(rank: int) -> RetryPolicy:
+    env = os.environ
+    return RetryPolicy(
+        max_attempts=int(env.get("TPU_RJ_COORD_ATTEMPTS", "3")),
+        base_delay_s=float(env.get("TPU_RJ_COORD_BACKOFF_S", "1.0")),
+        multiplier=2.0, max_delay_s=30.0, jitter=0.1,
+        # per-rank seed: ranks de-synchronise their retries
+        seed=rank)
+
+
+def _env_int(name: str) -> Optional[int]:
+    return int(os.environ[name]) if name in os.environ else None
+
+
+def initialize(init_method: Optional[str] = None,
+               world_size: Optional[int] = None,
+               rank: Optional[int] = None,
+               local_rank: Optional[int] = None,
+               device="cuda",
+               retry_policy: Optional[RetryPolicy] = None,
+               timeout_s: Optional[float] = None,
+               measurements=None,
+               _sleep: Optional[Callable[[float], None]] = None) -> bool:
+    """Join the process group if one is configured; True when the world
+    has more than one rank.
+
+    ``init_method`` is a ``torch.distributed`` URL (``tcp://host:port``,
+    ``file://path``); without it, torchrun's ``MASTER_ADDR`` and
+    ``MASTER_PORT`` select ``env://``.  ``timeout_s`` bounds each connect
+    attempt and every collective of the group (default
+    ``TPU_RJ_COORD_TIMEOUT_S``, else 300).  A second call after a
+    successful one returns at once."""
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    env = os.environ
+    if init_method is None:
+        if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
+            return False   # one process: nothing to join
+        init_method = "env://"
+    world_size = world_size if world_size is not None else _env_int(
+        "WORLD_SIZE")
+    rank = rank if rank is not None else _env_int("RANK")
+    if world_size is None or rank is None:
+        raise ValueError("initialize needs the world size and this "
+                         "process's rank (arguments, or WORLD_SIZE and RANK)")
+    if local_rank is None:
+        local_rank = _env_int("LOCAL_RANK") or 0
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError(
+                "NCCL is not available in this torch build; the port runs "
+                "its collectives on the card through NCCL and never falls "
+                "back to gloo (pass device='cpu' for a host run on gloo)")
+        torch.cuda.set_device(local_rank)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    if timeout_s is None:
+        timeout_s = float(env.get("TPU_RJ_COORD_TIMEOUT_S",
+                                  DEFAULT_TIMEOUT_S))
+
+    def connect():
+        _faults.check(_faults.COORD_CONNECT, measurements)
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+
+    policy = retry_policy or _default_policy(rank)
+    try:
+        execute(connect, policy,
+                retryable=(ConnectionError, TimeoutError,
+                           dist.DistNetworkError, dist.DistStoreError,
+                           _faults.InjectedFault),
+                sleep=_sleep or time.sleep, measurements=measurements,
+                label="coordinator_connect")
+    except RetriesExhausted as e:
+        backoff_s = sum(policy.schedule()[:max(0, e.attempts - 1)])
+        raise CoordinatorTimeout(
+            f"could not join the {backend} process group at {init_method} "
+            f"(rank {rank} of {world_size}) after {e.attempts} attempt(s) "
+            f"({backoff_s:.1f}s of backoff): {e.last_error!r}",
+            attempts=e.attempts, backoff_s=backoff_s) from e
+    return world_size > 1
+
+
+def process_info() -> Tuple[int, int]:
+    """(rank, world size), the ``Comm_rank``/``Comm_size`` pair; (0, 1)
+    without a process group."""
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def shutdown() -> None:
+    """Leave the process group, if one was joined."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

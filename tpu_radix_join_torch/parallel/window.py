@@ -3,9 +3,12 @@
 Counterpart of ``tpu_radix_join/parallel/window.py`` with ``codec="off"``
 and ``mode="fused"``: every rank scatters its tuples into one
 statically-sized block per destination (``ops/radix.scatter_to_blocks``,
-K4), one all_to_all delivers block j to rank j, and the per-sender valid
-counts ride a second, tiny all_to_all.  The packed codec and the staged
-exchange wait for ROADMAP.md A13.
+K4), one all_to_all of each lane delivers block j to rank j, and the
+per-sender valid counts ride a second, tiny all_to_all (``window.py:
+235-272``).  Over a ``DistWorld`` each is one ``all_to_all_single``; the
+receive buffers are ``size * capacity`` slots, rank i's block at
+``[i * capacity, (i + 1) * capacity)`` padded with the side's sentinel.
+The packed codec and the staged exchange wait for ROADMAP.md A13.
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ import torch
 
 from tpu_radix_join_torch.data.tuples import TupleBatch, widen
 from tpu_radix_join_torch.ops.radix import scatter_to_blocks
-from tpu_radix_join_torch.parallel.world import OneRankWorld
 
 
 class ExchangeResult(NamedTuple):
@@ -30,7 +32,9 @@ class Window:
     per-(sender, destination) block size (Window.cpp:168-177 sizes it
     exactly; here it is sized ahead and overflow is reported)."""
 
-    def __init__(self, world: OneRankWorld, capacity: int, side: str):
+    def __init__(self, world, capacity: int, side: str):
+        """``world``: a ``OneRankWorld`` or ``DistWorld``
+        (parallel/world.py)."""
         self.world = world
         self.capacity = capacity
         self.side = side

@@ -1,8 +1,8 @@
 """Seeded, deterministic fault injection at named sites.
 
 The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
-(``:95-251``) with the sites the out-of-core grid, the chunk stream and the
-checkpoints consult.  An armed :class:`FaultInjector` decides from its seed
+(``:95-251``) with the sites the out-of-core grid, the chunk stream, the checkpoints and
+the process-group connect (``parallel/multihost.initialize``) consult.  An armed :class:`FaultInjector` decides from its seed
 whether a site fires on each hit; a fired site raises (a simulated kill or
 transient error) or tells its caller to damage its own state (a sentinel
 key in a streamed lane)::
@@ -32,8 +32,10 @@ GRID_TRANSIENT = "grid.transient"          # retryable per-pair hiccup
 STREAM_CORRUPT = "stream.corrupt_lane"     # sentinel-damaged key lane
 CKPT_SAVE = "checkpoint.save"              # checkpoint write I/O error
 CKPT_LOAD = "checkpoint.load"              # checkpoint read I/O error
+COORD_CONNECT = "multihost.coordinator_connect"   # process-group connect
 
-SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD)
+SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
+         COORD_CONNECT)
 
 
 class InjectedFault(RuntimeError):

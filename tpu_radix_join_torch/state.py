@@ -17,18 +17,15 @@ from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 
-#: JAX config fields the one-GPU joins never read: placement, the wire
-#: codec's staging, the materializing probe, the out-of-core grid, retry
-#: pacing, and instrumentation knobs
-_UNREAD_AT_ONE_NODE = frozenset({
-    "payload_bits", "num_hosts", "mesh_axis", "result_aggregation_node",
+#: JAX config fields the port's joins never read: the mesh axis's name,
+#: the wire codec's staging, the materializing probe, the out-of-core grid,
+#: retry pacing, and instrumentation knobs
+_UNREAD = frozenset({
+    "payload_bits", "mesh_axis", "result_aggregation_node",
     "exchange_stages", "match_rate_cap", "grid_pipeline",
     "retry_backoff_s", "retry_backoff_mult", "retry_backoff_max_s",
     "retry_jitter", "generation", "measure_phases",
 })
-#: JAX config fields whose non-default values the port does not run yet:
-#: field -> (the value it runs, the ROADMAP.md item that ports the rest)
-_NOT_PORTED = {"chunk_size": (None, "A7"), "debug_checks": (False, "A7")}
 #: implementation choices among versions of the same kernel: the port has
 #: one of each, so they map to "auto"
 _ONE_IMPL = frozenset({"sort_impl", "partition_impl"})
@@ -39,25 +36,19 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
 
     ``sort_impl`` and ``partition_impl`` pick among implementations of the
     same kernel, and the port has one of each, so they map to "auto".
-    ``chunk_size`` (the chunked probe after a multi-rank shuffle) and
-    ``debug_checks=True`` (the shuffle's conservation checks) are not
-    ported and raise ``NotImplementedError``; an unknown field raises
-    ``ValueError``."""
+    ``num_nodes`` and ``debug_checks`` carry across; a setting the port
+    does not run yet — ``num_hosts > 1`` (the hierarchical exchange, A10),
+    ``chunk_size`` (the chunked probe after the shuffle, A7b) — raises
+    ``NotImplementedError`` from :class:`JoinConfig`, naming its ROADMAP.md
+    item; an unknown field raises ``ValueError``."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
         if name in _ONE_IMPL:
             continue
-        if name in _NOT_PORTED:
-            runs, item = _NOT_PORTED[name]
-            if value != runs:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to PyTorch yet "
-                    f"(ROADMAP.md {item})")
-            continue
         if name in own:
             kw[name] = value
-        elif name not in _UNREAD_AT_ONE_NODE:
+        elif name not in _UNREAD:
             raise ValueError(f"unknown JoinConfig field {name!r}")
     return JoinConfig(**kw)
 
