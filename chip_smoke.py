@@ -83,8 +83,29 @@ process group of one rank (one card holds one NCCL rank), 20,000,000 ⋈
   (n4) (n2) with ``debug_checks=True``.
 
 K4 is also held at the exchange call of a 4- and an 8-rank world (20M ids
-into 4 groups of 2**23 slots and 8 of 2**22), and K1's device time is
-printed beside its event time.
+into 4 groups of 2**23 slots and 8 of 2**22), and K1's and K2's device
+times are printed beside their event times.
+
+Cell (o), on (n)'s NCCL group of one rank at 20,000,000 ⋈ 20,000,000
+(phase_o): the measurements and the rest of the distributed main path:
+
+  (o1) the chunked probe after the shuffle, ``JoinConfig(chunk_size=2**22)``
+       over receive buffers of 2**25 slots (8 outer slabs), narrow and at
+       ``key_bits=64``: exact, with (n2)'s and (n3)'s per-partition counts;
+  (o2) ``distribute`` of the 20M-tuple relation, 32- and 64-bit: the
+       tuples conserved and the order equal to the plain sort of the same
+       hash keys, bit for bit;
+  (o3) a ``Measurements`` registry on (a), (n1) and (n2): the phase
+       columns present (JMPI, SNETCOMPL, SLOCPREP, BPBUILD/BPPROBE with
+       ``measure_phases``), the results unchanged, the median join with and
+       without the registry (interleaved, 10 each), JTOTAL beside this
+       script's host clock around the same join;
+  (o4) ``Measurements.trace`` around one join of (a), (n1) and (n2):
+       CTOTAL beside the profiler's device time of the same join, and the
+       idle share of (o3)'s median;
+  (o5) ``python -m tpu_radix_join_torch.main --output-dir ...
+       --measure-phases`` at 20M: exit 0, the oracle's OK, ``0.perf``
+       loaded with JTOTAL.
 
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
@@ -106,6 +127,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 #: tuples of each relation of cell (j): 8 x 8 chunks of 2**27
 GRID_J_TUPLES = 1 << 30
+#: the chunked probe's slab in cell (o1): 8 slabs of (n)'s 2**25-slot
+#: receive buffers
+O1_CHUNK = 1 << 22
 
 
 #: the sources whose registers, shared memory and spills the run prints
@@ -141,6 +165,280 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def phase_o(dev, n, group, rels32, rels64, placed, refs, time_ms,
+            device_us, card) -> dict:
+    """Cell (o) on (n)'s process group ``group`` (see the module
+    docstring).  ``placed`` holds (n2)'s and (n3)'s placed relations,
+    ``refs`` (n2)'s and (n3)'s results.  Each main path runs once with the
+    launch counts set to 0; returns the launches of those runs."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from tpu_radix_join_torch import HashJoin, JoinConfig
+    from tpu_radix_join_torch.data.tuples import CompressedBatch, widen
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.build_probe import probe_count_per_partition
+    from tpu_radix_join_torch.ops.kernels import histogram as k1
+    from tpu_radix_join_torch.ops.kernels import radix_sort as k2
+    from tpu_radix_join_torch.ops.merge_count import presorted_weights
+    from tpu_radix_join_torch.ops.sorting import (sort_kv_unstable,
+                                                  sort_unstable)
+    from tpu_radix_join_torch.parallel.window import Window
+    from tpu_radix_join_torch.parallel.distribute import (distribute,
+                                                          shuffle_keys)
+    from tpu_radix_join_torch.performance import Measurements
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    total = {k: 0 for k in kernels.launch_counts()}
+
+    def main_path(fn):
+        """``fn()`` once with the launch counts set to 0: (its result, the
+        kernels it launched)."""
+        sync()
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    def host_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def same(a, b):
+        return (a.matches == b.matches and a.ok == b.ok
+                and np.array_equal(a.partition_counts, b.partition_counts)
+                and a.diagnostics == b.diagnostics)
+
+    bound = {32: max(r.key_bound() for r in rels32),
+             64: max(r.key_bound() for r in rels64)}
+
+    # (o1) the chunked probe after the shuffle
+    chunk = O1_CHUNK
+    for bits, ref_key in ((32, "n2"), (64, "n3")):
+        cfg = JoinConfig(chunk_size=chunk, key_bits=bits)
+        eng = HashJoin(cfg, dev, group=group)
+        lanes = placed[ref_key]
+
+        def join(eng=eng, lanes=lanes, bits=bits):
+            return eng.join_arrays(*lanes, key_bound=bound[bits])
+
+        res, got = main_path(join)
+        ref = refs[ref_key]
+        if not (res.matches == n and res.ok and res.retries == 0
+                and np.array_equal(res.partition_counts,
+                                   ref.partition_counts)):
+            raise AssertionError(f"(o1) chunked {bits}-bit: {res}, "
+                                 f"({ref_key}): {ref}")
+        needed = ["histogram", "partition", "radix_histogram", "radix_pass"]
+        if bits == 64:
+            needed.append("merge_scan_wide")
+        for k in needed:
+            if got[k] <= 0:
+                raise AssertionError(f"(o1) {bits}-bit: kernel {k} did not "
+                                     "launch")
+        plan = eng._shuffle_plan(*lanes)
+        cap_r, cap_s = eng._measure_capacities(*lanes, plan)
+        runs = [host_ms(join) for _ in range(5)]
+        # where the time goes: each stage alone (the probe's first slab)
+        rp, sp, *_ = eng._shuffle(*lanes, plan,
+                                  Window(eng.world, cap_r, "inner"),
+                                  Window(eng.world, cap_s, "outer"))
+        pid = sp.pid[:chunk]
+        stages = {"sizing": lambda: eng._measure_capacities(
+                      *lanes, eng._shuffle_plan(*lanes)),
+                  "exchange": lambda: eng._shuffle(
+                      *lanes, plan, Window(eng.world, cap_r, "inner"),
+                      Window(eng.world, cap_s, "outer"))}
+        if bits == 32:
+            r_sorted = sort_unstable(rp.batch.key)
+            slab = sp.batch.key[:chunk]
+            weight = presorted_weights(r_sorted, slab)
+            stages.update({
+                "inner_sort": lambda: sort_unstable(rp.batch.key),
+                "slab_searchsorted": lambda: presorted_weights(r_sorted,
+                                                               slab),
+                "slab_histogram": lambda: k1.histogram(
+                    pid, weight, num_bins=eng.config.network_partition_count),
+                "slab_max": lambda: weight.max()})
+        else:
+            slab = CompressedBatch(sp.batch.key[:chunk], pid,
+                                   sp.batch.key_hi[:chunk])
+            inner = CompressedBatch(rp.batch.key, rp.batch.rid,
+                                    rp.batch.key_hi)
+            stages["slab_probe"] = lambda: probe_count_per_partition(
+                inner, slab, pid, eng.config.network_partition_count,
+                return_max_weight=True)
+        emit({"phase": "breakdown", "workload": f"o1_chunked_{bits}",
+              "stage_ms": {k: time_ms(f, 5) for k, f in stages.items()},
+              "join_ms": statistics.median(runs), **card})
+        del rp, sp, stages
+        emit({"phase": "chunked_probe", "cell": "o1", "key_bits": bits,
+              "chunk_size": chunk, "receive_slots": cap_s,
+              "slabs": -(-cap_s // chunk), "matches": res.matches,
+              "join_ms": statistics.median(runs), "join_runs_ms": runs,
+              "k2_launches": got["radix_pass"] + got["radix_histogram"],
+              "launches": got, **card})
+
+    # (o2) the pre-shuffle
+    world = HashJoin(JoinConfig(), dev, group=group).world
+    seed = 7
+    for bits, batch in ((32, placed["n2"][0]), (64, placed["n3"][0])):
+        out, got = main_path(lambda batch=batch: distribute(batch, world,
+                                                            seed=seed))
+        lanes_in = [x for x in batch if x is not None]
+        lanes_out = [x for x in out if x is not None]
+        # conserved: the rids are distinct, so the tuples ordered by rid
+        by_in = torch.sort(widen(batch.rid)).indices
+        by_out = torch.sort(widen(out.rid)).indices
+        conserved = all(torch.equal(a[by_in], b[by_out])
+                        for a, b in zip(lanes_in, lanes_out))
+        plain = k2.radix_sort_plain(
+            [shuffle_keys(batch.size, world.rank, seed, dev), *lanes_in])[1:]
+        bit_exact = all(torch.equal(a, b) for a, b in zip(lanes_out, plain))
+        if not (conserved and bit_exact and got["radix_pass"] > 0):
+            raise AssertionError(f"(o2) distribute {bits}-bit: conserved "
+                                 f"{conserved}, equal to the plain sort "
+                                 f"{bit_exact}, launches {got}")
+        h = shuffle_keys(batch.size, world.rank, seed, dev)
+        stages = {
+            "shuffle_keys": lambda: shuffle_keys(batch.size, world.rank,
+                                                 seed, dev),
+            "all_to_all_one_lane": lambda: world.all_to_all(batch.key,
+                                                            batch.size),
+            "sort": lambda: sort_kv_unstable(h, *lanes_in)}
+        emit({"phase": "distribute", "cell": "o2", "key_bits": bits,
+              "tuples": batch.size, "seed": seed,
+              "ms": time_ms(lambda batch=batch: distribute(batch, world,
+                                                           seed=seed)),
+              "stage_ms": {k: time_ms(f) for k, f in stages.items()},
+              "k2_launches": got["radix_pass"] + got["radix_histogram"],
+              "launches": got, **card})
+        del out, plain, lanes_out
+
+    # (o3) the registry on (a), (n1) and (n2)
+    lanes = placed["n2"]
+    cells = {
+        "a": (JoinConfig(), None, "join_arrays"),
+        "n1": (JoinConfig(probe_algorithm="bucket"), group, "join_arrays"),
+        "n2": (JoinConfig(), group, "join_shuffled"),
+    }
+    medians = {}
+    for name, (cfg, grp, entry) in cells.items():
+        def make(cfg, m=None, grp=grp):
+            return HashJoin(cfg, dev, group=grp, measurements=m)
+
+        def run(eng, entry=entry):
+            return getattr(eng, entry)(*lanes, key_bound=bound[32])
+
+        bare = make(cfg)
+        m = Measurements()
+        with_m = make(cfg, m)
+        ref = run(bare)
+        res = run(with_m)
+        need = ["JTOTAL", "SWINALLOC", "JPROC"] + ([] if name == "a"
+                                                  else ["JHIST"])
+        if not same(res, ref) or not all(m.times_us.get(k, 0) > 0
+                                         for k in need):
+            raise AssertionError(f"(o3) {name}: {res} vs {ref}, columns "
+                                 f"{dict(m.times_us)}")
+        phases = None
+        if name != "a":
+            mp = Measurements()
+            res_p = run(make(dataclasses.replace(cfg, measure_phases=True),
+                             mp))
+            t = mp.times_us
+            want = ["JMPI", "SNETCOMPL", "JPROC", "JHIST", "SWINALLOC"]
+            if name == "n1":
+                want += ["SLOCPREP", "BPBUILD", "BPPROBE"]
+            if not (same(res_p, ref) and all(t.get(k, 0) > 0 for k in want)
+                    and t["JMPI"] <= t["JTOTAL"]
+                    and t["SNETCOMPL"] <= t["JMPI"]):
+                raise AssertionError(f"(o3) {name} measure_phases: {res_p}, "
+                                     f"columns {dict(t)}")
+            phases = dict(t)
+        bare_ms, meas_ms = [], []
+        for _ in range(10):                   # the arms interleaved
+            bare_ms.append(host_ms(lambda: run(bare)))
+            meas_ms.append(host_ms(lambda: run(with_m)))
+        m_clock = Measurements()
+        clocked = make(cfg, m_clock)
+        run(clocked)
+        m_clock.times_us.clear()
+        clock_ms = host_ms(lambda: run(clocked))
+        medians[name] = statistics.median(bare_ms)
+        emit({"phase": "registry", "cell": "o3", "workload": name,
+              "join_ms": statistics.median(bare_ms),
+              "join_ms_with_registry": statistics.median(meas_ms),
+              "overhead_pct": 100 * (statistics.median(meas_ms)
+                                     / statistics.median(bare_ms) - 1),
+              "join_runs_ms": bare_ms, "join_runs_ms_with_registry": meas_ms,
+              "jtotal_ms": m_clock.times_us["JTOTAL"] / 1e3,
+              "host_clock_ms": clock_ms,
+              "phases_us": dict(m.times_us), "counters": dict(m.counters),
+              "phases_us_measure_phases": phases, **card})
+
+    # (o4) the profiler bracket around one join of (a), (n1) and (n2):
+    # CTOTAL against this script's profiler device time of the same join,
+    # and the idle share of (o3)'s median
+    for name, (cfg, grp, entry) in cells.items():
+        m = Measurements()
+        eng = HashJoin(cfg, dev, group=grp, measurements=m)
+
+        def join(eng=eng, entry=entry):
+            return getattr(eng, entry)(*lanes, key_bound=bound[32])
+
+        join()
+        m.times_us.clear()
+        with tempfile.TemporaryDirectory() as tmp:
+            with m.trace(tmp):
+                join()
+        if not m.times_us.get("CTOTAL", 0) > 0:
+            raise AssertionError(f"(o4) {name}: no CTOTAL: "
+                                 f"{dict(m.times_us)}, "
+                                 f"{m.meta.get('trace', {}).get('plane')}")
+        profiler_us = sum(device_us(join, 1).values())
+        ctotal = m.times_us["CTOTAL"]
+        emit({"phase": "trace", "cell": "o4", "workload": name,
+              "ctotal_us": ctotal, "profiler_device_us": profiler_us,
+              "ctotal_vs_profiler": ctotal / profiler_us,
+              "idle_share": 1 - ctotal / 1e3 / medians[name],
+              "join_ms": medians[name], "jtotal_us": m.times_us["JTOTAL"],
+              "plane": m.meta["trace"]["plane"],
+              "top_ops": list(m.meta["trace"]["ops"].items())[:8], **card})
+
+    # (o5) the command line's report
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "tpu_radix_join_torch.main",
+             "--tuples-per-node", str(n), "--output-dir", tmp,
+             "--measure-phases"], cwd=root, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=root), timeout=600)
+        cli_s = time.perf_counter() - t0
+        loaded = Measurements.load(tmp) if out.returncode == 0 else []
+        lines = out.stdout.splitlines()
+        if not (out.returncode == 0
+                and f"[RESULTS] Expected: {n} (OK)" in lines
+                and len(loaded) == 1 and loaded[0].times_us["JTOTAL"] > 0):
+            raise AssertionError(f"(o5) the command line: rc "
+                                 f"{out.returncode}\n{out.stdout[-3000:]}"
+                                 f"\n{out.stderr[-3000:]}")
+        emit({"phase": "cli", "cell": "o5", "seconds": cli_s,
+              "report": [ln for ln in lines if ln.startswith("[")],
+              "result": json.loads(lines[-1]), **card})
+    return total
+
+
 def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
     """Cell (n): the generic body over a process group of one rank (NCCL
     on the card, gloo on the CPU) at ``n`` ⋈ ``n`` unique tuples a rank.
@@ -149,7 +447,8 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
     gives its device time by kernel.  Each join runs once with the launch
     counts set to 0 (the main path), then 1 + 3 times for its median, then
     under the profiler (its device busy time, so the idle share of the
-    median), then stage by stage.  Returns the main path's launches."""
+    median), then stage by stage.  Cell (o) (:func:`phase_o`) then runs on
+    the same group.  Returns the main paths' launches, (o)'s included."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -313,6 +612,12 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
                   "nccl_lane_bytes": 4 * cap_r, **card})
             emit({"phase": "breakdown", "workload": name,
                   "stage_ms": stage_ms, "join_ms": join_ms, **card})
+        torch.cuda.empty_cache()
+        launches_o = phase_o(dev, n, group, rels32, rels64,
+                             {k: placed[k] for k in ("n2", "n3")},
+                             {k: results[k] for k in ("n2", "n3")},
+                             time_ms, device_us, card)
+        launches = {k: v + launches_o[k] for k, v in launches.items()}
     finally:
         multihost.shutdown()
     return launches
@@ -409,7 +714,9 @@ def main() -> int:
 
     def device_us(fn, reps=10) -> dict:
         """Device time a call, by kernel (torch.profiler's CUDA activity):
-        what the event times of ``time_ms`` hold besides the host's gaps."""
+        what the event times of ``time_ms`` hold besides the host's gaps.
+        Kernels whose shortened names coincide (PyTorch's elementwise
+        kernels) are summed under one name."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -420,9 +727,10 @@ def main() -> int:
         out = {}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", 0) or 0
-            if us > 0:
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 name = e.key.replace("(anonymous namespace)::", "")
-                out[name.replace("void ", "").split("(")[0][:40]] = us / reps
+                name = name.replace("void ", "").split("(")[0][:40]
+                out[name] = out.get(name, 0.0) + us / reps
         return out
 
     # ---------------------------------------------------- main-path inputs
@@ -607,6 +915,7 @@ def main() -> int:
     emit({"phase": "kernel", "kernel": "radix_sort", "elements": m,
           "checks": len(errs), "histogram_checks": len(hist_checks),
           "histogram_ms": time_ms(lambda: k2.radix_histograms([union])),
+          "device_us": device_us(lambda: k2.radix_sort([union])),
           "past_2p30": huge, "tile_keys": tile,
           "lookback_bytes": {
               "a": 8 * k2.scratch_layout(m, 4).lookback_words,

@@ -6,9 +6,14 @@
     rank's gathered ``[4 * P]`` counts, ``matches``, ``ok`` and diagnostics
     equal JAX's ``HashJoin(num_nodes=4)`` bit for bit, for the
     ``dryrun_multichip`` geometry and each discipline of the generic body;
+  * the chunked probe after the shuffle (``chunk_size``), narrow and 64-bit;
+  * the registry (``HashJoin(..., measurements=...)``): the counters and
+    the timer tags equal those of JAX's ``HashJoin(num_nodes=4)`` with a
+    registry, with and without ``measure_phases``; a forced retry moves
+    time into MWINWAIT; ``gather_all`` hands every rank four registries;
   * ``DistWorld``'s collectives; the exchange (``network_partition`` over
-    K4's plain version and ``all_to_all_single``) and ``compute_offsets``
-    against the JAX functions under ``shard_map``.
+    K4's plain version and ``all_to_all_single``), ``compute_offsets`` and
+    ``distribute`` against the JAX functions under ``shard_map``.
 
 One world serves the module; a task that passes its deadline kills it."""
 
@@ -29,8 +34,12 @@ from tpu_radix_join.histograms.offset_map import (  # noqa: E402
     compute_offsets as j_compute_offsets)
 from tpu_radix_join.parallel import window as jwindow  # noqa: E402
 from tpu_radix_join.parallel.mesh import make_mesh  # noqa: E402
+from tpu_radix_join.parallel.distribute import (  # noqa: E402
+    distribute as j_distribute)
 from tpu_radix_join.parallel.network_partitioning import (  # noqa: E402
     network_partition as j_network_partition)
+from tpu_radix_join.performance.measurements import (  # noqa: E402
+    Measurements as JMeasurements)
 
 from tpu_radix_join_torch.state import config_from_jax  # noqa: E402
 from torch_dist_worker import WorkerPool  # noqa: E402
@@ -92,6 +101,10 @@ CASES = {
     "fallback_chunked": (dict(two_level=True, max_retries=0,
                               fallback="chunked"),
                          _rel("unique", 3), _rel("zipf", 4), "join"),
+    "chunked": ({"chunk_size": 1000}, _rel("unique", 1),
+                _rel("modulo", 2, modulo=700), "join"),
+    "chunked_64": ({"chunk_size": 1000, "key_bits": 64}, _rel("unique", 7, 64),
+                   _rel("modulo", 8, 64, modulo=700), "join"),
 }
 
 
@@ -244,3 +257,104 @@ def test_offsets_over_four_ranks_equal_jax(world, policy):
             np.asarray(res["all_local_hists"], np.uint32),
             want[3].reshape(N, N, 32)[rank])
         assert (np.asarray(res["relative"]) + local[rank] <= ghist).all()
+
+
+#: the registry counters the engines derive alike (the JAX package adds its
+#: own backend counters, PARTFALLBACK and SORTFALLBACK, and the rates
+#: divide host times)
+REGISTRY_COUNTERS = ("RESULTS", "RTUPLES", "STUPLES", "MWINPUTCNT",
+                     "MWINBYTES", "WIREBYTES", "WINCAPR", "WINCAPS",
+                     "PACKRATIO", "XSTAGES", "RETRIES", "BPBUILDTUPLES",
+                     "BPPROBETUPLES")
+
+
+@pytest.mark.parametrize("case,phases", [
+    ("bucket", False), ("bucket", True), ("two_level", True),
+    ("chunked", True), ("static_window_retries", False)])
+def test_registry_over_four_ranks_equals_jax(world, case, phases):
+    """Every rank's registry against JAX's registry of the same join: the
+    counters, and the timer tags but JCOMPILE (a first-use build; the port
+    builds nothing on the CPU); every rank gathers all four registries."""
+    fields, inner, outer, how = CASES[case]
+    jcfg = jx.JoinConfig(num_nodes=N, measure_phases=phases, **fields)
+    jm = JMeasurements()
+    want = jx.HashJoin(jcfg, measurements=jm).join(jx.Relation(**inner),
+                                                   jx.Relation(**outer))
+    cfg = dataclasses.asdict(config_from_jax(dataclasses.asdict(jcfg)))
+    got = world.run({"kind": "join", "config": cfg, "inner": inner,
+                     "outer": outer, "flip": False, "measure": True})
+    want_tags = set(jm.times_us) - {"JCOMPILE"}
+    for rank, res in enumerate(got):
+        assert res["matches"] == want.matches
+        for k in REGISTRY_COUNTERS:
+            assert res["counters"].get(k) == jm.counters.get(k), k
+        assert set(res["times_us"]) == want_tags
+        assert res["gathered"] == [[i, want.matches, sorted(want_tags)]
+                                   for i in range(N)]
+    if phases:
+        assert {"JMPI", "SNETCOMPL", "JPROC"} <= want_tags
+    if case == "static_window_retries":
+        assert jm.counters["RETRIES"] >= 1
+        assert all(res["times_us"]["MWINWAIT"] > 0 for res in got)
+
+
+@pytest.mark.parametrize("key_bits,seed", [(32, 0), (64, 5)])
+def test_distribute_over_four_ranks_equals_jax(world, key_bits, seed):
+    """``distribute`` (one all_to_all a lane, then the hash sort) against
+    the JAX function under ``shard_map``: every lane of every rank."""
+    rng = np.random.default_rng(seed + key_bits)
+    lanes = [rng.integers(0, 1 << 32, N * 600, dtype=np.uint32)
+             for _ in range(3 if key_bits == 64 else 2)]
+    lanes[0][:50] = 7                                # duplicate keys
+
+    def body(*ls):
+        out = j_distribute(JBatch(*ls), N, "nodes", seed=seed)
+        return tuple(lane for lane in out if lane is not None)
+
+    spec = P("nodes")
+    want = [np.asarray(a) for a in _shard_map(
+        body, (spec,) * len(lanes), (spec,) * len(lanes))(
+            *[jnp.asarray(lane) for lane in lanes])]
+    # TupleBatch order: key, rid, key_hi
+    per_rank = [[lane.reshape(N, -1)[rank].tolist() for lane in lanes]
+                for rank in range(N)]
+    if key_bits == 32:
+        per_rank = [ls + [None] for ls in per_rank]
+    got = world.run({"kind": "distribute", "lanes": per_rank, "seed": seed})
+    for rank, res in enumerate(got):
+        for i, arr in enumerate(want):
+            np.testing.assert_array_equal(
+                np.asarray(res["lanes"][i], np.uint32),
+                arr.reshape(N, -1)[rank], err_msg=f"lane {i} of rank {rank}")
+
+
+def test_registry_records_the_last_attempt_when_retries_run_out(world):
+    """Retries exhausted on a capacity shortfall: the port records the
+    exchange of the attempt that produced the result.  JAX's registry
+    records the capacities doubled once more after that attempt (its retry
+    loop doubles before it finds no attempt left), so the expected values
+    halve JAX's on each side that still overflowed."""
+    fields = dict(window_sizing="static", allocation_factor=1.0,
+                  max_retries=1)
+    inner, outer = _rel("unique", 3), _rel("zipf", 4)
+    jcfg = jx.JoinConfig(num_nodes=N, **fields)
+    jm = JMeasurements()
+    want = jx.HashJoin(jcfg, measurements=jm).join(jx.Relation(**inner),
+                                                   jx.Relation(**outer))
+    diag = want.diagnostics
+    assert not want.ok and diag["failure_class"] == "capacity_overflow"
+    cap_r = jm.counters["WINCAPR"] // (2 if diag["shuffle_overflow_r_tuples"]
+                                       else 1)
+    cap_s = jm.counters["WINCAPS"] // (2 if diag["shuffle_overflow_s_tuples"]
+                                       else 1)
+    assert (cap_r, cap_s) != (jm.counters["WINCAPR"], jm.counters["WINCAPS"])
+    cfg = dataclasses.asdict(config_from_jax(dataclasses.asdict(jcfg)))
+    got = world.run({"kind": "join", "config": cfg, "inner": inner,
+                     "outer": outer, "flip": False, "measure": True})
+    for res in got:
+        assert res["matches"] == want.matches and not res["ok"]
+        c = res["counters"]
+        assert (c["WINCAPR"], c["WINCAPS"]) == (cap_r, cap_s)
+        assert c["MWINBYTES"] == c["WIREBYTES"] == 8 * N * (cap_r + cap_s)
+        assert c["RETRIES"] == jm.counters["RETRIES"] == 1
+        assert res["times_us"]["MWINWAIT"] > 0

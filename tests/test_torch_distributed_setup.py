@@ -152,27 +152,55 @@ def test_num_nodes_without_a_group_raises_naming_initialize():
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_hosts", 2, "A10"), ("chunk_size", 4096, "A7b")])
-def test_distributed_settings_outside_the_slice_raise(field, value, item):
+def test_distributed_settings_outside_the_slice_raise(field, value, item,
+                                                      tmp_path):
+    """``num_hosts > 1`` still raises, naming A10.  ``chunk_size`` (A7b)
+    is ported: it carries across, and a torchrun launch of the command
+    line joins with it over two gloo ranks exactly, as the JAX engine does
+    over two devices."""
     d = dataclasses.asdict(jx.JoinConfig(num_nodes=2))
     d[field] = value
-    with pytest.raises(NotImplementedError, match=item):
-        config_from_jax(d)
+    if field != "chunk_size":
+        with pytest.raises(NotImplementedError, match=item):
+            config_from_jax(d)
+        return
+    assert config_from_jax(d).chunk_size == value
+    out = _torchrun(tmp_path, "--chunk-size", str(value))
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    inner = jx.Relation(2 * 4096, 2, "unique", seed=1234)
+    outer = jx.Relation(2 * 4096, 2, "modulo", seed=1235, modulo=2048)
+    want = jx.HashJoin(jx.JoinConfig(num_nodes=2, chunk_size=value)).join(
+        inner, outer)
+    assert res["matches"] == want.matches == inner.expected_matches(outer)
+    assert res["ok"] and want.ok and res["pipeline"] == "chunked_probe"
+    assert "[RESULTS] Expected: 8192 (OK)" in out.stdout
 
 
-def test_torchrun_launches_the_command_line_over_two_gloo_ranks(tmp_path):
+def _torchrun(cwd, *extra):
+    """The command line over two gloo ranks under torchrun, 4096 unique
+    tuples a rank against a modulo outer relation; fails the test unless
+    it exits 0 within its deadline."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
     for name in TORCHRUN_ENV:
         env.pop(name, None)
     args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "2", "-m", "tpu_radix_join_torch.main",
             "--nodes", "2", "--device", "cpu", "--tuples-per-node", "4096",
-            "--outer-kind", "modulo"]
+            "--outer-kind", "modulo", *extra]
     try:
-        out = subprocess.run(args, cwd=tmp_path, env=env, capture_output=True,
+        out = subprocess.run(args, cwd=cwd, env=env, capture_output=True,
                              text=True, timeout=240)
     except subprocess.TimeoutExpired as e:
         pytest.fail(f"torchrun passed its deadline: {e.stderr}")
     assert out.returncode == 0, out.stderr[-3000:]
+    return out
+
+
+def test_torchrun_launches_the_command_line_over_two_gloo_ranks(tmp_path):
+    out = _torchrun(tmp_path)
+    # rank 0's aggregate over both ranks' gathered registries
+    assert "[RESULTS] Nodes: 2" in out.stdout
+    assert "[RESULTS] Expected: 8192 (OK)" in out.stdout
     lines = [json.loads(line) for line in out.stdout.splitlines()
              if line.startswith("{")]
     assert len(lines) == 1   # rank 0 prints the result

@@ -132,19 +132,27 @@ def test_settings_outside_the_slice_raise(field, value, item):
     """A setting the port does not run raises, naming its ROADMAP item.
     A7, the distributed main path, is ported: ``num_nodes`` and
     ``debug_checks`` carry across (a world of 4 then needs its process
-    group), and ``chunk_size``, left out of A7, names A7b."""
+    group); so does ``chunk_size`` (A7b), whose chunked probe then joins
+    exactly as the JAX engine does."""
     jcfg = jx.JoinConfig()
     d = dataclasses.asdict(jcfg)
     d[field] = value
-    if field in ("num_nodes", "debug_checks"):
+    if field in ("num_nodes", "debug_checks", "chunk_size"):
         cfg = config_from_jax(d)
         assert getattr(cfg, field) == value
         if field == "num_nodes":
             with pytest.raises(ValueError, match="initialize"):
                 tx.HashJoin(cfg, device="cpu")
+        if field == "chunk_size":
+            rng = np.random.default_rng(9)
+            r_key = rng.integers(0, 5000, 3000, dtype=np.uint32)
+            s_key = rng.integers(0, 5000, 2500, dtype=np.uint32)
+            got, want = _carried(jx.JoinConfig(chunk_size=value), r_key,
+                                 s_key)
+            _assert_same(got, want)
+            assert got.ok and got.matches == host_join_count(r_key, s_key)
         return
-    with pytest.raises(NotImplementedError,
-                       match="A7b" if field == "chunk_size" else item):
+    with pytest.raises(NotImplementedError, match=item):
         config_from_jax(d)
 
 

@@ -41,6 +41,16 @@ degraded = tx.HashJoin(tx.JoinConfig(two_level=True, fallback="chunked"),
                        device="cpu").join(
     tx.Relation(3000, 1, "unique", seed=1),
     tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
+from tpu_radix_join_torch.parallel.distribute import distribute
+from tpu_radix_join_torch.parallel.world import OneRankWorld
+from tpu_radix_join_torch.performance import Measurements
+meas = Measurements()
+chunked = tx.HashJoin(tx.JoinConfig(chunk_size=1000), device="cpu",
+                      measurements=meas).join(
+    tx.Relation(3000, 1, "unique", seed=1),
+    tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
+rel = tx.Relation(3000, 1, "unique", seed=1).generate("cpu")
+shuffled = distribute(rel, OneRankWorld(), seed=3)
 raised = {}
 for name, call in [
         ("HashJoin", lambda: tx.HashJoin()),
@@ -53,6 +63,11 @@ for name, call in [
             tx.JoinConfig(fallback="chunked"))),
         ("HashJoin num_nodes=2", lambda: tx.HashJoin(
             tx.JoinConfig(num_nodes=2))),
+        ("HashJoin chunk_size", lambda: tx.HashJoin(
+            tx.JoinConfig(chunk_size=1000), measurements=Measurements())),
+        ("main --chunk-size --measure-phases", lambda: tx.main.main(
+            ["--chunk-size", "16", "--measure-phases",
+             "--tuples-per-node", "64"])),
         ("multihost.initialize", lambda: multihost.initialize(
             init_method="tcp://127.0.0.1:1", world_size=2, rank=0)),
         ("stream_chunks_device", lambda: next(stream_chunks_device(
@@ -71,7 +86,12 @@ print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
                   "degraded": [degraded.matches, degraded.ok,
                                degraded.diagnostics["degraded"]],
                   "bucket": [bucket.matches, bucket.ok,
-                             len(bucket.partition_counts)]}))
+                             len(bucket.partition_counts)],
+                  "chunked": [chunked.matches, chunked.ok,
+                              sorted(meas.times_us)],
+                  "shuffled": [sorted(shuffled.key.tolist())
+                               == sorted(rel.key.tolist()),
+                               shuffled.key.tolist() != rel.key.tolist()]}))
 """
 
 
@@ -91,6 +111,9 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     assert got["bucket"] == [3000, True, 32]
     assert got["grid"] == 3000
     assert got["degraded"] == [3000, True, "chunked"]
+    assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",
+                                           "SWINALLOC"]]
+    assert got["shuffled"] == [True, True]
     for name, msg in got["raised"].items():
         assert msg is not None and "no CUDA device" in msg, name
 

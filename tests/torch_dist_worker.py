@@ -44,10 +44,18 @@ def _lane(values):
 
 
 def _join(task, world_group):
+    """One join of the task's relations; with ``"measure"`` the engine
+    records into a registry, whose counters, timers and ``gather_all``
+    (every rank's registry: node, RESULTS, timer tags) come back too."""
     import torch
     import tpu_radix_join_torch as tx
+    from tpu_radix_join_torch.performance import Measurements
     cfg = tx.JoinConfig(**task["config"])
-    eng = tx.HashJoin(cfg, device="cpu", group=world_group)
+    meas = (Measurements(node_id=torch.distributed.get_rank(),
+                         num_nodes=cfg.num_nodes)
+            if task.get("measure") else None)
+    eng = tx.HashJoin(cfg, device="cpu", group=world_group,
+                      measurements=meas)
     inner, outer = (tx.Relation(**task[k]) for k in ("inner", "outer"))
     if task["flip"]:
         # this rank's shards with bit 31 of every key set, as raw lanes
@@ -56,10 +64,28 @@ def _join(task, world_group):
         res = eng.join_arrays(r, s)
     else:
         res = eng.join(inner, outer)
-    return {"matches": res.matches, "ok": res.ok,
-            "partition_counts": res.partition_counts.tolist(),
-            "diagnostics": res.diagnostics, "retries": res.retries,
-            "collectives": dict(eng.world.counts)}
+    out = {"matches": res.matches, "ok": res.ok,
+           "partition_counts": res.partition_counts.tolist(),
+           "diagnostics": res.diagnostics, "retries": res.retries,
+           "collectives": dict(eng.world.counts)}
+    if meas is not None:
+        out["counters"] = dict(meas.counters)
+        out["times_us"] = dict(meas.times_us)
+        out["gathered"] = [[m.node_id, m.counters.get("RESULTS"),
+                            sorted(m.times_us)]
+                           for m in meas.gather_all(eng.world)]
+    return out
+
+
+def _distribute(task, world):
+    """``parallel/distribute.distribute`` of this rank's lanes."""
+    from tpu_radix_join_torch.data.tuples import TupleBatch
+    from tpu_radix_join_torch.parallel.distribute import distribute
+    lanes = task["lanes"][world.rank]
+    batch = TupleBatch(*(None if lane is None else _lane(lane)
+                         for lane in lanes))
+    got = distribute(batch, world, seed=task["seed"])
+    return {"lanes": [None if lane is None else _np(lane) for lane in got]}
 
 
 def _offsets(task, world):
@@ -116,7 +142,8 @@ def worker(rank: int, world_size: int, init_method: str) -> None:
     kinds = {"join": lambda t: _join(t, group),
              "offsets": lambda t: _offsets(t, DistWorld(group)),
              "collectives": lambda t: _collectives(t, DistWorld(group)),
-             "exchange": lambda t: _exchange(t, DistWorld(group))}
+             "exchange": lambda t: _exchange(t, DistWorld(group)),
+             "distribute": lambda t: _distribute(t, DistWorld(group))}
     for line in sys.stdin:
         task = json.loads(line)
         if task["kind"] == "exit":

@@ -36,6 +36,14 @@ class JoinConfig:
       * ``debug_checks``: the shuffle's per-partition conservation check and
         the OffsetMap invariant (``hash_join.py:1269-1302``), one K1 pass
         over each receive buffer and two ``all_gather``s a join attempt.
+      * ``chunk_size``: the sort probe after the shuffle streams the outer
+        receive buffer in slabs of this many slots against the inner one
+        (``ops/build_probe.probe_count_chunked``, the reference's
+        large-data probe); the generic body then runs at one rank too.
+      * ``measure_phases``: the engine fences each attempt into JMPI
+        (SNETCOMPL nested), SLOCPREP and BPBUILD/BPPROBE on the bucket path,
+        and JPROC, recorded in its ``Measurements`` registry; by default
+        JPROC covers the attempt and no fence is added.
 
       * ``network_fanout_bits`` -> NETWORK_PARTITIONING_FANOUT
         (Configuration.h:30): the sort probe reports 1 << bits partition
@@ -86,6 +94,7 @@ class JoinConfig:
     skew_threshold: Optional[float] = None
     chunk_size: Optional[int] = None
     debug_checks: bool = False
+    measure_phases: bool = False
 
     def __post_init__(self):
         if self.network_fanout_bits < 0 or self.local_fanout_bits < 0:
@@ -147,17 +156,23 @@ class JoinConfig:
             raise _not_ported(f"verify={self.verify!r}", "A15")
         if self.skew_threshold is not None:
             raise _not_ported("skew_threshold", "A10")
-        if self.chunk_size is not None:
-            raise _not_ported(f"chunk_size={self.chunk_size} (the chunked "
-                              "probe after the shuffle)", "A7b")
+        if self.chunk_size is not None and (
+                self.chunk_size < 1
+                or self.two_level or self.probe_algorithm == "bucket"):
+            raise ValueError(
+                "chunk_size requires the sort probe (chunking bounds the "
+                "probe working set; the bucketized path is already blocked)")
 
     # --- derived geometry ------------------------------------------------
     @property
     def sort_probe(self) -> bool:
-        """True when the flat sort-merge probe runs (no second radix pass).
-        With 32-bit keys ``key_range`` then picks the packed 31-bit probe
-        or the full-range one; 64-bit keys take the wide probe."""
-        return not self.two_level and self.probe_algorithm != "bucket"
+        """True when the (chunk-free) flat sort-merge probe runs: no second
+        radix pass and no ``chunk_size``.  With 32-bit keys ``key_range``
+        then picks the packed 31-bit probe or the full-range one; 64-bit
+        keys take the wide probe.  The chunked probe compares whole keys,
+        so the packing's key contract and route do not apply to it."""
+        return (not self.two_level and self.probe_algorithm != "bucket"
+                and not self.chunk_size)
 
     @property
     def bucket_path(self) -> bool:

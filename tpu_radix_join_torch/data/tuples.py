@@ -1,8 +1,11 @@
 """Tuple layout of the port: structure-of-arrays batches of uint32 lanes.
 
-Counterpart of ``tpu_radix_join/data/tuples.py`` (``TupleBatch``, the pad
-sentinels, ``_sentinel_lane``, ``partition_ids``, ``pad_sentinel``,
-``valid_mask``, ``make_padding_like``, ``effective_key_bits``).
+Counterpart of ``tpu_radix_join/data/tuples.py`` (``TupleBatch``,
+``CompressedBatch``, the pad sentinels, ``_sentinel_lane``,
+``partition_ids``, ``compress``, ``decompress``, ``probe_key``,
+``pad_sentinel``, ``valid_mask``, ``make_padding_like``, ``make_padding``,
+``effective_key_bits``).  The wire codec (``WireSpec``, ``pack_blocks``,
+``unpack_blocks``) is ROADMAP A13.
 
 **Lane dtype.**  A lane is a 1-D ``torch.int32`` tensor that holds the uint32
 bit pattern of each value: 4 bytes a lane, as on the TPU, and the CUDA
@@ -79,7 +82,22 @@ class TupleBatch(NamedTuple):
         return self.key.shape[-1]
 
 
-# TupleBatch keeps the JAX package's positional layout:
+class CompressedBatch(NamedTuple):
+    """SoA batch of compressed tuples (analog of ``CompressedTuple[]``):
+    ``key_rem`` holds ``key >> network_fanout_bits``, the key bits the
+    probe compares (BuildProbe.cpp:98-106); ``key_rem_hi`` the upper lane
+    of 64-bit keys."""
+
+    key_rem: torch.Tensor                       # int32 lane [n]
+    rid: torch.Tensor                           # int32 lane [n]
+    key_rem_hi: Optional[torch.Tensor] = None   # int32 lane [n]
+
+    @property
+    def size(self) -> int:
+        return self.key_rem.shape[-1]
+
+
+# TupleBatch and CompressedBatch keep the JAX package's positional layout:
 # field 0 = primary key lane, field 1 = rid, field 2 = optional high key lane.
 def _sentinel_lane(batch) -> torch.Tensor:
     return batch[2] if batch[2] is not None else batch[0]
@@ -90,6 +108,60 @@ def partition_ids(batch: TupleBatch, fanout_bits: int) -> torch.Tensor:
     (LocalHistogram.cpp:20,44-47): an int32 lane of values in
     [0, 1 << fanout_bits)."""
     return torch.bitwise_and(batch.key, (1 << fanout_bits) - 1)
+
+
+def _shr(lane: torch.Tensor, bits: int) -> torch.Tensor:
+    """Logical right shift of a uint32 lane (``>>`` on int32 is
+    arithmetic, so the shifted-in sign bits are masked)."""
+    if not bits:
+        return lane
+    return (lane >> bits) & ((1 << (32 - bits)) - 1)
+
+
+def _shl(lane: torch.Tensor, bits: int) -> torch.Tensor:
+    """Left shift of a uint32 lane; the bits shifted out are masked off
+    first, so no int32 product overflows."""
+    if not bits:
+        return lane
+    return (lane & ((1 << (32 - bits)) - 1)) << bits
+
+
+def compress(batch: TupleBatch, fanout_bits: int) -> CompressedBatch:
+    """Drop the partition bits from the key (NetworkPartitioning.cpp:
+    128-129); :func:`decompress` restores them from the partition id.  A
+    64-bit key shifts across both lanes."""
+    f = fanout_bits
+    if batch.key_hi is None:
+        return CompressedBatch(key_rem=_shr(batch.key, f), rid=batch.rid)
+    if f == 0:
+        return CompressedBatch(batch.key, batch.rid, batch.key_hi)
+    lo = _shr(batch.key, f) | _shl(batch.key_hi, 32 - f)
+    return CompressedBatch(key_rem=lo, rid=batch.rid,
+                           key_rem_hi=_shr(batch.key_hi, f))
+
+
+def decompress(comp: CompressedBatch, pid: torch.Tensor,
+               fanout_bits: int) -> TupleBatch:
+    """Full keys from remainder and partition id (inverse of
+    :func:`compress`)."""
+    f = fanout_bits
+    pid = pid.to(torch.int32)
+    if comp.key_rem_hi is None:
+        return TupleBatch(key=_shl(comp.key_rem, f) | pid, rid=comp.rid)
+    if f == 0:
+        return TupleBatch(comp.key_rem, comp.rid, comp.key_rem_hi)
+    lo = _shl(comp.key_rem, f) | pid
+    hi = _shl(comp.key_rem_hi, f) | _shr(comp.key_rem, 32 - f)
+    return TupleBatch(key=lo, rid=comp.rid, key_hi=hi)
+
+
+def probe_key(comp: CompressedBatch) -> torch.Tensor:
+    """The key material the probe compares (``value >> keyShift``,
+    BuildProbe.cpp:98-106): the remainder lane, or for 64-bit keys a
+    [n, 2] (hi, lo) stack whose lexicographic order is the numeric one."""
+    if comp.key_rem_hi is None:
+        return comp.key_rem
+    return torch.stack([comp.key_rem_hi, comp.key_rem], dim=-1)
 
 
 def pad_sentinel(side: str) -> int:
@@ -113,6 +185,17 @@ def make_padding_like(batch, n: int, side: str):
                              device=dev))
     rid = narrow(torch.full((n,), PAD_RID, dtype=torch.int64, device=dev))
     return type(batch)(sent, rid, sent if batch[2] is not None else None)
+
+
+def make_padding(n: int, side: str, wide: bool = False,
+                 device="cpu") -> CompressedBatch:
+    """A block of n invalid compressed tuples; ``wide`` pads both key lanes
+    with the sentinel (0x00000000_FFFFFFFF would be a real 64-bit key)."""
+    sent = narrow(torch.full((n,), pad_sentinel(side), dtype=torch.int64,
+                             device=device))
+    rid = narrow(torch.full((n,), PAD_RID, dtype=torch.int64, device=device))
+    return CompressedBatch(key_rem=sent, rid=rid,
+                           key_rem_hi=sent if wide else None)
 
 
 def effective_key_bits(key_bound: Optional[int], fanout_bits: int = 0,

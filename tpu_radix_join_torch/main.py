@@ -9,8 +9,22 @@ every rank generates its shard of each relation (``--tuples-per-node``
 tuples), joins over the NCCL process group (gloo with ``--device cpu``)
 and checks the result against the oracle; rank 0 prints it.
 ``--probe bucket`` or ``--two-level`` select the partitioned join;
-``--key-range`` picks the sort probe's 32-bit discipline; ``--fallback
-chunked`` lets a partitioned join short of capacity count out of core.
+``--key-range`` picks the sort probe's 32-bit discipline; ``--chunk-size``
+streams the probe after the shuffle in slabs; ``--fallback chunked`` lets
+a partitioned join short of capacity count out of core.
+
+Rank 0 prints the JAX command line's report
+(``tpu_radix_join/main.py:1832-1872``): ``[RESULTS] Tuples / Expected /
+Conservation / Throughput`` (and
+``failure/<k>`` lines for a failed join), then the registry's ``[PERF]``
+lines — or, over several ranks, ``print_results`` of every rank's registry
+(``Measurements.gather_all``, which every rank calls) — and ``[PERF] stored
+<path>`` with ``--output-dir``, where each rank writes ``<rank>.perf`` and
+``<rank>.info``.  ``--measure-phases`` fences the JMPI / SLOCPREP / JPROC
+columns, ``--trace`` brackets the joins with the profiler (CTOTAL and the
+per-op table; under ``--output-dir``/trace), ``--repeat N`` joins N times.
+Its last line is one JSON object: the result, the host-clock join time, and
+the registry's ``phases_us`` and ``counters``.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
 both relations streamed in device-generated chunks of N tuples, every
 chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
@@ -25,6 +39,8 @@ Usage:
     python -m tpu_radix_join_torch.main --probe bucket --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --two-level --outer-kind zipf --max-retries 2
     python -m tpu_radix_join_torch.main --device cpu --tuples-per-node 65536
+    python -m tpu_radix_join_torch.main --device cpu --output-dir /tmp/perf --measure-phases
+    torchrun --standalone --nproc-per-node 2 -m tpu_radix_join_torch.main --nodes 2 --device cpu --chunk-size 1024
     python -m tpu_radix_join_torch.main --grid-chunk-tuples 134217728 --tuples-per-node 1073741824
     python -m tpu_radix_join_torch.main --device cpu --grid-chunk-tuples 4096 --tuples-per-node 16384
 """
@@ -32,6 +48,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -66,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="round_robin")
     p.add_argument("--window-sizing", choices=["measured", "static"],
                    default="measured")
+    p.add_argument("--chunk-size", type=int, default=None,
+                   help="stream the probe in slabs of this many tuples "
+                        "(out-of-core LD mode)")
     p.add_argument("--max-retries", type=int, default=0,
                    help="capacity-shortfall retries with doubled shapes "
                         "(grid mode: transient-error retries of a pair)")
@@ -97,6 +117,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zipf-theta", type=float, default=0.75)
     p.add_argument("--seed", type=int, default=1234,
                    help="base seed (reference: srand(1234+nodeId), main.cpp:94)")
+    p.add_argument("--measure-phases", action="store_true",
+                   help="fence each join attempt so .perf carries JMPI, "
+                        "SLOCPREP and JPROC columns (costs a synchronize a "
+                        "phase)")
+    p.add_argument("--output-dir", default=None,
+                   help="experiment dir for .perf/.info files (default: none)")
+    p.add_argument("--trace", action="store_true",
+                   help="bracket the joins with torch.profiler: CTOTAL "
+                        "lands in .perf and the per-op device table in "
+                        ".info; requires --output-dir")
+
+    def positive_int(v):
+        iv = int(v)
+        if iv < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return iv
+
+    p.add_argument("--repeat", type=positive_int, default=1)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
     return p
@@ -152,6 +190,8 @@ def _run_grid(args, inner, outer, expected) -> int:
     grid_s = time.perf_counter() - t0
     pairs = meas.counters.get("GRIDPAIRS", 0)
     ok = expected is None or total == expected
+    if args.output_dir:
+        print(f"[PERF] stored {meas.store(args.output_dir)}")
     print(json.dumps({
         "matches": total, "ok": ok, "expected": expected,
         "grid_ms": grid_s * 1e3, "tuples": 2 * inner.global_size,
@@ -169,6 +209,8 @@ def _run_grid(args, inner, outer, expected) -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.trace and not args.output_dir:
+        parser.error("--trace writes its artifacts under --output-dir")
     if args.resume and not args.checkpoint_dir:
         parser.error("--resume reads the checkpoint under --checkpoint-dir")
     if args.nodes > 1 and args.grid_chunk_tuples is not None:
@@ -208,26 +250,72 @@ def _run_join(args, group) -> int:
     if args.grid_chunk_tuples is not None:
         return _run_grid(args, inner, outer, expected)
 
+    from tpu_radix_join_torch.performance.measurements import (
+        RESULTS, Measurements, print_results)
+
     cfg = JoinConfig(network_fanout_bits=args.network_fanout,
                      local_fanout_bits=args.local_fanout,
                      two_level=args.two_level, probe_algorithm=args.probe,
                      assignment_policy=args.assignment,
                      window_sizing=args.window_sizing,
                      key_range=args.key_range, num_nodes=nodes,
-                     max_retries=args.max_retries, fallback=args.fallback)
-    engine = HashJoin(cfg, device=args.device, group=group)
+                     max_retries=args.max_retries, fallback=args.fallback,
+                     chunk_size=args.chunk_size,
+                     measure_phases=args.measure_phases)
+    rank = dist.get_rank(group) if group is not None else 0
+    meas = Measurements(node_id=rank, num_nodes=nodes)
+    engine = HashJoin(cfg, device=args.device, group=group,
+                      measurements=meas)
+    # generation is set-up, outside the join's timers (main.cpp:94-116)
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(engine.device)
+    trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
+                 if args.trace else contextlib.nullcontext())
     t0 = time.perf_counter()
-    result = engine.join_arrays(r, s, key_bound=key_bound)
-    if cuda:
-        torch.cuda.synchronize(engine.device)
-    join_s = time.perf_counter() - t0
+    with trace_ctx:
+        for _ in range(args.repeat):
+            result = engine.join_arrays(r, s, key_bound=key_bound)
+        if cuda:
+            torch.cuda.synchronize(engine.device)
+    join_s = (time.perf_counter() - t0) / args.repeat
     ok = result.ok and (expected is None or result.matches == expected)
-    if engine.world.rank == 0:
+    meas.meta["failure_class"] = result.diagnostics["failure_class"]
+    if args.repeat > 1:
+        # the report's Tuples line is one join's result; times and tuple
+        # counters stay cumulative
+        meas.counters[RESULTS] = result.matches
+    if args.measure_phases or args.output_dir:
+        meas.measure_dispatch_floor(device=engine.device)
+    all_meas = meas.gather_all(engine.world)
+    if rank == 0:
+        if len(all_meas) == 1:
+            print(f"[RESULTS] Tuples: {result.matches}")
+        if expected is not None:
+            status = "OK" if result.matches == expected else "MISMATCH"
+            print(f"[RESULTS] Expected: {expected} ({status})")
+        print(f"[RESULTS] Conservation: {'OK' if result.ok else 'VIOLATED'}")
+        if not result.ok:
+            for k, v in result.diagnostics.items():
+                print(f"[RESULTS] failure/{k}: {v}")
+        total_us = meas.times_us.get("JTOTAL", 0.0)
+        if total_us:
+            rate = (2 * n * args.repeat) / (total_us / 1e6)
+            print(f"[RESULTS] Throughput: {rate / 1e6:.1f} M tuples/sec")
+        if len(all_meas) > 1:
+            print_results(all_meas)
+        else:
+            for line in meas.lines():
+                print(f"[PERF] {line}")
+    if args.output_dir:
+        # the post-join memory checkpoint (main.cpp:32,68,92)
+        meas.memory_utilization()
+        path = meas.store(args.output_dir)
+        if rank == 0:
+            print(f"[PERF] stored {path}")
+    if rank == 0:
         print(json.dumps({
             "matches": result.matches, "ok": result.ok, "expected": expected,
             "join_ms": join_s * 1e3, "tuples": 2 * n,
@@ -237,10 +325,13 @@ def _run_join(args, group) -> int:
             "degraded": result.diagnostics.get("degraded"),
             "pipeline": ("sort_probe" if cfg.sort_probe and nodes == 1
                          else "shuffled_sort_probe" if cfg.sort_probe
+                         else "chunked_probe" if cfg.chunk_size
                          else "partitioned"),
             "key_range": args.key_range,
             "device": (torch.cuda.get_device_name(engine.device) if cuda
                        else "cpu"),
+            "repeat": args.repeat, "phases_us": dict(meas.times_us),
+            "counters": dict(meas.counters),
         }), flush=True)
     return 0 if ok else 1
 

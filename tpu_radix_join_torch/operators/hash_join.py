@@ -37,9 +37,11 @@ rank too):
      conservation check, and with ``debug_checks`` the per-partition check
      (K1 on the receive buffers) and the OffsetMap invariant;
   3. local processing on the ``N * cap`` pad-filled receive buffers: the
-     sort probe (K2 then K3, or K5 for full-range and 64-bit keys), or the
-     second radix pass into buckets (K4), the row sort of every bucket (K2)
-     and the merge-weight scan;
+     sort probe (K2 then K3, or K5 for full-range and 64-bit keys), the
+     chunked probe with ``chunk_size`` (the inner buffer sorted once on K2
+     and the outer one streamed in slabs; 64-bit keys: K2 and K5 a slab),
+     or the second radix pass into buckets (K4), the row sort of every
+     bucket (K2) and the merge-weight scan;
   4. the 7-entry flag vector, summed over the ranks in one ``all_reduce``,
      and the per-partition (or per-bucket) counts gathered in rank order
      into ``[N * P]``, read back together; a capacity shortfall reruns the
@@ -51,10 +53,27 @@ rank too):
 Every rank issues the same collectives in the same order: each host
 decision that precedes a collective reads an all-reduced value or the
 configuration.
+
+**Measurements** (``HashJoin(..., measurements=Measurements())``; timer
+placement of ``hash_join.py:1780-1935``): JTOTAL spans the join, the
+key-range probe included; SWINALLOC the sizing pass, whose execution is
+JHIST (``meta["key_range"]`` records the 32-bit sort probe's route); JPROC
+the attempt.  Each timer stops at a host readback the join already does —
+the sizing readback ends JHIST and SWINALLOC, the flags and counts readback
+JPROC and JTOTAL — so a registry adds no synchronisation.  With
+``measure_phases`` the attempt is fenced into JMPI (SNETCOMPL nested) for
+the shuffle, SLOCPREP and BPBUILD / BPPROBE inside JPROC on the bucket
+path, and JPROC for the local probe.  A superseded attempt's phase times
+move to MWINWAIT and RETRIES counts it.  A first-use kernel build is
+JCOMPILE, excluded from the running timers.  The epilogue counts RESULTS,
+RTUPLES and STUPLES (global sizes), the exchange (``record_exchange``,
+codec off; none on the one-rank sort probe, which exchanges nothing) and
+the rates.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,15 +82,19 @@ import torch
 from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.relation import Relation
-from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, TupleBatch,
-                                              _sentinel_lane, umax, widen)
+from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, CompressedBatch,
+                                              TupleBatch, _sentinel_lane,
+                                              umax, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_local_histogram,
                                              compute_offsets,
                                              compute_partition_assignment)
 from tpu_radix_join_torch.operators.local_partitioning import local_partition
-from tpu_radix_join_torch.ops.build_probe import probe_count_bucketized
+from tpu_radix_join_torch.ops.build_probe import (DENSE_BUCKET_LIMIT,
+                                                  probe_count_bucketized,
+                                                  probe_count_chunked)
 from tpu_radix_join_torch.ops.chunked import chunked_join_count
+from tpu_radix_join_torch.ops.kernels import _build
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
     merge_count_wide_per_partition)
@@ -80,6 +103,10 @@ from tpu_radix_join_torch.parallel.network_partitioning import (
     network_partition)
 from tpu_radix_join_torch.parallel.window import Window
 from tpu_radix_join_torch.parallel.world import make_world
+from tpu_radix_join_torch.performance.measurements import (
+    BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE, JHIST, JMPI,
+    JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES, RTUPLES, SLOCPREP,
+    SNETCOMPL, STUPLES, SWINALLOC, XSTAGES)
 from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
                                                    RETRIES_EXHAUSTED,
                                                    classify_diagnostics)
@@ -105,6 +132,14 @@ class ShufflePlan(NamedTuple):
     assignment: torch.Tensor      # int32 [P]: partition -> owner rank
 
 
+def _as_compressed(batch: TupleBatch) -> CompressedBatch:
+    """Identity-compression view (``hash_join.py:160``): the chunked probe
+    compares whole keys, safe across the receive buffer's mixed
+    partitions."""
+    return CompressedBatch(key_rem=batch.key, rid=batch.rid,
+                           key_rem_hi=batch.key_hi)
+
+
 def _minmax_i32(lane: torch.Tensor) -> torch.Tensor:
     """int64 [2]: (min, max) of an int32 lane as signed values; a uint32
     lane lies below 2**31 exactly when its signed min is non-negative."""
@@ -122,11 +157,21 @@ class HashJoin:
     ``config.num_nodes`` ranks (``parallel/multihost.initialize`` starts
     one; ``torch.distributed.group.WORLD`` names it): NCCL for a CUDA
     device, gloo for the CPU.  Without a group the world is one rank, and
-    ``num_nodes > 1`` raises, as does a group of another size."""
+    ``num_nodes > 1`` raises, as does a group of another size.
+
+    ``measurements``, a ``performance.measurements.Measurements``, records
+    every join's timers and counters (see the module docstring); its
+    ``gather_all(engine.world)`` collects every rank's."""
+
+    #: phase keys nested inside another recorded phase (SNETCOMPL in JMPI;
+    #: BPBUILD/BPPROBE in JPROC): rolled back from their own columns on a
+    #: superseded attempt but not added to MWINWAIT twice
+    _NESTED_PHASES = frozenset({SNETCOMPL, BPBUILD, BPPROBE})
 
     def __init__(self, config: Optional[JoinConfig] = None, device="cuda",
-                 group=None):
+                 group=None, measurements=None):
         self.config = config if config is not None else JoinConfig()
+        self.measurements = measurements
         self.device = resolve_device(device)
         self.world = make_world(self.config.num_nodes, group)
         if group is not None:
@@ -233,9 +278,10 @@ class HashJoin:
         bound.  One rank's sort probe skips the shuffle; everything else
         runs the generic body."""
         self._check_batches(r, s)
-        if self.config.sort_probe and self.world.size == 1:
-            return self._sort_probe_join(r, s, key_bound)
-        return self._shuffled_join(r, s, key_bound)
+        with self._measured():
+            if self.config.sort_probe and self.world.size == 1:
+                return self._sort_probe_join(r, s, key_bound)
+            return self._shuffled_join(r, s, key_bound)
 
     def join_shuffled(self, r: TupleBatch, s: TupleBatch,
                       key_bound: Optional[int] = None) -> JoinResult:
@@ -243,14 +289,119 @@ class HashJoin:
         probe then runs on the exchange's pad-filled receive buffers, as a
         rank of an N-rank world does, instead of on the relations."""
         self._check_batches(r, s)
-        return self._shuffled_join(r, s, key_bound)
+        with self._measured():
+            return self._shuffled_join(r, s, key_bound)
+
+    # ----------------------------------------------------- measurements
+    @contextlib.contextmanager
+    def _measured(self):
+        """A join under the registry: JTOTAL runs, and a first-use kernel
+        build is recorded as JCOMPILE and excluded from the running timers
+        (``_compile_timed``, hash_join.py:493-512).  A join that raises
+        still closes its JTOTAL."""
+        m = self.measurements
+        if m is None:
+            yield
+            return
+
+        def compiled(name: str, seconds: float) -> None:
+            us = seconds * 1e6
+            m.add_time_us(JCOMPILE, us)
+            m.exclude_from_running(us)
+
+        with _build.on_build(compiled):
+            m.start(JTOTAL)
+            try:
+                yield
+            finally:
+                if JTOTAL in m._starts:
+                    m.stop(JTOTAL)
+
+    def _exchange_stats(self, cap_r: int, cap_s: int) -> dict:
+        """The wire geometry of one exchange (``_exchange_stats``,
+        hash_join.py:1637-1691) with the codec off and the fused exchange:
+        every slot ships 8 bytes (12 with the hi key lane)."""
+        n = self.world.size
+        raw_pt, lanes = (12, 3) if self.config.key_bits == 64 else (8, 2)
+        stats = {"codec": "off", "key_bound": None}
+        for side in ("r", "s"):
+            stats[f"codec_{side}"] = "off"
+            stats[f"stages_{side}"] = 1
+            stats[f"bytes_per_tuple_{side}"] = float(raw_pt)
+        wire = n * (cap_r + cap_s) * raw_pt
+        stats.update(wire_bytes=wire, raw_bytes=wire,
+                     bytes_per_tuple=round(wire / max(1, n * (cap_r + cap_s)),
+                                           4),
+                     pack_ratio_pct=100.0,
+                     peak_exchange_bytes=n * 4 * lanes * max(cap_r, cap_s),
+                     stages=1)
+        return stats
+
+    def _finish(self, r: TupleBatch, s: TupleBatch, matches: int,
+                caps=None) -> None:
+        """The epilogue's counters (``_finish_join``, hash_join.py:
+        2702-2735): JTOTAL stops, RESULTS and the global RTUPLES / STUPLES
+        count, the exchange of the attempt that produced the result is
+        recorded (``caps``; None on the one-rank sort probe), and the rates
+        derived."""
+        m = self.measurements
+        if m is None:
+            return
+        m.stop(JTOTAL)
+        n = self.world.size
+        m.incr(RESULTS, matches)
+        m.incr(RTUPLES, r.size * n)
+        m.incr(STUPLES, s.size * n)
+        if caps is not None:
+            xs = self._exchange_stats(*caps)
+            m.meta["exchange_plan"] = xs
+            m.record_exchange(n, *caps,
+                              tuple_bytes=8 if r.key_hi is None else 12,
+                              wire_bytes=xs["wire_bytes"],
+                              pack_ratio_pct=xs["pack_ratio_pct"],
+                              stages=xs["stages"])
+        m.derive_rates()
+
+    @classmethod
+    def _rollback_attempt(cls, m, dts: dict) -> None:
+        """Move a superseded attempt's phase times into MWINWAIT
+        (``_rollback_attempt``, hash_join.py:376-389), so the phase columns
+        report only the attempt that produced the result."""
+        m.incr(RETRIES)
+        m.add_time_us(MWINWAIT, sum(v for k, v in dts.items()
+                                    if k not in cls._NESTED_PHASES))
+        for k, v in dts.items():
+            if v:
+                m.times_us[k] -= v
+
+    def _stage(self, dts: dict):
+        """``run(stage, fn, *args)`` for the bucket probe's stages: each
+        call timed under ``stage``, fenced on its output, summed in
+        ``dts``."""
+        m = self.measurements
+
+        def run(stage, fn, *args, **kw):
+            m.start(stage)
+            out = fn(*args, **kw)
+            dts[stage] = dts.get(stage, 0.0) + m.stop(stage, fence=out)
+            return out
+
+        return run
 
     def _sort_probe_join(self, r: TupleBatch, s: TupleBatch,
                          key_bound: Optional[int]) -> JoinResult:
         cfg = self.config
+        m = self.measurements
         num_p = cfg.network_partition_count
         fanout = cfg.network_fanout_bits
         route = self._resolve_key_range(r, s, key_bound)
+        if m is not None:
+            if route != "wide":
+                m.meta["key_range"] = route
+            # no sizing pass: the one-rank sort probe has no windows
+            m.start(SWINALLOC)
+            m.stop(SWINALLOC)
+            m.start(JPROC)
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
         if route == "wide":
             counts, maxw = merge_count_wide_per_partition(
@@ -278,11 +429,14 @@ class HashJoin:
                 maxw, s_hist.cpu().numpy().view(np.uint32))
         else:
             count_risk = False
+        if m is not None:
+            m.stop(JPROC)
         flags = np.array([keys_bad, 0, 0, 0, 0, 0, int(count_risk)],
                          dtype=np.uint32)
         diag = self._flags_to_diag(flags)
         # host uint64 sum: a device sum of uint32 counts would wrap at scale
         matches = int(counts.astype(np.uint64).sum())
+        self._finish(r, s, matches)
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag)
 
@@ -295,14 +449,32 @@ class HashJoin:
         the local slack — and reruns the attempt.  The flags are summed
         over the ranks, so every rank retries or stops together."""
         cfg = self.config
+        m = self.measurements
         route = (self._resolve_key_range(r, s, key_bound) if cfg.sort_probe
                  else None)
+        measured = cfg.window_sizing == "measured"
+        if m is not None:
+            if route in ("narrow", "full"):
+                m.meta["key_range"] = route
+            m.start(SWINALLOC)
+            if measured:
+                m.start(JHIST)
         plan = self._shuffle_plan(r, s)
         cap_r, cap_s = self._measure_capacities(r, s, plan)
+        if m is not None:
+            # the sizing readback has fenced the sizing pass
+            if measured:
+                m.stop(JHIST)
+            m.stop(SWINALLOC)
+            xs = self._exchange_stats(cap_r, cap_s)
+            m.meta["exchange_plan"] = xs
+            m.counters[PACKRATIO] = int(round(xs["pack_ratio_pct"]))
+            m.counters[XSTAGES] = int(xs["stages"])
         local_slack = 1
         for attempt in range(cfg.max_retries + 1):
-            counts, flags = self._shuffled_attempt(r, s, plan, route, cap_r,
-                                                   cap_s, local_slack)
+            counts, flags, dts = self._shuffled_attempt(
+                r, s, plan, route, cap_r, cap_s, local_slack)
+            caps = (cap_r, cap_s)   # the attempt the result comes from
             diag = self._flags_to_diag(flags)
             if not flags.any() or not self._retryable(diag):
                 break
@@ -312,10 +484,15 @@ class HashJoin:
                 cap_s *= 2
             if diag["local_overflow"]:
                 local_slack *= 2
+            if m is not None and attempt < cfg.max_retries:
+                # when retries are exhausted the last attempt is the
+                # result and keeps its time
+                self._rollback_attempt(m, dts)
         if (flags.any() and self._retryable(diag)
                 and cfg.fallback == "chunked"):
             return self._fallback_chunked(r, s, diag, attempt)
         matches = int(counts.astype(np.uint64).sum())
+        self._finish(r, s, matches, caps)
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag,
                           retries=attempt)
@@ -340,17 +517,29 @@ class HashJoin:
         on the device.  The diagnostics keep the attempt's flags, marked
         ``degraded="chunked"``; an error of the count is reported in
         ``fallback_error``, never raised."""
+        m = self.measurements
         diag = dict(diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked")
         r, s = self._whole(r), self._whole(s)
+        slab = min(FALLBACK_SLAB, s.size)
         try:
-            matches = chunked_join_count(r, s, min(FALLBACK_SLAB, s.size),
-                                         key_range="auto")
+            matches = chunked_join_count(r, s, slab, key_range="auto")
         except Exception as e:   # the degraded path never raises past here
             diag["fallback_error"] = repr(e)
             diag["failure_class"] = RETRIES_EXHAUSTED
+            if m is not None:
+                m.stop(JTOTAL)
+                m.event("fallback", path="chunked", ok=False, error=repr(e))
+                m.derive_rates()
             return JoinResult(matches=0, ok=False,
                               partition_counts=np.zeros(1, np.uint32),
                               diagnostics=diag, retries=retries)
+        if m is not None:
+            m.stop(JTOTAL)
+            m.incr(RESULTS, matches)
+            m.incr(RTUPLES, r.size)
+            m.incr(STUPLES, s.size)
+            m.event("fallback", path="chunked", ok=True, slab=slab)
+            m.derive_rates()
         return JoinResult(matches=matches, ok=True,
                           partition_counts=np.array([matches % (1 << 32)],
                                                     np.uint32),
@@ -471,48 +660,73 @@ class HashJoin:
     def _guarded_bucket_counts(inner_rows: torch.Tensor,
                                outer_rows: torch.Tensor,
                                inner_hi: Optional[torch.Tensor] = None,
-                               outer_hi: Optional[torch.Tensor] = None):
+                               outer_hi: Optional[torch.Tensor] = None,
+                               run=None):
         """(counts, count-overflow risk): a bucket's count is at most
         lcap_r * lcap_s, so the max-weight bound runs only when that
-        product can reach 2**32.  64-bit keys add their hi-lane rows."""
+        product can reach 2**32.  64-bit keys add their hi-lane rows;
+        ``run`` times the sort-merge's stages."""
         lcap_r, lcap_s = inner_rows.shape[1], outer_rows.shape[1]
         if lcap_r * lcap_s < 1 << 32:
             return (probe_count_bucketized(inner_rows, outer_rows, inner_hi,
-                                           outer_hi),
+                                           outer_hi, run=run),
                     torch.zeros((), dtype=torch.bool, device=inner_rows.device))
         counts, maxw = probe_count_bucketized(inner_rows, outer_rows, inner_hi,
-                                              outer_hi, return_max_weight=True)
+                                              outer_hi, return_max_weight=True,
+                                              run=run)
         return counts, widen(maxw) > 0xFFFFFFFF // lcap_s
+
+    def _local_partition(self, rp, sp, cap_r: int, cap_s: int,
+                         local_slack: int):
+        """The second radix pass of both received relations (K4): (inner
+        blocks, outer blocks), each with its overflow."""
+        cfg = self.config
+        lcap_r, lcap_s = self._bucket_caps(cap_r, cap_s, local_slack)
+        return (local_partition(rp.batch, rp.valid, cfg.network_fanout_bits,
+                                cfg.local_fanout_bits, lcap_r, "inner"),
+                local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
+                                cfg.local_fanout_bits, lcap_s, "outer"))
+
+    def _bucket_probe(self, lr, ls, run=None):
+        """The bucketized probe of the local partitions: (per-bucket
+        counts, count-overflow risk)."""
+        nb = self.config.local_partition_count
+        lcap_r = lr.blocks.key.numel() // nb
+        lcap_s = ls.blocks.key.numel() // nb
+        hi = (None, None) if lr.blocks.key_hi is None else (
+            lr.blocks.key_hi.view(nb, lcap_r), ls.blocks.key_hi.view(nb, lcap_s))
+        return self._guarded_bucket_counts(
+            lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s), *hi,
+            run=run)
 
     def _local_process(self, rp, sp, cap_r: int, cap_s: int,
                        local_slack: int):
         """The bucket branch of ``_local_process``: the second radix pass
         of both received relations, then the bucketized probe.  Returns
         (per-bucket counts, local overflow, count-overflow risk)."""
-        cfg = self.config
-        nb = cfg.local_partition_count
-        lcap_r, lcap_s = self._bucket_caps(cap_r, cap_s, local_slack)
-        lr = local_partition(rp.batch, rp.valid, cfg.network_fanout_bits,
-                             cfg.local_fanout_bits, lcap_r, "inner")
-        ls = local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
-                             cfg.local_fanout_bits, lcap_s, "outer")
-        hi = (None, None) if lr.blocks.key_hi is None else (
-            lr.blocks.key_hi.view(nb, lcap_r), ls.blocks.key_hi.view(nb, lcap_s))
-        counts, risk = self._guarded_bucket_counts(
-            lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s), *hi)
+        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack)
+        counts, risk = self._bucket_probe(lr, ls)
         return counts, lr.overflow + ls.overflow, risk
 
-    def _local_probe(self, rp, sp, route: str, s_ghist: torch.Tensor):
+    def _local_probe(self, rp, sp, route: Optional[str],
+                     s_ghist: torch.Tensor):
         """The non-bucket branch of ``_local_process`` (hash_join.py:
-        1154-1185): the sort probe on the pad-filled receive buffers —
-        narrow (K2 then K3), full (K2 then K5) or wide (K2 with three lanes,
-        then K5).  The pads sort with the tuples and match nothing.  The
-        overflow-risk bound reads the shuffle's global outer histogram, the
-        same on every rank.  Returns (per-partition counts, local overflow
-        0, count-overflow risk)."""
-        fanout = self.config.network_fanout_bits
+        1154-1185): on the pad-filled receive buffers, the chunked probe
+        with ``chunk_size`` (whole keys, ``probe_count_chunked``), else the
+        sort probe — narrow (K2 then K3), full (K2 then K5) or wide (K2
+        with three lanes, then K5).  The pads sort with the tuples and
+        match nothing.  The overflow-risk bound reads the shuffle's global
+        outer histogram, the same on every rank.  Returns (per-partition
+        counts, local overflow 0, count-overflow risk)."""
+        cfg = self.config
+        fanout = cfg.network_fanout_bits
         r, s = rp.batch, sp.batch
-        if route == "wide":
+        if cfg.chunk_size:
+            counts, maxw = probe_count_chunked(
+                _as_compressed(r), _as_compressed(s), sp.pid,
+                cfg.network_partition_count, cfg.chunk_size,
+                return_max_weight=True)
+        elif route == "wide":
             counts, maxw = merge_count_wide_per_partition(
                 r.key, r.key_hi, s.key, s.key_hi, fanout,
                 return_max_weight=True)
@@ -526,22 +740,71 @@ class HashJoin:
         zero = torch.zeros((), dtype=torch.int64, device=counts.device)
         return counts, zero, (widen(s_ghist) > limit).any()
 
+    def _split_local(self, rp, sp, route: Optional[str], s_ghist,
+                     cap_r: int, cap_s: int, local_slack: int, dts: dict):
+        """Local processing fenced into its phases (``measure_phases``,
+        ``_run_split``, hash_join.py:764-860): on the bucket path SLOCPREP
+        for the second radix pass, then JPROC over the probe, with BPBUILD
+        and BPPROBE for the sort-merge's row sort and scan (a dense probe
+        is all BPPROBE); elsewhere JPROC over the local probe."""
+        cfg = self.config
+        m = self.measurements
+        if not cfg.bucket_path:
+            m.start(JPROC)
+            out = self._local_probe(rp, sp, route, s_ghist)
+            dts[JPROC] = m.stop(JPROC, fence=out)
+            return out
+        m.start(SLOCPREP)
+        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack)
+        dts[SLOCPREP] = m.stop(SLOCPREP, fence=(lr.blocks, ls.blocks))
+        nb, n = cfg.local_partition_count, self.world.size
+        lcap_r = lr.blocks.key.numel() // nb
+        lcap_s = ls.blocks.key.numel() // nb
+        # the capacity-padded slots the build and probe stages process
+        m.incr(BPBUILDTUPLES, n * nb * lcap_r)
+        m.incr(BPPROBETUPLES, n * nb * lcap_s)
+        dense = max(lcap_r, lcap_s) <= DENSE_BUCKET_LIMIT
+        m.start(JPROC)
+        counts, risk = self._bucket_probe(
+            lr, ls, run=None if dense else self._stage(dts))
+        dts[JPROC] = m.stop(JPROC, fence=counts)
+        if dense:
+            m.add_time_us(BPPROBE, dts[JPROC])
+            dts[BPPROBE] = dts[JPROC]
+        return counts, lr.overflow + ls.overflow, risk
+
     def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
                           plan: ShufflePlan, route: Optional[str], cap_r: int,
                           cap_s: int, local_slack: int):
         """One attempt at the given capacities: (per-rank per-partition
         uint32 counts [N * P] in rank order, uint32 [7] flags summed over
-        the ranks), both from one readback."""
+        the ranks, both from one readback; the phase times it recorded).
+        By default JPROC spans the attempt and ends at the readback; with
+        ``measure_phases`` the shuffle is JMPI and local processing is
+        fenced into its phases (:meth:`_split_local`)."""
+        m = self.measurements
+        split = m is not None and self.config.measure_phases
+        dts = {}
         n = self.world.size
         if n * (cap_r + cap_s) >= 1 << 31:
             raise ValueError(
                 f"the receive buffers hold {n} * ({cap_r} + {cap_s}) "
                 "positions; the joins count positions in 32 bits")
+        if m is not None:
+            m.start(JMPI if split else JPROC)
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
         rp, sp, lost_r, lost_s, bad = self._shuffle(
             r, s, plan, Window(self.world, cap_r, "inner"),
             Window(self.world, cap_s, "outer"))
-        if route is None:
+        if split:
+            # the exchange's completion wait, nested in JMPI
+            shuffled = (rp.batch, sp.batch, lost_r, lost_s, bad, keys_ok)
+            m.start(SNETCOMPL)
+            dts[SNETCOMPL] = m.stop(SNETCOMPL, fence=shuffled)
+            dts[JMPI] = m.stop(JMPI, fence=shuffled)
+            counts, local_overflow, risk = self._split_local(
+                rp, sp, route, plan.s_ghist, cap_r, cap_s, local_slack, dts)
+        elif self.config.bucket_path:
             counts, local_overflow, risk = self._local_process(
                 rp, sp, cap_r, cap_s, local_slack)
         else:
@@ -555,8 +818,10 @@ class HashJoin:
                              zero, summed[3]])
         gathered = self.world.all_gather(counts).reshape(-1)
         host = torch.cat([flags, widen(gathered)]).cpu().numpy()
+        if m is not None and not split:
+            dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
         return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
-                (host[:7] & 0xFFFFFFFF).astype(np.uint32))
+                (host[:7] & 0xFFFFFFFF).astype(np.uint32), dts)
 
     def place(self, rel: Relation) -> TupleBatch:
         """Generate this rank's shard of a relation on the engine's

@@ -1,8 +1,25 @@
-"""Bucketized build/probe of the partitioned join.
+"""Bucketized build/probe of the partitioned join, and the chunked probe.
 
 Counterpart of the counting half of ``tpu_radix_join/ops/build_probe.py``
 (``DENSE_BUCKET_LIMIT``, ``probe_count_bucketized``, ``bucket_rows_sort``,
-``bucket_rows_count``, ``probe_count_bucketized_merge``).  Inputs are
+``bucket_rows_count``, ``probe_count_bucketized_merge``,
+``_per_partition_counts``, ``probe_count_per_partition``,
+``probe_count_chunked``).
+
+**The chunked probe** (``JoinConfig.chunk_size``, the reference's
+large-data probe, kernels.cu:778-856): the outer side streams in slabs
+against the inner side.  Narrow keys sort the inner lane once on K2 and
+give each outer key its weight by two ``torch.searchsorted`` (the JAX
+function's, computed outside any Pallas kernel there too), then the
+pid-weighted sum per partition on K1 (the JAX ``bincount``'s wrapping
+uint32 sums, in shared-memory bins); a Python loop over the slabs stands
+in for ``lax.scan``.  64-bit keys join each slab with the whole inner side on K2
+and K5 (``merge_count_wide_per_partition``), which takes each position's
+partition from the low bits of its key: the outer pid lane the JAX union
+scan carries is exactly those bits on the receive buffers, and a pad,
+whatever its pid, weighs nothing.
+
+**The partitioned join's buckets.**  Inputs are
 sentinel-padded key blocks, int32 [nb, bi] (inner) and [nb, bo] (outer)
 holding uint32 bits, and for 64-bit keys their hi-lane blocks of the same
 shapes; the R and S pads differ (in the hi lane too), so padding never
@@ -25,12 +42,18 @@ is gone.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
 
-from tpu_radix_join_torch.data.tuples import narrow, widen
-from tpu_radix_join_torch.ops.sorting import sort_lex_rows_unstable
+from tpu_radix_join_torch.data.tuples import (CompressedBatch, narrow,
+                                              pad_sentinel, widen)
+from tpu_radix_join_torch.ops.kernels.histogram import histogram
+from tpu_radix_join_torch.ops.merge_count import (
+    merge_count_wide_per_partition, presorted_weights)
+from tpu_radix_join_torch.ops.sorting import (sort_lex_rows_unstable,
+                                              sort_unstable)
 
 # Above this per-bucket slot count the O(bi * bo) dense compare loses to
 # the batched sort-merge.
@@ -40,15 +63,100 @@ DENSE_BUCKET_LIMIT = 256
 ROW_CHUNK_ELEMS = 1 << 27
 
 
+def _per_partition_counts(r_sorted: torch.Tensor, s_keys: torch.Tensor,
+                          pid: torch.Tensor, num_partitions: int):
+    """Dual searchsorted against the sorted inner lane, then the
+    pid-weighted sum on K1: ``(counts, max weight)``, int32 [P] of uint32
+    bits (each count mod 2**32, as the JAX bincount's uint32) and a 0-d
+    int32."""
+    weight = presorted_weights(r_sorted, s_keys)
+    counts = histogram(pid, weight, num_bins=num_partitions)
+    maxw = weight.max() if weight.numel() else weight.new_zeros(())
+    return counts, maxw
+
+
+def probe_count_per_partition(inner: CompressedBatch, outer: CompressedBatch,
+                              outer_pid: torch.Tensor, num_partitions: int,
+                              return_max_weight: bool = False):
+    """Per-partition match counts, int32 [num_partitions] of uint32 bits;
+    ``return_max_weight`` also returns the largest single-outer-tuple count
+    (0-d int32).  Narrow keys: the inner lane sorted on K2 and
+    :func:`_per_partition_counts`.  64-bit keys: K2 and K5 over the union,
+    partitions from the keys' low bits (see the module docstring), so
+    ``outer_pid`` must hold those bits at every real outer tuple."""
+    if inner.key_rem_hi is not None:
+        fanout = num_partitions.bit_length() - 1
+        if num_partitions != 1 << fanout:
+            raise ValueError("num_partitions must be a power of two")
+        counts, maxw = merge_count_wide_per_partition(
+            inner.key_rem, inner.key_rem_hi, outer.key_rem, outer.key_rem_hi,
+            fanout, return_max_weight=True)
+    else:
+        counts, maxw = _per_partition_counts(
+            sort_unstable(inner.key_rem), outer.key_rem, outer_pid,
+            num_partitions)
+    return (counts, maxw) if return_max_weight else counts
+
+
+def _slabs(lane: torch.Tensor, slab_size: int, fill: int):
+    """The slabs of ``lane``, the last one padded with ``fill`` to
+    ``slab_size``."""
+    for lo in range(0, lane.numel(), slab_size):
+        slab = lane[lo:lo + slab_size]
+        if slab.numel() < slab_size:
+            slab = torch.cat([slab, slab.new_full(
+                (slab_size - slab.numel(),), fill)])
+        yield slab
+
+
+def probe_count_chunked(inner: CompressedBatch, outer: CompressedBatch,
+                        outer_pid: torch.Tensor, num_partitions: int,
+                        slab_size: int, return_max_weight: bool = False):
+    """Per-partition counts with the outer side streamed in ``slab_size``
+    slabs (the JAX ``lax.scan`` as a loop): the same numbers as
+    :func:`probe_count_per_partition`, with a working set of O(inner +
+    slab).  The last slab is padded with the S sentinel — in both key lanes
+    for 64-bit keys (the ``make_padding(wide=True)`` contract) — and pid
+    0, and pads match nothing.  Counts sum over the slabs mod 2**32."""
+    if slab_size < 1:
+        raise ValueError("slab_size must be >= 1")
+    fill = int(narrow(torch.tensor(pad_sentinel("outer"))))
+    wide = inner.key_rem_hi is not None
+    dev = outer.key_rem.device
+    total = torch.zeros(num_partitions, dtype=torch.int64, device=dev)
+    maxws = []
+    r_sorted = None if wide else sort_unstable(inner.key_rem)
+    hi_slabs = (_slabs(outer.key_rem_hi, slab_size, fill) if wide
+                else itertools.repeat(None))
+    for lo, hi, pid in zip(_slabs(outer.key_rem, slab_size, fill), hi_slabs,
+                           _slabs(outer_pid, slab_size, 0)):
+        if wide:
+            counts, maxw = probe_count_per_partition(
+                inner, CompressedBatch(lo, pid, hi), pid, num_partitions,
+                return_max_weight=True)
+        else:
+            counts, maxw = _per_partition_counts(r_sorted, lo, pid,
+                                                 num_partitions)
+        total += widen(counts)
+        maxws.append(maxw)
+    counts = narrow(total)
+    if not return_max_weight:
+        return counts
+    maxw = (torch.stack(maxws).max() if maxws
+            else torch.zeros((), dtype=torch.int32, device=dev))
+    return counts, maxw
+
+
 def probe_count_bucketized(inner_blocks: torch.Tensor,
                            outer_blocks: torch.Tensor,
                            inner_hi: Optional[torch.Tensor] = None,
                            outer_hi: Optional[torch.Tensor] = None,
-                           return_max_weight: bool = False):
+                           return_max_weight: bool = False, run=None):
     """Per-bucket match counts, int32 [nb] of uint32 bits; with
     ``return_max_weight`` also the largest single-outer-tuple match count
     (0-d int32).  Dense equality for tiny buckets, else the batched
-    sort-merge; 64-bit keys add their hi-lane blocks."""
+    sort-merge; 64-bit keys add their hi-lane blocks.  ``run`` times the
+    sort-merge's stages (:func:`probe_count_bucketized_merge`)."""
     if max(inner_blocks.shape[1], outer_blocks.shape[1]) <= DENSE_BUCKET_LIMIT:
         eq = inner_blocks[:, :, None] == outer_blocks[:, None, :]
         if inner_hi is not None:
@@ -59,7 +167,8 @@ def probe_count_bucketized(inner_blocks: torch.Tensor,
         return counts
     return probe_count_bucketized_merge(inner_blocks, outer_blocks, inner_hi,
                                         outer_hi,
-                                        return_max_weight=return_max_weight)
+                                        return_max_weight=return_max_weight,
+                                        run=run)
 
 
 def bucket_rows_sort(inner_blocks: torch.Tensor, outer_blocks: torch.Tensor,
@@ -121,12 +230,17 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
                                  outer_blocks: torch.Tensor,
                                  inner_hi: Optional[torch.Tensor] = None,
                                  outer_hi: Optional[torch.Tensor] = None,
-                                 return_max_weight: bool = False):
+                                 return_max_weight: bool = False, run=None):
     """:func:`bucket_rows_sort` then :func:`bucket_rows_count`, over groups
     of rows of at most :data:`ROW_CHUNK_ELEMS` slots each.  Rows are
     independent, so the chunking changes no count; it bounds the row sort's
     lanes and the scan's int64 temporaries when retries have doubled the
-    bucket capacity many times."""
+    bucket capacity many times.  ``run(stage, fn, *args)``, when given,
+    calls each stage — "BPBUILD" for a group's row sort, "BPPROBE" for its
+    scan — so the engine can time them (``measure_phases``)."""
+    if run is None:
+        def run(stage, fn, *args, **kw):
+            return fn(*args, **kw)
     nb = inner_blocks.shape[0]
     width = inner_blocks.shape[1] + outer_blocks.shape[1]
     step = max(1, ROW_CHUNK_ELEMS // max(1, width))
@@ -134,9 +248,9 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
     def rows(a, lo):
         return None if a is None else a[lo:lo + step]
 
-    parts = [bucket_rows_count(
-        *bucket_rows_sort(rows(inner_blocks, lo), rows(outer_blocks, lo),
-                          rows(inner_hi, lo), rows(outer_hi, lo)),
+    parts = [run("BPPROBE", bucket_rows_count, *run(
+        "BPBUILD", bucket_rows_sort, rows(inner_blocks, lo),
+        rows(outer_blocks, lo), rows(inner_hi, lo), rows(outer_hi, lo)),
         return_max_weight=True) for lo in range(0, nb, step)]
     counts = torch.cat([c for c, _ in parts])
     if return_max_weight:

@@ -6,21 +6,25 @@ library with a plain C interface, loaded with ``ctypes``.  Libraries land in
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once.  Nothing here runs at import: the first wrapper call on a
 CUDA tensor builds its library, and :func:`build` builds them all at once,
-one ``nvcc`` process per source started together.
+one ``nvcc`` process per source started together.  A first-use build and
+load is timed and reported to the hooks installed with :func:`on_build`
+(the join engine's records it as JCOMPILE, kept out of its phase timers).
 
     python -m tpu_radix_join_torch.ops.kernels._build   # build all, print ptxas -v
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,6 +35,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: callables ``hook(name, seconds)`` told of each first-use build and load
+_hooks: List[Callable[[str, float], None]] = []
+
+
+@contextlib.contextmanager
+def on_build(hook: Callable[[str, float], None]):
+    """Within the block, call ``hook(name, seconds)`` after each library's
+    first-use build and load (:func:`library`); a build that fails raises
+    and calls no hook."""
+    _hooks.append(hook)
+    try:
+        yield hook
+    finally:
+        _hooks.remove(hook)
 
 
 def nvcc_path() -> str:
@@ -103,9 +121,13 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+        seconds = time.perf_counter() - t0
+        for hook in list(_hooks):
+            hook(name, seconds)
     return lib
 
 

@@ -3,7 +3,7 @@
 The grid's side of ``tpu_radix_join/utils/locks.py`` (``:22-51``,
 ``:125-143``), with the same paths, so a benchmark of the JAX package and a
 grid of either package see each other; the benchmark's side
-(``acquire_pid_file``) comes with the port's benchmark, ROADMAP A8.  The
+(``acquire_pid_file``) comes with the port's benchmark, ROADMAP A8b.  The
 benchmark holds a pause file while its timed window runs and the grid
 parks between chunk pairs; the grid holds a presence file (and
 ``<presence>.parked`` while it parks).  Both files carry the owner's PID,
