@@ -107,6 +107,32 @@ Cell (o), on (n)'s NCCL group of one rank at 20,000,000 ⋈ 20,000,000
        --measure-phases`` at 20M: exit 0, the oracle's OK, ``0.perf``
        loaded with JTOTAL.
 
+Phase (p), the skew split and the hierarchical exchange (phase_p): four
+rank processes of one gloo group on this one card
+(``multihost.initialize(device="cuda", backend="gloo")``, ``file://``
+rendezvous, every rank's tensors on ``cuda:0``; gloo's CUDA collectives go
+through the host, so its times are not NCCL times), 20,000,000 ⋈
+20,000,000 tuples a rank, unique ⋈ zipf(theta 0.75) over the whole key
+domain, generated on the card:
+
+  (p1) ``skew_threshold=4.0``, the sort probe: the hot set, ``hot_cap``, the
+       caps and retries printed; the oracle's count; each hot partition's
+       outer load spread over the ranks (max <= 1.5 x mean), where the same
+       join unsplit sits it on one rank with the same total; K1, K4 (the
+       exchange and the hot extraction), K2 and K3 launched;
+  (p2) (p1) with ``two_level=True`` at 2**22 a rank: K4's second pass and
+       K2's row sort take the replicated hot side;
+  (p3) (p1) at ``key_bits=64``: K2 over three lanes, then K5;
+  (p4) (p1) with ``num_hosts=2`` (2 x 2): its per-rank, per-partition
+       counts equal (p1)'s, and one exchange of each relation through the
+       hierarchical route equals the flat route's lanes and counts bit for
+       bit on the card.
+
+Each case prints every rank's join median of 3, its exchange (JMPI) and
+local probe (JPROC) under ``measure_phases``, and its device busy time.
+The ranks are this script started with ``--phase-p-rank`` (one each); the
+kernels are built before they start.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -131,6 +157,23 @@ GRID_J_TUPLES = 1 << 30
 #: receive buffers
 O1_CHUNK = 1 << 22
 
+
+#: phase (p): four ranks of one gloo group on the one card (hpcjoin's
+#: 20,000,000 tuples a rank and relation, ``main.cpp:70-71``); the
+#: two-level case (p2) at 2**22 a rank: its retries double every bucket of
+#: the second radix pass until the hot buckets fit, and four ranks' rows at
+#: 20M would not fit the card's 80 GB together
+P_RANKS = 4
+P_TUPLES = 20_000_000
+P2_TUPLES = 1 << 22
+#: seconds phase (p)'s ranks may take together before they are killed
+P_DEADLINE_S = 600.0
+#: the command-line flag that runs one rank of phase (p)
+P_RANK_FLAG = "--phase-p-rank"
+#: the partitioned join's capacity retries in (p2) (the Zipf head fills
+#: one local bucket, as in (e)); the others need none
+P2_RETRIES = 6
+P_BACKEND = "gloo-cuda, 4 ranks on one card"
 
 #: the sources whose registers, shared memory and spills the run prints
 PTXAS_SOURCES = ("partition", "merge_scan_chunks", "merge_scan",
@@ -246,7 +289,7 @@ def phase_o(dev, n, group, rels32, rels64, placed, refs, time_ms,
                 raise AssertionError(f"(o1) {bits}-bit: kernel {k} did not "
                                      "launch")
         plan = eng._shuffle_plan(*lanes)
-        cap_r, cap_s = eng._measure_capacities(*lanes, plan)
+        cap_r, cap_s, _ = eng._measure_capacities(*lanes, plan)
         runs = [host_ms(join) for _ in range(5)]
         # where the time goes: each stage alone (the probe's first slab)
         rp, sp, *_ = eng._shuffle(*lanes, plan,
@@ -551,10 +594,10 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
             by_kernel = device_us(lambda: run(k, r, s), 3)
             busy_ms = sum(by_kernel.values()) / 1e3
             plan = eng._shuffle_plan(r, s)
-            cap_r, cap_s = eng._measure_capacities(r, s, plan)
+            cap_r, cap_s, _ = eng._measure_capacities(r, s, plan)
             win_r = Window(eng.world, cap_r, "inner")
             win_s = Window(eng.world, cap_s, "outer")
-            rp, sp, lost_r, lost_s, _ = eng._shuffle(r, s, plan, win_r,
+            rp, sp, lost_r, lost_s, *_ = eng._shuffle(r, s, plan, win_r,
                                                      win_s)
             lane = rp.batch.key
             small = torch.zeros((2, 32), dtype=torch.int64, device=dev)
@@ -621,6 +664,357 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
     finally:
         multihost.shutdown()
     return launches
+
+
+def phase_p_rank(rank: int, world: int, init_method: str,
+                 spec: dict) -> dict:
+    """One rank of phase (p) (see :func:`phase_p`): joins the gloo group
+    on ``spec["device"]`` through ``multihost.initialize(...,
+    backend="gloo")``, generates its shards on the card and runs each case.
+    A case's first join runs with the launch counts set to 0 (the main
+    path), then three more for the median, then once with
+    ``measure_phases`` for this rank's exchange (JMPI) and local probe
+    (JPROC).  Returns every case's result, plan, launches, collectives and
+    times."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.parallel.network_partitioning import (
+        network_partition)
+    from tpu_radix_join_torch.parallel.window import Window
+    from tpu_radix_join_torch.parallel.world import make_world
+    from tpu_radix_join_torch.performance import Measurements
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", 0)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def device_busy_ms(fn):
+        """This rank's device time of one call (torch.profiler's CUDA
+        activity: its kernels, memsets and gloo's copies)."""
+        from torch.profiler import ProfilerActivity, profile
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return sum(getattr(e, "device_time_total", 0) or 0
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    def host_ms(fn):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    multihost.initialize(init_method=init_method, world_size=world,
+                         rank=rank, local_rank=0, device=dev,
+                         backend="gloo", timeout_s=spec["timeout_s"])
+    group = dist.group.WORLD
+    out = {"rank": rank, "backend": str(dist.get_backend(group)),
+           "gloo_on_card": multihost.gloo_on_card(), "cases": {}}
+
+    def rels(n, key_bits=32):
+        total = n * world
+        return (Relation(total, world, "unique", seed=1234,
+                         key_bits=key_bits),
+                Relation(total, world, "zipf", seed=1235, zipf_theta=0.75,
+                         key_domain=total, key_bits=key_bits))
+
+    base = dict(num_nodes=world, max_retries=spec["max_retries"])
+    split = dict(base, skew_threshold=4.0)
+    n, n2 = spec["tuples"], spec["p2_tuples"]
+    cases = {   # name -> (config, relations)
+        "p1": (JoinConfig(**split), (n, 32)),
+        "p1_unsplit": (JoinConfig(**base), (n, 32)),
+        "p4": (JoinConfig(**split, num_hosts=2), (n, 32)),
+        "p3": (JoinConfig(**split, key_bits=64), (n, 64)),
+        "p2": (JoinConfig(**dict(split, max_retries=spec["p2_retries"]),
+                          two_level=True), (n2, 32)),
+    }
+    placed = {}
+    try:
+        for name, (cfg, shape) in cases.items():
+            if shape not in placed:
+                placed.clear()
+                if cuda:
+                    torch.cuda.empty_cache()
+                inner, outer = rels(*shape)
+                eng0 = HashJoin(JoinConfig(num_nodes=world,
+                                           key_bits=shape[1]), dev,
+                                group=group)
+                placed[shape] = (inner, outer, eng0.place(inner),
+                                 eng0.place(outer))
+            inner, outer, r, s = placed[shape]
+            bound = max(inner.key_bound(), outer.key_bound())
+            eng = HashJoin(cfg, dev, group=group)
+            cap_r, cap_s, skew = eng._measure_capacities(
+                r, s, eng._shuffle_plan(r, s))
+            sync()
+            dist.barrier()
+            kernels.reset_launches()
+            before = dict(eng.world.counts)
+            res = eng.join_arrays(r, s, key_bound=bound)
+            sync()
+            launches = kernels.launch_counts()
+            collectives = {k: eng.world.counts[k] - before[k]
+                           for k in before}
+            runs = [host_ms(lambda: eng.join_arrays(r, s, key_bound=bound))[0]
+                    for _ in range(3)]
+            busy_ms = (device_busy_ms(
+                lambda: eng.join_arrays(r, s, key_bound=bound)) if cuda
+                else None)
+            meas = Measurements(node_id=rank, num_nodes=world)
+            eng_m = HashJoin(dataclasses.replace(cfg, measure_phases=True),
+                             dev, group=group, measurements=meas)
+            res_m = eng_m.join_arrays(r, s, key_bound=bound)
+            case = {
+                "matches": res.matches, "ok": res.ok,
+                "retries": res.retries, "diagnostics": res.diagnostics,
+                "partition_counts": res.partition_counts.tolist(),
+                "expected": inner.expected_matches(outer),
+                "tuples_per_rank": shape[0], "key_bits": shape[1],
+                "caps": [cap_r, cap_s],
+                "hot_bits": None if skew is None else skew.hot_bits,
+                "hot_cap": None if skew is None else skew.hot_cap,
+                "launches": launches, "collectives": collectives,
+                "join_runs_ms": runs,
+                "join_ms": statistics.median(runs),
+                "device_busy_ms": busy_ms,
+                "phases_ms": {k: v / 1e3 for k, v in meas.times_us.items()
+                              if k in ("JMPI", "SNETCOMPL", "SLOCPREP",
+                                       "JPROC", "SWINALLOC", "JTOTAL")},
+                "phases_same": bool(np.array_equal(res_m.partition_counts,
+                                                   res.partition_counts)),
+            }
+            if name == "p4":
+                # one exchange of each relation through both routes, on
+                # the card: the received lanes and counts bit for bit
+                plan = eng._shuffle_plan(r, s)
+                routes = {"flat": make_world(world, group),
+                          "hierarchical": make_world(world, group, 2)}
+                got, ms = {}, {}
+                for route, w in routes.items():
+                    def exchange(w=w):
+                        return [network_partition(
+                            b, cfg.network_fanout_bits, plan.assignment,
+                            Window(w, c, side))
+                            for b, c, side in ((r, cap_r, "inner"),
+                                               (s, cap_s, "outer"))]
+                    ms[route], got[route] = host_ms(exchange)
+                    ms[route] = statistics.median(
+                        [ms[route]] + [host_ms(exchange)[0]
+                                       for _ in range(2)])
+                case["exchange_equal"] = all(
+                    torch.equal(a, b)
+                    for x, y in zip(got["flat"], got["hierarchical"])
+                    for a, b in zip([*x.batch, x.recv_counts],
+                                    [*y.batch, y.recv_counts])
+                    if a is not None)
+                case["exchange_ms"] = ms
+                del got
+            out["cases"][name] = case
+            del eng, eng_m
+    finally:
+        placed.clear()
+        multihost.shutdown()
+    return out
+
+
+def phase_p(dev, card, spec=None) -> dict:
+    """Phase (p): the skew split (A10) and the hierarchical exchange on
+    :data:`P_RANKS` rank processes of one gloo group on the one card
+    (``file://`` rendezvous; every rank's tensors on ``cuda:0``, gloo's CUDA
+    collectives through the host), 20,000,000 ⋈ 20,000,000 tuples a rank:
+    unique ⋈ zipf(theta 0.75) over the whole key domain, generated on the
+    card.  (p1) ``skew_threshold=4.0``, the sort probe, against the same
+    join unsplit; (p2) (p1) with ``two_level=True`` at 2**22 a rank; (p3)
+    (p1) at ``key_bits=64``; (p4) (p1) with ``num_hosts=2``, and one
+    exchange through both routes.  The kernels are built before the ranks
+    start.  Checks the oracles, the spread of each hot partition, the
+    routes' equality and the launches; prints each case's times beside the
+    card's name and power limit (not NCCL times: no claim rests on them).
+    Returns the main paths' launches summed over the ranks."""
+    import shutil
+    import tempfile
+    import threading
+    spec = dict({"device": dev.type, "tuples": P_TUPLES,
+                 "p2_tuples": P2_TUPLES, "max_retries": 2,
+                 "p2_retries": P2_RETRIES, "timeout_s": P_DEADLINE_S},
+                **(spec or {}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    init = f"file://{os.path.join(tmp, 'rendezvous')}"
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host: loopback
+    procs, logs, outs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(P_RANKS):
+            log = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), P_RANK_FLAG,
+                 str(rank), str(P_RANKS), init, json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=log, text=True, env=env))
+            outs.append([])
+            # drain the rank's output as it comes, so it never blocks
+            threading.Thread(target=lambda p=procs[-1], o=outs[-1]:
+                             o.append(p.stdout.read()), daemon=True).start()
+        end = time.monotonic() + P_DEADLINE_S
+        while any(p.poll() is None for p in procs):
+            failed = [i for i, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > end:
+                why = (f"rank {failed[0]} exited {procs[failed[0]].poll()}"
+                       if failed else "the ranks passed their deadline")
+                i = failed[0] if failed else 0
+                logs[i].seek(0)
+                raise AssertionError(f"phase (p): {why}:\n"
+                                     f"{logs[i].read()[-4000:]}")
+            time.sleep(0.2)
+        results = []
+        for rank, p in enumerate(procs):
+            while not outs[rank] and time.monotonic() < end:
+                time.sleep(0.05)
+            text = "".join(outs[rank])
+            if p.returncode != 0 or not text.strip():
+                logs[rank].seek(0)
+                raise AssertionError(f"phase (p): rank {rank} exited "
+                                     f"{p.returncode}:\n"
+                                     f"{logs[rank].read()[-4000:]}")
+            results.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    return check_phase_p(results, seconds, card)
+
+
+def p_launch_checks(name: str, launches: dict, attempts: int) -> None:
+    """The kernels each case of phase (p) must have launched, summed over
+    the ranks: K1 (sizing), K4 (two exchanges and the hot extraction an
+    attempt and rank, plus the second radix pass of both relations on the
+    two-level path), K2, and K3 or K5 on the sort probe."""
+    need = ["histogram", "partition", "radix_histogram", "radix_pass"]
+    if name == "p3":
+        need.append("merge_scan_wide")
+    elif name != "p2":
+        need.append("merge_scan")
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"phase (p) {name}: kernel {k} did not "
+                                 "launch")
+    per_attempt = (2 + (name != "p1_unsplit") + 2 * (name == "p2"))
+    if launches["partition"] != per_attempt * attempts * P_RANKS:
+        raise AssertionError(
+            f"phase (p) {name}: {launches['partition']} K4 launches, not "
+            f"{per_attempt} an attempt and rank over {attempts} attempt(s)")
+
+
+def check_phase_p(results: list, seconds: float, card: dict) -> dict:
+    """Phase (p)'s checks over every rank's results; emits one line a case
+    and returns the launches summed over the cases and ranks."""
+    import numpy as np
+    names = list(results[0]["cases"])
+    for res in results:
+        if res["backend"] != "gloo" or not res["gloo_on_card"]:
+            raise AssertionError(f"phase (p): rank {res['rank']} ran on "
+                                 f"{res['backend']}")
+    total = {}
+    cases = {}
+    for name in names:
+        per_rank = [res["cases"][name] for res in results]
+        c = per_rank[0]
+        for other in per_rank[1:]:
+            for k in ("matches", "ok", "retries", "partition_counts",
+                      "caps", "hot_bits", "hot_cap", "diagnostics"):
+                if other[k] != c[k]:
+                    raise AssertionError(f"phase (p) {name}: ranks differ "
+                                         f"in {k}")
+        if not (c["ok"] and c["matches"] == c["expected"]
+                and all(r["phases_same"] for r in per_rank)):
+            raise AssertionError(f"phase (p) {name}: {c['matches']} "
+                                 f"matches, expected {c['expected']}, "
+                                 f"{c['diagnostics']}")
+        split = name != "p1_unsplit"
+        if split != (c["hot_bits"] is not None):
+            raise AssertionError(f"phase (p) {name}: hot set "
+                                 f"{c['hot_bits']}")
+        pc = np.asarray(c["partition_counts"], np.int64).reshape(P_RANKS, -1)
+        hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
+        # the sort probes count per network partition (each outer tuple
+        # matches once, so a count is that partition's outer load on the
+        # rank); the two-level join counts per local bucket
+        for p in hot if name != "p2" else ():
+            load = pc[:, p]
+            if not (load.min() > 0 and load.max() <= 1.5 * load.mean()):
+                raise AssertionError(f"phase (p) {name}: hot partition "
+                                     f"{p} loads the ranks {load}")
+        launches = {k: sum(r["launches"][k] for r in per_rank)
+                    for k in c["launches"]}
+        p_launch_checks(name, launches, c["retries"] + 1)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        cases[name] = (c, pc, per_rank, launches)
+    c1, pc1 = cases["p1"][:2]
+    c0, pc0 = cases["p1_unsplit"][:2]
+    hot1 = [p for p in range(32) if c1["hot_bits"] >> p & 1]
+    for p in hot1:
+        if (pc0[:, p] > 0).sum() != 1:
+            raise AssertionError(f"phase (p): unsplit, hot partition {p} "
+                                 f"loads {pc0[:, p]}")
+    if c0["matches"] != c1["matches"]:
+        raise AssertionError("phase (p): the unsplit join's total differs")
+    c4, pc4, per4 = cases["p4"][:3]
+    if not (np.array_equal(pc4, pc1)
+            and all(r["exchange_equal"] for r in per4)):
+        raise AssertionError("phase (p) p4: the hierarchical route differs "
+                             "from the flat one")
+    for name, (c, pc, per_rank, launches) in cases.items():
+        hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
+        hot_p = {"p1_unsplit": hot1, "p2": ()}.get(name, hot)
+        emit({"phase": "multi_rank", "cell": name, "backend": P_BACKEND,
+              "ranks": P_RANKS, "seconds": seconds,
+              "tuples_per_rank": c["tuples_per_rank"],
+              "key_bits": c["key_bits"], "matches": c["matches"],
+              "expected": c["expected"], "retries": c["retries"],
+              "hot_partitions": hot, "hot_cap": c["hot_cap"],
+              "caps": c["caps"],
+              "hot_outer_load_by_rank": {p: pc[:, p].tolist()
+                                         for p in hot_p},
+              "join_ms_by_rank": [r["join_ms"] for r in per_rank],
+              "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
+              "probe_ms_by_rank": [r["phases_ms"].get("JPROC")
+                                   for r in per_rank],
+              "device_busy_ms_by_rank": [r["device_busy_ms"]
+                                         for r in per_rank],
+              "idle_share_by_rank": [
+                  None if r["device_busy_ms"] is None
+                  else 1 - r["device_busy_ms"] / r["join_ms"]
+                  for r in per_rank],
+              "phases_ms_by_rank": [r["phases_ms"] for r in per_rank],
+              "exchange_ms_by_rank": [r.get("exchange_ms")
+                                      for r in per_rank],
+              "launches": launches, "collectives": c["collectives"],
+              **card})
+    return total
 
 
 def main() -> int:
@@ -1838,7 +2232,7 @@ def main() -> int:
           "join_ms": ms_la, "tuples_per_s": (r.size + s.size) / ms_la * 1e3,
           **card})
     plan = eng._shuffle_plan(r, s)
-    cap_r, cap_s = eng._measure_capacities(r, s, plan)
+    cap_r, cap_s, _ = eng._measure_capacities(r, s, plan)
     win_r = Window(eng.world, cap_r, "inner")
     win_s = Window(eng.world, cap_s, "outer")
     rp, sp, *_ = eng._shuffle(r, s, plan, win_r, win_s)
@@ -1921,6 +2315,12 @@ def main() -> int:
         time_ms, device_us, card)
     launches = {k: v + launches[k] for k, v in launches_n.items()}
 
+    # (p): the skew split and the hierarchical exchange on four ranks of
+    # one gloo group on this card (the kernels are built above)
+    torch.cuda.empty_cache()
+    launches_p = phase_p(dev, card)
+    launches = {k: v + launches_p.get(k, 0) for k, v in launches.items()}
+
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
                       "tpu_radix_join/ops/pallas/histogram.py:60",
@@ -1964,4 +2364,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == P_RANK_FLAG:
+        # one rank of phase (p), started by phase_p: its result on stdout
+        print(json.dumps(phase_p_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4], json.loads(sys.argv[5]))),
+              flush=True)
+        sys.exit(0)
     sys.exit(main())

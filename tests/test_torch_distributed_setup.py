@@ -154,25 +154,25 @@ def test_num_nodes_without_a_group_raises_naming_initialize():
     ("num_hosts", 2, "A10"), ("chunk_size", 4096, "A7b")])
 def test_distributed_settings_outside_the_slice_raise(field, value, item,
                                                       tmp_path):
-    """``num_hosts > 1`` still raises, naming A10.  ``chunk_size`` (A7b)
-    is ported: it carries across, and a torchrun launch of the command
-    line joins with it over two gloo ranks exactly, as the JAX engine does
-    over two devices."""
+    """Both are ported now: ``num_hosts`` (A10, the hierarchical
+    exchange) and ``chunk_size`` (A7b) carry across, and a torchrun launch
+    of the command line (``--hosts 2`` or ``--chunk-size``) joins with it
+    over two gloo ranks exactly, as the JAX engine does over two
+    devices."""
     d = dataclasses.asdict(jx.JoinConfig(num_nodes=2))
     d[field] = value
-    if field != "chunk_size":
-        with pytest.raises(NotImplementedError, match=item):
-            config_from_jax(d)
-        return
-    assert config_from_jax(d).chunk_size == value
-    out = _torchrun(tmp_path, "--chunk-size", str(value))
+    assert getattr(config_from_jax(d), field) == value
+    flag = "--hosts" if field == "num_hosts" else "--chunk-size"
+    out = _torchrun(tmp_path, flag, str(value))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     inner = jx.Relation(2 * 4096, 2, "unique", seed=1234)
     outer = jx.Relation(2 * 4096, 2, "modulo", seed=1235, modulo=2048)
-    want = jx.HashJoin(jx.JoinConfig(num_nodes=2, chunk_size=value)).join(
+    want = jx.HashJoin(jx.JoinConfig(num_nodes=2, **{field: value})).join(
         inner, outer)
     assert res["matches"] == want.matches == inner.expected_matches(outer)
-    assert res["ok"] and want.ok and res["pipeline"] == "chunked_probe"
+    assert res["ok"] and want.ok
+    assert res["pipeline"] == ("chunked_probe" if field == "chunk_size"
+                               else "shuffled_sort_probe")
     assert "[RESULTS] Expected: 8192 (OK)" in out.stdout
 
 

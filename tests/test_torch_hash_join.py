@@ -133,10 +133,22 @@ def test_settings_outside_the_slice_raise(field, value, item):
     A7, the distributed main path, is ported: ``num_nodes`` and
     ``debug_checks`` carry across (a world of 4 then needs its process
     group); so does ``chunk_size`` (A7b), whose chunked probe then joins
-    exactly as the JAX engine does."""
+    exactly as the JAX engine does; and ``skew_threshold`` (A10), which a
+    one-rank join never acts on, so it joins exactly as the JAX engine
+    does."""
     jcfg = jx.JoinConfig()
     d = dataclasses.asdict(jcfg)
     d[field] = value
+    if field == "skew_threshold":
+        assert config_from_jax(d).skew_threshold == value
+        rng = np.random.default_rng(13)
+        r_key = rng.integers(0, 5000, 3000, dtype=np.uint32)
+        s_key = np.concatenate([np.full(2000, 3, np.uint32), r_key[:500]])
+        got, want = _carried(jx.JoinConfig(skew_threshold=value), r_key,
+                             s_key)
+        _assert_same(got, want)
+        assert got.ok and got.matches == host_join_count(r_key, s_key)
+        return
     if field in ("num_nodes", "debug_checks", "chunk_size"):
         cfg = config_from_jax(d)
         assert getattr(cfg, field) == value

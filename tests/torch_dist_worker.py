@@ -43,10 +43,23 @@ def _lane(values):
     return lane_from_numpy(np.asarray(values, np.uint32), "cpu")
 
 
+def _shard(lanes, rank, size):
+    """This rank's contiguous shard of global uint32 lanes [key, rid,
+    key_hi or None], as a CPU TupleBatch (the JAX mesh's sharding)."""
+    from tpu_radix_join_torch.data.tuples import TupleBatch
+    n = len(lanes[0]) // size
+    return TupleBatch(*(None if lane is None
+                        else _lane(lane[rank * n:(rank + 1) * n])
+                        for lane in lanes))
+
+
 def _join(task, world_group):
-    """One join of the task's relations; with ``"measure"`` the engine
-    records into a registry, whose counters, timers and ``gather_all``
-    (every rank's registry: node, RESULTS, timer tags) come back too."""
+    """One join of the task's relations (``"inner"``/``"outer"`` specs, or
+    ``"lanes"``: global lanes each rank shards); with ``"measure"`` the
+    engine records into a registry, whose counters, timers, ``retry``
+    events and ``gather_all`` (every rank's registry: node, RESULTS, timer
+    tags) come back too; with ``"plan"`` the sizing pass's capacities and
+    skew plan, measured before the join."""
     import torch
     import tpu_radix_join_torch as tx
     from tpu_radix_join_torch.performance import Measurements
@@ -56,21 +69,35 @@ def _join(task, world_group):
             if task.get("measure") else None)
     eng = tx.HashJoin(cfg, device="cpu", group=world_group,
                       measurements=meas)
-    inner, outer = (tx.Relation(**task[k]) for k in ("inner", "outer"))
-    if task["flip"]:
-        # this rank's shards with bit 31 of every key set, as raw lanes
-        r, s = (b._replace(key=torch.bitwise_xor(b.key, -(1 << 31)))
-                for b in (eng.place(inner), eng.place(outer)))
-        res = eng.join_arrays(r, s)
+    out, bound = {}, None
+    if "lanes" in task:
+        rank, size = eng.world.rank, eng.world.size
+        r, s = (_shard(task["lanes"][k], rank, size) for k in ("r", "s"))
     else:
-        res = eng.join(inner, outer)
-    out = {"matches": res.matches, "ok": res.ok,
-           "partition_counts": res.partition_counts.tolist(),
-           "diagnostics": res.diagnostics, "retries": res.retries,
-           "collectives": dict(eng.world.counts)}
+        inner, outer = (tx.Relation(**task[k]) for k in ("inner", "outer"))
+        r, s = eng.place(inner), eng.place(outer)
+        if task.get("flip"):
+            # this rank's shards with bit 31 of every key set, as raw lanes
+            r, s = (b._replace(key=torch.bitwise_xor(b.key, -(1 << 31)))
+                    for b in (r, s))
+        else:   # HashJoin.join: the relations' static key bound
+            bound = max(inner.key_bound(), outer.key_bound())
+    if task.get("plan"):
+        cap_r, cap_s, skew = eng._measure_capacities(
+            r, s, eng._shuffle_plan(r, s))
+        out["plan"] = [cap_r, cap_s] + (
+            [None, None] if skew is None else [skew.hot_bits, skew.hot_cap])
+    res = eng.join_arrays(r, s, key_bound=bound)
+    out.update({"matches": res.matches, "ok": res.ok,
+                "partition_counts": res.partition_counts.tolist(),
+                "diagnostics": res.diagnostics, "retries": res.retries,
+                "collectives": dict(eng.world.counts)})
     if meas is not None:
         out["counters"] = dict(meas.counters)
         out["times_us"] = dict(meas.times_us)
+        out["retry_events"] = [
+            {k: v for k, v in e.items() if k not in ("t_s", "t_epoch_s")}
+            for e in meas.meta.get("events", []) if e["event"] == "retry"]
         out["gathered"] = [[m.node_id, m.counters.get("RESULTS"),
                             sorted(m.times_us)]
                            for m in meas.gather_all(eng.world)]
@@ -109,15 +136,26 @@ def _collectives(task, world):
 
 
 def _exchange(task, world):
+    """``network_partition`` of this rank's lanes, with the skew split's
+    ``exclude`` or ``override`` (``"exclude"``: bool lists, ``"override"``:
+    [mask lists, destination lists], one a rank) when the task has them."""
+    import torch
     from tpu_radix_join_torch.parallel.network_partitioning import (
         network_partition)
     from tpu_radix_join_torch.parallel.window import Window
     from tpu_radix_join_torch.data.tuples import TupleBatch
-    batch = TupleBatch(key=_lane(task["key"][world.rank]),
-                       rid=_lane(task["rid"][world.rank]))
+    rank = world.rank
+    batch = TupleBatch(key=_lane(task["key"][rank]),
+                       rid=_lane(task["rid"][rank]))
     assignment = _lane(task["assignment"])
     win = Window(world, task["capacity"], task["side"])
-    res = network_partition(batch, task["fanout"], assignment, win)
+    kw = {}
+    if task.get("exclude"):
+        kw["exclude"] = torch.tensor(task["exclude"][rank])
+    if task.get("override"):
+        mask, dest = task["override"]
+        kw["override"] = (torch.tensor(mask[rank]), _lane(dest[rank]))
+    res = network_partition(batch, task["fanout"], assignment, win, **kw)
     ghist = _lane(task["global_hist"])
     lost, bad = win.diagnostics(res, ghist, assignment)
     return {"key": _np(res.batch.key), "rid": _np(res.batch.rid),
@@ -127,6 +165,24 @@ def _exchange(task, world):
             "bad": bool(bad),
             "all_written": bool(win.assert_all_tuples_written(
                 res, ghist, assignment))}
+
+
+def _hierarchical(task, group):
+    """One block exchange of this rank's int32 blocks (``"blocks"``: one
+    list a rank) through the hierarchical route of ``num_hosts`` hosts and
+    through the flat route."""
+    from tpu_radix_join_torch.parallel.world import (
+        hierarchical_block_all_to_all, make_world)
+    hier = make_world(task["num_nodes"], group, task["num_hosts"])
+    flat = make_world(task["num_nodes"], group)
+    n = hier.size
+    x = _lane(task["blocks"][hier.rank])
+    block = x.numel() // n
+    return {"hier": _np(hier.all_to_all(x, block)),
+            "flat": _np(flat.all_to_all(x, block)),
+            "direct": _np(hierarchical_block_all_to_all(
+                x, n, block, *hier._hier, hier.num_hosts)),
+            "counts": dict(hier.counts)}
 
 
 def worker(rank: int, world_size: int, init_method: str) -> None:
@@ -143,7 +199,8 @@ def worker(rank: int, world_size: int, init_method: str) -> None:
              "offsets": lambda t: _offsets(t, DistWorld(group)),
              "collectives": lambda t: _collectives(t, DistWorld(group)),
              "exchange": lambda t: _exchange(t, DistWorld(group)),
-             "distribute": lambda t: _distribute(t, DistWorld(group))}
+             "distribute": lambda t: _distribute(t, DistWorld(group)),
+             "hierarchical": lambda t: _hierarchical(t, group)}
     for line in sys.stdin:
         task = json.loads(line)
         if task["kind"] == "exit":

@@ -70,6 +70,23 @@ class JoinConfig:
         one partition pass (K4), so only "auto".
       * ``max_retries``: capacity-shortfall retries, each doubling what fell
         short; the sort probe has no capacity and never retries.
+      * ``retry_backoff_s``, ``retry_backoff_mult``, ``retry_backoff_max_s``
+        and ``retry_jitter``: the pause after each capacity retry but the
+        last (``HashJoin._retry_backoff``, ``hash_join.py:2495-2514``):
+        ``min(retry_backoff_s * retry_backoff_mult**k,
+        retry_backoff_max_s)`` after attempt k, scaled by the deterministic
+        jitter of ``robustness/retry.RetryPolicy``; 0 is no pause.
+      * ``skew_threshold``: the skew split (operators/skew.py): a partition
+        whose global outer weight passes this multiple of the mean total
+        weight, and whose inner side is cheap to replicate, has its inner
+        tuples replicated to every rank (``all_gather``) and its outer
+        tuples spread over the ranks by a hash of the rid.  Needs
+        ``network_fanout_bits <= 5``, measured window sizing and no
+        ``chunk_size``; a one-rank join never splits.  None is off.
+      * ``num_hosts``: the ranks form a host-major ``[num_hosts, num_nodes
+        / num_hosts]`` grid and every exchange takes the hierarchical
+        route, within each host first and then across the hosts
+        (``parallel/world.hierarchical_block_all_to_all``).
       * ``fallback="chunked"``: a partitioned join still short of capacity
         after its retries counts out of core instead (ops/chunked.py).
     """
@@ -89,6 +106,10 @@ class JoinConfig:
     assignment_policy: str = "round_robin"
     probe_algorithm: str = "sort"
     max_retries: int = 0
+    retry_backoff_s: float = 0.0
+    retry_backoff_mult: float = 2.0
+    retry_backoff_max_s: float = 30.0
+    retry_jitter: float = 0.0
     fallback: str = "none"
     verify: str = "off"
     skew_threshold: Optional[float] = None
@@ -113,9 +134,6 @@ class JoinConfig:
             raise ValueError("num_nodes must be >= 1")
         if self.num_hosts < 1 or self.num_nodes % self.num_hosts:
             raise ValueError("num_nodes must divide evenly over num_hosts")
-        if self.num_hosts > 1:
-            raise _not_ported(f"num_hosts={self.num_hosts} (the "
-                              "hierarchical exchange)", "A10")
         if self.key_bits not in (32, 64):
             raise ValueError("key_bits must be 32 or 64")
         if self.key_range not in ("auto", "narrow", "full"):
@@ -148,6 +166,12 @@ class JoinConfig:
                 f"unknown probe algorithm {self.probe_algorithm!r}")
         if self.max_retries < 0:
             raise ValueError("max_retries must be >= 0")
+        if self.retry_backoff_s < 0 or self.retry_backoff_max_s < 0:
+            raise ValueError("retry backoff delays must be >= 0")
+        if self.retry_backoff_mult < 1.0:
+            raise ValueError("retry_backoff_mult must be >= 1.0")
+        if not 0.0 <= self.retry_jitter <= 1.0:
+            raise ValueError("retry_jitter must be in [0, 1]")
         if self.fallback not in ("none", "chunked"):
             raise ValueError(f"unknown fallback mode {self.fallback!r}")
         if self.verify not in ("off", "check", "repair"):
@@ -155,7 +179,22 @@ class JoinConfig:
         if self.verify != "off":
             raise _not_ported(f"verify={self.verify!r}", "A15")
         if self.skew_threshold is not None:
-            raise _not_ported("skew_threshold", "A10")
+            # the JAX package's checks (core/config.py:263-282)
+            if self.skew_threshold <= 0:
+                raise ValueError("skew_threshold must be positive")
+            if self.chunk_size:
+                raise ValueError(
+                    "skew splitting does not compose with the chunked "
+                    "probe: the split replicates the hot inner side onto "
+                    "every rank, growing the working set chunking bounds")
+            if self.network_fanout_bits > 5:
+                raise ValueError(
+                    "skew splitting supports network fanout <= 5 "
+                    "(the hot set is a uint32 bit mask)")
+            if self.window_sizing != "measured":
+                raise ValueError(
+                    "skew splitting requires window_sizing='measured' "
+                    "(hot detection reads the sizing pass's histograms)")
         if self.chunk_size is not None and (
                 self.chunk_size < 1
                 or self.two_level or self.probe_algorithm == "bucket"):

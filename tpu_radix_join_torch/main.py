@@ -8,6 +8,10 @@ one of ``--outer-kind`` with seed ``--seed + 1``; the join runs through
 every rank generates its shard of each relation (``--tuples-per-node``
 tuples), joins over the NCCL process group (gloo with ``--device cpu``)
 and checks the result against the oracle; rank 0 prints it.
+``--hosts H`` spreads the ranks over H hosts and takes the hierarchical
+exchange; ``--skew-threshold`` splits hot partitions (inner side
+replicated, outer side spread); ``--retry-backoff`` pauses between
+capacity retries.
 ``--probe bucket`` or ``--two-level`` select the partitioned join;
 ``--key-range`` picks the sort probe's 32-bit discipline; ``--chunk-size``
 streams the probe after the shuffle in slabs; ``--fallback chunked`` lets
@@ -35,6 +39,7 @@ Usage:
     python -m tpu_radix_join_torch.main --tuples-per-node 20000000
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4
     torchrun --standalone --nproc-per-node 2 -m tpu_radix_join_torch.main --nodes 2 --device cpu
+    torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --hosts 2 --device cpu --outer-kind zipf --skew-threshold 4
     python -m tpu_radix_join_torch.main --key-range full --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --probe bucket --tuples-per-node 20000000
     python -m tpu_radix_join_torch.main --two-level --outer-kind zipf --max-retries 2
@@ -68,6 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nodes", type=int, default=1,
                    help="ranks of the join, one GPU each; more than 1 needs "
                         "a torchrun launch (torchrun --nproc-per-node N)")
+    p.add_argument("--hosts", type=int, default=1,
+                   help="hosts the ranks span; >1 takes the hierarchical "
+                        "exchange, within each host and then across them")
     p.add_argument("--network-fanout", type=int, default=5,
                    help="network radix bits (Configuration.h:30)")
     p.add_argument("--local-fanout", type=int, default=5)
@@ -89,6 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-retries", type=int, default=0,
                    help="capacity-shortfall retries with doubled shapes "
                         "(grid mode: transient-error retries of a pair)")
+    p.add_argument("--retry-backoff", type=float, default=0.0,
+                   help="seconds to pause before the first capacity retry "
+                        "(doubles each attempt, robustness/retry.py); 0 = "
+                        "immediate")
     p.add_argument("--fallback", choices=["none", "chunked"], default="none",
                    help="after --max-retries capacity doublings still "
                         "overflow: 'chunked' degrades to the out-of-core "
@@ -110,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="grid mode: resume from the checkpoint in "
                         "--checkpoint-dir (default: a fresh run removes a "
                         "stale checkpoint first)")
+    p.add_argument("--skew-threshold", type=float, default=None,
+                   help="split partitions heavier than this multiple of the "
+                        "mean (replicate inner / spread outer); off by "
+                        "default")
     p.add_argument("--outer-kind", choices=["unique", "modulo", "zipf"],
                    default="unique")
     p.add_argument("--modulo", type=int, default=None,
@@ -259,7 +275,10 @@ def _run_join(args, group) -> int:
                      assignment_policy=args.assignment,
                      window_sizing=args.window_sizing,
                      key_range=args.key_range, num_nodes=nodes,
-                     max_retries=args.max_retries, fallback=args.fallback,
+                     num_hosts=args.hosts, max_retries=args.max_retries,
+                     retry_backoff_s=args.retry_backoff,
+                     skew_threshold=args.skew_threshold,
+                     fallback=args.fallback,
                      chunk_size=args.chunk_size,
                      measure_phases=args.measure_phases)
     rank = dist.get_rank(group) if group is not None else 0

@@ -31,12 +31,19 @@ rank too):
      assignment, and each relation's worst per-destination demand over all
      ranks (``all_reduce`` max) rounded up to a power of two (or the
      ``allocation_factor`` estimate, ``window_sizing="static"``); computed
-     once a join and shared by every attempt;
+     once a join and shared by every attempt.  With ``skew_threshold``
+     over more than one rank, hot partitions found in the global
+     histograms take the skew split (operators/skew.py), sized by a
+     second pass;
   2. the exchange (``_shuffle``): ``network_partition`` into one block per
-     rank (K4), an ``all_to_all`` of every lane and of the counts, the
-     conservation check, and with ``debug_checks`` the per-partition check
-     (K1 on the receive buffers) and the OffsetMap invariant;
-  3. local processing on the ``N * cap`` pad-filled receive buffers: the
+     rank (K4), an ``all_to_all`` of every lane and of the counts (two
+     stages with ``num_hosts > 1``), the conservation check, and with
+     ``debug_checks`` the per-partition check (K1 on the receive buffers)
+     and the OffsetMap invariant; under the split the hot inner tuples
+     are extracted (K4) and gathered to every rank, and the hot outer
+     tuples spread over the ranks;
+  3. local processing on the ``N * cap`` pad-filled receive buffers (and
+     the replicated hot inner side): the
      sort probe (K2 then K3, or K5 for full-range and 64-bit keys), the
      chunked probe with ``chunk_size`` (the inner buffer sorted once on K2
      and the outer one streamed in slabs; 64-bit keys: K2 and K5 a slab),
@@ -45,10 +52,10 @@ rank too):
   4. the 7-entry flag vector, summed over the ranks in one ``all_reduce``,
      and the per-partition (or per-bucket) counts gathered in rank order
      into ``[N * P]``, read back together; a capacity shortfall reruns the
-     attempt on every rank with only the shape that fell short doubled, up
-     to ``max_retries`` times; with ``fallback="chunked"`` a shortfall that
-     outlasts them degrades to the out-of-core count
-     (``_fallback_chunked``).
+     attempt on every rank with only the shape that fell short doubled
+     (after the ``retry_backoff_s`` pause), up to ``max_retries`` times;
+     with ``fallback="chunked"`` a shortfall that outlasts them degrades
+     to the out-of-core count (``_fallback_chunked``).
 
 Every rank issues the same collectives in the same order: each host
 decision that precedes a collective reads an all-reduced value or the
@@ -74,6 +81,7 @@ the rates.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -84,12 +92,17 @@ from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.relation import Relation
 from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, CompressedBatch,
                                               TupleBatch, _sentinel_lane,
-                                              umax, widen)
+                                              partition_ids, umax,
+                                              valid_mask, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_local_histogram,
                                              compute_offsets,
                                              compute_partition_assignment)
 from tpu_radix_join_torch.operators.local_partitioning import local_partition
+from tpu_radix_join_torch.operators.skew import (detect_hot_partitions,
+                                                 hot_mask_bits, is_hot,
+                                                 mask_hot,
+                                                 spread_destinations)
 from tpu_radix_join_torch.ops.build_probe import (DENSE_BUCKET_LIMIT,
                                                   probe_count_bucketized,
                                                   probe_count_chunked)
@@ -98,17 +111,19 @@ from tpu_radix_join_torch.ops.kernels import _build
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
     merge_count_wide_per_partition)
-from tpu_radix_join_torch.ops.radix import local_histogram
+from tpu_radix_join_torch.ops.radix import local_histogram, scatter_to_blocks
+from tpu_radix_join_torch.parallel import multihost
 from tpu_radix_join_torch.parallel.network_partitioning import (
     network_partition)
 from tpu_radix_join_torch.parallel.window import Window
 from tpu_radix_join_torch.parallel.world import make_world
 from tpu_radix_join_torch.performance.measurements import (
-    BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE, JHIST, JMPI,
-    JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES, RTUPLES, SLOCPREP,
-    SNETCOMPL, STUPLES, SWINALLOC, XSTAGES)
+    BACKOFFMS, BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE,
+    JHIST, JMPI, JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES,
+    RETRYN, RTUPLES, SLOCPREP, SNETCOMPL, STUPLES, SWINALLOC, XSTAGES)
 from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
                                                    RETRIES_EXHAUSTED,
+                                                   RetryPolicy,
                                                    classify_diagnostics)
 
 #: slab of the chunked fallback's count (the JAX package's)
@@ -130,6 +145,27 @@ class ShufflePlan(NamedTuple):
     r_ghist: torch.Tensor         # int32 [P]: R summed over the ranks
     s_ghist: torch.Tensor         # int32 [P]: S summed over the ranks
     assignment: torch.Tensor      # int32 [P]: partition -> owner rank
+
+
+class SkewPlan(NamedTuple):
+    """The skew split of a join (``skew_plan`` of ``hash_join.py:449-490``):
+    the hot set, the per-rank slots of the hot inner block, and the shuffle
+    plan whose assignment is computed from the globals with the hot
+    partitions masked (its histograms are the unmasked ones)."""
+    hot_bits: int                 # uint32 mask of the hot partitions
+    hot_cap: int                  # slots of each rank's hot inner block
+    plan: ShufflePlan
+
+
+class Shuffled(NamedTuple):
+    """What one exchange leaves on this rank (``_shuffle``'s outputs)."""
+    rp: object                    # NetworkPartitionResult of R
+    sp: object                    # NetworkPartitionResult of S
+    lost_r: torch.Tensor          # 0-d int64: R tuples dropped, all ranks
+    lost_s: torch.Tensor          # 0-d int64: S tuples dropped, all ranks
+    bad: torch.Tensor             # 0-d int64: this rank's violations, 0-2
+    hot_batch: Optional[TupleBatch] = None   # the replicated hot inner side
+    hot_overflow: Optional[torch.Tensor] = None  # 0-d int64, all ranks
 
 
 def _as_compressed(batch: TupleBatch) -> CompressedBatch:
@@ -156,8 +192,11 @@ class HashJoin:
     ``group`` is the ``torch.distributed`` process group of a join over
     ``config.num_nodes`` ranks (``parallel/multihost.initialize`` starts
     one; ``torch.distributed.group.WORLD`` names it): NCCL for a CUDA
-    device, gloo for the CPU.  Without a group the world is one rank, and
-    ``num_nodes > 1`` raises, as does a group of another size.
+    device, gloo for the CPU, or gloo on a CUDA device when
+    ``initialize(device="cuda", backend="gloo")`` started it so.  Without a
+    group the world is one rank, and ``num_nodes > 1`` raises, as does a
+    group of another size.  ``config.num_hosts > 1`` gives the world the
+    hierarchical exchange.
 
     ``measurements``, a ``performance.measurements.Measurements``, records
     every join's timers and counters (see the module docstring); its
@@ -173,13 +212,19 @@ class HashJoin:
         self.config = config if config is not None else JoinConfig()
         self.measurements = measurements
         self.device = resolve_device(device)
-        self.world = make_world(self.config.num_nodes, group)
+        self.world = make_world(self.config.num_nodes, group,
+                                self.config.num_hosts)
         if group is not None:
-            want = "nccl" if self.device.type == "cuda" else "gloo"
-            if self.world.backend != want:
+            cuda = self.device.type == "cuda"
+            want = "nccl" if cuda else "gloo"
+            named = (cuda and self.world.backend == "gloo"
+                     and multihost.gloo_on_card())
+            if self.world.backend != want and not named:
                 raise ValueError(
                     f"a join on {self.device.type} runs over a {want} "
-                    f"process group, not {self.world.backend}")
+                    f"process group, not {self.world.backend} (gloo on a "
+                    "card only when multihost.initialize(device='cuda', "
+                    "backend='gloo') started it)")
 
     # ------------------------------------------------------------- checks
     def _check_batches(self, r: TupleBatch, s: TupleBatch) -> None:
@@ -245,8 +290,9 @@ class HashJoin:
     @staticmethod
     def _flags_to_diag(flags: np.ndarray) -> dict:
         """Failure breakdown from the 7-entry flag vector (the JAX
-        package's layout; ``hot_overflow`` belongs to the skew split and
-        stays 0).  Each entry is summed over the ranks."""
+        package's layout; ``hot_overflow`` is the skew split's hot inner
+        tuples that did not fit ``hot_cap``).  Each entry is summed over
+        the ranks."""
         diag = {
             "key_contract_violations": int(flags[0]),
             "shuffle_overflow_r_tuples": int(flags[1]),
@@ -445,9 +491,10 @@ class HashJoin:
                        key_bound: Optional[int]) -> JoinResult:
         """The retry loop around :meth:`_shuffled_attempt`
         (``_join_arrays_inner``, hash_join.py:1912-1948): a capacity
-        shortfall doubles only what fell short — ``cap_r``, ``cap_s`` or
-        the local slack — and reruns the attempt.  The flags are summed
-        over the ranks, so every rank retries or stops together."""
+        shortfall doubles only what fell short — ``cap_r``, ``cap_s``, the
+        local slack or the skew split's ``hot_cap`` — backs off
+        (:meth:`_retry_backoff`) and reruns the attempt.  The flags are
+        summed over the ranks, so every rank retries or stops together."""
         cfg = self.config
         m = self.measurements
         route = (self._resolve_key_range(r, s, key_bound) if cfg.sort_probe
@@ -460,7 +507,7 @@ class HashJoin:
             if measured:
                 m.start(JHIST)
         plan = self._shuffle_plan(r, s)
-        cap_r, cap_s = self._measure_capacities(r, s, plan)
+        cap_r, cap_s, skew = self._measure_capacities(r, s, plan)
         if m is not None:
             # the sizing readback has fenced the sizing pass
             if measured:
@@ -473,7 +520,7 @@ class HashJoin:
         local_slack = 1
         for attempt in range(cfg.max_retries + 1):
             counts, flags, dts = self._shuffled_attempt(
-                r, s, plan, route, cap_r, cap_s, local_slack)
+                r, s, plan, route, cap_r, cap_s, local_slack, skew)
             caps = (cap_r, cap_s)   # the attempt the result comes from
             diag = self._flags_to_diag(flags)
             if not flags.any() or not self._retryable(diag):
@@ -484,10 +531,13 @@ class HashJoin:
                 cap_s *= 2
             if diag["local_overflow"]:
                 local_slack *= 2
+            if diag["hot_overflow"]:
+                skew = skew._replace(hot_cap=2 * skew.hot_cap)
             if m is not None and attempt < cfg.max_retries:
                 # when retries are exhausted the last attempt is the
                 # result and keeps its time
                 self._rollback_attempt(m, dts)
+            self._retry_backoff(attempt)
         if (flags.any() and self._retryable(diag)
                 and cfg.fallback == "chunked"):
             return self._fallback_chunked(r, s, diag, attempt)
@@ -496,6 +546,30 @@ class HashJoin:
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts, diagnostics=diag,
                           retries=attempt)
+
+    def _retry_backoff(self, attempt: int) -> None:
+        """The pause after capacity retry ``attempt`` (``_retry_backoff``,
+        hash_join.py:2495-2514): none when ``retry_backoff_s`` is 0 or no
+        attempt follows; else the ``RetryPolicy`` delay of the config's
+        backoff knobs (exponential, deterministic jitter), which ticks
+        RETRYN, adds to BACKOFFMS and records a ``retry`` event at site
+        ``engine.capacity`` before it sleeps.  Every rank sleeps the same
+        delay."""
+        cfg = self.config
+        if cfg.retry_backoff_s <= 0 or attempt >= cfg.max_retries:
+            return
+        delay = RetryPolicy(max_attempts=cfg.max_retries + 1,
+                            base_delay_s=cfg.retry_backoff_s,
+                            multiplier=cfg.retry_backoff_mult,
+                            max_delay_s=cfg.retry_backoff_max_s,
+                            jitter=cfg.retry_jitter).delay_s(attempt)
+        m = self.measurements
+        if m is not None:
+            m.incr(RETRYN)
+            m.incr(BACKOFFMS, int(delay * 1000))
+            m.event("retry", site="engine.capacity", attempt=attempt,
+                    delay_s=round(delay, 6))
+        time.sleep(delay)
 
     def _whole(self, b: TupleBatch) -> TupleBatch:
         """The whole relation, every rank's shard in rank order (an
@@ -562,38 +636,90 @@ class HashJoin:
                                r_ghist, s_ghist, cfg.num_nodes,
                                cfg.assignment_policy))
 
-    def _sizing_demands(self, plan: ShufflePlan):
-        """The sizing pass (``_histogram_fn`` without hot bits or the
-        codec's key max): this rank's per-destination send demand of each
-        relation, int64 [num_nodes] on the device."""
+    def _sizing_demands(self, plan: ShufflePlan, hot_bits: int = 0):
+        """The sizing pass (``_histogram_fn`` without the codec's key max):
+        this rank's per-destination send demand of each relation, int64
+        [num_nodes] on the device, from ``plan``'s assignment; with a hot
+        set its partitions leave the local histograms."""
         n = self.config.num_nodes
         assignment = plan.assignment
         dest_onehot = (widen(assignment)[None, :]
                        == torch.arange(n, device=assignment.device)[:, None])
+        hists = (plan.r_hist, plan.s_hist)
+        if hot_bits:
+            hists = tuple(mask_hot(h, hot_bits) for h in hists)
         return tuple(torch.where(dest_onehot, widen(h)[None, :], 0).sum(dim=1)
-                     for h in (plan.r_hist, plan.s_hist))
+                     for h in hists)
+
+    def _masked_plan(self, plan: ShufflePlan, hot_bits: int) -> ShufflePlan:
+        """``plan`` with the assignment computed from the global histograms
+        with the hot partitions masked (``_shuffle``'s skew branch,
+        hash_join.py:1217-1220): the hot partitions leave the assignment.
+        The masked and the unmasked assignments spread the same total over
+        the ranks differently, so the sizing pass and every attempt take
+        this one."""
+        cfg = self.config
+        return plan._replace(assignment=compute_partition_assignment(
+            mask_hot(plan.r_ghist, hot_bits), mask_hot(plan.s_ghist, hot_bits),
+            cfg.num_nodes, cfg.assignment_policy))
 
     def _measure_capacities(self, r: TupleBatch, s: TupleBatch,
                             plan: ShufflePlan):
-        """(cap_r, cap_s): the static exchange block sizes — the next power
-        of two at or above the worst (sender, destination) demand over all
-        ranks (``all_reduce`` max), or the ``allocation_factor`` estimate of
-        the largest shard with ``window_sizing="static"``."""
+        """(cap_r, cap_s, skew): the static exchange block sizes — the next
+        power of two at or above the worst (sender, destination) demand over
+        all ranks (``all_reduce`` max), or the ``allocation_factor``
+        estimate of the largest shard with ``window_sizing="static"`` — and
+        the skew split (``hash_join.py:449-490``).
+
+        ``skew`` is None, or a :class:`SkewPlan` when ``skew_threshold`` is
+        set, the world has more than one rank and
+        ``detect_hot_partitions`` finds hot partitions in the all-reduced
+        global histograms (the same decision on every rank).  A second
+        sizing pass then measures the split routing (``_histogram_fn``'s hot
+        branch, :264-330): the masked demands under the masked assignment,
+        the spread outer tuples added to the outer demand (K1 over their
+        spread ranks), and ``hot_cap`` from the worst rank's hot inner
+        count."""
         cfg = self.config
+        n = self.world.size
         if cfg.window_sizing == "static":
             sizes = self.world.all_reduce(torch.tensor(
                 [r.size, s.size], dtype=torch.int64, device=self.device),
                 op="max").cpu()
             return (cfg.shuffle_block_capacity(int(sizes[0])),
-                    cfg.shuffle_block_capacity(int(sizes[1])))
-        demands = self.world.all_reduce(
-            torch.stack(self._sizing_demands(plan)), op="max").cpu()
+                    cfg.shuffle_block_capacity(int(sizes[1])), None)
 
         def cap(demand):
             worst = max(1, int(demand.max()))
             return max(8, 1 << (worst - 1).bit_length())
 
-        return cap(demands[0]), cap(demands[1])
+        demands = self.world.all_reduce(
+            torch.stack(self._sizing_demands(plan)), op="max")
+        if cfg.skew_threshold is None or n == 1:
+            demands = demands.cpu()
+            return cap(demands[0]), cap(demands[1]), None
+        # one readback: the demands and both global histograms
+        host = torch.cat([demands.reshape(-1), widen(plan.r_ghist),
+                          widen(plan.s_ghist)]).cpu().numpy()
+        num_p = cfg.network_partition_count
+        hot = detect_hot_partitions(host[2 * n:2 * n + num_p],
+                                    host[2 * n + num_p:], cfg.skew_threshold,
+                                    num_nodes=n)
+        if not hot.any():
+            return cap(host[:n]), cap(host[n:2 * n]), None
+        hot_bits = hot_mask_bits(hot)
+        hot_plan = self._masked_plan(plan, hot_bits)
+        r_demand, s_demand = self._sizing_demands(hot_plan, hot_bits)
+        fanout = cfg.network_fanout_bits
+        spread = local_histogram(
+            spread_destinations(s.rid, n), n,
+            is_hot(partition_ids(s, fanout), hot_bits))
+        hot_count = is_hot(partition_ids(r, fanout), hot_bits).sum()
+        host = self.world.all_reduce(
+            torch.cat([r_demand, s_demand + widen(spread),
+                       hot_count.reshape(1)]), op="max").cpu()
+        return (cap(host[:n]), cap(host[n:2 * n]),
+                SkewPlan(hot_bits, cap(host[2 * n:]), hot_plan))
 
     @staticmethod
     def _keys_in_contract(r: TupleBatch, s: TupleBatch,
@@ -608,40 +734,101 @@ class HashJoin:
                 & (umax(_sentinel_lane(s)) < R_PAD_KEY))
 
     def _shuffle(self, r: TupleBatch, s: TupleBatch, plan: ShufflePlan,
-                 win_r: Window, win_s: Window):
-        """Exchange and conservation checks (the non-skew branch of
-        ``_shuffle``, hash_join.py:1187-1306, on the histograms and
-        assignment of ``plan``).  Returns (rp, sp, lost_r, lost_s, bad):
-        the lost tuples of each window summed over the ranks, and this
-        rank's conservation violations (0, 1 or 2), all 0-d int64."""
+                 win_r: Window, win_s: Window,
+                 skew: Optional[SkewPlan] = None) -> Shuffled:
+        """Exchange and conservation checks (``_shuffle``, hash_join.py:
+        1187-1306, on the histograms and assignment of ``plan``).
+
+        With a ``skew`` plan the hot partitions take the split route
+        (operators/skew.py; the skew branch, :1212-1255) on ``skew.plan``'s
+        masked assignment: hot inner tuples leave the exchange and are
+        extracted into one block of ``hot_cap`` slots (K4, one group),
+        ``all_gather``ed into ``hot_batch``; hot outer tuples go to their
+        spread ranks.  The outer conservation target is this rank's
+        assigned non-hot share plus its slice of the all-reduced spread
+        histogram (K1 over the spread ranks); the hot inner conservation is
+        the gathered hot count against the hot slice of the global
+        histogram.  Every rank takes the same branch and issues the same
+        collectives: the split's sums share one ``all_reduce``, where JAX
+        takes four ``psum``s."""
         cfg = self.config
         fanout = cfg.network_fanout_bits
-        rp = network_partition(r, fanout, plan.assignment, win_r)
-        sp = network_partition(s, fanout, plan.assignment, win_s)
-        lost_r, bad_r = win_r.diagnostics(rp, plan.r_ghist, plan.assignment)
-        lost_s, bad_s = win_s.diagnostics(sp, plan.s_ghist, plan.assignment)
+        if skew is None:
+            rp = network_partition(r, fanout, plan.assignment, win_r)
+            sp = network_partition(s, fanout, plan.assignment, win_s)
+            lost_r, bad_r = win_r.diagnostics(rp, plan.r_ghist,
+                                              plan.assignment)
+            lost_s, bad_s = win_s.diagnostics(sp, plan.s_ghist,
+                                              plan.assignment)
+            hot_batch = hot_overflow = None
+        else:
+            n, me = self.world.size, self.world.rank
+            hot_bits, hot_cap, plan = skew
+            assignment = plan.assignment
+            r_gh_eff = mask_hot(plan.r_ghist, hot_bits)
+            s_gh_eff = mask_hot(plan.s_ghist, hot_bits)
+            r_pid = partition_ids(r, fanout)
+            is_hot_r = is_hot(r_pid, hot_bits)
+            is_hot_s = is_hot(partition_ids(s, fanout), hot_bits)
+            dest_spread = spread_destinations(s.rid, n)
+            rp = network_partition(r, fanout, assignment, win_r,
+                                   exclude=is_hot_r)
+            sp = network_partition(s, fanout, assignment, win_s,
+                                   override=(is_hot_s, dest_spread))
+            # replicate the hot build side: this rank's block, gathered
+            hot_blocks, hot_counts, hot_ovf = scatter_to_blocks(
+                r, torch.zeros_like(r_pid), 1, hot_cap, "inner",
+                valid=is_hot_r)
+            hot_batch = TupleBatch(*(
+                None if lane is None
+                else self.world.all_gather(lane).reshape(-1)
+                for lane in hot_blocks))
+            lost_r, bad_r = win_r.diagnostics(rp, r_gh_eff, assignment)
+            # the spread histogram, the extraction overflow, the extracted
+            # count and the outer overflow, summed in one all_reduce
+            summed = self.world.all_reduce(torch.cat([
+                widen(local_histogram(dest_spread, n, is_hot_s)),
+                hot_ovf.reshape(1),
+                torch.clamp(widen(hot_counts[:1]), max=hot_cap),
+                sp.send_overflow.reshape(1)]))
+            hot_overflow, hot_got, lost_s = summed[n:n + 3]
+            mine = widen(assignment) == me
+            expected_s = (torch.where(mine, widen(s_gh_eff), 0).sum()
+                          + summed[me])
+            bad_s = (sp.recv_counts.sum() != expected_s) & (lost_s == 0)
+            hot_want = widen(plan.r_ghist).sum() - widen(r_gh_eff).sum()
+            bad_r = bad_r | ((hot_got != hot_want) & (hot_overflow == 0))
         if cfg.debug_checks:
-            bad_r = bad_r | self._debug_checks(rp, sp, plan, lost_r, lost_s)
-        return rp, sp, lost_r, lost_s, (bad_r.to(torch.int64)
-                                         + bad_s.to(torch.int64))
+            bad_r = bad_r | self._debug_checks(
+                rp, sp, plan, lost_r, lost_s,
+                0 if skew is None else skew.hot_bits)
+        return Shuffled(rp, sp, lost_r, lost_s,
+                        bad_r.to(torch.int64) + bad_s.to(torch.int64),
+                        hot_batch, hot_overflow)
 
     def _debug_checks(self, rp, sp, plan: ShufflePlan, lost_r: torch.Tensor,
-                      lost_s: torch.Tensor) -> torch.Tensor:
+                      lost_s: torch.Tensor, hot_bits: int = 0
+                      ) -> torch.Tensor:
         """``debug_checks`` (hash_join.py:1269-1302), 0-d bool:
         per-partition conservation — the valid received tuples of each
         partition (K1 over the receive buffer) equal its global histogram
         entry where this rank owns it and 0 elsewhere, judged where nothing
         overflowed — and the OffsetMap invariant ``relative + local <=
         global`` (histograms/offset_map.py), which a disagreement between
-        the ``all_reduce`` and the ``all_gather`` would break."""
+        the ``all_reduce`` and the ``all_gather`` would break.  Under the
+        skew split the hot rows are left out of the first check (hot inner
+        tuples are withheld, hot outer ones land by their spread), and the
+        expectation reads the masked histograms."""
         num_p = self.config.network_partition_count
         mine = widen(plan.assignment) == self.world.rank
+        rows = torch.arange(num_p, dtype=torch.int32, device=self.device)
+        cold = ~is_hot(rows, hot_bits)
         bad = torch.zeros((), dtype=torch.bool, device=self.device)
         for part, ghist, lost in ((rp, plan.r_ghist, lost_r),
                                   (sp, plan.s_ghist, lost_s)):
             got = widen(local_histogram(part.pid, num_p, part.valid))
-            want = torch.where(mine, widen(ghist), 0)
-            bad = bad | ((got != want).any() & (lost == 0))
+            want = torch.where(mine, widen(mask_hot(ghist, hot_bits)), 0)
+            bad = bad | (((got != want) & cold).any() & (lost == 0))
         for lhist, ghist in ((plan.r_hist, plan.r_ghist),
                              (plan.s_hist, plan.s_ghist)):
             offs = compute_offsets(lhist, ghist, plan.assignment, self.world)
@@ -649,12 +836,29 @@ class HashJoin:
                          > widen(ghist)).any()
         return bad
 
-    def _bucket_caps(self, cap_r: int, cap_s: int, local_slack: int):
-        """Per-bucket capacities of the second radix pass."""
+    def _bucket_caps(self, cap_r: int, cap_s: int, local_slack: int,
+                     hot_total: int = 0):
+        """Per-bucket capacities of the second radix pass.  Under the skew
+        split the replicated hot inner side (``hot_total`` = n * hot_cap
+        gathered slots) rides the inner pass too (hash_join.py:925-935)."""
         cfg = self.config
         n, nb = cfg.num_nodes, cfg.local_partition_count
-        return (cfg.bucket_capacity(n * cap_r, nb) * local_slack,
+        return (cfg.bucket_capacity(n * cap_r + hot_total, nb) * local_slack,
                 cfg.bucket_capacity(n * cap_s, nb) * local_slack)
+
+    @staticmethod
+    def _concat_hot_valid(batch: TupleBatch, valid: torch.Tensor,
+                          hot_batch: Optional[TupleBatch]):
+        """(batch + hot, valid + hot valid) for the second radix pass
+        (``_concat_hot_valid``, hash_join.py:349-371): the hot block's pad
+        slots hold the inner sentinel, so its validity is the sentinel
+        test.  No-op without a skew plan."""
+        if hot_batch is None:
+            return batch, valid
+        return (TupleBatch(*(None if lane is None
+                             else torch.cat([lane, hot_lane])
+                             for lane, hot_lane in zip(batch, hot_batch))),
+                torch.cat([valid, valid_mask(hot_batch, "inner")]))
 
     @staticmethod
     def _guarded_bucket_counts(inner_rows: torch.Tensor,
@@ -677,12 +881,18 @@ class HashJoin:
         return counts, widen(maxw) > 0xFFFFFFFF // lcap_s
 
     def _local_partition(self, rp, sp, cap_r: int, cap_s: int,
-                         local_slack: int):
-        """The second radix pass of both received relations (K4): (inner
-        blocks, outer blocks), each with its overflow."""
+                         local_slack: int,
+                         hot_batch: Optional[TupleBatch] = None):
+        """The second radix pass of both received relations (K4), the
+        replicated hot inner side with the inner one: (inner blocks, outer
+        blocks), each with its overflow."""
         cfg = self.config
-        lcap_r, lcap_s = self._bucket_caps(cap_r, cap_s, local_slack)
-        return (local_partition(rp.batch, rp.valid, cfg.network_fanout_bits,
+        hot_total = 0 if hot_batch is None else hot_batch.size
+        lcap_r, lcap_s = self._bucket_caps(cap_r, cap_s, local_slack,
+                                           hot_total)
+        inner, inner_valid = self._concat_hot_valid(rp.batch, rp.valid,
+                                                    hot_batch)
+        return (local_partition(inner, inner_valid, cfg.network_fanout_bits,
                                 cfg.local_fanout_bits, lcap_r, "inner"),
                 local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
                                 cfg.local_fanout_bits, lcap_s, "outer"))
@@ -700,27 +910,40 @@ class HashJoin:
             run=run)
 
     def _local_process(self, rp, sp, cap_r: int, cap_s: int,
-                       local_slack: int):
+                       local_slack: int,
+                       hot_batch: Optional[TupleBatch] = None):
         """The bucket branch of ``_local_process``: the second radix pass
-        of both received relations, then the bucketized probe.  Returns
-        (per-bucket counts, local overflow, count-overflow risk)."""
-        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack)
+        of both received relations (and the hot inner side), then the
+        bucketized probe.  Returns (per-bucket counts, local overflow,
+        count-overflow risk)."""
+        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack,
+                                       hot_batch)
         counts, risk = self._bucket_probe(lr, ls)
         return counts, lr.overflow + ls.overflow, risk
 
     def _local_probe(self, rp, sp, route: Optional[str],
-                     s_ghist: torch.Tensor):
+                     s_ghist: torch.Tensor,
+                     hot_batch: Optional[TupleBatch] = None):
         """The non-bucket branch of ``_local_process`` (hash_join.py:
         1154-1185): on the pad-filled receive buffers, the chunked probe
         with ``chunk_size`` (whole keys, ``probe_count_chunked``), else the
         sort probe — narrow (K2 then K3), full (K2 then K5) or wide (K2
         with three lanes, then K5).  The pads sort with the tuples and
-        match nothing.  The overflow-risk bound reads the shuffle's global
-        outer histogram, the same on every rank.  Returns (per-partition
-        counts, local overflow 0, count-overflow risk)."""
+        match nothing.  Under the skew split the replicated hot inner keys
+        join the inner lanes (the lo lane, and the hi lane of 64-bit keys);
+        their pads are inner sentinels and weigh nothing.  The
+        overflow-risk bound reads the shuffle's unmasked global outer
+        histogram, the same on every rank.  Returns (per-partition counts,
+        local overflow 0, count-overflow risk)."""
         cfg = self.config
         fanout = cfg.network_fanout_bits
         r, s = rp.batch, sp.batch
+        r_key, r_hi = r.key, r.key_hi
+        if hot_batch is not None:
+            # the chunked probe excludes the split (JoinConfig)
+            r_key = torch.cat([r_key, hot_batch.key])
+            if r_hi is not None:
+                r_hi = torch.cat([r_hi, hot_batch.key_hi])
         if cfg.chunk_size:
             counts, maxw = probe_count_chunked(
                 _as_compressed(r), _as_compressed(s), sp.pid,
@@ -728,34 +951,38 @@ class HashJoin:
                 return_max_weight=True)
         elif route == "wide":
             counts, maxw = merge_count_wide_per_partition(
-                r.key, r.key_hi, s.key, s.key_hi, fanout,
+                r_key, r_hi, s.key, s.key_hi, fanout,
                 return_max_weight=True)
         elif route == "full":
             counts, maxw = merge_count_per_partition_full(
-                r.key, s.key, fanout, return_max_weight=True)
+                r_key, s.key, fanout, return_max_weight=True)
         else:
             counts, maxw = merge_count_per_partition(
-                r.key, s.key, fanout, return_max_weight=True)
+                r_key, s.key, fanout, return_max_weight=True)
         limit = 0xFFFFFFFF // torch.clamp(widen(maxw), min=1)
         zero = torch.zeros((), dtype=torch.int64, device=counts.device)
         return counts, zero, (widen(s_ghist) > limit).any()
 
     def _split_local(self, rp, sp, route: Optional[str], s_ghist,
-                     cap_r: int, cap_s: int, local_slack: int, dts: dict):
+                     cap_r: int, cap_s: int, local_slack: int, dts: dict,
+                     hot_batch: Optional[TupleBatch] = None):
         """Local processing fenced into its phases (``measure_phases``,
         ``_run_split``, hash_join.py:764-860): on the bucket path SLOCPREP
         for the second radix pass, then JPROC over the probe, with BPBUILD
         and BPPROBE for the sort-merge's row sort and scan (a dense probe
-        is all BPPROBE); elsewhere JPROC over the local probe."""
+        is all BPPROBE); elsewhere JPROC over the local probe.  The skew
+        split's hot inner side goes where the fused attempt takes it
+        (:776-786)."""
         cfg = self.config
         m = self.measurements
         if not cfg.bucket_path:
             m.start(JPROC)
-            out = self._local_probe(rp, sp, route, s_ghist)
+            out = self._local_probe(rp, sp, route, s_ghist, hot_batch)
             dts[JPROC] = m.stop(JPROC, fence=out)
             return out
         m.start(SLOCPREP)
-        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack)
+        lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack,
+                                       hot_batch)
         dts[SLOCPREP] = m.stop(SLOCPREP, fence=(lr.blocks, ls.blocks))
         nb, n = cfg.local_partition_count, self.world.size
         lcap_r = lr.blocks.key.numel() // nb
@@ -775,47 +1002,56 @@ class HashJoin:
 
     def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
                           plan: ShufflePlan, route: Optional[str], cap_r: int,
-                          cap_s: int, local_slack: int):
-        """One attempt at the given capacities: (per-rank per-partition
-        uint32 counts [N * P] in rank order, uint32 [7] flags summed over
-        the ranks, both from one readback; the phase times it recorded).
-        By default JPROC spans the attempt and ends at the readback; with
-        ``measure_phases`` the shuffle is JMPI and local processing is
-        fenced into its phases (:meth:`_split_local`)."""
+                          cap_s: int, local_slack: int,
+                          skew: Optional[SkewPlan] = None):
+        """One attempt at the given capacities (and the skew split's
+        ``hot_cap``): (per-rank per-partition uint32 counts [N * P] in rank
+        order, uint32 [7] flags summed over the ranks, both from one
+        readback; the phase times it recorded).  By default JPROC spans the
+        attempt and ends at the readback; with ``measure_phases`` the
+        shuffle is JMPI and local processing is fenced into its phases
+        (:meth:`_split_local`).  Flag slot 5 is the split's hot inner
+        overflow."""
         m = self.measurements
         split = m is not None and self.config.measure_phases
         dts = {}
         n = self.world.size
-        if n * (cap_r + cap_s) >= 1 << 31:
+        hot_cap = 0 if skew is None else skew.hot_cap
+        if n * (cap_r + cap_s + hot_cap) >= 1 << 31:
             raise ValueError(
-                f"the receive buffers hold {n} * ({cap_r} + {cap_s}) "
-                "positions; the joins count positions in 32 bits")
+                f"the receive buffers hold {n} * ({cap_r} + {cap_s} + "
+                f"{hot_cap}) positions; the joins count positions in 32 "
+                "bits")
         if m is not None:
             m.start(JMPI if split else JPROC)
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
-        rp, sp, lost_r, lost_s, bad = self._shuffle(
-            r, s, plan, Window(self.world, cap_r, "inner"),
-            Window(self.world, cap_s, "outer"))
+        sh = self._shuffle(r, s, plan, Window(self.world, cap_r, "inner"),
+                           Window(self.world, cap_s, "outer"), skew)
+        rp, sp, hot = sh.rp, sh.sp, sh.hot_batch
         if split:
             # the exchange's completion wait, nested in JMPI
-            shuffled = (rp.batch, sp.batch, lost_r, lost_s, bad, keys_ok)
+            shuffled = (rp.batch, sp.batch, sh.lost_r, sh.lost_s, sh.bad,
+                        keys_ok, hot)
             m.start(SNETCOMPL)
             dts[SNETCOMPL] = m.stop(SNETCOMPL, fence=shuffled)
             dts[JMPI] = m.stop(JMPI, fence=shuffled)
             counts, local_overflow, risk = self._split_local(
-                rp, sp, route, plan.s_ghist, cap_r, cap_s, local_slack, dts)
+                rp, sp, route, plan.s_ghist, cap_r, cap_s, local_slack, dts,
+                hot)
         elif self.config.bucket_path:
             counts, local_overflow, risk = self._local_process(
-                rp, sp, cap_r, cap_s, local_slack)
+                rp, sp, cap_r, cap_s, local_slack, hot)
         else:
             counts, local_overflow, risk = self._local_probe(
-                rp, sp, route, plan.s_ghist)
+                rp, sp, route, plan.s_ghist, hot)
         summed = self.world.all_reduce(torch.stack([
-            (~keys_ok).to(torch.int64), bad, widen(local_overflow),
+            (~keys_ok).to(torch.int64), sh.bad, widen(local_overflow),
             risk.to(torch.int64)]))
-        zero = torch.zeros((), dtype=torch.int64, device=summed.device)
-        flags = torch.stack([summed[0], lost_r, lost_s, summed[1], summed[2],
-                             zero, summed[3]])
+        hot_overflow = (torch.zeros((), dtype=torch.int64,
+                                    device=summed.device)
+                        if sh.hot_overflow is None else sh.hot_overflow)
+        flags = torch.stack([summed[0], sh.lost_r, sh.lost_s, summed[1],
+                             summed[2], hot_overflow, summed[3]])
         gathered = self.world.all_gather(counts).reshape(-1)
         host = torch.cat([flags, widen(gathered)]).cpu().numpy()
         if m is not None and not split:

@@ -12,8 +12,13 @@ by hand with an explicit address, world size and rank); after
     False, so an entry point may call it unconditionally.  ``RANK``,
     ``WORLD_SIZE`` and ``LOCAL_RANK`` fill what the arguments leave out.
   * The backend follows the device: NCCL for ``cuda`` (the default), after
-    ``torch.cuda.set_device(local_rank)``; gloo only for ``device="cpu"``.
-    A CUDA device without NCCL raises; nothing switches to gloo.
+    ``torch.cuda.set_device(local_rank)``; gloo for ``device="cpu"``.
+    A CUDA device without NCCL raises; nothing switches to gloo.  Only a
+    caller that names it, ``initialize(device="cuda", backend="gloo")``,
+    starts a gloo group whose ranks hold CUDA tensors (gloo's CUDA
+    collectives go through the host): several ranks on one card, as
+    ``chip_smoke.py``'s phase (p) runs four.  :func:`gloo_on_card` tells the
+    join engine that the group was started so.
   * The connect runs under a :class:`~..robustness.retry.RetryPolicy`: a
     rank that races ahead of a slow rendezvous backs off and retries, and
     one that never connects raises :class:`CoordinatorTimeout` (failure
@@ -33,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_radix_join_torch.core.device import resolve_device
+from tpu_radix_join_torch.parallel.world import clear_subgroups
 from tpu_radix_join_torch.robustness import faults as _faults
 from tpu_radix_join_torch.robustness.retry import (COORDINATOR_TIMEOUT,
                                                    RetriesExhausted,
@@ -40,6 +46,9 @@ from tpu_radix_join_torch.robustness.retry import (COORDINATOR_TIMEOUT,
 
 #: seconds a connect attempt (and each collective of the group) may take
 DEFAULT_TIMEOUT_S = 300.0
+
+#: set by :func:`initialize` when it started a gloo group on a card
+_GLOO_ON_CARD = False
 
 
 class CoordinatorTimeout(ConnectionError):
@@ -74,6 +83,7 @@ def initialize(init_method: Optional[str] = None,
                rank: Optional[int] = None,
                local_rank: Optional[int] = None,
                device="cuda",
+               backend: Optional[str] = None,
                retry_policy: Optional[RetryPolicy] = None,
                timeout_s: Optional[float] = None,
                measurements=None,
@@ -85,8 +95,13 @@ def initialize(init_method: Optional[str] = None,
     ``file://path``); without it, torchrun's ``MASTER_ADDR`` and
     ``MASTER_PORT`` select ``env://``.  ``timeout_s`` bounds each connect
     attempt and every collective of the group (default
-    ``TPU_RJ_COORD_TIMEOUT_S``, else 300).  A second call after a
-    successful one returns at once."""
+    ``TPU_RJ_COORD_TIMEOUT_S``, else 300).  ``backend`` is None (the
+    device's: NCCL or gloo), or "gloo" with a CUDA device for a gloo group
+    of CUDA tensors.  A second call after a successful one returns at
+    once."""
+    global _GLOO_ON_CARD
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -104,13 +119,16 @@ def initialize(init_method: Optional[str] = None,
         local_rank = _env_int("LOCAL_RANK") or 0
     dev = resolve_device(device)
     if dev.type == "cuda":
-        if not dist.is_nccl_available():
+        if backend != "gloo" and not dist.is_nccl_available():
             raise RuntimeError(
                 "NCCL is not available in this torch build; the port runs "
                 "its collectives on the card through NCCL and never falls "
-                "back to gloo (pass device='cpu' for a host run on gloo)")
+                "back to gloo (pass device='cpu' for a host run on gloo, or "
+                "backend='gloo' to ask for gloo on the card)")
         torch.cuda.set_device(local_rank)
-        backend = "nccl"
+        backend = backend or "nccl"
+    elif backend == "nccl":
+        raise ValueError("NCCL runs on CUDA devices, not on the CPU")
     else:
         backend = "gloo"
     if timeout_s is None:
@@ -138,7 +156,14 @@ def initialize(init_method: Optional[str] = None,
             f"(rank {rank} of {world_size}) after {e.attempts} attempt(s) "
             f"({backoff_s:.1f}s of backoff): {e.last_error!r}",
             attempts=e.attempts, backoff_s=backoff_s) from e
+    _GLOO_ON_CARD = dev.type == "cuda" and backend == "gloo"
     return world_size > 1
+
+
+def gloo_on_card() -> bool:
+    """True when :func:`initialize` started this process's group as gloo on
+    a CUDA device (``backend="gloo"``)."""
+    return _GLOO_ON_CARD and dist.is_initialized()
 
 
 def process_info() -> Tuple[int, int]:
@@ -151,5 +176,8 @@ def process_info() -> Tuple[int, int]:
 
 def shutdown() -> None:
     """Leave the process group, if one was joined."""
+    global _GLOO_ON_CARD
+    _GLOO_ON_CARD = False
+    clear_subgroups()
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -1,14 +1,15 @@
 """Network partitioning: route every tuple to its partition's owner rank.
 
 Counterpart of ``tpu_radix_join/parallel/network_partitioning.py``
-(``network_partition`` without ``exclude``/``override``, which belong to
-the skew split, ROADMAP.md A10): partition id per tuple, destination per
-tuple through the assignment map, then one window exchange.
+(``network_partition``): partition id per tuple, destination per tuple
+through the assignment map, then one window exchange.  The skew split
+(operators/skew.py) withholds hot inner tuples (``exclude``) and sends hot
+outer tuples to their spread ranks (``override``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,11 +28,21 @@ class NetworkPartitionResult(NamedTuple):
 
 def network_partition(batch: TupleBatch, fanout_bits: int,
                       assignment: torch.Tensor, window: Window,
-                      valid: Optional[torch.Tensor] = None
+                      valid: Optional[torch.Tensor] = None,
+                      exclude: Optional[torch.Tensor] = None,
+                      override: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
                       ) -> NetworkPartitionResult:
-    """Exchange ``batch`` by ``assignment[pid]`` over ``window``."""
+    """Exchange ``batch`` by ``assignment[pid]`` over ``window``
+    (JAX ``network_partitioning.py:38-60``).  ``exclude``: bool [n], tuples
+    withheld from the exchange.  ``override``: (bool mask [n], int32
+    destination [n]), tuples whose destination ignores the assignment."""
     pid = partition_ids(batch, fanout_bits)
     dest = torch.index_select(assignment, 0, pid)
+    if override is not None:
+        dest = torch.where(override[0], override[1], dest)
+    if exclude is not None:
+        valid = ~exclude if valid is None else (valid & ~exclude)
     res = window.exchange(batch, dest, valid=valid)
     return NetworkPartitionResult(
         batch=res.batch, valid=valid_mask(res.batch, window.side),

@@ -5,10 +5,12 @@ and ``mode="fused"``: every rank scatters its tuples into one
 statically-sized block per destination (``ops/radix.scatter_to_blocks``,
 K4), one all_to_all of each lane delivers block j to rank j, and the
 per-sender valid counts ride a second, tiny all_to_all (``window.py:
-235-272``).  Over a ``DistWorld`` each is one ``all_to_all_single``; the
-receive buffers are ``size * capacity`` slots, rank i's block at
-``[i * capacity, (i + 1) * capacity)`` padded with the side's sentinel.
-The packed codec and the staged exchange wait for ROADMAP.md A13.
+235-272``).  Over a ``DistWorld`` each is one ``all_to_all_single``, or
+the two stages of the hierarchical route when the world spans several
+hosts (``world.hierarchical_block_all_to_all``); the receive buffers are
+``size * capacity`` slots, rank i's block at ``[i * capacity, (i + 1) *
+capacity)`` padded with the side's sentinel either way.  The packed codec
+and the staged exchange wait for ROADMAP.md A13.
 """
 
 from __future__ import annotations

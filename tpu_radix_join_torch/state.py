@@ -19,12 +19,10 @@ from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 
 #: JAX config fields the port's joins never read: the mesh axis's name,
 #: the wire codec's staging, the materializing probe, the out-of-core grid,
-#: retry pacing, and the generation knob
+#: and the generation knob
 _UNREAD = frozenset({
     "payload_bits", "mesh_axis", "result_aggregation_node",
-    "exchange_stages", "match_rate_cap", "grid_pipeline",
-    "retry_backoff_s", "retry_backoff_mult", "retry_backoff_max_s",
-    "retry_jitter", "generation",
+    "exchange_stages", "match_rate_cap", "grid_pipeline", "generation",
 })
 #: implementation choices among versions of the same kernel: the port has
 #: one of each, so they map to "auto"
@@ -36,11 +34,11 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
 
     ``sort_impl`` and ``partition_impl`` pick among implementations of the
     same kernel, and the port has one of each, so they map to "auto".
-    ``num_nodes``, ``debug_checks``, ``chunk_size`` and ``measure_phases``
-    carry across; a setting the port does not run yet — ``num_hosts > 1``
-    (the hierarchical exchange, A10) — raises ``NotImplementedError`` from
-    :class:`JoinConfig`, naming its ROADMAP.md item; an unknown field
-    raises ``ValueError``."""
+    ``num_nodes``, ``num_hosts``, ``skew_threshold``, ``debug_checks``,
+    ``chunk_size``, ``measure_phases`` and the four retry-backoff fields
+    carry across; a setting the port does not run yet (``verify``, a wire
+    codec) raises ``NotImplementedError`` from :class:`JoinConfig`, naming
+    its ROADMAP.md item; an unknown field raises ``ValueError``."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
