@@ -107,6 +107,33 @@ Cell (o), on (n)'s NCCL group of one rank at 20,000,000 ⋈ 20,000,000
        --measure-phases`` at 20M: exit 0, the oracle's OK, ``0.perf``
        loaded with JTOTAL.
 
+Cell (q), on the same group at 20,000,000 ⋈ 20,000,000 unique (phase_q):
+the materializing join (ROADMAP A12) and the command-line knobs (A20):
+
+  (q1) ``join_materialize_arrays`` with ``match_rate_cap=8``: exactly 20M
+       pairs, each outer rid once, every pair joining equal keys (checked
+       on the host from the generated lanes); the median of 3 joins, and
+       the shuffle, the inner K2 sort, the searchsorted, the gather and
+       the compaction readback alone; K2 at the inner sort's shape against
+       its plain version; then ``probe_count`` and the three
+       ``local_join_*`` on the relations (K6 under ``local_join_merge``);
+  (q2) (q1) at ``key_bits=64``, through the union scan (K2 over four
+       lanes, held against its plain version);
+  (q3) (q1) and (q2) with ``chunk_size=2**22``: the pairs equal the
+       resident join's;
+  (q4) the rate-cap retry: modulo(2**23) ⋈ unique at 2**24,
+       ``match_rate_cap=1``: one retry to 2**24 pairs, and without
+       retries ``ok`` false and 2**23 outer tuples over the cap;
+  (q5) ``generation="host"`` for unique, modulo, Zipf and 64-bit at 20M:
+       bit-equal to the card's generation, its time printed;
+  (q6) ``join_arrays(..., repeats=5)`` on (a)'s relations: one readback,
+       RESULTS 5 x 20M, the time a join against 5 synchronous joins;
+  (q7) ``engine.shuffle_overflow`` armed once: one retry, the exact count,
+       a ``retry`` event;
+  (q8) the command line with ``--debug-checks --probe bucket``,
+       ``--generation host`` and ``--pipeline-repeats --repeat 3``: exit 0
+       and the oracle's count.
+
 Phase (p), the skew split and the hierarchical exchange (phase_p): four
 rank processes of one gloo group on this one card
 (``multihost.initialize(device="cuda", backend="gloo")``, ``file://``
@@ -126,7 +153,11 @@ domain, generated on the card:
   (p4) (p1) with ``num_hosts=2`` (2 x 2): its per-rank, per-partition
        counts equal (p1)'s, and one exchange of each relation through the
        hierarchical route equals the flat route's lanes and counts bit for
-       bit on the card.
+       bit on the card;
+  (p5) ``join_materialize_arrays`` under (p1)'s split against the same
+       join unsplit: every rank returns all 80M pairs, each outer rid
+       once, each pair joining equal keys, and the two pair lists equal
+       (a digest of the pairs ordered by s_rid).
 
 Each case prints every rank's join median of 3, its exchange (JMPI) and
 local probe (JPROC) under ``measure_phases``, and its device busy time.
@@ -156,6 +187,12 @@ GRID_J_TUPLES = 1 << 30
 #: the chunked probe's slab in cell (o1): 8 slabs of (n)'s 2**25-slot
 #: receive buffers
 O1_CHUNK = 1 << 22
+#: cell (q3)'s slab, as (o1)'s; (q4)'s relations: 2**24 tuples, the inner
+#: one modulo 2**23 (each key twice); arguments (q8) adds to its command
+#: lines (none on the card)
+Q3_CHUNK = 1 << 22
+Q4_TUPLES = 1 << 24
+Q8_EXTRA = ()
 
 
 #: phase (p): four ranks of one gloo group on the one card (hpcjoin's
@@ -482,6 +519,351 @@ def phase_o(dev, n, group, rels32, rels64, placed, refs, time_ms,
     return total
 
 
+class _CountReadbacks:
+    """Counts ``Tensor.cpu`` calls while active: the host readbacks of a
+    pipelined join."""
+
+    def __enter__(self):
+        import torch
+        self.calls, self._cpu = 0, torch.Tensor.cpu
+
+        def cpu(t, *a, **kw):
+            self.calls += 1
+            return self._cpu(t, *a, **kw)
+
+        torch.Tensor.cpu = cpu
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.Tensor.cpu = self._cpu
+
+
+def phase_q(dev, n, group, time_ms, device_us, card) -> dict:
+    """Cell (q) on (n)'s process group ``group``: the materializing join,
+    the probe API, host generation, pipelined repeats, the shuffle-overflow
+    fault site and the command line's flags (see the module docstring).
+    Each main path runs once with the launch counts set to 0; returns the
+    launches of those runs."""
+    import numpy as np
+    import torch
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch import ops as tops
+    from tpu_radix_join_torch.data.tuples import (CompressedBatch,
+                                                  lane_to_numpy)
+    from tpu_radix_join_torch.ops import build_probe as bp
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.kernels import radix_sort as k2
+    from tpu_radix_join_torch.ops.merge_count import search_bounds
+    from tpu_radix_join_torch.ops.sorting import (sort_kv_unstable,
+                                                  sort_lex_unstable)
+    from tpu_radix_join_torch.parallel.window import Window
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    total = {k: 0 for k in kernels.launch_counts()}
+
+    def main_path(fn, needed, what):
+        """``fn()`` once with the launch counts set to 0: its result; each
+        kernel of ``needed`` must have launched."""
+        sync()
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        for k in needed:
+            if got[k] <= 0:
+                raise AssertionError(f"{what}: kernel {k} did not launch")
+        return out, got
+
+    def host_ms(fn, reps=3):
+        runs = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs), runs
+
+    def canon(res):
+        """(s_rid, r_rid) ordered by s_rid: every outer tuple of these
+        joins matches once, so this is the sorted pair list."""
+        order = np.argsort(res.s_rid, kind="stable")
+        return res.s_rid[order], res.r_rid[order]
+
+    def keys_of(b):
+        lo = lane_to_numpy(b.key).astype(np.uint64)
+        if b.key_hi is None:
+            return lo
+        hi = lane_to_numpy(b.key_hi).astype(np.uint64)
+        return (hi << np.uint64(32)) | lo
+
+    core = ("histogram", "partition", "radix_histogram", "radix_pass")
+    for bits in (32, 64):
+        rels = (Relation(n, 1, "unique", seed=1234, key_bits=bits),
+                Relation(n, 1, "unique", seed=1235, key_bits=bits))
+        eng = HashJoin(JoinConfig(match_rate_cap=8, key_bits=bits), dev,
+                       group=group)
+        r, s = eng.place(rels[0]), eng.place(rels[1])
+        name = "q1" if bits == 32 else "q2"
+        res, got = main_path(lambda: eng.join_materialize_arrays(r, s),
+                             core, f"({name})")
+        r_keys, s_keys = keys_of(r), keys_of(s)
+        if not (res.ok and res.matches == n and res.retries == 0
+                and np.unique(res.s_rid).size == n
+                and np.array_equal(r_keys[res.r_rid], s_keys[res.s_rid])):
+            raise AssertionError(f"({name}) materializing join: "
+                                 f"{res.matches} pairs, {res.diagnostics}")
+        join_ms, runs = host_ms(lambda: eng.join_materialize_arrays(r, s))
+        busy_ms = (sum(device_us(lambda: eng.join_materialize_arrays(r, s),
+                                 3).values()) / 1e3 if cuda else None)
+        # where the time goes: each stage alone on the receive buffers
+        plan = eng._shuffle_plan(r, s)
+        cap_r, cap_s, _ = eng._measure_capacities(r, s, plan)
+        win_r = Window(eng.world, cap_r, "inner")
+        win_s = Window(eng.world, cap_s, "outer")
+        sh = eng._shuffle(r, s, plan, win_r, win_s)
+        rb, sb = sh.rp.batch, sh.sp.batch
+        mm = bp.probe_materialize(CompressedBatch(rb.key, rb.rid, rb.key_hi),
+                                  CompressedBatch(sb.key, sb.rid, sb.key_hi),
+                                  8)
+        stages = {"shuffle": lambda: eng._shuffle(r, s, plan, win_r, win_s),
+                  "compaction_readback": lambda: eng._gather_pairs(mm)}
+        if bits == 32:
+            r_sorted, r_rid_sorted = sort_kv_unstable(rb.key, rb.rid)
+            lo, hi = search_bounds(r_sorted, sb.key)
+            stages.update({
+                "inner_sort": lambda: sort_kv_unstable(rb.key, rb.rid),
+                "searchsorted": lambda: search_bounds(r_sorted, sb.key),
+                "gather": lambda: bp._rows(r_rid_sorted, lo, hi, 8)})
+            lanes = (rb.key, rb.rid)
+            sorted_on_card = k2.radix_sort(lanes, num_keys=1)
+            sorted_plain = k2.radix_sort_plain(list(lanes), num_keys=1)
+        else:
+            inner_c = CompressedBatch(rb.key, rb.rid, rb.key_hi)
+            outer_c = CompressedBatch(sb.key, sb.rid, sb.key_hi)
+            _, _, r_rid_sorted = sort_lex_unstable(rb.key_hi, rb.key, rb.rid,
+                                                   num_keys=2)
+            tag, base, c_r, _ = bp._wide_union_scan(inner_c, outer_c,
+                                                   sb.rid)
+            stages.update({
+                "inner_sort": lambda: sort_lex_unstable(
+                    rb.key_hi, rb.key, rb.rid, num_keys=2),
+                "union_sort_scan": lambda: bp._wide_union_scan(
+                    inner_c, outer_c, sb.rid),
+                "gather": lambda: bp._rows(r_rid_sorted, base, c_r, 8,
+                                           tag == 1)})
+            lanes = (torch.cat([rb.key_hi, sb.key_hi]),
+                     torch.cat([rb.key, sb.key]),
+                     torch.cat([torch.zeros_like(rb.key),
+                                torch.ones_like(sb.key)]),
+                     torch.cat([torch.full_like(rb.rid, -1), sb.rid]))
+            sorted_on_card = k2.radix_sort(lanes, num_keys=2)
+            sorted_plain = k2.radix_sort_plain(list(lanes), num_keys=2)
+        # K2 at this path's own sort shape, against its plain version
+        if not all(torch.equal(a, b)
+                   for a, b in zip(sorted_on_card, sorted_plain)):
+            raise AssertionError(f"({name}) K2 at {len(lanes)} lanes of "
+                                 f"{lanes[0].numel()} differs from its plain "
+                                 "version")
+        del sorted_on_card, sorted_plain
+        stage_ms = {k: time_ms(f, 5) for k, f in stages.items()}
+        emit({"phase": "join_time", "cell": name,
+              "workload": f"{name}_materialize_unique_20M_{bits}bit",
+              "join_ms": join_ms, "join_runs_ms": runs,
+              "pairs": res.matches, "pairs_per_s": res.matches / join_ms * 1e3,
+              "device_busy_ms": busy_ms,
+              "idle_share": None if busy_ms is None else 1 - busy_ms / join_ms,
+              "caps": [cap_r, cap_s], "rows": int(mm.valid.shape[0]),
+              "launches": got, "k2_plain_equal_lanes": len(lanes), **card})
+        emit({"phase": "breakdown", "workload": name, "stage_ms": stage_ms,
+              "join_ms": join_ms, **card})
+        del mm, sh, stages, lanes
+        if cuda:
+            torch.cuda.empty_cache()
+        # (q3) the chunked form, equal to the resident one
+        eng_c = HashJoin(JoinConfig(match_rate_cap=8, key_bits=bits,
+                                    chunk_size=Q3_CHUNK), dev, group=group)
+        res_c, got_c = main_path(lambda: eng_c.join_materialize_arrays(r, s),
+                                 core, f"(q3) {bits}-bit")
+        if not (res_c.ok and res_c.matches == n
+                and all(np.array_equal(a, b)
+                        for a, b in zip(canon(res_c), canon(res)))):
+            raise AssertionError(f"(q3) {bits}-bit chunked: {res_c.matches}"
+                                 f" pairs, {res_c.diagnostics}")
+        chunk_ms, chunk_runs = host_ms(
+            lambda: eng_c.join_materialize_arrays(r, s))
+        emit({"phase": "join_time", "cell": "q3",
+              "workload": f"q3_materialize_chunked_20M_{bits}bit",
+              "chunk_size": Q3_CHUNK, "join_ms": chunk_ms,
+              "join_runs_ms": chunk_runs, "resident_join_ms": join_ms,
+              "launches": got_c, **card})
+        del res_c
+        if bits == 32:
+            # the probe API on the relations themselves (one device)
+            tb = CompressedBatch(r.key, r.rid)
+            ub = CompressedBatch(s.key, s.rid)
+            api = {
+                "probe_count": lambda: tops.probe_count(tb, ub),
+                "local_join_sorted": lambda: tops.local_join_sorted(r, s),
+                "local_join_merge": lambda: tops.local_join_merge(r, s),
+                # 32 partitions of about 3% of n each: the next power of
+                # two above 5% of n (2**20 at 20M)
+                "local_join_partitioned": lambda: tops.local_join_partitioned(
+                    r, s, 5, 1 << (n // 20).bit_length()),
+            }
+            needs = {"probe_count": ("radix_histogram", "radix_pass"),
+                     "local_join_sorted": ("radix_histogram", "radix_pass"),
+                     "local_join_merge": ("radix_pass", "merge_scan_chunks"),
+                     "local_join_partitioned": ("partition", "radix_pass")}
+            api_out = {}
+            for k, fn in api.items():
+                out, got_api = main_path(fn, needs[k], f"(q) {k}")
+                counts = out[0] if k == "local_join_partitioned" else out
+                total_pairs = int(lane_to_numpy(
+                    counts.reshape(-1)).astype(np.uint64).sum())
+                if total_pairs != n or (
+                        k == "local_join_partitioned" and int(out[1])):
+                    raise AssertionError(f"(q) {k}: {total_pairs} matches")
+                api_out[k] = {"ms": time_ms(fn, 5), "launches": got_api}
+            emit({"phase": "probe_api", "cell": "q", "tuples": n,
+                  "calls": api_out, **card})
+        else:
+            # the 64-bit probe_count through the union scan
+            out, got_api = main_path(lambda: tops.probe_count(
+                CompressedBatch(r.key, r.rid, r.key_hi),
+                CompressedBatch(s.key, s.rid, s.key_hi)),
+                ("radix_histogram", "radix_pass"), "(q) probe_count 64-bit")
+            if int(lane_to_numpy(out.reshape(1))[0]) != n:
+                raise AssertionError("(q) 64-bit probe_count")
+        del r, s, eng, eng_c
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (q4) the rate-cap retry: each inner key twice, a cap of one
+    inner = Relation(Q4_TUPLES, 1, "modulo", seed=1234, modulo=Q4_TUPLES // 2)
+    outer = Relation(Q4_TUPLES, 1, "unique", seed=1235)
+    for retries in (1, 0):
+        eng = HashJoin(JoinConfig(match_rate_cap=1, max_retries=retries),
+                       dev, group=group)
+        res, got = main_path(lambda: eng.join_materialize(inner, outer), core,
+                             f"(q4) max_retries={retries}")
+        ok = (res.ok and res.retries == 1 and res.matches == Q4_TUPLES
+              if retries else
+              not res.ok and res.diagnostics["local_overflow"]
+              == Q4_TUPLES // 2
+              and res.diagnostics["failure_class"] == "capacity_overflow")
+        if not ok:
+            raise AssertionError(f"(q4) max_retries={retries}: "
+                                 f"{res.matches} pairs, {res.retries} "
+                                 f"retries, {res.diagnostics}")
+        emit({"phase": "join", "cell": "q4", "max_retries": retries,
+              "matches": res.matches, "ok": res.ok, "retries": res.retries,
+              "diagnostics": res.diagnostics, "launches": got, **card})
+
+    # (q5) host generation, bit-equal to the card's
+    gen = {}
+    for kind, kw in (("unique", {}), ("modulo", {"modulo": 65536}),
+                     ("zipf", {"zipf_theta": 0.75}),
+                     ("unique_64", {"key_bits": 64})):
+        rel = Relation(n, 1, kind.split("_")[0], seed=1235, **kw)
+        bits = rel.key_bits
+        t0 = time.perf_counter()
+        host = HashJoin(JoinConfig(generation="host", key_bits=bits),
+                        dev).place(rel)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card_b = HashJoin(JoinConfig(key_bits=bits), dev).place(rel)
+        card_s = time.perf_counter() - t0
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(host, card_b)):
+            raise AssertionError(f"(q5) {kind}: host generation differs "
+                                 "from the card's")
+        gen[kind] = {"host_s": host_s, "device_s": card_s}
+        del host, card_b
+    emit({"phase": "generation", "cell": "q5", "tuples": n, "kinds": gen,
+          **card})
+
+    # (q6) pipelined repeats on (a)'s relations: one readback, five joins
+    rels = (Relation(n, 1, "unique", seed=1234),
+            Relation(n, 1, "unique", seed=1235))
+    bound = max(x.key_bound() for x in rels)
+    meas = Measurements()
+    eng = HashJoin(JoinConfig(), dev, measurements=meas)
+    r, s = eng.place(rels[0]), eng.place(rels[1])
+    with _CountReadbacks() as reads:
+        res, got = main_path(lambda: eng.join_arrays(r, s, key_bound=bound,
+                                                     repeats=5),
+                             ("radix_histogram", "radix_pass", "merge_scan"),
+                             "(q6)")
+    if not (res.ok and res.matches == n and reads.calls == 1
+            and meas.counters["RESULTS"] == 5 * n
+            and got["merge_scan"] == 5):
+        raise AssertionError(f"(q6) repeats: {res}, {reads.calls} "
+                             f"readbacks, {dict(meas.counters)}, {got}")
+    plain = HashJoin(JoinConfig(), dev)
+    pipe_ms, pipe_runs = host_ms(lambda: plain.join_arrays(
+        r, s, key_bound=bound, repeats=5))
+    sync_ms, sync_runs = host_ms(lambda: [plain.join_arrays(
+        r, s, key_bound=bound) for _ in range(5)])
+    emit({"phase": "join_time", "cell": "q6", "repeats": 5,
+          "pipelined_ms_per_join": pipe_ms / 5,
+          "synchronous_ms_per_join": sync_ms / 5,
+          "pipelined_runs_ms": pipe_runs, "synchronous_runs_ms": sync_runs,
+          "readbacks": reads.calls, "launches": got, **card})
+
+    # (q7) the shuffle-overflow fault site, armed once
+    meas = Measurements()
+    eng = HashJoin(JoinConfig(max_retries=1, retry_backoff_s=0.001), dev,
+                   measurements=meas)
+    with faults.FaultInjector(seed=7).arm(faults.SHUFFLE_OVERFLOW, at=1):
+        res, got = main_path(lambda: eng.join_arrays(r, s, key_bound=bound),
+                             ("radix_pass", "merge_scan"), "(q7)")
+    events = [e["event"] for e in meas.meta.get("events", [])]
+    if not (res.ok and res.matches == n and res.retries == 1
+            and "retry" in events and meas.counters["RETRIES"] == 1):
+        raise AssertionError(f"(q7) fault site: {res}, events {events}")
+    emit({"phase": "fault", "cell": "q7", "retries": res.retries,
+          "events": events, "fault_sites": res.diagnostics["fault_sites"],
+          "launches": got, **card})
+    del r, s
+
+    # (q8) the command line's flags
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = {}
+    for flags in (["--debug-checks", "--probe", "bucket"],
+                  ["--generation", "host"],
+                  ["--pipeline-repeats", "--repeat", "3"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "tpu_radix_join_torch.main",
+             "--tuples-per-node", str(n), *flags, *Q8_EXTRA], cwd=root,
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=root), timeout=600)
+        lines = out.stdout.splitlines()
+        result = json.loads(lines[-1]) if out.returncode == 0 else {}
+        if not (out.returncode == 0 and result.get("ok")
+                and result.get("matches") == n
+                and f"[RESULTS] Expected: {n} (OK)" in lines):
+            raise AssertionError(f"(q8) {' '.join(flags)}: rc "
+                                 f"{out.returncode}\n{out.stdout[-3000:]}"
+                                 f"\n{out.stderr[-3000:]}")
+        cli[" ".join(flags)] = {"seconds": time.perf_counter() - t0,
+                                "join_ms": result["join_ms"],
+                                "counters": result["counters"]}
+    emit({"phase": "cli", "cell": "q8", "runs": cli, **card})
+    return total
+
+
 def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
     """Cell (n): the generic body over a process group of one rank (NCCL
     on the card, gloo on the CPU) at ``n`` ⋈ ``n`` unique tuples a rank.
@@ -661,6 +1043,10 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
                              {k: results[k] for k in ("n2", "n3")},
                              time_ms, device_us, card)
         launches = {k: v + launches_o[k] for k, v in launches.items()}
+        del placed, engines
+        torch.cuda.empty_cache()
+        launches_q = phase_q(dev, n, group, time_ms, device_us, card)
+        launches = {k: v + launches_q[k] for k, v in launches.items()}
     finally:
         multihost.shutdown()
     return launches
@@ -682,6 +1068,7 @@ def phase_p_rank(rank: int, world: int, init_method: str,
     import torch.distributed as dist
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.data.tuples import lane_to_numpy
     from tpu_radix_join_torch.ops import kernels
     from tpu_radix_join_torch.parallel import multihost
     from tpu_radix_join_torch.parallel.network_partitioning import (
@@ -740,10 +1127,55 @@ def phase_p_rank(rank: int, world: int, init_method: str,
         "p1": (JoinConfig(**split), (n, 32)),
         "p1_unsplit": (JoinConfig(**base), (n, 32)),
         "p4": (JoinConfig(**split, num_hosts=2), (n, 32)),
+        "p5": (JoinConfig(**split), (n, 32)),
+        "p5_unsplit": (JoinConfig(**base), (n, 32)),
         "p3": (JoinConfig(**split, key_bits=64), (n, 64)),
         "p2": (JoinConfig(**dict(split, max_retries=spec["p2_retries"]),
                           two_level=True), (n2, 32)),
     }
+    def materialize_case(cfg, inner, outer, r, s):
+        """(p5): ``join_materialize_arrays`` of this rank's shards, every
+        rank's pairs gathered to every rank.  Each outer tuple of this
+        workload matches one inner tuple, so the pairs ordered by s_rid
+        are the sorted pair list: checked to hold each outer rid once and
+        to join equal keys (the whole relations generated on the card),
+        and summarised by a digest that the ranks and the unsplit join
+        must share."""
+        import hashlib
+        eng = HashJoin(cfg, dev, group=group)
+        cap_r, cap_s, skew = eng._measure_capacities(
+            r, s, eng._shuffle_plan(r, s))
+        sync()
+        dist.barrier()
+        kernels.reset_launches()
+        before = dict(eng.world.counts)
+        first_ms, res = host_ms(lambda: eng.join_materialize_arrays(r, s))
+        launches = kernels.launch_counts()
+        collectives = {k: eng.world.counts[k] - before[k] for k in before}
+        runs = [first_ms] + [host_ms(
+            lambda: eng.join_materialize_arrays(r, s))[0] for _ in range(2)]
+        total = outer.global_size
+        r_keys = lane_to_numpy(inner.generate(dev).key)
+        s_keys = lane_to_numpy(outer.generate(dev).key)
+        once = (res.matches == total
+                and int(np.bincount(res.s_rid, minlength=total).max()) == 1)
+        r_by_s = np.zeros(total, np.uint32)
+        r_by_s[res.s_rid] = res.r_rid
+        return {
+            "matches": res.matches, "ok": res.ok, "retries": res.retries,
+            "diagnostics": res.diagnostics,
+            "expected": inner.expected_matches(outer),
+            "tuples_per_rank": r.size, "key_bits": 32,
+            "caps": [cap_r, cap_s],
+            "hot_bits": None if skew is None else skew.hot_bits,
+            "hot_cap": None if skew is None else skew.hot_cap,
+            "launches": launches, "collectives": collectives,
+            "join_runs_ms": runs, "join_ms": statistics.median(runs),
+            "once": bool(once),
+            "keys_equal": bool(once and np.array_equal(r_keys[r_by_s],
+                                                       s_keys)),
+            "digest": hashlib.sha1(r_by_s.tobytes()).hexdigest()}
+
     placed = {}
     try:
         for name, (cfg, shape) in cases.items():
@@ -758,6 +1190,11 @@ def phase_p_rank(rank: int, world: int, init_method: str,
                 placed[shape] = (inner, outer, eng0.place(inner),
                                  eng0.place(outer))
             inner, outer, r, s = placed[shape]
+            if name.startswith("p5"):
+                out["cases"][name] = materialize_case(cfg, inner, outer, r, s)
+                if cuda:
+                    torch.cuda.empty_cache()
+                continue
             bound = max(inner.key_bound(), outer.key_bound())
             eng = HashJoin(cfg, dev, group=group)
             cap_r, cap_s, skew = eng._measure_capacities(
@@ -915,13 +1352,14 @@ def p_launch_checks(name: str, launches: dict, attempts: int) -> None:
     need = ["histogram", "partition", "radix_histogram", "radix_pass"]
     if name == "p3":
         need.append("merge_scan_wide")
-    elif name != "p2":
+    elif name not in ("p2", "p5", "p5_unsplit"):
         need.append("merge_scan")
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"phase (p) {name}: kernel {k} did not "
                                  "launch")
-    per_attempt = (2 + (name != "p1_unsplit") + 2 * (name == "p2"))
+    split = name not in ("p1_unsplit", "p5_unsplit")
+    per_attempt = 2 + split + 2 * (name == "p2")
     if launches["partition"] != per_attempt * attempts * P_RANKS:
         raise AssertionError(
             f"phase (p) {name}: {launches['partition']} K4 launches, not "
@@ -932,7 +1370,7 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
     """Phase (p)'s checks over every rank's results; emits one line a case
     and returns the launches summed over the cases and ranks."""
     import numpy as np
-    names = list(results[0]["cases"])
+    names = [k for k in results[0]["cases"] if not k.startswith("p5")]
     for res in results:
         if res["backend"] != "gloo" or not res["gloo_on_card"]:
             raise AssertionError(f"phase (p): rank {res['rank']} ran on "
@@ -987,6 +1425,45 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
             and all(r["exchange_equal"] for r in per4)):
         raise AssertionError("phase (p) p4: the hierarchical route differs "
                              "from the flat one")
+    # (p5): the materializing join split and unsplit
+    p5 = {}
+    for name in ("p5", "p5_unsplit"):
+        per_rank = [res["cases"][name] for res in results]
+        c = per_rank[0]
+        for other in per_rank[1:]:
+            for k in ("matches", "ok", "retries", "caps", "hot_bits",
+                      "hot_cap", "diagnostics", "digest"):
+                if other[k] != c[k]:
+                    raise AssertionError(f"phase (p) {name}: ranks differ "
+                                         f"in {k}")
+        if not (c["ok"] and c["matches"] == c["expected"]
+                and all(r["once"] and r["keys_equal"] for r in per_rank)):
+            raise AssertionError(f"phase (p) {name}: {c['matches']} pairs, "
+                                 f"expected {c['expected']}, "
+                                 f"{c['diagnostics']}")
+        if (c["hot_bits"] is not None) != (name == "p5"):
+            raise AssertionError(f"phase (p) {name}: hot set "
+                                 f"{c['hot_bits']}")
+        launches = {k: sum(r["launches"][k] for r in per_rank)
+                    for k in c["launches"]}
+        p_launch_checks(name, launches, c["retries"] + 1)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        p5[name] = (c, per_rank, launches)
+    if p5["p5"][0]["digest"] != p5["p5_unsplit"][0]["digest"]:
+        raise AssertionError("phase (p) p5: the split materializing join's "
+                             "pairs differ from the unsplit one's")
+    for name, (c, per_rank, launches) in p5.items():
+        emit({"phase": "multi_rank", "cell": name, "backend": P_BACKEND,
+              "ranks": P_RANKS, "seconds": seconds,
+              "tuples_per_rank": c["tuples_per_rank"], "pairs": c["matches"],
+              "expected": c["expected"], "retries": c["retries"],
+              "hot_cap": c["hot_cap"], "caps": c["caps"],
+              "pairs_equal_unsplit": True,
+              "join_ms_by_rank": [r["join_ms"] for r in per_rank],
+              "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
+              "launches": launches, "collectives": c["collectives"],
+              **card})
     for name, (c, pc, per_rank, launches) in cases.items():
         hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
         hot_p = {"p1_unsplit": hot1, "p2": ()}.get(name, hot)

@@ -187,3 +187,47 @@ def test_default_configs_agree():
     assert cfg.network_partition_count == jx.JoinConfig().network_partition_count
     with pytest.raises(ValueError):
         config_from_jax({"no_such_field": 1})
+
+
+def test_exchange_stages_is_refused_not_dropped():
+    """C9: a staged JAX config reports its stages (``_exchange_stats``,
+    XSTAGES and the exchange plan read k), so the port refuses it, naming
+    A13, instead of joining fused and reporting 1; the fused exchange
+    (``exchange_stages=1``) carries across."""
+    from tpu_radix_join.performance.measurements import Measurements
+    jm = Measurements()
+    jcfg = jx.JoinConfig(exchange_stages=4, probe_algorithm="bucket")
+    want = jx.HashJoin(jcfg, measurements=jm).join(
+        jx.Relation(4096, seed=1), jx.Relation(4096, seed=2))
+    assert want.ok and want.matches == 4096
+    assert jm.counters["XSTAGES"] == 4
+    assert jm.meta["exchange_plan"]["stages"] == 4
+    for stages in (4, 0):
+        d = dataclasses.asdict(jx.JoinConfig(exchange_stages=stages))
+        with pytest.raises(NotImplementedError, match="A13"):
+            config_from_jax(d)
+    with pytest.raises(ValueError, match="exchange_stages"):
+        tx.JoinConfig(exchange_stages=-1)
+    cfg = config_from_jax(
+        dataclasses.asdict(jx.JoinConfig(exchange_stages=1)))
+    assert cfg.exchange_stages == 1 and cfg == tx.JoinConfig()
+
+
+def test_fields_the_port_does_not_read_are_pinned():
+    """Every JAX config field is the port's, an implementation choice the
+    port has one of, or one of the four the port's joins never read; no
+    other field is dropped without a word."""
+    from tpu_radix_join_torch import state
+    assert state._UNREAD == {"payload_bits", "mesh_axis",
+                             "result_aggregation_node", "grid_pipeline"}
+    assert state._ONE_IMPL == {"sort_impl", "partition_impl"}
+    jax_fields = set(jx.JoinConfig.__dataclass_fields__)
+    own = set(tx.JoinConfig.__dataclass_fields__)
+    assert jax_fields == own | state._UNREAD | state._ONE_IMPL
+    assert not own & state._UNREAD
+    for field, value in (("match_rate_cap", 3), ("generation", "host"),
+                         ("exchange_stages", 1)):
+        d = dataclasses.asdict(jx.JoinConfig(**{field: value}))
+        assert getattr(config_from_jax(d), field) == value
+    with pytest.raises(ValueError, match="match_rate_cap"):
+        tx.JoinConfig(match_rate_cap=0)

@@ -59,7 +59,8 @@ def _join(task, world_group):
     engine records into a registry, whose counters, timers, ``retry``
     events and ``gather_all`` (every rank's registry: node, RESULTS, timer
     tags) come back too; with ``"plan"`` the sizing pass's capacities and
-    skew plan, measured before the join."""
+    skew plan, measured before the join; with ``"materialize"`` the join is
+    ``join_materialize_arrays`` and its rid pairs come back."""
     import torch
     import tpu_radix_join_torch as tx
     from tpu_radix_join_torch.performance import Measurements
@@ -87,9 +88,13 @@ def _join(task, world_group):
             r, s, eng._shuffle_plan(r, s))
         out["plan"] = [cap_r, cap_s] + (
             [None, None] if skew is None else [skew.hot_bits, skew.hot_cap])
-    res = eng.join_arrays(r, s, key_bound=bound)
+    if task.get("materialize"):
+        res = eng.join_materialize_arrays(r, s)
+        out.update({"r_rid": res.r_rid.tolist(), "s_rid": res.s_rid.tolist()})
+    else:
+        res = eng.join_arrays(r, s, key_bound=bound)
+        out["partition_counts"] = res.partition_counts.tolist()
     out.update({"matches": res.matches, "ok": res.ok,
-                "partition_counts": res.partition_counts.tolist(),
                 "diagnostics": res.diagnostics, "retries": res.retries,
                 "collectives": dict(eng.world.counts)})
     if meas is not None:

@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of tpu_radix_join: the joins — the sort probe
 (narrow, full-range and 64-bit keys) and the partitioned (bucket /
-two-level) join with its chunked fallback — on one GPU or over a
+two-level) join with its chunked fallback, and the materializing join
+(``HashJoin.join_materialize``: the rid pairs) — on one GPU or over a
 ``torch.distributed`` process group of N (``parallel/multihost.py``,
 ``HashJoin(config, group=...)``), and the out-of-core grid
 (``ops/chunked.py``).
@@ -15,8 +16,9 @@ version.
 from tpu_radix_join_torch.core.config import JoinConfig
 from tpu_radix_join_torch.data.relation import Relation
 from tpu_radix_join_torch.data.tuples import TupleBatch
-from tpu_radix_join_torch.operators.hash_join import HashJoin, JoinResult
+from tpu_radix_join_torch.operators.hash_join import (HashJoin, JoinResult,
+                                                     MaterializedJoinResult)
 from tpu_radix_join_torch.state import batch_from_numpy, from_jax_state
 
-__all__ = ["HashJoin", "JoinConfig", "JoinResult", "Relation", "TupleBatch",
-           "batch_from_numpy", "from_jax_state"]
+__all__ = ["HashJoin", "JoinConfig", "JoinResult", "MaterializedJoinResult",
+           "Relation", "TupleBatch", "batch_from_numpy", "from_jax_state"]

@@ -89,6 +89,17 @@ class JoinConfig:
         (``parallel/world.hierarchical_block_all_to_all``).
       * ``fallback="chunked"``: a partitioned join still short of capacity
         after its retries counts out of core instead (ops/chunked.py).
+      * ``exchange_stages``: column groups of one exchange; the port runs
+        the fused exchange (1) only, the staged one is ROADMAP A13.
+      * ``match_rate_cap``: matches the materializing join
+        (``HashJoin.join_materialize``) emits at most per outer tuple
+        before it flags ``local_overflow`` and, with retries, doubles it
+        (the reference's ``MAX_MATCH_RATE``, kernels.cu:314-411).  Must be
+        >= 1 (the JAX package does not check it: 0 would double to 0).
+      * ``generation``: where :meth:`HashJoin.place` generates a relation —
+        "host" builds the shard with numpy (``Relation.shard_np``) and
+        copies it to the device; "auto" and "device" generate on the
+        device.  The lanes are the same bits either way.
     """
 
     network_fanout_bits: int = 5
@@ -116,6 +127,9 @@ class JoinConfig:
     chunk_size: Optional[int] = None
     debug_checks: bool = False
     measure_phases: bool = False
+    exchange_stages: int = 1
+    match_rate_cap: int = 8
+    generation: str = "auto"
 
     def __post_init__(self):
         if self.network_fanout_bits < 0 or self.local_fanout_bits < 0:
@@ -153,6 +167,18 @@ class JoinConfig:
         if self.exchange_codec != "off":
             raise _not_ported(f"exchange_codec={self.exchange_codec!r}",
                               "A13")
+        if self.exchange_stages < 0:
+            raise ValueError(
+                "exchange_stages must be >= 0 (0 = auto, 1 = fused, "
+                "k > 1 = staged)")
+        if self.exchange_stages != 1:
+            raise _not_ported(
+                f"exchange_stages={self.exchange_stages} (the staged "
+                "exchange)", "A13")
+        if self.match_rate_cap < 1:
+            raise ValueError("match_rate_cap must be >= 1")
+        if self.generation not in ("auto", "host", "device"):
+            raise ValueError(f"unknown generation mode {self.generation!r}")
         for name in ("partition_impl", "sort_impl"):
             if getattr(self, name) != "auto":
                 raise ValueError(

@@ -19,6 +19,13 @@ the whole relation.  ``key_bits=64`` adds the hi lane
 :func:`key_hi_lane` of each key.  Generation is plain PyTorch on int64
 tensors holding uint32 values; the lanes it returns are int32
 (data/tuples.py).
+
+The host arms (:meth:`Relation.fill_np`, :meth:`Relation.shard_np`,
+:func:`feistel_permutation_np`, :func:`zipf_keys_np`,
+:func:`key_hi_lane_np`) are the JAX package's numpy generators, copied:
+uint32 numpy arrays, bit-identical to the device arms (and to the JAX
+package's native ``datagen.cc``, which waits for ROADMAP A18 here).
+``JoinConfig(generation="host")`` places relations through them.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, narrow
-from tpu_radix_join_torch.utils.hashing import mix32
+from tpu_radix_join_torch.utils.hashing import mix32, mix32_np
 
 _FEISTEL_ROUNDS = 6
 _ZIPF_TABLE_MAX = 65536
@@ -50,6 +57,13 @@ def key_hi_lane(key: torch.Tensor) -> torch.Tensor:
     """int64 hi lane of int64 keys in [0, 2**32): ``(mix32(key) &
     0x3FFFFFFF) | 0x40000000``."""
     return (mix32(key) & _HI_LANE_MASK) | _HI_LANE_LOW
+
+
+def key_hi_lane_np(key: np.ndarray) -> np.ndarray:
+    """uint32 hi lane of uint32 keys: the numpy twin of
+    :func:`key_hi_lane`."""
+    return ((mix32_np(key) & np.uint32(_HI_LANE_MASK))
+            | np.uint32(_HI_LANE_LOW))
 
 
 def zipf_tables(theta: float, domain: int):
@@ -106,6 +120,56 @@ def zipf_range(start: int, n: int, head_cdf: np.ndarray,
                              torch.clamp(s, max=domain - 1))
         key = torch.where(u >= cdf[table - 1], k_tail, key)
     return key
+
+
+def zipf_keys_np(start: int, count: int, head_cdf: np.ndarray,
+                 tail_keys: np.ndarray, domain: int, seed: int) -> np.ndarray:
+    """uint32 Zipf keys for global indices [start, start + count): the
+    numpy twin of :func:`zipf_range`, the same uint32 operations on the
+    same tables."""
+    table = len(head_cdf)
+    idx = np.arange(start, start + count, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        u = mix32_np(idx ^ mix32_np(np.uint32(seed & _U32)))
+        key = np.minimum(
+            np.searchsorted(head_cdf, u, side="right"),
+            table - 1).astype(np.uint32)
+        if domain > table:
+            v = mix32_np(u ^ np.uint32(_ZIPF_V_SALT))
+            j = (v >> np.uint32(20)).astype(np.int64)
+            frac = (v >> np.uint32(8)) & np.uint32(0xFFF)
+            tk = tail_keys[j]
+            d = tail_keys[j + 1] - tk
+            interp = ((d >> np.uint32(12)) * frac
+                      + (((d & np.uint32(0xFFF)) * frac) >> np.uint32(12)))
+            s = tk + interp
+            # uint32-wrap clamp, as on the device
+            k_tail = np.where(s < tk, np.uint32(domain - 1),
+                              np.minimum(s, np.uint32(domain - 1)))
+            key = np.where(u >= head_cdf[-1], k_tail, key)
+    return key
+
+
+def _feistel_round_np(left, right, k, half_bits):
+    mask = (1 << half_bits) - 1
+    f = ((right * 0x9E3779B1 + k) ^ (right >> 7)) & mask
+    return right, (left ^ f) & mask
+
+
+def feistel_permutation_np(idx: np.ndarray, domain_bits: int,
+                           seed: int) -> np.ndarray:
+    """Seeded bijection on [0, 2**(2*half)) of uint64 numpy indices: the
+    numpy twin of :func:`_feistel`, the same round keys."""
+    half = (domain_bits + 1) // 2
+    mask = (1 << half) - 1
+    left = (idx >> half).astype(np.uint64)
+    right = (idx & mask).astype(np.uint64)
+    keys = np.random.default_rng(seed).integers(
+        0, 1 << 31, size=_FEISTEL_ROUNDS, dtype=np.uint64)
+    for i in range(_FEISTEL_ROUNDS):
+        left, right = _feistel_round_np(left, right, keys[i], half)
+    out = (left << half) | right
+    return out & ((1 << (2 * half)) - 1)
 
 
 def _feistel_keys(seed: int) -> np.ndarray:
@@ -216,6 +280,54 @@ class Relation:
         head_cdf, tail_keys = self._zipf_tables_cached()
         return zipf_range(start, n, head_cdf, tail_keys, self.key_domain,
                           self.seed, device)
+
+    def fill_np(self, start: int, count: int,
+                out_key: Optional[np.ndarray] = None,
+                out_rid: Optional[np.ndarray] = None):
+        """(keys, rids), uint32 numpy arrays of the global index range
+        [start, start + count), bit-identical to the device lanes;
+        ``out_key`` / ``out_rid`` (contiguous uint32 [count]) are filled in
+        place when given."""
+        lo, n = int(start), int(count)
+
+        def buf(out):
+            if out is None:
+                return np.empty(n, dtype=np.uint32)
+            if (out.shape != (n,) or out.dtype != np.uint32
+                    or not out.flags.c_contiguous):
+                raise ValueError(f"out buffer must be contiguous uint32 [{n}]")
+            return out
+
+        key, rid = buf(out_key), buf(out_rid)
+        rid[:] = np.arange(lo, lo + n, dtype=np.uint32)
+        if self.kind == "unique":
+            domain_bits = max(2, (self.global_size - 1).bit_length())
+            k = feistel_permutation_np(np.arange(lo, lo + n, dtype=np.uint64),
+                                       domain_bits, self.seed)
+            while (k >= self.global_size).any():
+                out = k >= self.global_size
+                k[out] = feistel_permutation_np(k[out], domain_bits,
+                                                self.seed)
+            key[:] = k.astype(np.uint32)
+        elif self.kind == "modulo":
+            key[:] = rid % np.uint32(self.modulo)
+        else:
+            head_cdf, tail_keys = self._zipf_tables_cached()
+            key[:] = zipf_keys_np(lo, n, head_cdf, tail_keys,
+                                  self.key_domain, self.seed)
+        return key, rid
+
+    def shard_np(self, node: int):
+        """Node ``node``'s shard as uint32 numpy arrays: ``(keys, rids)``,
+        or ``(keys_lo, keys_hi, rids)`` for 64-bit keys (the JAX package's
+        ``shard_np`` contract)."""
+        if not 0 <= node < self.num_nodes:
+            raise ValueError(f"node must be in [0, {self.num_nodes}), got "
+                             f"{node}")
+        key, rid = self.fill_np(node * self.local_size, self.local_size)
+        if self.key_bits == 64:
+            return key, key_hi_lane_np(key), rid
+        return key, rid
 
     def _batch(self, start: int, n: int, device) -> TupleBatch:
         dev = resolve_device(device)

@@ -26,7 +26,11 @@ lines — or, over several ranks, ``print_results`` of every rank's registry
 <path>`` with ``--output-dir``, where each rank writes ``<rank>.perf`` and
 ``<rank>.info``.  ``--measure-phases`` fences the JMPI / SLOCPREP / JPROC
 columns, ``--trace`` brackets the joins with the profiler (CTOTAL and the
-per-op table; under ``--output-dir``/trace), ``--repeat N`` joins N times.
+per-op table; under ``--output-dir``/trace), ``--repeat N`` joins N times
+(with ``--pipeline-repeats`` as one ``join_arrays(..., repeats=N)``: sized
+once, one readback; not with ``--measure-phases``).  ``--debug-checks``
+adds the exchange's per-partition conservation checks; ``--generation
+host`` generates the relations with numpy and copies them to the device.
 Its last line is one JSON object: the result, the host-clock join time, and
 the registry's ``phases_us`` and ``counters``.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
@@ -48,6 +52,7 @@ Usage:
     torchrun --standalone --nproc-per-node 2 -m tpu_radix_join_torch.main --nodes 2 --device cpu --chunk-size 1024
     python -m tpu_radix_join_torch.main --grid-chunk-tuples 134217728 --tuples-per-node 1073741824
     python -m tpu_radix_join_torch.main --device cpu --grid-chunk-tuples 4096 --tuples-per-node 16384
+    python -m tpu_radix_join_torch.main --pipeline-repeats --repeat 3 --generation host
 """
 
 from __future__ import annotations
@@ -133,6 +138,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zipf-theta", type=float, default=0.75)
     p.add_argument("--seed", type=int, default=1234,
                    help="base seed (reference: srand(1234+nodeId), main.cpp:94)")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="per-partition conservation invariants "
+                        "(JOIN_ASSERT analog; extra passes)")
+    p.add_argument("--generation", choices=["auto", "host", "device"],
+                   default="auto",
+                   help="relation materialization: on-device generation "
+                        "(auto/device) or host numpy + copy (host)")
+    p.add_argument("--pipeline-repeats", action="store_true",
+                   help="run the --repeat joins as one pipelined join: "
+                        "sized once, no readback between them, one fence; "
+                        "no per-join retry loop")
     p.add_argument("--measure-phases", action="store_true",
                    help="fence each join attempt so .perf carries JMPI, "
                         "SLOCPREP and JPROC columns (costs a synchronize a "
@@ -229,6 +245,10 @@ def main(argv=None) -> int:
         parser.error("--trace writes its artifacts under --output-dir")
     if args.resume and not args.checkpoint_dir:
         parser.error("--resume reads the checkpoint under --checkpoint-dir")
+    if args.pipeline_repeats and args.measure_phases:
+        parser.error("--pipeline-repeats dispatches without intermediate "
+                     "fences; the --measure-phases split timers need a "
+                     "fence per program — drop one of the two")
     if args.nodes > 1 and args.grid_chunk_tuples is not None:
         parser.error("the grid join runs on one GPU (--nodes 1)")
     from tpu_radix_join_torch.parallel import multihost
@@ -280,6 +300,8 @@ def _run_join(args, group) -> int:
                      skew_threshold=args.skew_threshold,
                      fallback=args.fallback,
                      chunk_size=args.chunk_size,
+                     debug_checks=args.debug_checks,
+                     generation=args.generation,
                      measure_phases=args.measure_phases)
     rank = dist.get_rank(group) if group is not None else 0
     meas = Measurements(node_id=rank, num_nodes=nodes)
@@ -295,8 +317,12 @@ def _run_join(args, group) -> int:
                  if args.trace else contextlib.nullcontext())
     t0 = time.perf_counter()
     with trace_ctx:
-        for _ in range(args.repeat):
-            result = engine.join_arrays(r, s, key_bound=key_bound)
+        if args.pipeline_repeats and args.repeat > 1:
+            result = engine.join_arrays_pipelined(r, s, args.repeat,
+                                                  key_bound=key_bound)
+        else:
+            for _ in range(args.repeat):
+                result = engine.join_arrays(r, s, key_bound=key_bound)
         if cuda:
             torch.cuda.synchronize(engine.device)
     join_s = (time.perf_counter() - t0) / args.repeat
@@ -349,7 +375,10 @@ def _run_join(args, group) -> int:
             "key_range": args.key_range,
             "device": (torch.cuda.get_device_name(engine.device) if cuda
                        else "cpu"),
-            "repeat": args.repeat, "phases_us": dict(meas.times_us),
+            "repeat": args.repeat,
+            "pipeline_repeats": args.pipeline_repeats,
+            "generation": args.generation,
+            "phases_us": dict(meas.times_us),
             "counters": dict(meas.counters),
         }), flush=True)
     return 0 if ok else 1

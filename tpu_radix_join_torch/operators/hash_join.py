@@ -2,7 +2,9 @@
 
 Counterpart of ``tpu_radix_join/operators/hash_join.py`` (``_pipeline_fn``,
 ``_shuffle``, ``_local_process``, ``_join_arrays_inner``, ``join``,
-``join_arrays``, ``place``, ``_finish_join``).  The world
+``join_arrays``, ``join_arrays_pipelined``, ``place``, ``_finish_join``,
+``_materialize_fn``, ``join_materialize_arrays``, ``join_materialize``).
+The world
 (parallel/world.py) is a ``OneRankWorld`` by default, or a ``DistWorld``
 over the ``torch.distributed`` group the caller passes: every rank runs the
 same program on its own shard and returns the same result.
@@ -57,6 +59,22 @@ rank too):
      with ``fallback="chunked"`` a shortfall that outlasts them degrades
      to the out-of-core count (``_fallback_chunked``).
 
+**The materializing join** (:meth:`HashJoin.join_materialize`, the
+reference's ``probe_match_rate``): the generic body at every world size,
+one rank included, with the materializing probe (``ops/build_probe.
+probe_materialize``, or ``probe_materialize_chunked`` with ``chunk_size``)
+on the receive buffers, the replicated hot inner side joining the inner
+buffer under the skew split.  Its six flags are the counting ones without
+the count-overflow risk; ``local_overflow`` counts the outer tuples with
+more than ``match_rate_cap`` matches, and a retry doubles the cap.  After
+the last attempt the valid pairs are compacted on the device and only
+they are read back; over several ranks they are gathered rank-major, so
+every rank returns every pair.
+
+**Pipelined repeats** (``join_arrays(..., repeats=k)``): sized once, then
+k attempts with no readback between them and one readback of the last
+attempt's flags and counts; no retry loop, and the counters grow by k.
+
 Every rank issues the same collectives in the same order: each host
 decision that precedes a collective reads an all-reduced value or the
 configuration.
@@ -92,6 +110,7 @@ from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.relation import Relation
 from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, CompressedBatch,
                                               TupleBatch, _sentinel_lane,
+                                              lane_from_numpy, lane_to_numpy,
                                               partition_ids, umax,
                                               valid_mask, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
@@ -104,8 +123,11 @@ from tpu_radix_join_torch.operators.skew import (detect_hot_partitions,
                                                  mask_hot,
                                                  spread_destinations)
 from tpu_radix_join_torch.ops.build_probe import (DENSE_BUCKET_LIMIT,
+                                                  MaterializedMatches,
                                                   probe_count_bucketized,
-                                                  probe_count_chunked)
+                                                  probe_count_chunked,
+                                                  probe_materialize,
+                                                  probe_materialize_chunked)
 from tpu_radix_join_torch.ops.chunked import chunked_join_count
 from tpu_radix_join_torch.ops.kernels import _build
 from tpu_radix_join_torch.ops.merge_count import (
@@ -121,6 +143,7 @@ from tpu_radix_join_torch.performance.measurements import (
     BACKOFFMS, BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE,
     JHIST, JMPI, JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES,
     RETRYN, RTUPLES, SLOCPREP, SNETCOMPL, STUPLES, SWINALLOC, XSTAGES)
+from tpu_radix_join_torch.robustness import faults
 from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
                                                    RETRIES_EXHAUSTED,
                                                    RetryPolicy,
@@ -136,6 +159,16 @@ class JoinResult(NamedTuple):
     partition_counts: np.ndarray  # uint32 [N * P] per-rank per-partition (or
                                   # bucket) counts, in rank order
     diagnostics: Optional[dict] = None   # failure breakdown (_flags_to_diag)
+    retries: int = 0              # capacity retries the join took
+
+
+class MaterializedJoinResult(NamedTuple):
+    """The matching rid pairs of a join, every rank's, rank-major."""
+    r_rid: np.ndarray             # uint32 [matches]
+    s_rid: np.ndarray             # uint32 [matches]
+    matches: int
+    ok: bool                      # no flag raised (the match cap included)
+    diagnostics: Optional[dict] = None
     retries: int = 0              # capacity retries the join took
 
 
@@ -306,6 +339,24 @@ class HashJoin:
         return diag
 
     @staticmethod
+    def _stamp_fault_sites(diag: dict) -> dict:
+        """The active fault injector's per-site hits and fires, stamped into
+        the result's ``diagnostics["fault_sites"]`` (no injector, no key)."""
+        inj = faults.active()
+        if inj is not None:
+            diag["fault_sites"] = inj.site_stats()
+        return diag
+
+    def _inject_shuffle_fault(self, flags: np.ndarray) -> np.ndarray:
+        """Fault site ``engine.shuffle_overflow`` (``_inject_shuffle_fault``,
+        hash_join.py:1494-1502): when it fires, one outer shortfall more is
+        reported, so the retry loop runs under test control."""
+        if faults.fires(faults.SHUFFLE_OVERFLOW, self.measurements):
+            flags = flags.copy()
+            flags[2] += 1
+        return flags
+
+    @staticmethod
     def _retryable(diag: dict) -> bool:
         """Capacity shortfalls are fixable with bigger shapes; key,
         conservation and count-overflow flags are not (classify_diagnostics
@@ -314,7 +365,8 @@ class HashJoin:
 
     # ------------------------------------------------------------- joins
     def join_arrays(self, r: TupleBatch, s: TupleBatch,
-                    key_bound: Optional[int] = None) -> JoinResult:
+                    key_bound: Optional[int] = None,
+                    repeats: int = 1) -> JoinResult:
         """Join two placed batches (lanes on the engine's device): over a
         process group, this rank's shards.  ``key_bound``, when known, is
         an exclusive bound on both relations' keys, the same on every rank;
@@ -322,12 +374,50 @@ class HashJoin:
         max-key probe (:meth:`join` passes the relations' static bounds).
         The partitioned join takes every key below the pads and needs no
         bound.  One rank's sort probe skips the shuffle; everything else
-        runs the generic body."""
+        runs the generic body.
+
+        ``repeats > 1`` runs that many joins of the same batches as one
+        (``_join_arrays_inner``'s pipelined mode, hash_join.py:1879-1905):
+        the key range and the sizing once, then ``repeats`` attempts with
+        no readback between them, and one readback of the last attempt's
+        flags and counts.  There is no retry loop (every attempt has the
+        same shapes and flags), and ``measure_phases``, which fences every
+        phase, raises.  RESULTS, RTUPLES, STUPLES and the exchange counters
+        grow by ``repeats``."""
+        if repeats < 1:
+            raise ValueError("repeats must be >= 1")
+        if repeats > 1 and self.config.measure_phases:
+            raise ValueError(
+                "pipelined repeats dispatch without intermediate fences; "
+                "the measure_phases split timers need a fence per program "
+                "— loop synchronous joins instead")
         self._check_batches(r, s)
         with self._measured():
             if self.config.sort_probe and self.world.size == 1:
-                return self._sort_probe_join(r, s, key_bound)
-            return self._shuffled_join(r, s, key_bound)
+                return self._sort_probe_join(r, s, key_bound, repeats)
+            return self._shuffled_join(r, s, key_bound, repeats)
+
+    def join_arrays_pipelined(self, r: TupleBatch, s: TupleBatch,
+                              repeats: int,
+                              key_bound: Optional[int] = None) -> JoinResult:
+        """:meth:`join_arrays` with ``repeats`` (the JAX package's name for
+        the amortized mode)."""
+        return self.join_arrays(r, s, key_bound=key_bound, repeats=repeats)
+
+    def join_materialize_arrays(self, r: TupleBatch, s: TupleBatch
+                                ) -> MaterializedJoinResult:
+        """The join's matching (r_rid, s_rid) pairs instead of their count
+        (``join_materialize_arrays``, hash_join.py:2737-2823): the generic
+        body at every world size with the materializing probe, up to
+        ``match_rate_cap`` pairs an outer tuple.  A capacity shortfall
+        doubles what fell short (``cap_r``, ``cap_s``, the skew split's
+        ``hot_cap``, or the match cap on ``local_overflow``) and reruns the
+        attempt, up to ``max_retries`` times; the JAX loop does not back
+        off here, nor does this one.  Every key must lie below the pads
+        (no 31-bit packing: the probe compares whole keys)."""
+        self._check_batches(r, s)
+        with self._measured():
+            return self._materialize_join(r, s)
 
     def join_shuffled(self, r: TupleBatch, s: TupleBatch,
                       key_bound: Optional[int] = None) -> JoinResult:
@@ -384,28 +474,29 @@ class HashJoin:
         return stats
 
     def _finish(self, r: TupleBatch, s: TupleBatch, matches: int,
-                caps=None) -> None:
+                caps=None, repeats: int = 1) -> None:
         """The epilogue's counters (``_finish_join``, hash_join.py:
         2702-2735): JTOTAL stops, RESULTS and the global RTUPLES / STUPLES
         count, the exchange of the attempt that produced the result is
-        recorded (``caps``; None on the one-rank sort probe), and the rates
-        derived."""
+        recorded (``caps``; None on the one-rank sort probe), each once a
+        join of ``repeats``, and the rates derived."""
         m = self.measurements
         if m is None:
             return
         m.stop(JTOTAL)
         n = self.world.size
-        m.incr(RESULTS, matches)
-        m.incr(RTUPLES, r.size * n)
-        m.incr(STUPLES, s.size * n)
+        m.incr(RESULTS, matches * repeats)
+        m.incr(RTUPLES, r.size * n * repeats)
+        m.incr(STUPLES, s.size * n * repeats)
         if caps is not None:
             xs = self._exchange_stats(*caps)
             m.meta["exchange_plan"] = xs
-            m.record_exchange(n, *caps,
-                              tuple_bytes=8 if r.key_hi is None else 12,
-                              wire_bytes=xs["wire_bytes"],
-                              pack_ratio_pct=xs["pack_ratio_pct"],
-                              stages=xs["stages"])
+            for _ in range(repeats):
+                m.record_exchange(n, *caps,
+                                  tuple_bytes=8 if r.key_hi is None else 12,
+                                  wire_bytes=xs["wire_bytes"],
+                                  pack_ratio_pct=xs["pack_ratio_pct"],
+                                  stages=xs["stages"])
         m.derive_rates()
 
     @classmethod
@@ -435,11 +526,13 @@ class HashJoin:
         return run
 
     def _sort_probe_join(self, r: TupleBatch, s: TupleBatch,
-                         key_bound: Optional[int]) -> JoinResult:
+                         key_bound: Optional[int],
+                         repeats: int = 1) -> JoinResult:
+        """The one-rank sort probe; a reported shortfall (only the
+        ``engine.shuffle_overflow`` fault site gives one: nothing here has
+        a capacity) reruns it, as the JAX retry loop does."""
         cfg = self.config
         m = self.measurements
-        num_p = cfg.network_partition_count
-        fanout = cfg.network_fanout_bits
         route = self._resolve_key_range(r, s, key_bound)
         if m is not None:
             if route != "wide":
@@ -447,7 +540,35 @@ class HashJoin:
             # no sizing pass: the one-rank sort probe has no windows
             m.start(SWINALLOC)
             m.stop(SWINALLOC)
-            m.start(JPROC)
+        for attempt in range(cfg.max_retries + 1 if repeats == 1 else 1):
+            if m is not None:
+                m.start(JPROC)
+            for _ in range(repeats):
+                out = self._sort_probe_attempt(r, s, route)
+            counts, flags = self._sort_probe_flags(s, out)
+            dts = {JPROC: m.stop(JPROC)} if m is not None else {}
+            if repeats == 1:
+                flags = self._inject_shuffle_fault(flags)
+            diag = self._flags_to_diag(flags)
+            if not flags.any() or not self._retryable(diag):
+                break
+            if m is not None and attempt < cfg.max_retries:
+                self._rollback_attempt(m, dts)
+            self._retry_backoff(attempt)
+        # host uint64 sum: a device sum of uint32 counts would wrap at scale
+        matches = int(counts.astype(np.uint64).sum())
+        self._finish(r, s, matches, repeats=repeats)
+        return JoinResult(matches=matches, ok=not flags.any(),
+                          partition_counts=counts,
+                          diagnostics=self._stamp_fault_sites(diag),
+                          retries=attempt)
+
+    def _sort_probe_attempt(self, r: TupleBatch, s: TupleBatch,
+                            route: str) -> torch.Tensor:
+        """One sort probe on the device, read back by nothing: int64
+        [2 + P] of the contract violation, the max weight and the
+        per-partition counts."""
+        fanout = self.config.network_fanout_bits
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
         if route == "wide":
             counts, maxw = merge_count_wide_per_partition(
@@ -459,14 +580,18 @@ class HashJoin:
         else:
             counts, maxw = merge_count_per_partition(
                 r.key, s.key, fanout, return_max_weight=True)
-        # the join's one readback: contract check, max weight, counts
-        host = torch.cat([(~keys_ok).to(torch.int64).reshape(1),
-                          widen(maxw).reshape(1), widen(counts)]).cpu().numpy()
+        return torch.cat([(~keys_ok).to(torch.int64).reshape(1),
+                          widen(maxw).reshape(1), widen(counts)])
+
+    def _sort_probe_flags(self, s: TupleBatch, out: torch.Tensor):
+        """(uint32 counts, the 7 flags) of a sort probe's output: its one
+        readback, and the overflow-risk bound.  The scalar pre-test maxw *
+        |S| < 2**32 clears every realistic workload with no extra pass;
+        only a suspect workload pays the per-partition histogram (K1)."""
+        num_p = self.config.network_partition_count
+        host = out.cpu().numpy()
         keys_bad, maxw = int(host[0]), int(host[1])
         counts = host[2:].astype(np.uint32)
-        # overflow-risk bound: the scalar pre-test maxw * |S| < 2**32
-        # clears every realistic workload with no extra pass; only a
-        # suspect workload pays the per-partition histogram
         scalar_limit = (2**32 - 1) // max(1, s.size)
         if maxw > scalar_limit:
             s_pid = torch.bitwise_and(s.key, num_p - 1)
@@ -475,53 +600,66 @@ class HashJoin:
                 maxw, s_hist.cpu().numpy().view(np.uint32))
         else:
             count_risk = False
-        if m is not None:
-            m.stop(JPROC)
-        flags = np.array([keys_bad, 0, 0, 0, 0, 0, int(count_risk)],
-                         dtype=np.uint32)
-        diag = self._flags_to_diag(flags)
-        # host uint64 sum: a device sum of uint32 counts would wrap at scale
-        matches = int(counts.astype(np.uint64).sum())
-        self._finish(r, s, matches)
-        return JoinResult(matches=matches, ok=not flags.any(),
-                          partition_counts=counts, diagnostics=diag)
+        return counts, np.array([keys_bad, 0, 0, 0, 0, 0, int(count_risk)],
+                                dtype=np.uint32)
 
     # ------------------------------------------------------ generic body
-    def _shuffled_join(self, r: TupleBatch, s: TupleBatch,
-                       key_bound: Optional[int]) -> JoinResult:
-        """The retry loop around :meth:`_shuffled_attempt`
-        (``_join_arrays_inner``, hash_join.py:1912-1948): a capacity
-        shortfall doubles only what fell short — ``cap_r``, ``cap_s``, the
-        local slack or the skew split's ``hot_cap`` — backs off
-        (:meth:`_retry_backoff`) and reruns the attempt.  The flags are
-        summed over the ranks, so every rank retries or stops together."""
-        cfg = self.config
+    def _sized(self, r: TupleBatch, s: TupleBatch):
+        """(plan, cap_r, cap_s, skew): the sizing pass under its timers,
+        SWINALLOC and, with measured windows, JHIST, both stopped at the
+        sizing readback, which has fenced the pass."""
         m = self.measurements
-        route = (self._resolve_key_range(r, s, key_bound) if cfg.sort_probe
-                 else None)
-        measured = cfg.window_sizing == "measured"
+        measured = self.config.window_sizing == "measured"
         if m is not None:
-            if route in ("narrow", "full"):
-                m.meta["key_range"] = route
             m.start(SWINALLOC)
             if measured:
                 m.start(JHIST)
         plan = self._shuffle_plan(r, s)
         cap_r, cap_s, skew = self._measure_capacities(r, s, plan)
         if m is not None:
-            # the sizing readback has fenced the sizing pass
             if measured:
                 m.stop(JHIST)
             m.stop(SWINALLOC)
+        return plan, cap_r, cap_s, skew
+
+    def _shuffled_join(self, r: TupleBatch, s: TupleBatch,
+                       key_bound: Optional[int],
+                       repeats: int = 1) -> JoinResult:
+        """The retry loop around :meth:`_shuffled_attempt`
+        (``_join_arrays_inner``, hash_join.py:1912-1948): a capacity
+        shortfall doubles only what fell short — ``cap_r``, ``cap_s``, the
+        local slack or the skew split's ``hot_cap`` — backs off
+        (:meth:`_retry_backoff`) and reruns the attempt.  The flags are
+        summed over the ranks, so every rank retries or stops together.
+        ``repeats > 1`` runs that many attempts and no retry loop."""
+        cfg = self.config
+        m = self.measurements
+        route = (self._resolve_key_range(r, s, key_bound) if cfg.sort_probe
+                 else None)
+        if m is not None and route in ("narrow", "full"):
+            m.meta["key_range"] = route
+        plan, cap_r, cap_s, skew = self._sized(r, s)
+        caps = (cap_r, cap_s)
+        if m is not None:
             xs = self._exchange_stats(cap_r, cap_s)
             m.meta["exchange_plan"] = xs
             m.counters[PACKRATIO] = int(round(xs["pack_ratio_pct"]))
             m.counters[XSTAGES] = int(xs["stages"])
+        if repeats > 1:
+            counts, flags, _ = self._shuffled_attempt(
+                r, s, plan, route, cap_r, cap_s, 1, skew, repeats)
+            diag = self._flags_to_diag(flags)
+            matches = int(counts.astype(np.uint64).sum())
+            self._finish(r, s, matches, caps, repeats)
+            return JoinResult(matches=matches, ok=not flags.any(),
+                              partition_counts=counts,
+                              diagnostics=self._stamp_fault_sites(diag))
         local_slack = 1
         for attempt in range(cfg.max_retries + 1):
             counts, flags, dts = self._shuffled_attempt(
                 r, s, plan, route, cap_r, cap_s, local_slack, skew)
             caps = (cap_r, cap_s)   # the attempt the result comes from
+            flags = self._inject_shuffle_fault(flags)
             diag = self._flags_to_diag(flags)
             if not flags.any() or not self._retryable(diag):
                 break
@@ -544,7 +682,8 @@ class HashJoin:
         matches = int(counts.astype(np.uint64).sum())
         self._finish(r, s, matches, caps)
         return JoinResult(matches=matches, ok=not flags.any(),
-                          partition_counts=counts, diagnostics=diag,
+                          partition_counts=counts,
+                          diagnostics=self._stamp_fault_sites(diag),
                           retries=attempt)
 
     def _retry_backoff(self, attempt: int) -> None:
@@ -592,7 +731,8 @@ class HashJoin:
         ``degraded="chunked"``; an error of the count is reported in
         ``fallback_error``, never raised."""
         m = self.measurements
-        diag = dict(diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked")
+        diag = self._stamp_fault_sites(dict(
+            diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked"))
         r, s = self._whole(r), self._whole(s)
         slab = min(FALLBACK_SLAB, s.size)
         try:
@@ -847,7 +987,18 @@ class HashJoin:
                 cfg.bucket_capacity(n * cap_s, nb) * local_slack)
 
     @staticmethod
-    def _concat_hot_valid(batch: TupleBatch, valid: torch.Tensor,
+    def _concat_hot(batch: TupleBatch,
+                    hot_batch: Optional[TupleBatch]) -> TupleBatch:
+        """``batch`` with the replicated hot inner side appended
+        (``_concat_hot``, hash_join.py:349); no-op without a skew plan."""
+        if hot_batch is None:
+            return batch
+        return TupleBatch(*(None if lane is None
+                            else torch.cat([lane, hot_lane])
+                            for lane, hot_lane in zip(batch, hot_batch)))
+
+    @classmethod
+    def _concat_hot_valid(cls, batch: TupleBatch, valid: torch.Tensor,
                           hot_batch: Optional[TupleBatch]):
         """(batch + hot, valid + hot valid) for the second radix pass
         (``_concat_hot_valid``, hash_join.py:349-371): the hot block's pad
@@ -855,9 +1006,7 @@ class HashJoin:
         test.  No-op without a skew plan."""
         if hot_batch is None:
             return batch, valid
-        return (TupleBatch(*(None if lane is None
-                             else torch.cat([lane, hot_lane])
-                             for lane, hot_lane in zip(batch, hot_batch))),
+        return (cls._concat_hot(batch, hot_batch),
                 torch.cat([valid, valid_mask(hot_batch, "inner")]))
 
     @staticmethod
@@ -1000,21 +1149,8 @@ class HashJoin:
             dts[BPPROBE] = dts[JPROC]
         return counts, lr.overflow + ls.overflow, risk
 
-    def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
-                          plan: ShufflePlan, route: Optional[str], cap_r: int,
-                          cap_s: int, local_slack: int,
-                          skew: Optional[SkewPlan] = None):
-        """One attempt at the given capacities (and the skew split's
-        ``hot_cap``): (per-rank per-partition uint32 counts [N * P] in rank
-        order, uint32 [7] flags summed over the ranks, both from one
-        readback; the phase times it recorded).  By default JPROC spans the
-        attempt and ends at the readback; with ``measure_phases`` the
-        shuffle is JMPI and local processing is fenced into its phases
-        (:meth:`_split_local`).  Flag slot 5 is the split's hot inner
-        overflow."""
-        m = self.measurements
-        split = m is not None and self.config.measure_phases
-        dts = {}
+    def _check_receive(self, cap_r: int, cap_s: int,
+                       skew: Optional[SkewPlan]) -> None:
         n = self.world.size
         hot_cap = 0 if skew is None else skew.hot_cap
         if n * (cap_r + cap_s + hot_cap) >= 1 << 31:
@@ -1022,8 +1158,45 @@ class HashJoin:
                 f"the receive buffers hold {n} * ({cap_r} + {cap_s} + "
                 f"{hot_cap}) positions; the joins count positions in 32 "
                 "bits")
+
+    def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
+                          plan: ShufflePlan, route: Optional[str], cap_r: int,
+                          cap_s: int, local_slack: int,
+                          skew: Optional[SkewPlan] = None, repeats: int = 1):
+        """One attempt at the given capacities (and the skew split's
+        ``hot_cap``), or ``repeats`` of them with no readback between them:
+        (per-rank per-partition uint32 counts [N * P] in rank order, uint32
+        [7] flags summed over the ranks, both from the last attempt's one
+        readback; the phase times it recorded).  By default JPROC spans the
+        attempts and ends at the readback; with ``measure_phases`` the
+        shuffle is JMPI and local processing is fenced into its phases
+        (:meth:`_split_local`).  Flag slot 5 is the split's hot inner
+        overflow."""
+        m = self.measurements
+        split = m is not None and self.config.measure_phases
+        dts = {}
+        self._check_receive(cap_r, cap_s, skew)
         if m is not None:
             m.start(JMPI if split else JPROC)
+        for _ in range(repeats):
+            out = self._attempt_on_device(r, s, plan, route, cap_r, cap_s,
+                                          local_slack, skew, dts)
+        host = out.cpu().numpy()
+        if m is not None and not split:
+            dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
+        return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
+                (host[:7] & 0xFFFFFFFF).astype(np.uint32), dts)
+
+    def _attempt_on_device(self, r: TupleBatch, s: TupleBatch,
+                           plan: ShufflePlan, route: Optional[str],
+                           cap_r: int, cap_s: int, local_slack: int,
+                           skew: Optional[SkewPlan], dts: dict
+                           ) -> torch.Tensor:
+        """An attempt's work up to its readback: int64 [7 + N * P], the
+        flags summed over the ranks and the gathered counts.  Under
+        ``measure_phases`` its phases are fenced and timed into ``dts``."""
+        m = self.measurements
+        split = m is not None and self.config.measure_phases
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
         sh = self._shuffle(r, s, plan, Window(self.world, cap_r, "inner"),
                            Window(self.world, cap_s, "outer"), skew)
@@ -1053,25 +1226,130 @@ class HashJoin:
         flags = torch.stack([summed[0], sh.lost_r, sh.lost_s, summed[1],
                              summed[2], hot_overflow, summed[3]])
         gathered = self.world.all_gather(counts).reshape(-1)
-        host = torch.cat([flags, widen(gathered)]).cpu().numpy()
+        return torch.cat([flags, widen(gathered)])
+
+    # ------------------------------------------------- materializing join
+    def _materialize_join(self, r: TupleBatch,
+                          s: TupleBatch) -> MaterializedJoinResult:
+        """The retry loop of the materializing join
+        (``join_materialize_arrays``, hash_join.py:2737-2823)."""
+        cfg = self.config
+        m = self.measurements
+        plan, cap_r, cap_s, skew = self._sized(r, s)
+        rate_cap = cfg.match_rate_cap
+        for attempt in range(cfg.max_retries + 1):
+            mm, flags, dts = self._materialize_attempt(
+                r, s, plan, cap_r, cap_s, rate_cap, skew)
+            caps = (cap_r, cap_s)   # the attempt the result comes from
+            flags = self._inject_shuffle_fault(flags)
+            diag = self._flags_to_diag(flags)
+            if not flags.any() or not self._retryable(diag):
+                break
+            if diag["shuffle_overflow_r_tuples"]:
+                cap_r *= 2
+            if diag["shuffle_overflow_s_tuples"]:
+                cap_s *= 2
+            if diag["local_overflow"]:   # the match cap fell short
+                rate_cap *= 2
+            if diag["hot_overflow"]:
+                skew = skew._replace(hot_cap=2 * skew.hot_cap)
+            if m is not None and attempt < cfg.max_retries:
+                self._rollback_attempt(m, dts)
+        r_rid, s_rid = self._gather_pairs(mm)
+        self._finish(r, s, r_rid.size, caps)
+        return MaterializedJoinResult(
+            r_rid=r_rid, s_rid=s_rid, matches=int(r_rid.size),
+            ok=not flags.any(), diagnostics=self._stamp_fault_sites(diag),
+            retries=attempt)
+
+    def _materialize_attempt(self, r: TupleBatch, s: TupleBatch,
+                             plan: ShufflePlan, cap_r: int, cap_s: int,
+                             rate_cap: int, skew: Optional[SkewPlan]):
+        """One materializing attempt (``_materialize_fn``, hash_join.py:
+        1308-1352): the exchange, then the materializing probe of the
+        receive buffers (the hot inner side appended to the inner one), and
+        one readback of the six flags.  The pairs stay on the device.
+        Returns (MaterializedMatches, uint32 [6] flags summed over the
+        ranks, the phase times).  JPROC spans the attempt; with
+        ``measure_phases`` the exchange is JMPI (SNETCOMPL nested) and
+        JPROC the probe (``_run_split_materialize``, :900-926)."""
+        cfg = self.config
+        m = self.measurements
+        split = m is not None and cfg.measure_phases
+        dts = {}
+        self._check_receive(cap_r, cap_s, skew)
+        if m is not None:
+            m.start(JMPI if split else JPROC)
+        keys_ok = self._keys_in_contract(r, s, False)
+        sh = self._shuffle(r, s, plan, Window(self.world, cap_r, "inner"),
+                           Window(self.world, cap_s, "outer"), skew)
+        if split:
+            shuffled = (sh.rp.batch, sh.sp.batch, sh.lost_r, sh.lost_s,
+                        sh.bad, keys_ok, sh.hot_batch)
+            m.start(SNETCOMPL)
+            dts[SNETCOMPL] = m.stop(SNETCOMPL, fence=shuffled)
+            dts[JMPI] = m.stop(JMPI, fence=shuffled)
+            m.start(JPROC)
+        inner = _as_compressed(self._concat_hot(sh.rp.batch, sh.hot_batch))
+        outer = _as_compressed(sh.sp.batch)
+        if cfg.chunk_size:
+            mm = probe_materialize_chunked(inner, outer, rate_cap,
+                                           cfg.chunk_size)
+        else:
+            mm = probe_materialize(inner, outer, rate_cap)
+        if split:
+            dts[JPROC] = m.stop(JPROC, fence=mm)
+        summed = self.world.all_reduce(torch.stack([
+            (~keys_ok).to(torch.int64), sh.bad, mm.overflow]))
+        hot_overflow = (torch.zeros((), dtype=torch.int64,
+                                    device=summed.device)
+                        if sh.hot_overflow is None else sh.hot_overflow)
+        host = torch.stack([summed[0], sh.lost_r, sh.lost_s, summed[1],
+                            summed[2], hot_overflow]).cpu().numpy()
         if m is not None and not split:
             dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
-        return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
-                (host[:7] & 0xFFFFFFFF).astype(np.uint32), dts)
+        return mm, (host & 0xFFFFFFFF).astype(np.uint32), dts
+
+    def _gather_pairs(self, mm: MaterializedMatches):
+        """(r_rid, s_rid), uint32 numpy arrays of every rank's valid pairs,
+        rank-major and in row order within a rank.  The pairs are
+        compacted on the device, so only they are read back.  Over several
+        ranks two collectives: the ranks' pair counts, then the two lanes
+        of every rank in one [2, most] block."""
+        pairs = torch.stack([torch.masked_select(mm.r_rid, mm.valid),
+                             torch.masked_select(mm.s_rid, mm.valid)])
+        if self.world.size > 1:
+            counts = self.world.all_gather(torch.tensor(
+                [pairs.shape[1]], dtype=torch.int64,
+                device=pairs.device)).reshape(-1).tolist()
+            block = pairs.new_zeros((2, max(counts)))
+            block[:, :pairs.shape[1]] = pairs
+            blocks = self.world.all_gather(block)
+            pairs = torch.cat([b[:, :c] for b, c in zip(blocks, counts)],
+                              dim=1)
+        return lane_to_numpy(pairs[0]), lane_to_numpy(pairs[1])
 
     def place(self, rel: Relation) -> TupleBatch:
-        """Generate this rank's shard of a relation on the engine's
-        device."""
+        """This rank's shard of a relation on the engine's device:
+        generated there, or with ``generation="host"`` generated by numpy
+        (``Relation.shard_np``) and copied there (``place``,
+        hash_join.py:2838-2891); the same bits either way."""
         if rel.num_nodes != self.config.num_nodes:
             raise ValueError("relation num_nodes must match config.num_nodes")
         if rel.key_bits != self.config.key_bits:
             raise ValueError(
                 f"config.key_bits={self.config.key_bits} but the relation "
                 f"generates {rel.key_bits}-bit keys")
-        batch = rel.shard(self.world.rank, self.device)
+        if self.config.generation == "host":
+            lanes = [lane_from_numpy(a, self.device)
+                     for a in rel.shard_np(self.world.rank)]
+            batch = TupleBatch(key=lanes[0], rid=lanes[-1],
+                               key_hi=lanes[1] if len(lanes) == 3 else None)
+        else:
+            batch = rel.shard(self.world.rank, self.device)
         if self.device.type == "cuda":
-            # generation is asynchronous: it must not finish inside a
-            # later join's timers
+            # generation and copies are asynchronous: they must not finish
+            # inside a later join's timers
             torch.cuda.synchronize(self.device)
         return batch
 
@@ -1081,3 +1359,10 @@ class HashJoin:
         return self.join_arrays(
             self.place(inner), self.place(outer),
             key_bound=max(inner.key_bound(), outer.key_bound()))
+
+    def join_materialize(self, inner: Relation,
+                         outer: Relation) -> MaterializedJoinResult:
+        """The matching rid pairs of two relation specs
+        (:meth:`join_materialize_arrays`)."""
+        return self.join_materialize_arrays(self.place(inner),
+                                            self.place(outer))

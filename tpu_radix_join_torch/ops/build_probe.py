@@ -1,10 +1,32 @@
-"""Bucketized build/probe of the partitioned join, and the chunked probe.
+"""Build/probe: the bucketized probe, the chunked probe, ``probe_count``
+and the materializing probes.
 
-Counterpart of the counting half of ``tpu_radix_join/ops/build_probe.py``
-(``DENSE_BUCKET_LIMIT``, ``probe_count_bucketized``, ``bucket_rows_sort``,
-``bucket_rows_count``, ``probe_count_bucketized_merge``,
-``_per_partition_counts``, ``probe_count_per_partition``,
-``probe_count_chunked``).
+Counterpart of ``tpu_radix_join/ops/build_probe.py`` (``DENSE_BUCKET_LIMIT``,
+``probe_count_bucketized``, ``bucket_rows_sort``, ``bucket_rows_count``,
+``probe_count_bucketized_merge``, ``_per_partition_counts``,
+``probe_count_per_partition``, ``probe_count_chunked``, ``_probe_bounds``,
+``_wide_union_scan``, ``probe_count``, ``MaterializedMatches``,
+``probe_materialize``, ``_materialize_rows_narrow``,
+``probe_materialize_chunked``).
+
+**The materializing probes** (the reference's ``probe_match_rate``,
+kernels.cu:314-411): each outer tuple emits up to ``cap`` (r_rid, s_rid)
+pairs into a static [rows, cap] buffer with a validity mask, and the tuples
+whose match count passes ``cap`` are counted as the overflow.  Narrow keys
+sort the inner side once on K2 (key and rid) and find each outer key's
+run with two ``torch.searchsorted`` (bit 31 flipped on both sides, so
+full-range keys are found; ``merge_count.search_bounds``); the pairs are
+then a gather ``r_rid_sorted[lo + k]`` for k < cap, plain PyTorch as it was
+plain XLA.  64-bit keys take the union scan (:func:`_wide_union_scan`):
+one K2 sort of the (hi, lo) union, the side tag and one carried lane
+riding (K2 is stable and the union is built ``[R..., S...]``, so every
+run's inner tuples come first without a digit pass for the tag, and four
+lanes are K2's limit), then a cumsum gives each outer position its run's
+inner ranks ``[base, c_r)``; the run's base is read at its start through
+the run ids (a cumsum), not by ``cummax``.  The s_rid lane is the outer
+rid ``expand``ed over the cap, a view: the caller compacts the valid pairs
+(``torch.masked_select``) without copying it.  The JAX function returns
+flat lanes; here ``.reshape(-1)`` of the [rows, cap] lanes is that layout.
 
 **The chunked probe** (``JoinConfig.chunk_size``, the reference's
 large-data probe, kernels.cu:778-856): the outer side streams in slabs
@@ -43,16 +65,18 @@ is gone.
 from __future__ import annotations
 
 import itertools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from tpu_radix_join_torch.data.tuples import (CompressedBatch, narrow,
-                                              pad_sentinel, widen)
+from tpu_radix_join_torch.data.tuples import (PAD_RID, CompressedBatch,
+                                              narrow, pad_sentinel, widen)
 from tpu_radix_join_torch.ops.kernels.histogram import histogram
 from tpu_radix_join_torch.ops.merge_count import (
-    merge_count_wide_per_partition, presorted_weights)
-from tpu_radix_join_torch.ops.sorting import (sort_lex_rows_unstable,
+    merge_count_wide_per_partition, presorted_weights, search_bounds)
+from tpu_radix_join_torch.ops.sorting import (sort_kv_unstable,
+                                              sort_lex_rows_unstable,
+                                              sort_lex_unstable,
                                               sort_unstable)
 
 # Above this per-bucket slot count the O(bi * bo) dense compare loses to
@@ -256,3 +280,166 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
     if return_max_weight:
         return counts, narrow(torch.stack([widen(w) for _, w in parts]).max())
     return counts
+
+
+# ---------------------------------------------------------------- probes
+def _probe_bounds(r_keys: torch.Tensor, s_keys: torch.Tensor):
+    """(inner lane sorted on K2, lower bounds, upper bounds) of each outer
+    key."""
+    r_sorted = sort_unstable(r_keys)
+    lo, hi = search_bounds(r_sorted, s_keys)
+    return r_sorted, lo, hi
+
+
+def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
+                     *carried: torch.Tensor):
+    """The rank-space scan of the (hi, lo) union: the 64-bit keys'
+    replacement for ``searchsorted``.  One K2 sort of (hi, lo) with the side
+    tag and at most one ``carried`` lane ([n_outer], the inner slots filled
+    with ``PAD_RID``) riding; then at every outer position ``[base, c_r)``
+    is its run's range in the inner side sorted alone.  Returns (tag, base,
+    c_r, *carried sorted): int32 lanes of the union's length, the tag 1 at
+    outer positions."""
+    if len(carried) > 1:
+        raise ValueError("K2 moves four lanes: one carried lane at most")
+    n_r, dev = inner.size, inner.key_rem.device
+    hi = torch.cat([inner.key_rem_hi, outer.key_rem_hi])
+    lo = torch.cat([inner.key_rem, outer.key_rem])
+    tag = torch.cat([torch.zeros(n_r, dtype=torch.int32, device=dev),
+                     torch.ones(outer.size, dtype=torch.int32, device=dev)])
+    pad = torch.full((n_r,), narrow(torch.tensor(PAD_RID)).item(),
+                     dtype=torch.int32, device=dev)
+    hi, lo, tag, *carried_sorted = sort_lex_unstable(
+        hi, lo, tag, *(torch.cat([pad, c]) for c in carried), num_keys=2)
+    run_start = torch.ones(lo.numel(), dtype=torch.bool, device=dev)
+    run_start[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    is_r = 1 - tag
+    c_r = torch.cumsum(is_r, 0, dtype=torch.int32)
+    # each run's base, the inner tuples before it, read at its start
+    run_id = torch.cumsum(run_start, 0) - 1
+    base = (c_r - is_r)[run_start][run_id]
+    return (tag, base, c_r, *carried_sorted)
+
+
+def probe_count(inner: CompressedBatch, outer: CompressedBatch
+                ) -> torch.Tensor:
+    """Exact number of matching (r, s) pairs, duplicates on both sides
+    included, as a 0-d int32 holding the uint32 count (mod 2**32, as the
+    JAX function's uint32 sum).  64-bit keys take the union scan."""
+    if inner.key_rem_hi is not None:
+        tag, base, c_r = _wide_union_scan(inner, outer)
+        return narrow((tag * (c_r - base)).to(torch.int64).sum())
+    _, lo, hi = _probe_bounds(inner.key_rem, outer.key_rem)
+    return narrow((hi - lo).to(torch.int64).sum())
+
+
+class MaterializedMatches(NamedTuple):
+    r_rid: torch.Tensor      # int32 [rows, cap]: inner rids (uint32 bits)
+    s_rid: torch.Tensor      # int32 [rows, cap]: outer rids (an expand view)
+    valid: torch.Tensor      # bool  [rows, cap]
+    overflow: torch.Tensor   # 0-d int64: outer tuples with more than cap
+
+
+def _rows(r_rid_sorted: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+          cap: int, outer: Optional[torch.Tensor] = None):
+    """The pair rows of outer positions whose matches are the sorted inner
+    ranks ``[lo, hi)``: (r_rid, valid, overflow) as in
+    :class:`MaterializedMatches`; ``outer`` masks the rows that emit."""
+    k = torch.arange(cap, dtype=torch.int32, device=lo.device)[None, :]
+    idx = lo[:, None] + k
+    valid = idx < hi[:, None]
+    over = (hi - lo) > cap
+    if outer is not None:
+        valid &= outer[:, None]
+        over &= outer
+    n_r = r_rid_sorted.numel()
+    if n_r:
+        r_rid = r_rid_sorted[torch.clamp(idx, max=n_r - 1)]
+    else:
+        r_rid = torch.zeros_like(idx)
+    return r_rid, valid, over.sum()
+
+
+def _materialize_rows_narrow(r_sorted: torch.Tensor,
+                             r_rid_sorted: torch.Tensor,
+                             outer_keys: torch.Tensor,
+                             outer_rids: torch.Tensor, cap: int):
+    """The narrow materialization against an inner side already sorted
+    (key and rid): ([n, cap] r_rid, [n, cap] s_rid, [n, cap] valid,
+    overflow), shared by the resident probe and each slab of the chunked
+    one."""
+    lo, hi = search_bounds(r_sorted, outer_keys)
+    r_rid, valid, overflow = _rows(r_rid_sorted, lo, hi, cap)
+    return r_rid, outer_rids[:, None].expand(-1, cap), valid, overflow
+
+
+def probe_materialize(inner: CompressedBatch, outer: CompressedBatch,
+                      cap: int) -> MaterializedMatches:
+    """Matching rid pairs, up to ``cap`` an outer tuple, and the overflow.
+    Narrow keys: [n_outer, cap] rows.  64-bit keys: [n_inner + n_outer,
+    cap] rows in the union's sorted order, the inner positions all
+    invalid (the JAX layout)."""
+    if inner.key_rem_hi is not None:
+        _, _, r_rid_sorted = sort_lex_unstable(
+            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2)
+        tag, base, c_r, s_rid_sorted = _wide_union_scan(inner, outer,
+                                                        outer.rid)
+        r_rid, valid, overflow = _rows(r_rid_sorted, base, c_r, cap,
+                                       tag == 1)
+        return MaterializedMatches(
+            r_rid, s_rid_sorted[:, None].expand(-1, cap), valid, overflow)
+    r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid)
+    return MaterializedMatches(*_materialize_rows_narrow(
+        r_sorted, r_rid_sorted, outer.key_rem, outer.rid, cap))
+
+
+def probe_materialize_chunked(inner: CompressedBatch, outer: CompressedBatch,
+                              cap: int, slab_size: int
+                              ) -> MaterializedMatches:
+    """:func:`probe_materialize` with the outer side streamed in
+    ``slab_size`` slabs (the JAX ``lax.scan`` as a loop; the reference's LD
+    output kernels, kernels.cu:778-856): [n_padded, cap] rows, the outer
+    side padded to a slab multiple with the S sentinel (both key lanes)
+    and ``PAD_RID``, which match nothing.  The inner side is sorted once.
+    64-bit keys scan each slab's union with the whole inner side, carrying
+    each outer tuple's slab position, and write its rows back at that
+    position: the result has the narrow layout whatever the slab."""
+    if slab_size < 1:
+        raise ValueError("slab_size must be >= 1")
+    fill = int(narrow(torch.tensor(pad_sentinel("outer"))))
+    rid_fill = int(narrow(torch.tensor(PAD_RID)))
+    dev = outer.key_rem.device
+    n_pad = -(-outer.size // slab_size) * slab_size
+    s_rid = torch.cat([outer.rid, outer.rid.new_full(
+        (n_pad - outer.size,), rid_fill)])
+    r_rid = torch.empty((n_pad, cap), dtype=torch.int32, device=dev)
+    valid = torch.empty((n_pad, cap), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    wide = inner.key_rem_hi is not None
+    if wide:
+        _, _, r_rid_sorted = sort_lex_unstable(
+            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2)
+        pos_lane = torch.arange(slab_size, dtype=torch.int32, device=dev)
+        hi_slabs = _slabs(outer.key_rem_hi, slab_size, fill)
+    else:
+        r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid)
+        hi_slabs = itertools.repeat(None)
+    for off, lo, hi in zip(range(0, n_pad, slab_size),
+                           _slabs(outer.key_rem, slab_size, fill), hi_slabs):
+        rids = s_rid[off:off + slab_size]
+        if wide:
+            tag, base, c_r, pos = _wide_union_scan(
+                inner, CompressedBatch(lo, rids, hi), pos_lane)
+            outer_rows = tag == 1
+            rows_r, rows_v, ovf = _rows(r_rid_sorted, base[outer_rows],
+                                        c_r[outer_rows], cap)
+            at = pos[outer_rows].to(torch.int64) + off
+            r_rid[at], valid[at] = rows_r, rows_v
+        else:
+            rows_r, _, rows_v, ovf = _materialize_rows_narrow(
+                r_sorted, r_rid_sorted, lo, rids, cap)
+            r_rid[off:off + slab_size] = rows_r
+            valid[off:off + slab_size] = rows_v
+        overflow += ovf
+    return MaterializedMatches(r_rid, s_rid[:, None].expand(-1, cap), valid,
+                               overflow)

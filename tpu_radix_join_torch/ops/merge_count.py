@@ -87,19 +87,28 @@ def presort_keys(keys: torch.Tensor) -> torch.Tensor:
     return sort_unstable(keys)
 
 
-def presorted_weights(r_sorted: torch.Tensor, s_keys: torch.Tensor
-                      ) -> torch.Tensor:
-    """Each outer key's match weight, ``upper_bound - lower_bound`` over an
-    already sorted inner lane (:func:`presort_keys`): an int32 tensor of
-    ``s_keys``' shape.  The lanes hold uint32 bits and K2 sorts them
-    unsigned, while ``torch.searchsorted`` compares int32 signed: flipping
-    bit 31 of both sides makes the signed order the unsigned one, so keys
-    >= 2**31 are found."""
+def search_bounds(r_sorted: torch.Tensor, s_keys: torch.Tensor):
+    """``(lower, upper)``: each outer key's lower and upper bound in an
+    already sorted inner lane (:func:`presort_keys`), int32 tensors of
+    ``s_keys``' shape; [rows, width] lanes search row by row.  The lanes
+    hold uint32 bits and K2 sorts them unsigned, while
+    ``torch.searchsorted`` compares int32 signed: flipping bit 31 of both
+    sides makes the signed order the unsigned one, so keys >= 2**31 are
+    found."""
     flip = -(1 << 31)
     r_flipped = torch.bitwise_xor(r_sorted, flip)
     s_flipped = torch.bitwise_xor(s_keys, flip)
     lb = torch.searchsorted(r_flipped, s_flipped, out_int32=True)
     ub = torch.searchsorted(r_flipped, s_flipped, right=True, out_int32=True)
+    return lb, ub
+
+
+def presorted_weights(r_sorted: torch.Tensor, s_keys: torch.Tensor
+                      ) -> torch.Tensor:
+    """Each outer key's match weight, ``upper_bound - lower_bound`` over an
+    already sorted inner lane (:func:`search_bounds`): an int32 tensor of
+    ``s_keys``' shape."""
+    lb, ub = search_bounds(r_sorted, s_keys)
     return ub - lb
 
 

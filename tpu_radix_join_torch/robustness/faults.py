@@ -1,8 +1,9 @@
 """Seeded, deterministic fault injection at named sites.
 
 The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
-(``:95-251``) with the sites the out-of-core grid, the chunk stream, the checkpoints and
-the process-group connect (``parallel/multihost.initialize``) consult.  An armed :class:`FaultInjector` decides from its seed
+(``:95-251``) with the sites the out-of-core grid, the chunk stream, the
+checkpoints, the process-group connect (``parallel/multihost.initialize``)
+and the join engine's retry loops (``engine.shuffle_overflow``) consult.  An armed :class:`FaultInjector` decides from its seed
 whether a site fires on each hit; a fired site raises (a simulated kill or
 transient error) or tells its caller to damage its own state (a sentinel
 key in a streamed lane)::
@@ -33,9 +34,10 @@ STREAM_CORRUPT = "stream.corrupt_lane"     # sentinel-damaged key lane
 CKPT_SAVE = "checkpoint.save"              # checkpoint write I/O error
 CKPT_LOAD = "checkpoint.load"              # checkpoint read I/O error
 COORD_CONNECT = "multihost.coordinator_connect"   # process-group connect
+SHUFFLE_OVERFLOW = "engine.shuffle_overflow"   # a reported outer shortfall
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
-         COORD_CONNECT)
+         COORD_CONNECT, SHUFFLE_OVERFLOW)
 
 
 class InjectedFault(RuntimeError):
@@ -131,6 +133,12 @@ class FaultInjector:
         if isinstance(exc, type) and issubclass(exc, InjectedFault):
             raise exc(site, arm.hits)
         raise exc(f"injected fault at {site!r} (hit {arm.hits})")
+
+    def site_stats(self) -> Dict[str, Dict[str, int]]:
+        """``{site: {"hits": n, "fired": n}}`` of every armed site: what a
+        join stamps into ``diagnostics["fault_sites"]``."""
+        return {site: {"hits": arm.hits, "fired": arm.fired}
+                for site, arm in self._arms.items()}
 
     def hits(self, site: str) -> int:
         arm = self._arms.get(site)

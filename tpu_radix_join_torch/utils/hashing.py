@@ -2,11 +2,13 @@
 
 Bit-identical to ``tpu_radix_join/utils/hashing.py::mix32_np`` and its
 device twin; the port's Zipf sampler draws through it.  Values travel as
-int64 tensors holding uint32 values in [0, 2**32).
+int64 tensors holding uint32 values in [0, 2**32); :func:`mix32_np` is the
+numpy twin the host generators (``Relation.fill_np``) draw through.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M1 = 0x7FEB352D
@@ -33,3 +35,14 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = mul32(x, _M2)
     return x ^ (x >> 16)
+
+
+def mix32_np(x: np.ndarray) -> np.ndarray:
+    """Bijective uint32 mix of a numpy array (the twin of :func:`mix32`)."""
+    x = np.asarray(x).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(_M1)
+        x = x ^ (x >> np.uint32(15))
+        x = x * np.uint32(_M2)
+        return x ^ (x >> np.uint32(16))
