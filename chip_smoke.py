@@ -134,6 +134,28 @@ the materializing join (ROADMAP A12) and the command-line knobs (A20):
        ``--generation host`` and ``--pipeline-repeats --repeat 3``: exit 0
        and the oracle's count.
 
+Cell (r), on the same group (phase_r): the packed wire codec, the
+staged exchange's neighbours and integrity verification (ROADMAP A13,
+A15):
+
+  (r1) the grouped scatter (K4's grouped mode: rank * 32 + pid into 128
+       groups, 32 a block) of rank 0's shard of the unique 4-rank
+       relation into four blocks of 2**23 slots, the capacity phase (p)'s
+       20M-a-rank join sizes, then ``pack_blocks`` and ``unpack_blocks``
+       on the card, narrow and 64-bit, under the measured key bound and
+       under none: the words equal the CPU's bit for bit, and the round
+       trip is exact; the pack's and the unpack's times;
+  (r2) ``segmented_xor_fold`` and ``device_partition_checksums`` at 20M
+       against the same calls on the CPU;
+  (r3) (n1)'s bucket join with ``verify="check"``: clean (VCHKN 4), with
+       ``exchange.corrupt_lane`` armed once (``ok`` false, one damaged
+       partition), and with ``verify="repair"`` armed once (the oracle
+       count, VREPAIR 1, the whole join recomputed); VCHK beside JTOTAL,
+       and JTOTAL unverified.
+
+K4's grouped call is also held against its plain version at the 4-rank
+exchange's 20M ids, at 2**23 slots a block and clipped at 2**22.
+
 Phase (p), the skew split and the hierarchical exchange (phase_p): four
 rank processes of one gloo group on this one card
 (``multihost.initialize(device="cuda", backend="gloo")``, ``file://``
@@ -157,7 +179,17 @@ domain, generated on the card:
   (p5) ``join_materialize_arrays`` under (p1)'s split against the same
        join unsplit: every rank returns all 80M pairs, each outer rid
        once, each pair joining equal keys, and the two pair lists equal
-       (a digest of the pairs ordered by s_rid).
+       (a digest of the pairs ordered by s_rid);
+  (p6) the packed and the staged exchange and verify (A13, A15): the
+       sort probe with ``exchange_codec="pack"``, ``"auto"`` and
+       ``exchange_stages=4`` against (p1) unsplit, ``"pack"`` with the
+       split against (p1), ``num_hosts=2`` with 4 stages against (p4),
+       ``"pack"`` at ``key_bits=64`` against (p3), the split
+       ``join_materialize_arrays`` under ``"pack"`` against (p5)'s pairs,
+       each exactly; and ``verify="repair"`` with ``exchange.corrupt_lane``
+       armed once: the oracle count, one partition repaired.  Each prints
+       ``pack_ratio_pct``, WIREBYTES against MWINBYTES and
+       ``peak_exchange_bytes`` against the fused raw exchange's.
 
 Each case prints every rank's join median of 3, its exchange (JMPI) and
 local probe (JPROC) under ``measure_phases``, and its device busy time.
@@ -193,6 +225,12 @@ O1_CHUNK = 1 << 22
 Q3_CHUNK = 1 << 22
 Q4_TUPLES = 1 << 24
 Q8_EXTRA = ()
+
+
+#: cell (r1)'s packed blocks: the four blocks of the capacity phase (p)'s
+#: unique 20M-a-rank join sizes (5M tuples a destination)
+R1_BLOCKS = 4
+R1_CAPACITY = 1 << 23
 
 
 #: phase (p): four ranks of one gloo group on the one card (hpcjoin's
@@ -1047,9 +1085,226 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
         torch.cuda.empty_cache()
         launches_q = phase_q(dev, n, group, time_ms, device_us, card)
         launches = {k: v + launches_q[k] for k, v in launches.items()}
+        torch.cuda.empty_cache()
+        launches_r = phase_r(dev, n, group, time_ms, card)
+        launches = {k: v + launches_r[k] for k, v in launches.items()}
     finally:
         multihost.shutdown()
     return launches
+
+
+def phase_r(dev, n, group, time_ms, card) -> dict:
+    """Cell (r) on (n)'s process group ``group`` (ROADMAP A13, A15): the
+    packed wire codec (r1) and the checksums (r2) on the card against the
+    same calls on the CPU, and the verified bucket join (r3).  Each main
+    path runs once with the launch counts set to 0; returns their
+    launches."""
+    import contextlib
+    import dataclasses
+    import torch
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.data import tuples as tt
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.radix import scatter_to_blocks_grouped
+    from tpu_radix_join_torch.ops.sorting import segmented_xor_fold
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.robustness.verify import (
+        device_partition_checksums)
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    total = {k: 0 for k in kernels.launch_counts()}
+
+    def main_path(fn, needed, what):
+        """``fn()`` once with the launch counts set to 0: its result; each
+        kernel of ``needed`` must have launched."""
+        sync()
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        for k in needed:
+            if got[k] <= 0:
+                raise AssertionError(f"{what}: kernel {k} did not launch")
+        return out, got
+
+    def same(got, want, what):
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a.cpu(), b.cpu())):
+                raise AssertionError(f"{what}: the card differs from the CPU")
+
+    def on_cpu(b):
+        return tt.TupleBatch(*(None if x is None else x.cpu() for x in b))
+
+    # (r1) the codec at the shape of phase (p)'s exchange: rank 0's shard of
+    # the unique 4-rank relation, grouped by (round-robin rank, pid) into
+    # four blocks of the capacity the 20M-a-rank join sizes (K4's grouped
+    # mode), packed, unpacked
+    codec = {}
+    fanout = JoinConfig().network_fanout_bits
+    for key_bits in (32, 64):
+        rel = Relation(R1_BLOCKS * n, R1_BLOCKS, "unique", seed=1234,
+                       key_bits=key_bits)
+        b = rel.shard(0, dev)
+        pid = tt.partition_ids(b, fanout)
+        dest = torch.remainder(pid, R1_BLOCKS)
+        grouped, launches = main_path(
+            lambda: scatter_to_blocks_grouped(b, dest, pid, R1_BLOCKS,
+                                              1 << fanout, R1_CAPACITY,
+                                              "outer"),
+            ["partition"], f"(r1) grouped scatter, {key_bits}-bit keys")
+        blocks, counts, gcounts, _ = grouped
+        plain = scatter_to_blocks_grouped(on_cpu(b), dest.cpu(), pid.cpu(),
+                                          R1_BLOCKS, 1 << fanout, R1_CAPACITY,
+                                          "outer")
+        same([*blocks, counts, gcounts], [*plain[0], plain[1], plain[2]],
+             f"(r1) grouped scatter, {key_bits}-bit keys")
+        measured = int(tt.umax(b.key)) + 1
+        if b.key_hi is not None:
+            measured = (int(tt.umax(b.key_hi)) << 32) + measured
+        for bound, kb, rb in (("tight", measured, rel.global_size),
+                              ("none", None, None)):
+            spec = tt.make_wire_spec(R1_CAPACITY, fanout,
+                                     wide=key_bits == 64, key_bound=kb,
+                                     rid_bound=rb)
+            words = tt.pack_blocks(spec, blocks, gcounts)
+            same([words], [tt.pack_blocks(spec, on_cpu(blocks),
+                                          gcounts.cpu())],
+                 f"(r1) packed words, {key_bits}-bit keys, bound {bound}")
+            back, got_counts = tt.unpack_blocks(spec, words, "outer")
+            same([*back, got_counts], [*blocks, tt.narrow(torch.clamp(
+                tt.widen(counts), max=R1_CAPACITY))],
+                 f"(r1) round trip, {key_bits}-bit keys, bound {bound}")
+            slots = R1_BLOCKS * R1_CAPACITY
+            lanes = 3 if key_bits == 64 else 2
+            codec[f"{key_bits}_{bound}"] = {
+                "tuple_bits": spec.tuple_bits,
+                "bytes_per_tuple": spec.bytes_per_tuple,
+                "words": words.numel(), "slots": slots,
+                "pack_ms": time_ms(lambda: tt.pack_blocks(spec, blocks,
+                                                          gcounts), 5),
+                "unpack_ms": time_ms(lambda: tt.unpack_blocks(
+                    spec, words, "outer"), 5),
+                # lanes read once and words written once, and the reverse
+                "pack_bound_ms": (4 * lanes * slots + 4 * words.numel())
+                / 3.35e12 * 1e3,
+                "grouped_scatter_ms": time_ms(
+                    lambda: scatter_to_blocks_grouped(
+                        b, dest, pid, R1_BLOCKS, 1 << fanout, R1_CAPACITY,
+                        "outer"), 5)}
+            del words, back
+        codec[f"{key_bits}_launches"] = launches
+        del b, pid, dest, grouped, blocks, plain
+        torch.cuda.empty_cache()
+    emit({"phase": "codec", "cell": "r1", "blocks": R1_BLOCKS,
+          "capacity": R1_CAPACITY, "fanout_bits": fanout, "exact": True,
+          "cases": codec, **card})
+
+    # (r2) the checksums at 20M: a tenth of the slots invalid (the
+    # discard bucket), the key lane folded by partition
+    b = Relation(n, 1, "unique", seed=1234).shard(0, dev)
+    pid = tt.partition_ids(b, fanout)
+    valid = torch.remainder(b.rid, 10) != 0
+    seg = torch.where(valid, pid, 1 << fanout)
+    fold, launches_f = main_path(
+        lambda: segmented_xor_fold(seg, b.key, 1 << fanout),
+        ["radix_histogram", "radix_pass"], "(r2) segmented_xor_fold")
+    same([fold], [segmented_xor_fold(seg.cpu(), b.key.cpu(), 1 << fanout)],
+         "(r2) segmented_xor_fold")
+    sums, launches_c = main_path(
+        lambda: device_partition_checksums(b.key, pid, 1 << fanout,
+                                           valid=valid),
+        ["histogram", "radix_pass"], "(r2) device_partition_checksums")
+    same(sums, device_partition_checksums(b.key.cpu(), pid.cpu(),
+                                          1 << fanout, valid=valid.cpu()),
+         "(r2) device_partition_checksums")
+    emit({"phase": "checksums", "cell": "r2", "elements": n, "exact": True,
+          "xor_fold_ms": time_ms(lambda: segmented_xor_fold(
+              seg, b.key, 1 << fanout), 5),
+          "checksums_ms": time_ms(lambda: device_partition_checksums(
+              b.key, pid, 1 << fanout, valid=valid), 5),
+          "launches": {"xor_fold": launches_f, "checksums": launches_c},
+          **card})
+    del b, pid, valid, seg
+    torch.cuda.empty_cache()
+
+    # (r3) the verified bucket join of (n1): clean, the fault caught, the
+    # fault repaired
+    rels = (Relation(n, 1, "unique", seed=1234),
+            Relation(n, 1, "unique", seed=1235))
+    bound = max(rel.key_bound() for rel in rels)
+    base = JoinConfig(probe_algorithm="bucket")
+    r, s = (HashJoin(base, dev, group=group).place(rel) for rel in rels)
+    verified = {}
+    needed = ["histogram", "partition", "radix_histogram", "radix_pass"]
+    for case, mode, fault in (("clean", "check", False),
+                              ("caught", "check", True),
+                              ("repaired", "repair", True)):
+        meas = Measurements()
+        eng = HashJoin(dataclasses.replace(base, verify=mode), dev,
+                       group=group, measurements=meas)
+        inj = faults.FaultInjector()
+        inj.arm(faults.EXCHANGE_CORRUPT, at=1)
+        with inj if fault else contextlib.nullcontext():
+            res, launches = main_path(
+                lambda: eng.join_arrays(r, s, key_bound=bound),
+                needed + (["merge_scan_chunks"] if mode == "repair" else []),
+                f"(r3) verify={mode}, {case}")
+        diag = res.diagnostics
+        c = meas.counters
+        if case == "clean":
+            good = (res.ok and res.matches == n and c.get("VCHKN") == 4
+                    and not c.get("VFAIL"))
+        elif case == "caught":
+            good = (not res.ok and res.matches < n
+                    and diag["failure_class"] == "data_corruption"
+                    and diag["data_corruption_partitions"] == 1
+                    and c.get("VFAIL") == 1)
+        else:
+            good = (res.ok and res.matches == n
+                    and diag.get("repaired") == "full"
+                    and c.get("VREPAIR") == 1
+                    and diag["failure_class"] == "data_corruption")
+        if not good:
+            raise AssertionError(f"(r3) verify={mode}, {case}: {res}, "
+                                 f"counters {c}")
+        verified[case] = {"matches": res.matches, "ok": res.ok,
+                          "diagnostics": diag, "launches": launches,
+                          "counters": {k: c.get(k) for k in (
+                              "VCHKN", "VFAIL", "VREPAIR")}}
+    # VCHK beside JTOTAL: the median of three verified joins, each with a
+    # fresh registry, and the same join unverified
+    timed = {}
+    for mode in ("off", "check"):
+        runs = []
+        for _ in range(4):
+            meas = Measurements()
+            eng = HashJoin(dataclasses.replace(base, verify=mode), dev,
+                           group=group, measurements=meas)
+            eng.join_arrays(r, s, key_bound=bound)
+            runs.append({k: meas.times_us.get(k, 0.0) / 1e3
+                         for k in ("JTOTAL", "VCHK")})
+        runs = runs[1:]
+        timed[mode] = {k: statistics.median(x[k] for x in runs)
+                       for k in ("JTOTAL", "VCHK")}
+        timed[mode]["runs"] = runs
+    emit({"phase": "verify", "cell": "r3", "workload":
+          "n1_bucket_unique_20M", "cases": verified,
+          "jtotal_ms": timed["check"]["JTOTAL"],
+          "vchk_ms": timed["check"]["VCHK"],
+          "unverified_jtotal_ms": timed["off"]["JTOTAL"],
+          "overhead_share": timed["check"]["JTOTAL"]
+          / timed["off"]["JTOTAL"] - 1, "runs": timed, **card})
+    return total
 
 
 def phase_p_rank(rank: int, world: int, init_method: str,
@@ -1062,6 +1317,7 @@ def phase_p_rank(rank: int, world: int, init_method: str,
     ``measure_phases`` for this rank's exchange (JMPI) and local probe
     (JPROC).  Returns every case's result, plan, launches, collectives and
     times."""
+    import contextlib
     import dataclasses
     import numpy as np
     import torch
@@ -1076,6 +1332,7 @@ def phase_p_rank(rank: int, world: int, init_method: str,
     from tpu_radix_join_torch.parallel.window import Window
     from tpu_radix_join_torch.parallel.world import make_world
     from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
 
     dev = torch.device(spec["device"])
     cuda = dev.type == "cuda"
@@ -1129,7 +1386,20 @@ def phase_p_rank(rank: int, world: int, init_method: str,
         "p4": (JoinConfig(**split, num_hosts=2), (n, 32)),
         "p5": (JoinConfig(**split), (n, 32)),
         "p5_unsplit": (JoinConfig(**base), (n, 32)),
+        # (p6): the packed and the staged exchange and verify (A13, A15)
+        "p6_pack": (JoinConfig(**base, exchange_codec="pack"), (n, 32)),
+        "p6_auto": (JoinConfig(**base, exchange_codec="auto"), (n, 32)),
+        "p6_staged": (JoinConfig(**base, exchange_stages=4), (n, 32)),
+        "p6_pack_split": (JoinConfig(**split, exchange_codec="pack"),
+                          (n, 32)),
+        "p6_hosts_staged": (JoinConfig(**split, num_hosts=2,
+                                       exchange_stages=4), (n, 32)),
+        "p6_materialize_pack": (JoinConfig(**split, exchange_codec="pack"),
+                                (n, 32)),
+        "p6_repair": (JoinConfig(**base, verify="repair"), (n, 32)),
         "p3": (JoinConfig(**split, key_bits=64), (n, 64)),
+        "p6_pack_64": (JoinConfig(**split, key_bits=64,
+                                  exchange_codec="pack"), (n, 64)),
         "p2": (JoinConfig(**dict(split, max_retries=spec["p2_retries"]),
                           two_level=True), (n2, 32)),
     }
@@ -1176,6 +1446,45 @@ def phase_p_rank(rank: int, world: int, init_method: str,
                                                        s_keys)),
             "digest": hashlib.sha1(r_by_s.tobytes()).hexdigest()}
 
+    def p6_case(name, cfg, inner, outer, r, s):
+        """(p6): the case's join once with the launch counts set to 0 (with
+        ``exchange.corrupt_lane`` armed once for the repair), then twice
+        more for the median; its registry's exchange plan and counters.
+        The materializing case adds its pairs' digest (``materialize_case``)."""
+        meas = Measurements(node_id=rank, num_nodes=world)
+        eng = HashJoin(cfg, dev, group=group, measurements=meas)
+        if name == "p6_materialize_pack":
+            case = materialize_case(cfg, inner, outer, r, s)
+            eng.join_materialize_arrays(r, s)
+            return dict(case, exchange_plan=meas.meta["exchange_plan"],
+                        counters=dict(meas.counters))
+        bound = max(inner.key_bound(), outer.key_bound())
+        inj = faults.FaultInjector()
+        inj.arm(faults.EXCHANGE_CORRUPT, at=1)
+        sync()
+        dist.barrier()
+        kernels.reset_launches()
+        before = dict(eng.world.counts)
+        with inj if name == "p6_repair" else contextlib.nullcontext():
+            first_ms, res = host_ms(
+                lambda: eng.join_arrays(r, s, key_bound=bound))
+        sync()
+        launches = kernels.launch_counts()
+        collectives = {k: eng.world.counts[k] - before[k] for k in before}
+        counters = dict(meas.counters)
+        runs = [first_ms] + [host_ms(
+            lambda: eng.join_arrays(r, s, key_bound=bound))[0]
+            for _ in range(2)]
+        return {"matches": res.matches, "ok": res.ok,
+                "retries": res.retries, "diagnostics": res.diagnostics,
+                "partition_counts": res.partition_counts.tolist(),
+                "expected": inner.expected_matches(outer),
+                "tuples_per_rank": r.size, "key_bits": cfg.key_bits,
+                "launches": launches, "collectives": collectives,
+                "join_runs_ms": runs, "join_ms": statistics.median(runs),
+                "exchange_plan": meas.meta["exchange_plan"],
+                "counters": counters}
+
     placed = {}
     try:
         for name, (cfg, shape) in cases.items():
@@ -1190,6 +1499,11 @@ def phase_p_rank(rank: int, world: int, init_method: str,
                 placed[shape] = (inner, outer, eng0.place(inner),
                                  eng0.place(outer))
             inner, outer, r, s = placed[shape]
+            if name.startswith("p6"):
+                out["cases"][name] = p6_case(name, cfg, inner, outer, r, s)
+                if cuda:
+                    torch.cuda.empty_cache()
+                continue
             if name.startswith("p5"):
                 out["cases"][name] = materialize_case(cfg, inner, outer, r, s)
                 if cuda:
@@ -1370,7 +1684,8 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
     """Phase (p)'s checks over every rank's results; emits one line a case
     and returns the launches summed over the cases and ranks."""
     import numpy as np
-    names = [k for k in results[0]["cases"] if not k.startswith("p5")]
+    names = [k for k in results[0]["cases"]
+             if not k.startswith(("p5", "p6"))]
     for res in results:
         if res["backend"] != "gloo" or not res["gloo_on_card"]:
             raise AssertionError(f"phase (p): rank {res['rank']} ran on "
@@ -1464,6 +1779,7 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
               "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
               "launches": launches, "collectives": c["collectives"],
               **card})
+    check_p6(results, seconds, card, cases, p5, total)
     for name, (c, pc, per_rank, launches) in cases.items():
         hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
         hot_p = {"p1_unsplit": hot1, "p2": ()}.get(name, hot)
@@ -1492,6 +1808,89 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
               "launches": launches, "collectives": c["collectives"],
               **card})
     return total
+
+
+#: (p6) case -> the case of phase (p) whose join it repeats with the codec
+#: off and the exchange fused (its counts, or its pairs' digest, must be
+#: equal), or None for the repair, held to the oracle
+P6_REFS = {"p6_pack": "p1_unsplit", "p6_auto": "p1_unsplit",
+           "p6_staged": "p1_unsplit", "p6_pack_split": "p1",
+           "p6_hosts_staged": "p4", "p6_materialize_pack": "p5",
+           "p6_repair": None, "p6_pack_64": "p3"}
+
+
+def check_p6(results: list, seconds: float, card: dict, cases: dict,
+             p5: dict, total: dict) -> None:
+    """(p6)'s checks: each case equal to its codec-off, fused reference of
+    :data:`P6_REFS` (the repair to the oracle, one partition repaired),
+    the plan's codec and stages as configured, the launches; emits one
+    line a case with the wire geometry (``pack_ratio_pct``, WIREBYTES
+    against MWINBYTES, ``peak_exchange_bytes`` against the fused raw
+    exchange's) and adds the launches to ``total``."""
+    import numpy as np
+    for name, ref in P6_REFS.items():
+        per_rank = [res["cases"][name] for res in results]
+        c = per_rank[0]
+        for other in per_rank[1:]:
+            for k in ("matches", "ok", "retries", "diagnostics",
+                      "partition_counts", "digest", "exchange_plan"):
+                if other.get(k) != c.get(k):
+                    raise AssertionError(f"phase (p) {name}: ranks differ "
+                                         f"in {k}")
+        if not (c["ok"] and c["matches"] == c["expected"]):
+            raise AssertionError(f"phase (p) {name}: {c['matches']} "
+                                 f"matches, expected {c['expected']}, "
+                                 f"{c['diagnostics']}")
+        if ref == "p5":
+            if c["digest"] != p5["p5"][0]["digest"]:
+                raise AssertionError(f"phase (p) {name}: the pairs differ "
+                                     "from (p5)'s")
+        elif ref is not None:
+            pc = np.asarray(c["partition_counts"], np.int64).reshape(
+                P_RANKS, -1)
+            if not np.array_equal(pc, cases[ref][1]):
+                raise AssertionError(f"phase (p) {name}: the counts differ "
+                                     f"from ({ref})'s")
+        else:
+            diag = c["diagnostics"]
+            if not (diag.get("repaired") == "partition"
+                    and len(diag["repaired_partitions"]) == 1
+                    and c["counters"].get("VREPAIR") == 1
+                    and c["counters"].get("GRIDPAIRS") == 1):
+                raise AssertionError(f"phase (p) {name}: {diag}, "
+                                     f"{c['counters']}")
+        plan = c["exchange_plan"]
+        packs = name not in ("p6_staged", "p6_hosts_staged", "p6_repair")
+        staged = name in ("p6_staged", "p6_hosts_staged")
+        if (packs != (plan["codec_r"] == plan["codec_s"] == "pack")
+                or staged != (plan["stages"] == 4)):
+            raise AssertionError(f"phase (p) {name}: exchange plan {plan}")
+        launches = {k: sum(r["launches"][k] for r in per_rank)
+                    for k in c["launches"]}
+        p_launch_checks(ref or "p1_unsplit", launches, c["retries"] + 1)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        lanes = 3 if c["key_bits"] == 64 else 2
+        # a repaired join records no exchange (as the JAX engine's)
+        caps = [c["counters"].get(k) for k in ("WINCAPR", "WINCAPS")]
+        emit({"phase": "multi_rank", "cell": name, "backend": P_BACKEND,
+              "ranks": P_RANKS, "seconds": seconds,
+              "tuples_per_rank": c["tuples_per_rank"],
+              "key_bits": c["key_bits"], "matches": c["matches"],
+              "expected": c["expected"], "retries": c["retries"],
+              "equal_to": ref or "oracle",
+              "pack_ratio_pct": plan["pack_ratio_pct"],
+              "wire_bytes": c["counters"].get("WIREBYTES"),
+              "raw_bytes": c["counters"].get("MWINBYTES"),
+              "peak_exchange_bytes": plan["peak_exchange_bytes"],
+              "fused_raw_peak_bytes": None if None in caps
+              else P_RANKS * 4 * lanes * max(caps),
+              "exchange_plan": plan,
+              "repaired": c["diagnostics"].get("repaired_partitions"),
+              "join_ms_by_rank": [r["join_ms"] for r in per_rank],
+              "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
+              "launches": launches, "collectives": c["collectives"],
+              **card})
 
 
 def main() -> int:
@@ -1955,12 +2354,31 @@ def main() -> int:
         dest = torch.index_select(assign, 0, r_pid)
         errs += k4_case(f"exchange into {groups} groups of {cap}", dest,
                         [r_main.key, r_main.rid], groups, 1, cap)
+        if groups == 4:
+            dest4 = dest
         exchange_groups[groups] = {
             "elements": n_main, "out_slots": groups * cap,
             "ms": time_ms(lambda: k4.partition_scatter(
                 dest, [r_main.key, r_main.rid], fills, num_groups=groups,
                 capacity=cap))}
-    del r_pid, dest
+    # the packed exchange's grouped call (ops/radix.
+    # scatter_to_blocks_grouped): the composite id dest * 32 + pid into 128
+    # groups, 32 a block, at the 4-rank join's 2**23 slots and clipped at
+    # 2**22 (each block's highest pids lose their tail)
+    comp = dest4 * num_p + r_pid
+    for cap in (1 << 23, 1 << 22):
+        errs += k4_case(f"grouped exchange, 128 groups / 32, capacity {cap}",
+                        comp, [r_main.key, r_main.rid], 4 * num_p, num_p,
+                        cap)
+    exchange_groups["grouped_128x32"] = {
+        "elements": n_main, "out_slots": 4 * (1 << 23),
+        "ms": time_ms(lambda: k4.partition_scatter(
+            comp, [r_main.key, r_main.rid], fills, num_groups=4 * num_p,
+            group_size=num_p, capacity=1 << 23)),
+        "device_us": device_us(lambda: k4.partition_scatter(
+            comp, [r_main.key, r_main.rid], fills, num_groups=4 * num_p,
+            group_size=num_p, capacity=1 << 23))}
+    del r_pid, dest, dest4, comp
     # dense mode with the pads as a real last group: reorder_by_partition's
     # call, on the main path's ids
     errs += k4_case("dense reorder @ main shape", loc_ids, [rx_key, rx_rid],

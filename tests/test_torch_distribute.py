@@ -102,9 +102,19 @@ def test_mix32_and_the_shuffle_keys_equal_jax():
 
 
 def test_distribute_rejects_a_ragged_shard_and_the_staged_mode():
+    """A ragged shard raises; the staged mode, refused until A13, now
+    runs: at one rank it returns what the fused mode does, and an unknown
+    mode raises as JAX's ``parse_exchange_mode`` does.  The staged modes
+    over four ranks: tests/test_torch_exchange_codec.py."""
+    from tpu_radix_join_torch.parallel.world import OneRankWorld
     batch = TupleBatch(*[lane_from_numpy(np.arange(10, dtype=np.uint32),
                                          "cpu")] * 2)
     with pytest.raises(ValueError, match="divide"):
         distribute(batch, _Peers([batch] * 4, 0))
-    with pytest.raises(NotImplementedError, match="A13"):
-        distribute(batch, _Peers([batch] * 2, 0), mode="staged:2")
+    fused = distribute(batch, OneRankWorld(), seed=3)
+    for mode in ("staged:2", "auto", 5):
+        got = distribute(batch, OneRankWorld(), seed=3, mode=mode)
+        for a, b in zip(got[:2], fused[:2]):
+            np.testing.assert_array_equal(lane_to_numpy(a), lane_to_numpy(b))
+    with pytest.raises(ValueError, match="exchange mode"):
+        distribute(batch, OneRankWorld(), mode="bogus")

@@ -129,13 +129,17 @@ def test_raw_arrays_probe_the_key_range():
     ("network_fanout_bits", 8, "A19"), ("local_fanout_bits", 9, "A19"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
-    """A setting the port does not run raises, naming its ROADMAP item.
+    """A setting the port does not run raises, naming its ROADMAP item:
+    only the fanouts past the kernels' bins (A19) are left.
     A7, the distributed main path, is ported: ``num_nodes`` and
     ``debug_checks`` carry across (a world of 4 then needs its process
     group); so does ``chunk_size`` (A7b), whose chunked probe then joins
     exactly as the JAX engine does; and ``skew_threshold`` (A10), which a
     one-rank join never acts on, so it joins exactly as the JAX engine
-    does."""
+    does.  The wire codec (A13) and verification (A15) carry across too:
+    a one-rank bucket join under each (a one-rank world ships raw; the
+    bucket path verifies its exchange and its second radix pass) joins
+    exactly as the JAX engine does."""
     jcfg = jx.JoinConfig()
     d = dataclasses.asdict(jcfg)
     d[field] = value
@@ -146,6 +150,16 @@ def test_settings_outside_the_slice_raise(field, value, item):
         s_key = np.concatenate([np.full(2000, 3, np.uint32), r_key[:500]])
         got, want = _carried(jx.JoinConfig(skew_threshold=value), r_key,
                              s_key)
+        _assert_same(got, want)
+        assert got.ok and got.matches == host_join_count(r_key, s_key)
+        return
+    if field in ("exchange_codec", "verify"):
+        assert getattr(config_from_jax(d), field) == value
+        rng = np.random.default_rng(17)
+        r_key = rng.integers(0, 5000, 3000, dtype=np.uint32)
+        s_key = rng.integers(0, 5000, 2500, dtype=np.uint32)
+        got, want = _carried(jx.JoinConfig(probe_algorithm="bucket",
+                                           **{field: value}), r_key, s_key)
         _assert_same(got, want)
         assert got.ok and got.matches == host_join_count(r_key, s_key)
         return
@@ -190,22 +204,29 @@ def test_default_configs_agree():
 
 
 def test_exchange_stages_is_refused_not_dropped():
-    """C9: a staged JAX config reports its stages (``_exchange_stats``,
-    XSTAGES and the exchange plan read k), so the port refuses it, naming
-    A13, instead of joining fused and reporting 1; the fused exchange
-    (``exchange_stages=1``) carries across."""
+    """C9, then A13: a staged JAX config reports its stages
+    (``_exchange_stats``, XSTAGES and the exchange plan read k).  The port
+    first refused it rather than join fused and report 1; now it carries
+    across and the staged join reports what JAX's does.  A negative stage
+    count is refused; the fused exchange (``exchange_stages=1``) carries
+    across."""
     from tpu_radix_join.performance.measurements import Measurements
-    jm = Measurements()
-    jcfg = jx.JoinConfig(exchange_stages=4, probe_algorithm="bucket")
-    want = jx.HashJoin(jcfg, measurements=jm).join(
-        jx.Relation(4096, seed=1), jx.Relation(4096, seed=2))
-    assert want.ok and want.matches == 4096
-    assert jm.counters["XSTAGES"] == 4
-    assert jm.meta["exchange_plan"]["stages"] == 4
-    for stages in (4, 0):
-        d = dataclasses.asdict(jx.JoinConfig(exchange_stages=stages))
-        with pytest.raises(NotImplementedError, match="A13"):
-            config_from_jax(d)
+    from tpu_radix_join_torch.performance import Measurements as TMeas
+    for stages, want_k in ((4, 4), (0, 4)):   # "auto": 4096-slot blocks
+        jm, tm = Measurements(), TMeas()
+        jcfg = jx.JoinConfig(exchange_stages=stages, probe_algorithm="bucket")
+        want = jx.HashJoin(jcfg, measurements=jm).join(
+            jx.Relation(4096, seed=1), jx.Relation(4096, seed=2))
+        assert want.ok and want.matches == 4096
+        assert jm.counters["XSTAGES"] == want_k
+        assert jm.meta["exchange_plan"]["stages"] == want_k
+        cfg = config_from_jax(dataclasses.asdict(jcfg))
+        assert cfg.exchange_stages == stages
+        got = tx.HashJoin(cfg, device="cpu", measurements=tm).join(
+            tx.Relation(4096, seed=1), tx.Relation(4096, seed=2))
+        assert got.ok and got.matches == want.matches
+        assert tm.counters["XSTAGES"] == want_k
+        assert tm.meta["exchange_plan"] == jm.meta["exchange_plan"]
     with pytest.raises(ValueError, match="exchange_stages"):
         tx.JoinConfig(exchange_stages=-1)
     cfg = config_from_jax(
@@ -215,18 +236,19 @@ def test_exchange_stages_is_refused_not_dropped():
 
 def test_fields_the_port_does_not_read_are_pinned():
     """Every JAX config field is the port's, an implementation choice the
-    port has one of, or one of the four the port's joins never read; no
-    other field is dropped without a word."""
+    port has one of, or one of the three the port's joins never read; no
+    other field is dropped without a word (``grid_pipeline`` came off with
+    the repair, A15)."""
     from tpu_radix_join_torch import state
     assert state._UNREAD == {"payload_bits", "mesh_axis",
-                             "result_aggregation_node", "grid_pipeline"}
+                             "result_aggregation_node"}
     assert state._ONE_IMPL == {"sort_impl", "partition_impl"}
     jax_fields = set(jx.JoinConfig.__dataclass_fields__)
     own = set(tx.JoinConfig.__dataclass_fields__)
     assert jax_fields == own | state._UNREAD | state._ONE_IMPL
     assert not own & state._UNREAD
     for field, value in (("match_rate_cap", 3), ("generation", "host"),
-                         ("exchange_stages", 1)):
+                         ("exchange_stages", 1), ("grid_pipeline", "on")):
         d = dataclasses.asdict(jx.JoinConfig(**{field: value}))
         assert getattr(config_from_jax(d), field) == value
     with pytest.raises(ValueError, match="match_rate_cap"):

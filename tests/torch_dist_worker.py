@@ -13,6 +13,7 @@ under a deadline.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -60,7 +61,10 @@ def _join(task, world_group):
     events and ``gather_all`` (every rank's registry: node, RESULTS, timer
     tags) come back too; with ``"plan"`` the sizing pass's capacities and
     skew plan, measured before the join; with ``"materialize"`` the join is
-    ``join_materialize_arrays`` and its rid pairs come back."""
+    ``join_materialize_arrays`` and its rid pairs come back; with
+    ``"fault"`` the site ``exchange.corrupt_lane`` is armed once on every
+    rank (the registry's ``exchange_plan``, ``data_corruption`` and
+    ``repair`` events come back with ``"measure"``)."""
     import torch
     import tpu_radix_join_torch as tx
     from tpu_radix_join_torch.performance import Measurements
@@ -88,12 +92,19 @@ def _join(task, world_group):
             r, s, eng._shuffle_plan(r, s))
         out["plan"] = [cap_r, cap_s] + (
             [None, None] if skew is None else [skew.hot_bits, skew.hot_cap])
-    if task.get("materialize"):
-        res = eng.join_materialize_arrays(r, s)
-        out.update({"r_rid": res.r_rid.tolist(), "s_rid": res.s_rid.tolist()})
-    else:
-        res = eng.join_arrays(r, s, key_bound=bound)
-        out["partition_counts"] = res.partition_counts.tolist()
+    from tpu_radix_join_torch.robustness import faults
+    injector = faults.FaultInjector()
+    if task.get("fault"):
+        injector.arm(faults.EXCHANGE_CORRUPT, at=1)
+    # an active injector stamps fault_sites into the diagnostics
+    with injector if task.get("fault") else contextlib.nullcontext():
+        if task.get("materialize"):
+            res = eng.join_materialize_arrays(r, s)
+            out.update({"r_rid": res.r_rid.tolist(),
+                        "s_rid": res.s_rid.tolist()})
+        else:
+            res = eng.join_arrays(r, s, key_bound=bound)
+            out["partition_counts"] = res.partition_counts.tolist()
     out.update({"matches": res.matches, "ok": res.ok,
                 "diagnostics": res.diagnostics, "retries": res.retries,
                 "collectives": dict(eng.world.counts)})
@@ -103,6 +114,11 @@ def _join(task, world_group):
         out["retry_events"] = [
             {k: v for k, v in e.items() if k not in ("t_s", "t_epoch_s")}
             for e in meas.meta.get("events", []) if e["event"] == "retry"]
+        out["verify_events"] = [
+            {k: v for k, v in e.items() if k not in ("t_s", "t_epoch_s")}
+            for e in meas.meta.get("events", [])
+            if e["event"] in ("data_corruption", "repair")]
+        out["exchange_plan"] = meas.meta.get("exchange_plan")
         out["gathered"] = [[m.node_id, m.counters.get("RESULTS"),
                             sorted(m.times_us)]
                            for m in meas.gather_all(eng.world)]
@@ -110,13 +126,15 @@ def _join(task, world_group):
 
 
 def _distribute(task, world):
-    """``parallel/distribute.distribute`` of this rank's lanes."""
+    """``parallel/distribute.distribute`` of this rank's lanes, in the
+    task's ``"mode"`` (fused by default)."""
     from tpu_radix_join_torch.data.tuples import TupleBatch
     from tpu_radix_join_torch.parallel.distribute import distribute
     lanes = task["lanes"][world.rank]
     batch = TupleBatch(*(None if lane is None else _lane(lane)
                          for lane in lanes))
-    got = distribute(batch, world, seed=task["seed"])
+    got = distribute(batch, world, seed=task["seed"],
+                     mode=task.get("mode", "fused"))
     return {"lanes": [None if lane is None else _np(lane) for lane in got]}
 
 
@@ -143,17 +161,25 @@ def _collectives(task, world):
 def _exchange(task, world):
     """``network_partition`` of this rank's lanes, with the skew split's
     ``exclude`` or ``override`` (``"exclude"``: bool lists, ``"override"``:
-    [mask lists, destination lists], one a rank) when the task has them."""
+    [mask lists, destination lists], one a rank) when the task has them,
+    through a window of the task's ``"window"`` keywords (codec, mode,
+    bounds), and with ``"checksums"`` the ``receive_checksums`` of what
+    arrived."""
     import torch
     from tpu_radix_join_torch.parallel.network_partitioning import (
         network_partition)
     from tpu_radix_join_torch.parallel.window import Window
     from tpu_radix_join_torch.data.tuples import TupleBatch
+    from tpu_radix_join_torch.parallel.network_partitioning import (
+        receive_checksums)
     rank = world.rank
+    hi = task.get("key_hi")
     batch = TupleBatch(key=_lane(task["key"][rank]),
-                       rid=_lane(task["rid"][rank]))
+                       rid=_lane(task["rid"][rank]),
+                       key_hi=None if hi is None else _lane(hi[rank]))
     assignment = _lane(task["assignment"])
-    win = Window(world, task["capacity"], task["side"])
+    win = Window(world, task["capacity"], task["side"],
+                 **task.get("window", {}))
     kw = {}
     if task.get("exclude"):
         kw["exclude"] = torch.tensor(task["exclude"][rank])
@@ -163,7 +189,13 @@ def _exchange(task, world):
     res = network_partition(batch, task["fanout"], assignment, win, **kw)
     ghist = _lane(task["global_hist"])
     lost, bad = win.diagnostics(res, ghist, assignment)
-    return {"key": _np(res.batch.key), "rid": _np(res.batch.rid),
+    extra = {"counts": dict(world.counts)}
+    if hi is not None:
+        extra["key_hi"] = _np(res.batch.key_hi)
+    if task.get("checksums"):
+        extra["checksums"] = _np(receive_checksums(res, 1 << task["fanout"],
+                                                   world).reshape(-1))
+    return {**extra, "key": _np(res.batch.key), "rid": _np(res.batch.rid),
             "valid": res.valid.tolist(), "pid": _np(res.pid),
             "recv_counts": _np(res.recv_counts),
             "send_overflow": int(res.send_overflow), "lost": int(lost),
@@ -175,7 +207,9 @@ def _exchange(task, world):
 def _hierarchical(task, group):
     """One block exchange of this rank's int32 blocks (``"blocks"``: one
     list a rank) through the hierarchical route of ``num_hosts`` hosts and
-    through the flat route."""
+    through the flat route; with ``"modes"`` also ``block_all_to_all`` in
+    each mode over both routes."""
+    from tpu_radix_join_torch.parallel.window import block_all_to_all
     from tpu_radix_join_torch.parallel.world import (
         hierarchical_block_all_to_all, make_world)
     hier = make_world(task["num_nodes"], group, task["num_hosts"])
@@ -183,11 +217,33 @@ def _hierarchical(task, group):
     n = hier.size
     x = _lane(task["blocks"][hier.rank])
     block = x.numel() // n
-    return {"hier": _np(hier.all_to_all(x, block)),
-            "flat": _np(flat.all_to_all(x, block)),
-            "direct": _np(hierarchical_block_all_to_all(
-                x, n, block, *hier._hier, hier.num_hosts)),
-            "counts": dict(hier.counts)}
+    out = {"hier": _np(hier.all_to_all(x, block)),
+           "flat": _np(flat.all_to_all(x, block)),
+           "direct": _np(hierarchical_block_all_to_all(
+               x, n, block, *hier._hier, hier.num_hosts)),
+           "counts": dict(hier.counts)}
+    for mode in task.get("modes", []):
+        before = flat.counts["all_to_all"]
+        out[f"flat {mode}"] = _np(block_all_to_all(flat, x, block, mode))
+        out[f"hier {mode}"] = _np(block_all_to_all(hier, x, block, mode))
+        out[f"collectives {mode}"] = flat.counts["all_to_all"] - before
+    return out
+
+
+def _checksums(task, world):
+    """``global_partition_checksums`` of this rank's lanes."""
+    import torch
+    from tpu_radix_join_torch.robustness.verify import (
+        global_partition_checksums)
+    rank = world.rank
+    hi = task.get("key_hi")
+    valid = task.get("valid")
+    got = global_partition_checksums(
+        _lane(task["key"][rank]), _lane(task["pid"][rank]),
+        task["num_partitions"], world,
+        valid=None if valid is None else torch.tensor(valid[rank]),
+        key_hi=None if hi is None else _lane(hi[rank]))
+    return {"checksums": _np(got.reshape(-1))}
 
 
 def worker(rank: int, world_size: int, init_method: str) -> None:
@@ -205,6 +261,7 @@ def worker(rank: int, world_size: int, init_method: str) -> None:
              "collectives": lambda t: _collectives(t, DistWorld(group)),
              "exchange": lambda t: _exchange(t, DistWorld(group)),
              "distribute": lambda t: _distribute(t, DistWorld(group)),
+             "checksums": lambda t: _checksums(t, DistWorld(group)),
              "hierarchical": lambda t: _hierarchical(t, group)}
     for line in sys.stdin:
         task = json.loads(line)

@@ -3,8 +3,9 @@
 two-level) join with its chunked fallback, and the materializing join
 (``HashJoin.join_materialize``: the rid pairs) — on one GPU or over a
 ``torch.distributed`` process group of N (``parallel/multihost.py``,
-``HashJoin(config, group=...)``), and the out-of-core grid
-(``ops/chunked.py``).
+``HashJoin(config, group=...)``) with a raw, bit-packed or staged
+exchange and optional integrity verification and repair, and the
+out-of-core grid (``ops/chunked.py``).
 
 The JAX package ``tpu_radix_join`` stays the reference; this package imports
 nothing of it (nor JAX).  Lanes are ``torch.int32`` tensors holding uint32

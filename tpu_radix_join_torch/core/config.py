@@ -89,8 +89,26 @@ class JoinConfig:
         (``parallel/world.hierarchical_block_all_to_all``).
       * ``fallback="chunked"``: a partitioned join still short of capacity
         after its retries counts out of core instead (ops/chunked.py).
-      * ``exchange_stages``: column groups of one exchange; the port runs
-        the fused exchange (1) only, the staged one is ROADMAP A13.
+      * ``exchange_codec``: the wire of the exchange — "off" ships the
+        raw lanes and a count all_to_all; "pack" bit-packs each block to
+        the key and rid bounds (``data/tuples.pack_blocks``), its header
+        carrying the counts; "auto" packs a window only when its packed
+        block is smaller than the raw lanes.  A one-rank world exchanges
+        raw.  Packing masks key bits above the bound, so a bit flipped
+        there in flight is healed rather than detected.
+      * ``exchange_stages``: column groups of one exchange
+        (``parallel/window.block_all_to_all``): 1 is the fused exchange,
+        k > 1 exactly k sequenced collectives, bounding the live exchange
+        buffer to about 1/k; 0 is "auto", 4 stages once a block holds 4096
+        slots.
+      * ``verify``: integrity verification (robustness/verify.py) — "check"
+        fingerprints every network partition before the exchange and after
+        it (and after the second radix pass on the bucket path) and fails a
+        join whose fingerprints disagree (``data_corruption``); "repair"
+        recomputes the damaged partitions out of core instead.  The
+        one-rank sort probe exchanges nothing and is not verified.
+      * ``grid_pipeline``: the out-of-core grid mode of the repair's
+        recompute (``ops/chunked.chunked_join_grid``).
       * ``match_rate_cap``: matches the materializing join
         (``HashJoin.join_materialize``) emits at most per outer tuple
         before it flags ``local_overflow`` and, with retries, doubles it
@@ -128,6 +146,7 @@ class JoinConfig:
     debug_checks: bool = False
     measure_phases: bool = False
     exchange_stages: int = 1
+    grid_pipeline: str = "auto"
     match_rate_cap: int = 8
     generation: str = "auto"
 
@@ -163,18 +182,15 @@ class JoinConfig:
             raise ValueError("allocation_factor must be >= 1.0")
         if self.exchange_codec not in ("off", "pack", "auto"):
             raise ValueError(
-                f"unknown exchange codec {self.exchange_codec!r}")
-        if self.exchange_codec != "off":
-            raise _not_ported(f"exchange_codec={self.exchange_codec!r}",
-                              "A13")
+                f"unknown exchange codec {self.exchange_codec!r} "
+                "(expected 'off', 'pack', or 'auto')")
         if self.exchange_stages < 0:
             raise ValueError(
                 "exchange_stages must be >= 0 (0 = auto, 1 = fused, "
                 "k > 1 = staged)")
-        if self.exchange_stages != 1:
-            raise _not_ported(
-                f"exchange_stages={self.exchange_stages} (the staged "
-                "exchange)", "A13")
+        if self.grid_pipeline not in ("off", "on", "auto"):
+            raise ValueError(
+                f"unknown grid pipeline mode {self.grid_pipeline!r}")
         if self.match_rate_cap < 1:
             raise ValueError("match_rate_cap must be >= 1")
         if self.generation not in ("auto", "host", "device"):
@@ -202,8 +218,12 @@ class JoinConfig:
             raise ValueError(f"unknown fallback mode {self.fallback!r}")
         if self.verify not in ("off", "check", "repair"):
             raise ValueError(f"unknown verify mode {self.verify!r}")
-        if self.verify != "off":
-            raise _not_ported(f"verify={self.verify!r}", "A15")
+        if self.verify != "off" and self.measure_phases:
+            # the JAX package's check (core/config.py:289-295)
+            raise ValueError(
+                "verify does not compose with measure_phases: the split "
+                "attempt fences each phase and carries no checksums across "
+                "them — use measure_phases=False for verified runs")
         if self.skew_threshold is not None:
             # the JAX package's checks (core/config.py:263-282)
             if self.skew_threshold <= 0:

@@ -4,8 +4,9 @@ Counterpart of ``tpu_radix_join/data/tuples.py`` (``TupleBatch``,
 ``CompressedBatch``, the pad sentinels, ``_sentinel_lane``,
 ``partition_ids``, ``compress``, ``decompress``, ``probe_key``,
 ``pad_sentinel``, ``valid_mask``, ``make_padding_like``, ``make_padding``,
-``effective_key_bits``).  The wire codec (``WireSpec``, ``pack_blocks``,
-``unpack_blocks``) is ROADMAP A13.
+``effective_key_bits``) and the packed wire codec (``WireSpec``,
+``make_wire_spec``, ``pack_blocks``, ``unpack_blocks``, ``data/tuples.py:
+160-391``), whose words equal the JAX package's bit for bit.
 
 **Lane dtype.**  A lane is a 1-D ``torch.int32`` tensor that holds the uint32
 bit pattern of each value: 4 bytes a lane, as on the TPU, and the CUDA
@@ -213,3 +214,194 @@ def effective_key_bits(key_bound: Optional[int], fanout_bits: int = 0,
         raise ValueError(f"key_bound must be >= 1, got {key_bound}")
     kb = max(1, ((int(key_bound) - 1) >> fanout_bits).bit_length())
     return min(kb, key_bits - fanout_bits)
+
+
+# ------------------------------------------------------------- wire codec
+#
+# Block layout (uint32 words), one block per (sender, destination) pair, as
+# in the JAX package:
+#
+#   [ header: 2**fanout_bits words — per-partition valid counts ]
+#   [ payload: ceil(capacity * tuple_bits / 32) + 1 words        ]
+#
+# The payload is a little-endian bitstream: slot ``s`` occupies bits
+# ``[s*T, (s+1)*T)`` with ``T = key_rem_bits + rid_bits``, ``key_rem`` (the
+# key with its fanout bits dropped) at offset 0 and ``rid`` after it.  A
+# block's valid tuples sit at its front sorted by partition id, so the
+# header counts give every slot its pid back, and their sum is the count
+# the fused exchange ships in a second collective.  Slots at or past a
+# block's count unpack to the side's pad sentinels.
+
+
+class WireSpec(NamedTuple):
+    """Static geometry of the packed exchange."""
+
+    fanout_bits: int        # radix bits dropped from keys (pid width)
+    num_sub: int            # 2**fanout_bits — header words per block
+    capacity: int           # tuple slots per block
+    wide: bool              # 64-bit keys (key_hi lane present)
+    key_rem_bits: int       # bits kept per key after dropping fanout bits
+    rid_bits: int           # bits per rid
+    tuple_bits: int         # key_rem_bits + rid_bits
+    header_words: int       # == num_sub
+    payload_words: int      # bitstream words incl. the spill-guard word
+    block_words: int        # header_words + payload_words
+
+    @property
+    def bytes_per_block(self) -> int:
+        return 4 * self.block_words
+
+    @property
+    def bytes_per_tuple(self) -> float:
+        """Wire bytes per tuple slot (header amortized over the block)."""
+        return self.bytes_per_block / self.capacity
+
+
+def make_wire_spec(capacity: int, fanout_bits: int, wide: bool = False,
+                   key_bound: Optional[int] = None,
+                   rid_bound: Optional[int] = None) -> WireSpec:
+    """The packed-block geometry from exclusive bounds on the keys and
+    rids; ``None`` is the full lane width."""
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    kb = effective_key_bits(key_bound, fanout_bits, 64 if wide else 32)
+    if rid_bound is None:
+        rb = 32
+    else:
+        if rid_bound < 1:
+            raise ValueError(f"rid_bound must be >= 1, got {rid_bound}")
+        rb = min(32, max(1, (int(rid_bound) - 1).bit_length()))
+    t = kb + rb
+    num_sub = 1 << fanout_bits
+    # +1 spill-guard word: the last slot's high field may cross one word
+    # past ceil(capacity * T / 32)
+    payload = (capacity * t + 31) // 32 + 1
+    return WireSpec(fanout_bits=fanout_bits, num_sub=num_sub,
+                    capacity=capacity, wide=wide, key_rem_bits=kb,
+                    rid_bits=rb, tuple_bits=t, header_words=num_sub,
+                    payload_words=payload, block_words=num_sub + payload)
+
+
+def _width_mask(width: int) -> int:
+    return U32_MASK if width >= 32 else (1 << width) - 1
+
+
+def _wire_fields(spec: WireSpec):
+    """(offset in the tuple, width, lane) triples: lane 0 the key
+    remainder's low 32 bits, lane 1 its high bits (wide keys only), lane 2
+    the rid.  Every field is at most 32 bits wide."""
+    kb = spec.key_rem_bits
+    fields = [(0, kb, 0)] if kb <= 32 else [(0, 32, 0), (32, kb - 32, 1)]
+    fields.append((kb, spec.rid_bits, 2))
+    return fields
+
+
+def _slot_geometry(spec: WireSpec, nb: int, device):
+    """int64 (slot within its block, the block's first payload word) of
+    every slot of ``nb`` blocks."""
+    slot = torch.arange(nb * spec.capacity, dtype=torch.int64, device=device)
+    s_in_blk = slot % spec.capacity
+    base = (slot // spec.capacity) * spec.block_words + spec.header_words
+    return s_in_blk, base
+
+
+def _header_index(spec: WireSpec, nb: int, device) -> torch.Tensor:
+    """int64 [nb, num_sub]: the word of each block's header entry."""
+    return (torch.arange(nb, dtype=torch.int64, device=device)[:, None]
+            * spec.block_words
+            + torch.arange(spec.num_sub, dtype=torch.int64,
+                           device=device)[None, :])
+
+
+def pack_blocks(spec: WireSpec, blocks: TupleBatch,
+                group_counts: torch.Tensor) -> torch.Tensor:
+    """Pack scattered blocks into the wire words (``pack_blocks``,
+    ``data/tuples.py:275-327``).
+
+    ``blocks``: [num_blocks * capacity] lanes, each block's valid tuples
+    at its front sorted by partition id (``ops/radix.
+    scatter_to_blocks_grouped``); ``group_counts``: [num_blocks, num_sub]
+    clipped per-(block, pid) counts.  Returns an int32 lane [num_blocks *
+    block_words] of uint32 words.  JAX's scatter-add stands in for an OR
+    because the fields' bit ranges are disjoint; here the words accumulate
+    in int64 (``index_add_``, exact on every device) and keep their low 32
+    bits.  A field shifted by ``boff`` spills its top ``boff`` bits into
+    the next word; with ``boff == 0`` the spill is 0."""
+    nb = group_counts.shape[0]
+    dev = blocks.key.device
+    gc = widen(group_counts.reshape(nb, spec.num_sub))
+    s_in_blk, base = _slot_geometry(spec, nb, dev)
+    ok = s_in_blk < gc.sum(dim=1).repeat_interleave(spec.capacity)
+    f = spec.fanout_bits
+    key = widen(blocks.key)
+    if spec.wide:
+        hi_full = widen(blocks.key_hi)
+        lo = ((key >> f) | (hi_full << (32 - f))) & U32_MASK if f else key
+        hi = hi_full >> f
+    else:
+        lo, hi = key >> f, None
+    lanes = (lo, hi, widen(blocks.rid))
+    words = torch.zeros(nb * spec.block_words, dtype=torch.int64, device=dev)
+    words.index_add_(0, _header_index(spec, nb, dev).reshape(-1),
+                     gc.reshape(-1))
+    for off, width, lane_i in _wire_fields(spec):
+        v = torch.where(ok, lanes[lane_i] & _width_mask(width), 0)
+        bitpos = s_in_blk * spec.tuple_bits + off
+        widx = base + bitpos // 32
+        shifted = v << (bitpos % 32)          # < 2**63: v < 2**32, boff < 32
+        words.index_add_(0, widx, shifted & U32_MASK)
+        words.index_add_(0, widx + 1, shifted >> 32)
+    return narrow(words)
+
+
+def unpack_blocks(spec: WireSpec, words: torch.Tensor, side: str):
+    """Exact inverse of :func:`pack_blocks` on received words
+    (``unpack_blocks``, ``data/tuples.py:330-391``): (TupleBatch with
+    [num_blocks * capacity] lanes, int32 lane [num_blocks] of the valid
+    counts).  A valid slot's pid is the first partition whose cumulative
+    header count passes the slot (a batched ``searchsorted``, clamped to
+    ``num_sub - 1``); slots at or past a block's count hold the side's pad
+    sentinels and ``PAD_RID``."""
+    if words.shape[0] % spec.block_words:
+        raise ValueError(
+            f"wire buffer of {words.shape[0]} words is not a multiple of "
+            f"block_words={spec.block_words}")
+    nb = words.shape[0] // spec.block_words
+    cap, f = spec.capacity, spec.fanout_bits
+    dev = words.device
+    w = widen(words)
+    gc = w[_header_index(spec, nb, dev)]                      # [nb, P]
+    counts = gc.sum(dim=1)
+    slot_in_blk = torch.arange(cap, dtype=torch.int64,
+                               device=dev).expand(nb, cap).contiguous()
+    pid = torch.searchsorted(torch.cumsum(gc, dim=1), slot_in_blk,
+                             right=True)
+    pid = torch.clamp(pid, max=spec.num_sub - 1).reshape(-1)
+    s_in_blk, base = _slot_geometry(spec, nb, dev)
+    ok = s_in_blk < counts.repeat_interleave(cap)
+    last = words.shape[0] - 1
+    lanes = [None, None, None]
+    for off, width, lane_i in _wire_fields(spec):
+        bitpos = s_in_blk * spec.tuple_bits + off
+        widx = base + bitpos // 32
+        # the field's two candidate words as one 64-bit value: the
+        # arithmetic shift is exact on every bit at or below 62, and the
+        # field ends at bit boff + width <= 63
+        pair = w[widx] | (w[torch.clamp(widx + 1, max=last)] << 32)
+        lanes[lane_i] = (pair >> (bitpos % 32)) & _width_mask(width)
+    lo, hi, rid = lanes
+    sent = pad_sentinel(side)
+    if spec.wide:
+        hi = torch.zeros_like(lo) if hi is None else hi
+        if f:
+            key = (lo << f) | pid
+            key_hi = (hi << f) | (lo >> (32 - f))
+        else:
+            key, key_hi = lo, hi
+        key_hi = narrow(torch.where(ok, key_hi, sent))
+    else:
+        key = (lo << f) | pid if f else lo
+        key_hi = None
+    return (TupleBatch(key=narrow(torch.where(ok, key, sent)),
+                       rid=narrow(torch.where(ok, rid, PAD_RID)),
+                       key_hi=key_hi), narrow(counts))

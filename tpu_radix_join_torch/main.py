@@ -31,6 +31,10 @@ per-op table; under ``--output-dir``/trace), ``--repeat N`` joins N times
 once, one readback; not with ``--measure-phases``).  ``--debug-checks``
 adds the exchange's per-partition conservation checks; ``--generation
 host`` generates the relations with numpy and copies them to the device.
+``--exchange-codec pack|auto`` bit-packs the exchange, ``--exchange-stages
+K`` exchanges it in K column groups, and ``--verify check|repair``
+checksums every network partition across it (repairing out of core, in
+``--grid-pipeline``'s mode).
 Its last line is one JSON object: the result, the host-clock join time, and
 the registry's ``phases_us`` and ``counters``.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
@@ -53,6 +57,7 @@ Usage:
     python -m tpu_radix_join_torch.main --grid-chunk-tuples 134217728 --tuples-per-node 1073741824
     python -m tpu_radix_join_torch.main --device cpu --grid-chunk-tuples 4096 --tuples-per-node 16384
     python -m tpu_radix_join_torch.main --pipeline-repeats --repeat 3 --generation host
+    torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --exchange-codec pack --exchange-stages 4 --verify check
 """
 
 from __future__ import annotations
@@ -110,6 +115,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after --max-retries capacity doublings still "
                         "overflow: 'chunked' degrades to the out-of-core "
                         "count instead of returning ok=False")
+    p.add_argument("--verify", choices=["off", "check", "repair"],
+                   default="off",
+                   help="integrity verification (robustness/verify.py): "
+                        "per-partition count/sum/xor checksums of the key "
+                        "lanes before the exchange and after it (and after "
+                        "the second radix pass on the bucket path); "
+                        "'check' fails a mismatched join with "
+                        "failure_class=data_corruption, 'repair' recomputes "
+                        "the damaged partitions out of core (VREPAIR)")
+    p.add_argument("--exchange-codec", choices=["off", "pack", "auto"],
+                   default="off",
+                   help="exchange wire (data/tuples.make_wire_spec): 'pack' "
+                        "bit-packs key remainders and rids to their bounds, "
+                        "the block header carrying the counts (one "
+                        "collective a relation); 'auto' packs only when the "
+                        "packed block beats the raw 8/12 B lanes")
+    p.add_argument("--exchange-stages", type=int, default=1, metavar="K",
+                   help="staged exchange (parallel/window.py): each block "
+                        "buffer in K column groups, K sequenced "
+                        "collectives, bounding the live exchange buffer to "
+                        "about 1/K; 1 = fused, 0 = auto (4 stages once "
+                        "blocks hold 4096 slots)")
     p.add_argument("--grid-chunk-tuples", type=int, default=None,
                    help="run the out-of-core grid join (ops/chunked.py), "
                         "streaming both relations in chunks of this many "
@@ -302,7 +329,10 @@ def _run_join(args, group) -> int:
                      chunk_size=args.chunk_size,
                      debug_checks=args.debug_checks,
                      generation=args.generation,
-                     measure_phases=args.measure_phases)
+                     measure_phases=args.measure_phases,
+                     exchange_codec=args.exchange_codec,
+                     exchange_stages=args.exchange_stages,
+                     verify=args.verify, grid_pipeline=args.grid_pipeline)
     rank = dist.get_rank(group) if group is not None else 0
     meas = Measurements(node_id=rank, num_nodes=nodes)
     engine = HashJoin(cfg, device=args.device, group=group,

@@ -39,7 +39,12 @@ rank too):
      second pass;
   2. the exchange (``_shuffle``): ``network_partition`` into one block per
      rank (K4), an ``all_to_all`` of every lane and of the counts (two
-     stages with ``num_hosts > 1``), the conservation check, and with
+     stages with ``num_hosts > 1``), or under the wire plan
+     (``_resolve_exchange_plan``: ``exchange_codec``, ``exchange_stages``)
+     a grouped K4 scatter by (rank, partition), the bit-packed words in one
+     ``all_to_all`` whose headers carry the counts, and the unpack; each
+     collective in k column groups when staged.  Then the conservation
+     check, and with
      ``debug_checks`` the per-partition check (K1 on the receive buffers)
      and the OffsetMap invariant; under the split the hot inner tuples
      are extracted (K4) and gathered to every rank, and the hot outer
@@ -75,6 +80,19 @@ every rank returns every pair.
 k attempts with no readback between them and one readback of the last
 attempt's flags and counts; no retry loop, and the counters grow by k.
 
+**Integrity verification** (``verify="check"`` or ``"repair"``, every path
+but the one-rank sort probe, which exchanges nothing): the pristine
+inputs' per-partition fingerprints (robustness/verify.py; VCHK) before the
+exchange, those of the received lanes after it and, on the bucket path
+without a skew plan, of the second radix pass's blocks, read back with the
+attempt's flags; then the cross-product bound of the counts on the sort
+and chunked paths.  A damaged partition fails the join
+(``data_corruption``), or under "repair" is recomputed from the pristine
+inputs on a 1 x 1 out-of-core grid (the whole join on the bucket path or
+when only the bound failed).  The fault site ``exchange.corrupt_lane``
+flips bit 30 of rank 0's first outer key before the exchange, whatever the
+verify mode.
+
 Every rank issues the same collectives in the same order: each host
 decision that precedes a collective reads an all-reduced value or the
 configuration.
@@ -91,9 +109,11 @@ the shuffle, SLOCPREP and BPBUILD / BPPROBE inside JPROC on the bucket
 path, and JPROC for the local probe.  A superseded attempt's phase times
 move to MWINWAIT and RETRIES counts it.  A first-use kernel build is
 JCOMPILE, excluded from the running timers.  The epilogue counts RESULTS,
-RTUPLES and STUPLES (global sizes), the exchange (``record_exchange``,
-codec off; none on the one-rank sort probe, which exchanges nothing) and
-the rates.
+RTUPLES and STUPLES (global sizes), the exchange under the wire plan
+(``record_exchange``: WIREBYTES, PACKRATIO, XSTAGES and
+``meta["exchange_plan"]``; none on the one-rank sort probe, which exchanges
+nothing, or after a repair) and the rates; verification adds VCHK, VCHKN,
+VFAIL and VREPAIR and the events ``data_corruption`` and ``repair``.
 """
 
 from __future__ import annotations
@@ -111,8 +131,8 @@ from tpu_radix_join_torch.data.relation import Relation
 from tpu_radix_join_torch.data.tuples import (R_PAD_KEY, CompressedBatch,
                                               TupleBatch, _sentinel_lane,
                                               lane_from_numpy, lane_to_numpy,
-                                              partition_ids, umax,
-                                              valid_mask, widen)
+                                              make_wire_spec, partition_ids,
+                                              umax, valid_mask, widen)
 from tpu_radix_join_torch.histograms import (compute_global_histogram,
                                              compute_local_histogram,
                                              compute_offsets,
@@ -128,7 +148,8 @@ from tpu_radix_join_torch.ops.build_probe import (DENSE_BUCKET_LIMIT,
                                                   probe_count_chunked,
                                                   probe_materialize,
                                                   probe_materialize_chunked)
-from tpu_radix_join_torch.ops.chunked import chunked_join_count
+from tpu_radix_join_torch.ops.chunked import (chunked_join_count,
+                                              chunked_join_grid)
 from tpu_radix_join_torch.ops.kernels import _build
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
@@ -136,18 +157,22 @@ from tpu_radix_join_torch.ops.merge_count import (
 from tpu_radix_join_torch.ops.radix import local_histogram, scatter_to_blocks
 from tpu_radix_join_torch.parallel import multihost
 from tpu_radix_join_torch.parallel.network_partitioning import (
-    network_partition)
-from tpu_radix_join_torch.parallel.window import Window
+    network_partition, receive_checksums)
+from tpu_radix_join_torch.parallel.window import Window, parse_exchange_mode
 from tpu_radix_join_torch.parallel.world import make_world
 from tpu_radix_join_torch.performance.measurements import (
     BACKOFFMS, BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE,
     JHIST, JMPI, JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES,
-    RETRYN, RTUPLES, SLOCPREP, SNETCOMPL, STUPLES, SWINALLOC, XSTAGES)
+    RETRYN, RTUPLES, SLOCPREP, SNETCOMPL, STUPLES, SWINALLOC, VCHK, VCHKN,
+    VFAIL, VREPAIR, XSTAGES)
 from tpu_radix_join_torch.robustness import faults
 from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
                                                    RETRIES_EXHAUSTED,
                                                    RetryPolicy,
                                                    classify_diagnostics)
+from tpu_radix_join_torch.robustness.verify import (
+    checksum_rows, cross_check_counts, damaged_partitions,
+    global_partition_checksums)
 
 #: slab of the chunked fallback's count (the JAX package's)
 FALLBACK_SLAB = 1 << 20
@@ -247,6 +272,11 @@ class HashJoin:
         self.device = resolve_device(device)
         self.world = make_world(self.config.num_nodes, group,
                                 self.config.num_hosts)
+        #: the key bound the sizing pass measured (set when a packed
+        #: exchange may read it), and the join's resolved wire plan
+        #: ``(codec, mode, key_bound, rid_bound_r, rid_bound_s)``
+        self._measured_key_bound: Optional[int] = None
+        self._xplan = ("off", 1, None, None, None)
         if group is not None:
             cuda = self.device.type == "cuda"
             want = "nccl" if cuda else "gloo"
@@ -453,24 +483,127 @@ class HashJoin:
                 if JTOTAL in m._starts:
                     m.stop(JTOTAL)
 
-    def _exchange_stats(self, cap_r: int, cap_s: int) -> dict:
-        """The wire geometry of one exchange (``_exchange_stats``,
-        hash_join.py:1637-1691) with the codec off and the fused exchange:
-        every slot ships 8 bytes (12 with the hi key lane)."""
+    # ------------------------------------------------- exchange wire plan
+    def _resolve_exchange_plan(self, r: TupleBatch, s: TupleBatch,
+                               key_bound: Optional[int]):
+        """The join's wire plan ``(codec, mode, key_bound, rid_bound_r,
+        rid_bound_s)`` (``_resolve_exchange_plan``, hash_join.py:
+        1560-1587): ``exchange_stages`` 0 is "auto"; a one-rank world ships
+        raw.  The key bound is the static one of :meth:`join`
+        (``key_bound``), else the sizing pass's measured max, else a device
+        max over the world (:meth:`_probe_key_bound`); the rid bounds are
+        the global relation sizes (rids are dense global indices).  "auto"
+        is resolved window by window (:meth:`_wire_side`)."""
+        cfg = self.config
+        mode = "auto" if cfg.exchange_stages == 0 else int(cfg.exchange_stages)
+        if cfg.exchange_codec == "off" or self.world.size == 1:
+            return ("off", mode, None, None, None)
+        if key_bound is None:
+            key_bound = self._measured_key_bound
+        if key_bound is None:
+            key_bound = self._probe_key_bound(r, s)
         n = self.world.size
-        raw_pt, lanes = (12, 3) if self.config.key_bits == 64 else (8, 2)
-        stats = {"codec": "off", "key_bound": None}
-        for side in ("r", "s"):
-            stats[f"codec_{side}"] = "off"
-            stats[f"stages_{side}"] = 1
-            stats[f"bytes_per_tuple_{side}"] = float(raw_pt)
-        wire = n * (cap_r + cap_s) * raw_pt
-        stats.update(wire_bytes=wire, raw_bytes=wire,
-                     bytes_per_tuple=round(wire / max(1, n * (cap_r + cap_s)),
-                                           4),
-                     pack_ratio_pct=100.0,
-                     peak_exchange_bytes=n * 4 * lanes * max(cap_r, cap_s),
-                     stages=1)
+        return (cfg.exchange_codec, mode, int(key_bound), r.size * n,
+                s.size * n)
+
+    def _key_maxima(self, r: TupleBatch, s: TupleBatch) -> torch.Tensor:
+        """int64 [2]: this rank's largest uint32 of the key lanes and of
+        the hi key lanes (0 without them), each lane's own max."""
+        hi = (torch.zeros((), dtype=torch.int64, device=self.device)
+              if r.key_hi is None
+              else torch.maximum(umax(r.key_hi), umax(s.key_hi)))
+        return torch.stack([torch.maximum(umax(r.key), umax(s.key)), hi])
+
+    @staticmethod
+    def _bound_of(maxima) -> int:
+        """The exclusive key bound of the all-reduced lane maxima: the lane
+        maxima are independent upper bounds, so ``(max_hi << 32 | max_lo)
+        + 1`` bounds every key (``hash_join.py:318-324``, ``:473``)."""
+        return ((int(maxima[1]) << 32) | int(maxima[0])) + 1
+
+    def _probe_key_bound(self, r: TupleBatch, s: TupleBatch) -> int:
+        """Device max + 1 of the keys over the world, for a packed join
+        with no static bound and no measured sizing pass
+        (``_probe_key_bound``, hash_join.py:1589-1599)."""
+        return self._bound_of(self.world.all_reduce(
+            self._key_maxima(r, s), op="max").cpu())
+
+    def _wire_side(self, cap: int, rid_bound):
+        """One window's codec under the plan (``_wire_side``, hash_join.py:
+        1601-1615): ("pack", WireSpec) or ("off", None); "auto" packs only
+        when the packed block is smaller than the raw lanes."""
+        cfg = self.config
+        codec = self._xplan[0]
+        if codec == "off":
+            return "off", None
+        wide = cfg.key_bits == 64
+        spec = make_wire_spec(cap, cfg.network_fanout_bits, wide=wide,
+                              key_bound=self._xplan[2], rid_bound=rid_bound)
+        if codec == "auto" and spec.bytes_per_block >= cap * (12 if wide
+                                                              else 8):
+            return "off", None
+        return "pack", spec
+
+    def _make_windows(self, cap_r: int, cap_s: int):
+        """The two windows under the plan (``_make_windows``, hash_join.py:
+        1619-1636), the one construction site of the counting and the
+        materializing attempts."""
+        cfg = self.config
+        _, mode, key_bound, rid_r, rid_s = self._xplan
+
+        def one(cap, side, rid_bound):
+            codec, _ = self._wire_side(cap, rid_bound)
+            return Window(self.world, cap, side, codec=codec, mode=mode,
+                          fanout_bits=cfg.network_fanout_bits,
+                          key_bound=key_bound, rid_bound=rid_bound)
+
+        return one(cap_r, "inner", rid_r), one(cap_s, "outer", rid_s)
+
+    def _exchange_stats(self, cap_r: int, cap_s: int) -> dict:
+        """The wire geometry of one exchange under the plan
+        (``_exchange_stats``, hash_join.py:1638-1690), from the shapes
+        alone: ``wire_bytes`` a rank ships for both relations,
+        ``bytes_per_tuple`` a slot (raw: 8, 12 with the hi key lane), and
+        ``peak_exchange_bytes``, the largest single collective's buffer
+        (the raw lanes of a side counted as one), which staging bounds to
+        about 1/k."""
+        cfg = self.config
+        n = self.world.size
+        wide = cfg.key_bits == 64
+        raw_pt, lanes = (12, 3) if wide else (8, 2)
+        mode = self._xplan[1]
+        stats = {"codec": cfg.exchange_codec, "key_bound": self._xplan[2]}
+        wire_total = raw_total = peak = 0
+        stages_used = 1
+        for side, cap, rid_bound in (("r", cap_r, self._xplan[3]),
+                                     ("s", cap_s, self._xplan[4])):
+            codec, spec = self._wire_side(cap, rid_bound)
+            raw = n * cap * raw_pt
+            if codec == "pack":
+                wire = n * spec.bytes_per_block
+                k = parse_exchange_mode(mode, spec.block_words)
+                side_peak = n * 4 * -(-spec.block_words // k)
+                bpt = spec.bytes_per_tuple
+            else:
+                wire = raw
+                k = parse_exchange_mode(mode, cap)
+                side_peak = n * 4 * lanes * -(-cap // k)
+                bpt = float(raw_pt)
+            stats[f"codec_{side}"] = codec
+            stats[f"stages_{side}"] = k
+            stats[f"bytes_per_tuple_{side}"] = round(bpt, 4)
+            wire_total += wire
+            raw_total += raw
+            peak = max(peak, side_peak)
+            stages_used = max(stages_used, k)
+        stats["wire_bytes"] = wire_total
+        stats["raw_bytes"] = raw_total
+        stats["bytes_per_tuple"] = round(
+            wire_total / max(1, n * (cap_r + cap_s)), 4)
+        stats["pack_ratio_pct"] = round(
+            100.0 * wire_total / max(1, raw_total), 2)
+        stats["peak_exchange_bytes"] = peak
+        stats["stages"] = stages_used
         return stats
 
     def _finish(self, r: TupleBatch, s: TupleBatch, matches: int,
@@ -530,7 +663,9 @@ class HashJoin:
                          repeats: int = 1) -> JoinResult:
         """The one-rank sort probe; a reported shortfall (only the
         ``engine.shuffle_overflow`` fault site gives one: nothing here has
-        a capacity) reruns it, as the JAX retry loop does."""
+        a capacity) reruns it, as the JAX retry loop does.  It exchanges
+        nothing and is not verified, but ``exchange.corrupt_lane`` still
+        damages its outer keys."""
         cfg = self.config
         m = self.measurements
         route = self._resolve_key_range(r, s, key_bound)
@@ -540,6 +675,7 @@ class HashJoin:
             # no sizing pass: the one-rank sort probe has no windows
             m.start(SWINALLOC)
             m.stop(SWINALLOC)
+        s, _ = self._inject_exchange_corrupt(s)
         for attempt in range(cfg.max_retries + 1 if repeats == 1 else 1):
             if m is not None:
                 m.start(JPROC)
@@ -638,26 +774,32 @@ class HashJoin:
                  else None)
         if m is not None and route in ("narrow", "full"):
             m.meta["key_range"] = route
+        self._measured_key_bound = None   # only this join's sizing counts
         plan, cap_r, cap_s, skew = self._sized(r, s)
+        self._xplan = self._resolve_exchange_plan(r, s, key_bound)
         caps = (cap_r, cap_s)
         if m is not None:
             xs = self._exchange_stats(cap_r, cap_s)
             m.meta["exchange_plan"] = xs
             m.counters[PACKRATIO] = int(round(xs["pack_ratio_pct"]))
             m.counters[XSTAGES] = int(xs["stages"])
+        verify = cfg.verify != "off"
+        pre = self._verify_pre(r, s, skew) if verify else None
+        s, pristine_s = self._inject_exchange_corrupt(s)
         if repeats > 1:
-            counts, flags, _ = self._shuffled_attempt(
-                r, s, plan, route, cap_r, cap_s, 1, skew, repeats)
+            counts, flags, _, vchk = self._shuffled_attempt(
+                r, s, plan, route, cap_r, cap_s, 1, skew, repeats, verify)
             diag = self._flags_to_diag(flags)
-            matches = int(counts.astype(np.uint64).sum())
-            self._finish(r, s, matches, caps, repeats)
-            return JoinResult(matches=matches, ok=not flags.any(),
-                              partition_counts=counts,
-                              diagnostics=self._stamp_fault_sites(diag))
+            if verify and not flags.any():
+                return self._verified_finish(r, s, pristine_s, counts, flags,
+                                             diag, pre, vchk, caps, skew,
+                                             repeats)
+            return self._result(r, s, counts, flags, diag, caps, repeats)
         local_slack = 1
         for attempt in range(cfg.max_retries + 1):
-            counts, flags, dts = self._shuffled_attempt(
-                r, s, plan, route, cap_r, cap_s, local_slack, skew)
+            counts, flags, dts, vchk = self._shuffled_attempt(
+                r, s, plan, route, cap_r, cap_s, local_slack, skew,
+                verify=verify)
             caps = (cap_r, cap_s)   # the attempt the result comes from
             flags = self._inject_shuffle_fault(flags)
             diag = self._flags_to_diag(flags)
@@ -679,12 +821,179 @@ class HashJoin:
         if (flags.any() and self._retryable(diag)
                 and cfg.fallback == "chunked"):
             return self._fallback_chunked(r, s, diag, attempt)
+        if verify and not flags.any():
+            # the checksums judge only a flag-clean accepted attempt: a
+            # capacity shortfall drops tuples by its own failure class
+            return self._verified_finish(r, s, pristine_s, counts, flags,
+                                         diag, pre, vchk, caps, skew, 1,
+                                         attempt)
+        return self._result(r, s, counts, flags, diag, caps, retries=attempt)
+
+    def _result(self, r: TupleBatch, s: TupleBatch, counts: np.ndarray,
+                flags: np.ndarray, diag: dict, caps, repeats: int = 1,
+                retries: int = 0) -> JoinResult:
+        """The epilogue of an attempt's readback: the host uint64 sum of
+        the uint32 counts (a device sum would wrap at scale), the
+        registry's counters and the result."""
         matches = int(counts.astype(np.uint64).sum())
-        self._finish(r, s, matches, caps)
+        self._finish(r, s, matches, caps, repeats)
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts,
                           diagnostics=self._stamp_fault_sites(diag),
-                          retries=attempt)
+                          retries=retries)
+
+    # ------------------------------------------------- integrity verify
+    def _verify_pre(self, r: TupleBatch, s: TupleBatch,
+                    skew: Optional[SkewPlan]) -> torch.Tensor:
+        """The pristine inputs' world fingerprints, int32 [2, rows, P] (R
+        then S), timed as VCHK (``_verify_pre_fn``, hash_join.py:
+        1376-1423).  Under a skew plan the hot inner partitions leave the
+        exchange for the replication route and are left out; hot outer
+        tuples land in the receive buffers with their true pid."""
+        cfg = self.config
+        m = self.measurements
+        fanout, num_p = cfg.network_fanout_bits, cfg.network_partition_count
+        if m is not None:
+            m.start(VCHK)
+        r_pid, s_pid = partition_ids(r, fanout), partition_ids(s, fanout)
+        r_valid = None if skew is None else ~is_hot(r_pid, skew.hot_bits)
+        pre = torch.stack([
+            global_partition_checksums(r.key, r_pid, num_p, self.world,
+                                       valid=r_valid, key_hi=r.key_hi),
+            global_partition_checksums(s.key, s_pid, num_p, self.world,
+                                       key_hi=s.key_hi)])
+        if m is not None:
+            m.stop(VCHK, fence=pre)
+        return pre
+
+    def _inject_exchange_corrupt(self, s: TupleBatch):
+        """Fault site ``exchange.corrupt_lane`` (hash_join.py:1425-1445),
+        consulted once a join on every rank whatever the verify mode: when
+        it fires, rank 0 flips bit 30 of its first outer key (the JAX
+        engine flips element 0 of the global outer lane), on a clone on
+        the device.  Bit 30 keeps the key inside the contract and above
+        the radix bits, so counts conserve and flags stay clean: only the
+        checksums see it.  Returns (batch for the attempts, the pristine
+        batch or None)."""
+        if not faults.fires(faults.EXCHANGE_CORRUPT, self.measurements):
+            return s, None
+        if self.world.rank != 0 or s.size == 0:
+            return s, s
+        key = s.key.clone()
+        key[:1].bitwise_xor_(0x40000000)
+        return s._replace(key=key), s
+
+    def _verified_finish(self, r: TupleBatch, s: TupleBatch,
+                         pristine_s: Optional[TupleBatch], counts: np.ndarray,
+                         flags: np.ndarray, diag: dict, pre: torch.Tensor,
+                         vchk: np.ndarray, caps, skew: Optional[SkewPlan],
+                         repeats: int, retries: int = 0) -> JoinResult:
+        """The integrity verdict on a flag-clean attempt
+        (``_verified_finish``, hash_join.py:2560-2620): each set the
+        attempt read back (R and S alternating) against its relation's
+        pre-exchange fingerprint, then, on the sort and chunked paths
+        without a skew plan, the counts' cross-product bound.  Intact: the
+        normal epilogue.  Damaged: ``data_corruption`` with ok False, or
+        under "repair" :meth:`_repair`."""
+        cfg = self.config
+        m = self.measurements
+        num_p = cfg.network_partition_count
+        if m is not None:
+            m.start(VCHK)
+        pre_h = pre.cpu().numpy().view(np.uint32)
+        damaged = set()
+        ncomp = 0
+        for k in range(vchk.shape[0]):
+            ncomp += 1
+            damaged.update(int(p) for p in damaged_partitions(pre_h[k % 2],
+                                                              vchk[k]))
+        cross = None
+        if not damaged and not cfg.bucket_path and skew is None:
+            ncomp += 1
+            cross = cross_check_counts(
+                counts.reshape(self.world.size, num_p),
+                int(counts.astype(np.uint64).sum()), pre_h[0][0], pre_h[1][0])
+        if m is not None:
+            m.stop(VCHK)
+            m.incr(VCHKN, ncomp)
+        if not damaged and cross is None:
+            return self._result(r, s, counts, flags, diag, caps, repeats,
+                                retries)
+        dmg = sorted(damaged)
+        if m is not None:
+            m.incr(VFAIL)
+            m.event("data_corruption", partitions=dmg[:16],
+                    comparisons=ncomp, cross=cross)
+        diag = dict(diag, data_corruption_partitions=max(1, len(dmg)))
+        if cross is not None:
+            diag["data_corruption_cross"] = cross
+        diag["failure_class"] = classify_diagnostics(diag)
+        if cfg.verify != "repair":
+            return self._result(r, s, counts, flags, diag, caps, repeats,
+                                retries)._replace(ok=False)
+        return self._repair(r, pristine_s if pristine_s is not None else s,
+                            counts, diag, dmg, repeats, retries)
+
+    def _repair(self, r: TupleBatch, s: TupleBatch, counts: np.ndarray,
+                diag: dict, dmg, repeats: int, retries: int) -> JoinResult:
+        """``verify="repair"`` (``_repair``, hash_join.py:2622-2690):
+        recompute the damaged network partitions from the pristine inputs
+        and splice their counts in.  On the sort and chunked layouts each
+        damaged partition re-joins as its own 1 x 1 out-of-core grid
+        (``chunked_join_grid(..., pipeline=grid_pipeline)``, one GRIDPAIRS
+        each) and its count is parked in row 0 of its column; the bucket
+        layout has no column a network partition, and a cross-check
+        violation names none, so those recompute the whole join
+        (``chunked_join_count``).  Over N ranks every rank gathers both
+        relations and recomputes the same counts."""
+        cfg = self.config
+        m = self.measurements
+        num_p = cfg.network_partition_count
+        whole_r, whole_s = self._whole(r), self._whole(s)
+        slab = min(FALLBACK_SLAB, max(1, whole_s.size))
+        scope = "partition"
+        if cfg.bucket_path or not dmg:
+            scope = "full"
+            matches = chunked_join_count(whole_r, whole_s, slab,
+                                         key_range="auto")
+            counts_out = np.array([matches % (1 << 32)], np.uint32)
+        else:
+            cols = counts.reshape(self.world.size, num_p).astype(np.uint64)
+            for p in dmg:
+                cols[:, p] = 0
+            intact = int(cols.sum())
+            repaired = 0
+            for p in dmg:
+                r_p, s_p = (self._partition_of(b, p) for b in (whole_r,
+                                                               whole_s))
+                cnt = 0
+                if r_p.size and s_p.size:
+                    cnt = chunked_join_grid(
+                        [r_p], [s_p], min(slab, s_p.size), measurements=m,
+                        pipeline=cfg.grid_pipeline)
+                cols[0, p] = cnt % (1 << 32)
+                repaired += cnt
+            matches = intact + repaired
+            counts_out = cols.astype(np.uint32).reshape(counts.shape)
+        diag = self._stamp_fault_sites(dict(
+            diag, repaired=scope, repaired_partitions=[int(p) for p in dmg]))
+        if m is not None:
+            m.incr(VREPAIR, max(1, len(dmg)))
+            m.event("repair", scope=scope,
+                    partitions=[int(p) for p in dmg][:16])
+        self._finish(r, s, matches, None, repeats)
+        return JoinResult(matches=matches, ok=True,
+                          partition_counts=counts_out, diagnostics=diag,
+                          retries=retries)
+
+    def _partition_of(self, b: TupleBatch, p: int) -> TupleBatch:
+        """The tuples of network partition ``p`` of ``b``, with zero rids
+        (the count reads only keys)."""
+        sel = partition_ids(b, self.config.network_fanout_bits) == p
+        key = torch.masked_select(b.key, sel)
+        return TupleBatch(key=key, rid=torch.zeros_like(key),
+                          key_hi=None if b.key_hi is None
+                          else torch.masked_select(b.key_hi, sel))
 
     def _retry_backoff(self, attempt: int) -> None:
         """The pause after capacity retry ``attempt`` (``_retry_backoff``,
@@ -819,7 +1128,9 @@ class HashJoin:
         branch, :264-330): the masked demands under the masked assignment,
         the spread outer tuples added to the outer demand (K1 over their
         spread ranks), and ``hot_cap`` from the worst rank's hot inner
-        count."""
+        count.  When the join may pack its exchange, the key lanes' maxima
+        ride the demands' ``all_reduce`` and set the measured key bound
+        (``hash_join.py:318-324``)."""
         cfg = self.config
         n = self.world.size
         if cfg.window_sizing == "static":
@@ -833,17 +1144,24 @@ class HashJoin:
             worst = max(1, int(demand.max()))
             return max(8, 1 << (worst - 1).bit_length())
 
-        demands = self.world.all_reduce(
-            torch.stack(self._sizing_demands(plan)), op="max")
-        if cfg.skew_threshold is None or n == 1:
-            demands = demands.cpu()
-            return cap(demands[0]), cap(demands[1]), None
-        # one readback: the demands and both global histograms
-        host = torch.cat([demands.reshape(-1), widen(plan.r_ghist),
-                          widen(plan.s_ghist)]).cpu().numpy()
+        packs = cfg.exchange_codec != "off" and n > 1
+        reduced = torch.stack(self._sizing_demands(plan)).reshape(-1)
+        if packs:
+            reduced = torch.cat([reduced, self._key_maxima(r, s)])
+        reduced = self.world.all_reduce(reduced, op="max")
+        split = cfg.skew_threshold is not None and n > 1
+        # one readback: the demands, the key maxima and the global histograms
+        host = (torch.cat([reduced, widen(plan.r_ghist), widen(plan.s_ghist)])
+                if split else reduced).cpu().numpy()
+        off = 2 * n
+        if packs:
+            self._measured_key_bound = self._bound_of(host[off:off + 2])
+            off += 2
+        if not split:
+            return cap(host[:n]), cap(host[n:2 * n]), None
         num_p = cfg.network_partition_count
-        hot = detect_hot_partitions(host[2 * n:2 * n + num_p],
-                                    host[2 * n + num_p:], cfg.skew_threshold,
+        hot = detect_hot_partitions(host[off:off + num_p],
+                                    host[off + num_p:], cfg.skew_threshold,
                                     num_nodes=n)
         if not hot.any():
             return cap(host[:n]), cap(host[n:2 * n]), None
@@ -1060,15 +1378,30 @@ class HashJoin:
 
     def _local_process(self, rp, sp, cap_r: int, cap_s: int,
                        local_slack: int,
-                       hot_batch: Optional[TupleBatch] = None):
+                       hot_batch: Optional[TupleBatch] = None,
+                       checksums: bool = False):
         """The bucket branch of ``_local_process``: the second radix pass
         of both received relations (and the hot inner side), then the
         bucketized probe.  Returns (per-bucket counts, local overflow,
-        count-overflow risk)."""
+        count-overflow risk, checksum sets or None).  With ``checksums``
+        (verify) and no skew plan the sets are the world fingerprints of
+        the inner and outer blocks (hash_join.py:1114-1152), so a tuple the
+        second pass damaged is caught too; the replicated hot inner side
+        would make the blocks incomparable with the pre-exchange
+        fingerprint, so a split join takes none."""
+        cfg = self.config
         lr, ls = self._local_partition(rp, sp, cap_r, cap_s, local_slack,
                                        hot_batch)
         counts, risk = self._bucket_probe(lr, ls)
-        return counts, lr.overflow + ls.overflow, risk
+        sets = None
+        if checksums and hot_batch is None:
+            sets = [global_partition_checksums(
+                        b.key, partition_ids(b, cfg.network_fanout_bits),
+                        cfg.network_partition_count, self.world,
+                        valid=valid_mask(b, side), key_hi=b.key_hi)
+                    for b, side in ((lr.blocks, "inner"),
+                                    (ls.blocks, "outer"))]
+        return counts, lr.overflow + ls.overflow, risk, sets
 
     def _local_probe(self, rp, sp, route: Optional[str],
                      s_ghist: torch.Tensor,
@@ -1162,45 +1495,59 @@ class HashJoin:
     def _shuffled_attempt(self, r: TupleBatch, s: TupleBatch,
                           plan: ShufflePlan, route: Optional[str], cap_r: int,
                           cap_s: int, local_slack: int,
-                          skew: Optional[SkewPlan] = None, repeats: int = 1):
+                          skew: Optional[SkewPlan] = None, repeats: int = 1,
+                          verify: bool = False):
         """One attempt at the given capacities (and the skew split's
         ``hot_cap``), or ``repeats`` of them with no readback between them:
         (per-rank per-partition uint32 counts [N * P] in rank order, uint32
         [7] flags summed over the ranks, both from the last attempt's one
-        readback; the phase times it recorded).  By default JPROC spans the
-        attempts and ends at the readback; with ``measure_phases`` the
-        shuffle is JMPI and local processing is fenced into its phases
-        (:meth:`_split_local`).  Flag slot 5 is the split's hot inner
-        overflow."""
+        readback; the phase times it recorded; with ``verify`` the uint32
+        checksum sets [sets, rows, P] of the same readback, else None).  By
+        default JPROC spans the attempts and ends at the readback; with
+        ``measure_phases`` the shuffle is JMPI and local processing is
+        fenced into its phases (:meth:`_split_local`).  Flag slot 5 is the
+        split's hot inner overflow."""
+        cfg = self.config
         m = self.measurements
-        split = m is not None and self.config.measure_phases
+        split = m is not None and cfg.measure_phases
         dts = {}
         self._check_receive(cap_r, cap_s, skew)
         if m is not None:
             m.start(JMPI if split else JPROC)
         for _ in range(repeats):
             out = self._attempt_on_device(r, s, plan, route, cap_r, cap_s,
-                                          local_slack, skew, dts)
-        host = out.cpu().numpy()
+                                          local_slack, skew, dts, verify)
+        host = (out.cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
         if m is not None and not split:
             dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
-        return ((host[7:] & 0xFFFFFFFF).astype(np.uint32),
-                (host[:7] & 0xFFFFFFFF).astype(np.uint32), dts)
+        vchk = None
+        if verify:
+            sets = 4 if cfg.bucket_path and skew is None else 2
+            shape = (sets, checksum_rows(r.key_hi is not None),
+                     cfg.network_partition_count)
+            vchk = host[host.size - int(np.prod(shape)):].reshape(shape)
+            host = host[:host.size - vchk.size]
+        return host[7:], host[:7], dts, vchk
 
     def _attempt_on_device(self, r: TupleBatch, s: TupleBatch,
                            plan: ShufflePlan, route: Optional[str],
                            cap_r: int, cap_s: int, local_slack: int,
-                           skew: Optional[SkewPlan], dts: dict
-                           ) -> torch.Tensor:
+                           skew: Optional[SkewPlan], dts: dict,
+                           verify: bool = False) -> torch.Tensor:
         """An attempt's work up to its readback: int64 [7 + N * P], the
-        flags summed over the ranks and the gathered counts.  Under
-        ``measure_phases`` its phases are fenced and timed into ``dts``."""
+        flags summed over the ranks and the gathered counts, then with
+        ``verify`` the flattened checksum sets — what the exchange
+        delivered (``receive_checksums``, hash_join.py:621-628) and on the
+        bucket path the second pass's blocks.  Under ``measure_phases``
+        its phases are fenced and timed into ``dts``."""
+        cfg = self.config
         m = self.measurements
-        split = m is not None and self.config.measure_phases
+        split = m is not None and cfg.measure_phases
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
-        sh = self._shuffle(r, s, plan, Window(self.world, cap_r, "inner"),
-                           Window(self.world, cap_s, "outer"), skew)
+        sh = self._shuffle(r, s, plan, *self._make_windows(cap_r, cap_s),
+                           skew)
         rp, sp, hot = sh.rp, sh.sp, sh.hot_batch
+        sets = None
         if split:
             # the exchange's completion wait, nested in JMPI
             shuffled = (rp.batch, sp.batch, sh.lost_r, sh.lost_s, sh.bad,
@@ -1211,9 +1558,9 @@ class HashJoin:
             counts, local_overflow, risk = self._split_local(
                 rp, sp, route, plan.s_ghist, cap_r, cap_s, local_slack, dts,
                 hot)
-        elif self.config.bucket_path:
-            counts, local_overflow, risk = self._local_process(
-                rp, sp, cap_r, cap_s, local_slack, hot)
+        elif cfg.bucket_path:
+            counts, local_overflow, risk, sets = self._local_process(
+                rp, sp, cap_r, cap_s, local_slack, hot, checksums=verify)
         else:
             counts, local_overflow, risk = self._local_probe(
                 rp, sp, route, plan.s_ghist, hot)
@@ -1225,8 +1572,13 @@ class HashJoin:
                         if sh.hot_overflow is None else sh.hot_overflow)
         flags = torch.stack([summed[0], sh.lost_r, sh.lost_s, summed[1],
                              summed[2], hot_overflow, summed[3]])
-        gathered = self.world.all_gather(counts).reshape(-1)
-        return torch.cat([flags, widen(gathered)])
+        out = [flags, widen(self.world.all_gather(counts).reshape(-1))]
+        if verify:
+            num_p = cfg.network_partition_count
+            sets = [receive_checksums(rp, num_p, self.world),
+                    receive_checksums(sp, num_p, self.world)] + (sets or [])
+            out.append(widen(torch.stack(sets)).reshape(-1))
+        return torch.cat(out)
 
     # ------------------------------------------------- materializing join
     def _materialize_join(self, r: TupleBatch,
@@ -1235,7 +1587,9 @@ class HashJoin:
         (``join_materialize_arrays``, hash_join.py:2737-2823)."""
         cfg = self.config
         m = self.measurements
+        self._measured_key_bound = None
         plan, cap_r, cap_s, skew = self._sized(r, s)
+        self._xplan = self._resolve_exchange_plan(r, s, None)
         rate_cap = cfg.match_rate_cap
         for attempt in range(cfg.max_retries + 1):
             mm, flags, dts = self._materialize_attempt(
@@ -1281,8 +1635,8 @@ class HashJoin:
         if m is not None:
             m.start(JMPI if split else JPROC)
         keys_ok = self._keys_in_contract(r, s, False)
-        sh = self._shuffle(r, s, plan, Window(self.world, cap_r, "inner"),
-                           Window(self.world, cap_s, "outer"), skew)
+        sh = self._shuffle(r, s, plan, *self._make_windows(cap_r, cap_s),
+                           skew)
         if split:
             shuffled = (sh.rp.batch, sh.sp.batch, sh.lost_r, sh.lost_s,
                         sh.bad, keys_ok, sh.hot_batch)

@@ -2,9 +2,11 @@
 
 Counterpart of ``tpu_radix_join/ops/radix.py``: ``local_histogram`` on K1,
 and ``scatter_to_blocks`` (the fused route ``_scatter_blocks_fused`` with
-``group_size=1``) and ``reorder_by_partition`` on K4's blocked and dense
+``group_size=1``), ``scatter_to_blocks_grouped`` (its grouped mode, for the
+packed exchange) and ``reorder_by_partition`` on K4's blocked and dense
 modes.  The JAX package's sort-based fallback and its impl switch have no
-counterpart: the port has one partition pass, K4.
+counterpart: the port has one partition pass, K4, and a grouping past its
+256 groups raises (ROADMAP A19).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from tpu_radix_join_torch.data.tuples import (PAD_RID, TupleBatch, narrow,
                                               pad_sentinel, widen)
 from tpu_radix_join_torch.ops.kernels.histogram import histogram
-from tpu_radix_join_torch.ops.kernels.partition import partition_scatter
+from tpu_radix_join_torch.ops.kernels.partition import (MAX_GROUPS,
+                                                        partition_scatter)
 
 
 def local_histogram(pid: torch.Tensor, num_partitions: int,
@@ -70,6 +73,47 @@ def scatter_to_blocks(batch: TupleBatch, dest: torch.Tensor, num_blocks: int,
     out, counts = partition_scatter(key, lanes, fills, num_groups=num_blocks,
                                     group_size=1, capacity=capacity)
     return TupleBatch(*out), counts, _overflow(counts, capacity)
+
+
+def scatter_to_blocks_grouped(batch: TupleBatch, dest: torch.Tensor,
+                              sub: torch.Tensor, num_blocks: int,
+                              num_sub: int, capacity: int, side: str,
+                              valid: Optional[torch.Tensor] = None):
+    """:func:`scatter_to_blocks` with a secondary order: within each
+    destination block the tuples land sorted by ``sub`` (the partition id
+    on the packed exchange), in input order within one ``sub``
+    (``scatter_to_blocks_grouped``, ``ops/radix.py:273-343``, on the route
+    of ``_scatter_blocks_fused``, :391-435).  ``sub`` may be any value in
+    ``[0, num_sub)`` whatever ``dest`` is: a spread hot tuple keeps its
+    true pid.
+
+    K4's grouped mode over the composite id ``dest * num_sub + sub``:
+    ``num_blocks * num_sub`` groups, ``num_sub`` of them a block, clipped
+    at ``capacity``.  Returns (blocks, counts — int32 lane [num_blocks] of
+    the unclipped demand, group_counts — int32 [num_blocks, num_sub] of the
+    clipped per-(block, sub) counts, whose clip eats the highest subs
+    first, overflow — 0-d int64)."""
+    num_groups = num_blocks * num_sub
+    if num_groups > MAX_GROUPS:
+        raise NotImplementedError(
+            f"the grouped scatter of {num_blocks} blocks x {num_sub} "
+            f"partitions needs {num_groups} groups; K4 holds {MAX_GROUPS} "
+            "(ROADMAP.md A19: wider fanout)")
+    pad = pad_sentinel(side)
+    lanes, fills = [batch.key, batch.rid], [pad, PAD_RID]
+    if batch.key_hi is not None:
+        lanes.append(batch.key_hi)
+        fills.append(pad)
+    key = _group_key(narrow(widen(dest) * num_sub + widen(sub)), num_groups,
+                     valid)
+    out, ghist = partition_scatter(key, lanes, fills, num_groups=num_groups,
+                                   group_size=num_sub, capacity=capacity)
+    raw = widen(ghist).view(num_blocks, num_sub)
+    counts = raw.sum(dim=1)
+    cum = torch.clamp(torch.cumsum(raw, dim=1), max=capacity)
+    group_counts = torch.cat([cum[:, :1], cum[:, 1:] - cum[:, :-1]], dim=1)
+    return (TupleBatch(*out), narrow(counts), narrow(group_counts),
+            torch.clamp(counts - capacity, min=0).sum())
 
 
 def reorder_by_partition(batch: TupleBatch, pid: torch.Tensor,

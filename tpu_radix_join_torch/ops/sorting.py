@@ -8,8 +8,9 @@ TPU choices; the port has no second sort to route to, so a lane the kernel
 cannot take raises.  The JAX row sort (``sort_lex_unstable(...,
 dimension=1)``) was an XLA sort there, since the radix arm took 1-D lanes
 only; here :func:`sort_lex_rows_unstable` runs it on K2 with the row index
-as the most significant key.  ``segmented_xor_fold`` comes with the verify
-slice.
+as the most significant key.  :func:`segmented_xor_fold` (the checksums of
+integrity verification) sorts on K2 too; PyTorch has no cumulative xor, so
+its prefix xor at the segment ends is a plain PyTorch reduction.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from typing import Optional
 import torch
 
 from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
+
+#: values a row of :func:`_prefix_xor_at`'s blocked reduction holds
+_XOR_BLOCK = 1024
 
 
 def sort_unstable(x: torch.Tensor, *,
@@ -53,3 +57,55 @@ def sort_lex_rows_unstable(*operands: torch.Tensor, num_keys: int,
     out = radix_sort((row, *[o.reshape(-1) for o in operands]),
                      num_keys=num_keys + 1, key_bounds=bounds)
     return tuple(o.view(rows, width) for o in out[1:])
+
+
+def _xor_rows(x: torch.Tensor) -> torch.Tensor:
+    """The xor of each row of int32 [rows, 2**k]: k halving steps."""
+    while x.shape[1] > 1:
+        x = torch.bitwise_xor(x[:, 0::2], x[:, 1::2])
+    return x[:, 0]
+
+
+def _prefix_xor_at(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int32 [q]: the xor of ``values[0..idx[i]]`` for int64 ``idx`` in
+    [-1, n) (0 for -1).  The lane is cut into rows of ``_XOR_BLOCK``; each
+    row is xor-reduced, the row totals are prefix-xored (a log-step scan
+    over n / ``_XOR_BLOCK`` values), and each query adds the masked part of
+    its own row."""
+    n, b = values.numel(), _XOR_BLOCK
+    rows = max(1, -(-n // b))
+    blocks = torch.zeros(rows * b, dtype=torch.int32, device=values.device)
+    blocks[:n] = values
+    blocks = blocks.view(rows, b)
+    incl = _xor_rows(blocks)
+    d = 1
+    while d < rows:                       # inclusive prefix xor of the rows
+        incl = torch.cat([incl[:d], torch.bitwise_xor(incl[d:], incl[:-d])])
+        d *= 2
+    before = torch.cat([incl.new_zeros(1), incl[:-1]])
+    q = torch.clamp(idx, min=0)
+    row, col = q // b, q % b
+    keep = (torch.arange(b, device=values.device)[None, :] <= col[:, None])
+    part = _xor_rows(torch.where(keep, blocks[row], 0))
+    return torch.where(idx >= 0, torch.bitwise_xor(before[row], part), 0)
+
+
+def segmented_xor_fold(segment: torch.Tensor, values: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Per-segment xor: ``out[q] = XOR of values[i] where segment[i] ==
+    q``, an int32 lane [num_segments] of uint32 bits
+    (``segmented_xor_fold``, ``ops/sorting.py:210-240``).
+
+    The values sort by segment on K2 (key bound ``num_segments + 1``: one
+    8-bit pass up to 255 segments), ``searchsorted`` finds each segment's
+    last position, and the fold is the prefix xor there against the one at
+    the previous segment's end (:func:`_prefix_xor_at`).  An empty segment
+    folds to 0.  The segment ``num_segments`` is the discard bucket:
+    callers route invalid lanes to exactly that value."""
+    seg_s, val_s = sort_kv_unstable(segment, values,
+                                    key_bound=num_segments + 1)
+    ends = torch.searchsorted(
+        seg_s, torch.arange(num_segments, dtype=torch.int32,
+                            device=seg_s.device), right=True) - 1
+    upto = _prefix_xor_at(val_s, ends.to(torch.int64))
+    return torch.bitwise_xor(upto, torch.cat([upto.new_zeros(1), upto[:-1]]))

@@ -2,9 +2,12 @@
 
 Counterpart of ``tpu_radix_join/parallel/network_partitioning.py``
 (``network_partition``): partition id per tuple, destination per tuple
-through the assignment map, then one window exchange.  The skew split
-(operators/skew.py) withholds hot inner tuples (``exclude``) and sends hot
-outer tuples to their spread ranks (``override``).
+through the assignment map, then one window exchange, the partition ids
+riding along for the packed codec.  The skew split (operators/skew.py)
+withholds hot inner tuples (``exclude``) and sends hot outer tuples to
+their spread ranks (``override``).  :func:`receive_checksums` fingerprints
+what an exchange delivered, for integrity verification
+(robustness/verify.py).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from tpu_radix_join_torch.data.tuples import (TupleBatch, partition_ids,
                                               valid_mask)
 from tpu_radix_join_torch.parallel.window import Window
+from tpu_radix_join_torch.robustness.verify import global_partition_checksums
 
 
 class NetworkPartitionResult(NamedTuple):
@@ -43,8 +47,22 @@ def network_partition(batch: TupleBatch, fanout_bits: int,
         dest = torch.where(override[0], override[1], dest)
     if exclude is not None:
         valid = ~exclude if valid is None else (valid & ~exclude)
-    res = window.exchange(batch, dest, valid=valid)
+    # the pid rides along for the packed codec, which drops the fanout bits
+    # and restores them from the block headers
+    res = window.exchange(batch, dest, valid=valid, pid=pid)
     return NetworkPartitionResult(
         batch=res.batch, valid=valid_mask(res.batch, window.side),
         pid=partition_ids(res.batch, fanout_bits),
         recv_counts=res.recv_counts, send_overflow=res.send_overflow)
+
+
+def receive_checksums(res: NetworkPartitionResult, num_partitions: int,
+                      world) -> torch.Tensor:
+    """The world's int32 ``[rows, P]`` integrity fingerprint of what the
+    exchange delivered (``receive_checksums``, ``network_partitioning.py:
+    74-85``), taken on the received (unpacked) lanes: equal to the
+    pre-exchange fingerprint when the exchange conserved every tuple and
+    every key bit."""
+    return global_partition_checksums(res.batch.key, res.pid, num_partitions,
+                                      world, valid=res.valid,
+                                      key_hi=res.batch.key_hi)

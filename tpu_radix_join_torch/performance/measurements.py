@@ -79,6 +79,11 @@ GRIDPAIRS = "GRIDPAIRS"    # chunk pairs probed by chunked_join_grid (a
 PREFETCH = "PREFETCH"      # chunks staged by the grid's prefetch thread
 SORTREUSE = "SORTREUSE"    # grid pair probes that reused the row's presorted
                            # inner chunk: rows x (cols - 1) on a full grid
+VCHK = "VCHK"              # integrity verification's time (times only:
+                           # its comparisons count under VCHKN)
+VCHKN = "VCHKN"            # integrity checksum comparisons performed
+VFAIL = "VFAIL"            # checksum mismatches found (robustness/verify.py)
+VREPAIR = "VREPAIR"        # damaged partitions recomputed (verify="repair")
 JRATE = "JRATE"            # derived: (R+S) tuples / JTOTAL second
 JPROCRATE = "JPROCRATE"    # derived: (R+S) tuples / JPROC second
 HILOCRATE = "HILOCRATE"    # derived: inner tuples / JHIST second

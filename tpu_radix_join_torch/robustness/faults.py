@@ -2,11 +2,13 @@
 
 The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
 (``:95-251``) with the sites the out-of-core grid, the chunk stream, the
-checkpoints, the process-group connect (``parallel/multihost.initialize``)
-and the join engine's retry loops (``engine.shuffle_overflow``) consult.  An armed :class:`FaultInjector` decides from its seed
-whether a site fires on each hit; a fired site raises (a simulated kill or
-transient error) or tells its caller to damage its own state (a sentinel
-key in a streamed lane)::
+checkpoints, the process-group connect (``parallel/multihost.initialize``),
+the join engine's retry loops (``engine.shuffle_overflow``) and its
+exchange (``exchange.corrupt_lane``) consult.  An armed
+:class:`FaultInjector` decides from its seed whether a site fires on each
+hit; a fired site raises (a simulated kill or transient error) or tells its
+caller to damage its own state (a sentinel key in a streamed lane, a
+flipped key bit before the exchange)::
 
     with FaultInjector(seed=7).arm(faults.GRID_KILL, at=3, exc=InjectedKill):
         chunked_join_grid(...)        # the third pair raises InjectedKill
@@ -35,9 +37,10 @@ CKPT_SAVE = "checkpoint.save"              # checkpoint write I/O error
 CKPT_LOAD = "checkpoint.load"              # checkpoint read I/O error
 COORD_CONNECT = "multihost.coordinator_connect"   # process-group connect
 SHUFFLE_OVERFLOW = "engine.shuffle_overflow"   # a reported outer shortfall
+EXCHANGE_CORRUPT = "exchange.corrupt_lane"     # a bit-flipped outer key
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
-         COORD_CONNECT, SHUFFLE_OVERFLOW)
+         COORD_CONNECT, SHUFFLE_OVERFLOW, EXCHANGE_CORRUPT)
 
 
 class InjectedFault(RuntimeError):

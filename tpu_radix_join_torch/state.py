@@ -18,10 +18,9 @@ from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 
 #: JAX config fields the port's joins never read: the payload width, the
-#: mesh axis's name, the result's aggregation rank and the repair's grid
-#: pipeline (verify is ROADMAP A15)
+#: mesh axis's name and the result's aggregation rank
 _UNREAD = frozenset({
-    "payload_bits", "mesh_axis", "result_aggregation_node", "grid_pipeline",
+    "payload_bits", "mesh_axis", "result_aggregation_node",
 })
 #: implementation choices among versions of the same kernel: the port has
 #: one of each, so they map to "auto"
@@ -35,10 +34,11 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
     same kernel, and the port has one of each, so they map to "auto".
     ``num_nodes``, ``num_hosts``, ``skew_threshold``, ``debug_checks``,
     ``chunk_size``, ``measure_phases``, ``match_rate_cap``, ``generation``,
-    ``exchange_stages`` and the four retry-backoff fields carry across; a
-    setting the port does not run yet (``verify``, a wire codec, a staged
-    exchange) raises ``NotImplementedError`` from :class:`JoinConfig`,
-    naming its ROADMAP.md item; an unknown field raises ``ValueError``."""
+    ``exchange_codec``, ``exchange_stages``, ``verify``, ``grid_pipeline``
+    and the four retry-backoff fields carry across; a setting the port does
+    not run yet (a fanout past the kernels' bins) raises
+    ``NotImplementedError`` from :class:`JoinConfig`, naming its ROADMAP.md
+    item; an unknown field raises ``ValueError``."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
