@@ -156,6 +156,31 @@ A15):
 K4's grouped call is also held against its plain version at the 4-rank
 exchange's 20M ids, at 2**23 slots a block and clipped at 2**22.
 
+Cell (s), on the same group (phase_s): the resident join service (ROADMAP
+A16), through ``JoinSession`` and ``python -m tpu_radix_join_torch.main
+--serve``, unique ⋈ unique at 20,000,000 tuples a node:
+
+  (s1) one session (``probe_algorithm="bucket"``, a result cache of 8, a
+       50 ms batch window, 1024 MiB resident): q0 cold, q1 and q2 warm (no
+       JHIST), q3 a repeat of q0 served by the cache (no launch); four
+       queries of one signature at 2**20 through one fused program
+       (``batched``, BATCHN 1, BATCHQ 4, K2 launched), timed against the
+       same four served solo; the delta chain (the 20M base, then three Δ
+       of 2**16 a node, ``delta_merge``, K2 launched, each count the host
+       oracle's); a 1 ms deadline missed and the next query served; a
+       session of queue depth 2 rejecting a third submission; then the
+       command line's ``--serve`` with q0-q3 and the deadline pair.  Each
+       query's latency and launches, and the SLO p50 and p99, are printed;
+       no degraded engine and no ``batch_fallback`` fires;
+  (s2) the breaker at 2**16: ``backend.dispatch`` armed three times trips
+       it, the degraded CPU engine serves one query with no kernel
+       launched, the half-open probe closes it and the card's kernels run
+       again;
+  (s3) in phase (p)'s four gloo ranks: one session of the four ranks
+       serves three queries at 20M a rank (q1 and q2 warm) and a delta
+       base and delta merge at 2**20 a rank; every rank reports the same
+       outcomes.
+
 Phase (p), the skew split and the hierarchical exchange (phase_p): four
 rank processes of one gloo group on this one card
 (``multihost.initialize(device="cuda", backend="gloo")``, ``file://``
@@ -1088,6 +1113,9 @@ def phase_n(dev, n, refs, time_ms, device_us, card) -> dict:
         torch.cuda.empty_cache()
         launches_r = phase_r(dev, n, group, time_ms, card)
         launches = {k: v + launches_r[k] for k, v in launches.items()}
+        torch.cuda.empty_cache()
+        launches_s = phase_s(dev, n, group, card)
+        launches = {k: v + launches_s[k] for k, v in launches.items()}
     finally:
         multihost.shutdown()
     return launches
@@ -1305,6 +1333,376 @@ def phase_r(dev, n, group, time_ms, card) -> dict:
           "overhead_share": timed["check"]["JTOTAL"]
           / timed["off"]["JTOTAL"] - 1, "runs": timed, **card})
     return total
+
+
+#: phase (s): the batch's tuples a node, the Δ a node of the delta chain,
+#: the breaker's tuples, the resident budget (MiB) and the deadline of the
+#: query that must miss it; (s3)'s delta base a rank
+S_BATCH_TUPLES = 1 << 20
+S_DELTA_TUPLES = 1 << 16
+S_BREAKER_TUPLES = 1 << 16
+S_RESIDENT_MB = 1024
+S_DEADLINE_S = 0.001
+S3_DELTA_BASE = 1 << 20
+#: arguments phase (s) adds to its command line (none on the card)
+S_CLI_EXTRA = ()
+
+
+def phase_s(dev, n, group, card) -> dict:
+    """Cell (s), on (n)'s NCCL group of one rank (phase_s, called by
+    phase_n after (r)): the resident join service (ROADMAP A16).
+
+    (s1) One ``JoinSession`` (``probe_algorithm="bucket"``, a result cache
+    of 8, a 50 ms batch window of 4, 1024 MiB resident) at ``n`` tuples a
+    node, unique ⋈ unique: q0 cold, q1 and q2 warm (no JHIST), q3 a repeat
+    of q0 from the cache; four queries of one signature at 2**20 through
+    ``run_next_batch`` (one fused program, K2); the delta chain (the base,
+    then three Δ of 2**16: ``delta_merge``, each count the host oracle's);
+    a query whose 1 ms deadline passes, then one that is served; a second
+    session of queue depth 2 rejecting a third submission.  Each query runs
+    with the launch counts set to 0 and read after.  The same four queries
+    at 2**20 served solo by a plain session time the batch against them.
+    Then ``python -m tpu_radix_join_torch.main --serve FILE`` runs q0-q3 and
+    the deadline pair as a subprocess.
+    (s2) The breaker at 2**16: ``backend.dispatch`` armed three times
+    trips it, one query is served by the degraded CPU engine (no kernel
+    launched), the half-open probe closes it (the card's kernels again).
+    Prints each query's latency, served_by and launches, and the SLO p50
+    and p99.  No degraded engine and no ``batch_fallback`` outside (s2).
+    Returns the launches of every query."""
+    import tempfile
+    import torch
+    from tpu_radix_join_torch import JoinConfig
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.service import (AdmissionRejected, JoinSession,
+                                              QueryRequest)
+
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in kernels.launch_counts()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def launched(fn):
+        """``fn()`` with the launch counts set to 0: (its result, the
+        kernels it launched)."""
+        sync()
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    def serve(sess, qid, **kw):
+        kw.setdefault("tuples_per_node", n)
+        kw.setdefault("seed", 1234)
+
+        def one():
+            sess.submit(QueryRequest(query_id=qid, **kw))
+            return sess.run_next()
+        return launched(one)
+
+    lines = []
+
+    def record(cell, out, got):
+        line = {"phase": "serve", "cell": cell, **out.to_json(),
+                "launches": {k: v for k, v in got.items() if v}}
+        lines.append(line)
+        emit(dict(line, **card))
+
+    def need(cell, out, got, names, **want):
+        for k, v in want.items():
+            if getattr(out, k) != v:
+                raise AssertionError(f"({cell}) {out.query_id}: {k} "
+                                     f"{getattr(out, k)!r}, not {v!r}: "
+                                     f"{out}")
+        if out.matches != out.expected:
+            raise AssertionError(f"({cell}) {out.query_id}: {out.matches} "
+                                 f"matches, the oracle {out.expected}")
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"({cell}) {out.query_id}: kernel {k} "
+                                     "did not launch")
+        if names == () and any(got.values()):
+            raise AssertionError(f"({cell}) {out.query_id}: launched "
+                                 f"{got}")
+
+    # ------------------------------------------------------------- (s1)
+    meas = Measurements()
+    svc = ServiceConfig(result_cache_max=8, batch_window_ms=50.0,
+                        batch_max_queries=4,
+                        resident_budget_bytes=S_RESIDENT_MB << 20)
+    sess = JoinSession(JoinConfig(probe_algorithm="bucket"), svc,
+                       measurements=meas, device=dev, group=group)
+    bucket = ("histogram", "partition", "radix_histogram", "radix_pass")
+    try:
+        jhist = []
+        for i in range(3):
+            out, got = serve(sess, f"q{i}", seed=1234 + 2 * i)
+            jhist.append(meas.times_us.get("JHIST", 0.0))
+            record("s1", out, got)
+            need("s1", out, got, bucket, status="ok", served_by="execute",
+                 warm=i > 0, matches=n)
+        if not (jhist[0] > 0 and jhist[1] == jhist[0] == jhist[2]):
+            raise AssertionError(f"(s1) JHIST after q0-q2: {jhist}")
+        out, got = launched(lambda: sess.try_cache(
+            QueryRequest(query_id="q3", tuples_per_node=n, seed=1234)))
+        record("s1", out, got)
+        need("s1", out, got, (), status="ok", served_by="cache_hit",
+             matches=n)
+        # four queries of one signature through one fused program
+        nb = S_BATCH_TUPLES
+        batch_reqs = [QueryRequest(query_id=f"b{i}", tuples_per_node=nb,
+                                   seed=100 + i) for i in range(4)]
+        for req in batch_reqs:
+            sess.submit(req)
+        outs, got = launched(sess.run_next_batch)
+        for out in outs:
+            record("s1", out, got)
+            need("s1", out, got, ("radix_histogram", "radix_pass"),
+                 status="ok", served_by="batched", matches=nb)
+        if (len(outs) != 4 or meas.counters.get("BATCHN") != 1
+                or meas.counters.get("BATCHQ") != 4):
+            raise AssertionError(f"(s1) batch: {len(outs)} outcomes, "
+                                 f"{dict(meas.counters)}")
+        batch_ms = outs[0].latency_ms
+        # the delta chain: the base, then three Δ merged on the device
+        delta_ms = []
+        for i in range(4):
+            out, got = serve(sess, f"d{i}", seed=4321,
+                             delta_tuples_per_node=S_DELTA_TUPLES)
+            record("s1", out, got)
+            need("s1", out, got, ("radix_histogram", "radix_pass"),
+                 status="ok", served_by="delta_merge" if i else "execute",
+                 matches=n)
+            delta_ms.append(out.latency_ms)
+        if meas.counters.get("DELTAMERGE") != 3:
+            raise AssertionError(f"(s1) DELTAMERGE "
+                                 f"{meas.counters.get('DELTAMERGE')}")
+        out, got = serve(sess, "deadline", seed=999,
+                         deadline_s=S_DEADLINE_S)
+        record("s1", out, got)
+        if (out.status, out.failure_class) != ("failed",
+                                               "deadline_exceeded"):
+            raise AssertionError(f"(s1) the 1 ms deadline: {out}")
+        out, got = serve(sess, "after", seed=1001)
+        record("s1", out, got)
+        need("s1", out, got, bucket, status="ok", served_by="execute")
+        summary = sess.summary()
+        events = [e["event"] for e in meas.meta.get("events", [])]
+    finally:
+        sess.close()
+    if "degrade" in events or "batch_fallback" in events:
+        raise AssertionError(f"(s1) left the device: {events}")
+    # admission: queue depth 2, three submitted before the drain
+    small = JoinSession(JoinConfig(), ServiceConfig(max_queue_depth=2),
+                        measurements=Measurements(), device=dev, group=group)
+    try:
+        rejected = []
+        for i in range(3):
+            req = QueryRequest(query_id=f"a{i}",
+                               tuples_per_node=S_BREAKER_TUPLES, seed=i)
+            try:
+                small.submit(req)
+            except AdmissionRejected as e:
+                rejected.append(small.rejection_outcome(req, e))
+        served, got = launched(small.drain)
+        for out in rejected:
+            record("s1", out, {})
+        for out in served:
+            record("s1", out, got)
+        if ([o.failure_class for o in rejected] != ["admission_rejected"]
+                or "queue_full" not in rejected[0].detail
+                or [o.status for o in served] != ["ok", "ok"]):
+            raise AssertionError(f"(s1) admission: {rejected} {served}")
+    finally:
+        small.close()
+    # the same four batch queries served solo by a plain session
+    solo = JoinSession(JoinConfig(), ServiceConfig(),
+                       measurements=Measurements(), device=dev, group=group)
+    try:
+        solo_ms = []
+        for req in batch_reqs:
+            out, got = launched(lambda req=req: (solo.submit(req),
+                                                 solo.run_next())[1])
+            need("s1", out, got, ("radix_pass", "merge_scan"), status="ok",
+                 served_by="execute")
+            solo_ms.append(out.latency_ms)
+    finally:
+        solo.close()
+    executed = [ln["latency_ms"] for ln in lines
+                if ln["query_id"] in ("q1", "q2")]
+    emit({"phase": "serve_summary", "cell": "s1", "tuples_per_node": n,
+          "slo_p50_ms": summary["slo_p50_ms"],
+          "slo_p99_ms": summary["slo_p99_ms"],
+          "summary": summary, "delta_ms": delta_ms[1:],
+          "delta_cold_ms": delta_ms[0], "warm_execute_ms": executed,
+          "batch_of_4_ms": batch_ms, "solo_ms": solo_ms,
+          "solo_sum_ms": sum(solo_ms), **card})
+
+    # the command line, as a subprocess (its kernels were built above)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:
+        path = os.path.join(tmp, "requests.jsonl")
+        reqs = [{"query_id": f"q{i}", "tuples_per_node": n,
+                 "seed": 1234 + 2 * i} for i in range(3)]
+        reqs += [{"query_id": "q3", "tuples_per_node": n, "seed": 1234},
+                 {"query_id": "deadline", "tuples_per_node": n, "seed": 999,
+                  "deadline_s": S_DEADLINE_S},
+                 {"query_id": "after", "tuples_per_node": n, "seed": 1001}]
+        with open(path, "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in reqs))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_radix_join_torch.main", "--serve",
+             path, "--probe", "bucket", "--result-cache", "8",
+             *S_CLI_EXTRA],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    outs = {r["query_id"]: r for r in recs if r.get("event") == "outcome"}
+    cli_summary = next((r for r in recs if r.get("event") == "summary"), {})
+    want = {"q0": ("ok", "execute", False), "q1": ("ok", "execute", True),
+            "q2": ("ok", "execute", True), "q3": ("ok", "cache_hit", True),
+            "deadline": ("failed", "execute", False),
+            "after": ("ok", "execute", True)}
+    got_cli = {q: (o["status"], o["served_by"], o["warm"])
+               for q, o in outs.items()}
+    # one failed query (the deadline) makes the run's exit code 1
+    if (proc.returncode != 1 or got_cli != want
+            or outs["deadline"]["failure_class"] != "deadline_exceeded"
+            or any(outs[q]["matches"] != n for q in ("q0", "q1", "q3"))):
+        raise AssertionError(f"(s1) --serve exited {proc.returncode}: "
+                             f"{got_cli}\n{proc.stderr[-3000:]}")
+    emit({"phase": "serve_cli", "cell": "s1", "seconds": cli_s,
+          "latency_ms": {q: o["latency_ms"] for q, o in outs.items()},
+          "slo_p50_ms": cli_summary.get("slo_p50_ms"),
+          "slo_p99_ms": cli_summary.get("slo_p99_ms"),
+          "warm_queries": cli_summary.get("warm_queries"), **card})
+
+    # ------------------------------------------------------------- (s2)
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    meas = Measurements()
+    sess = JoinSession(JoinConfig(), ServiceConfig(breaker_threshold=3,
+                                                   breaker_cooldown_s=60.0),
+                       measurements=meas, clock=clock, device=dev,
+                       group=group)
+    inj = faults.FaultInjector(seed=15)
+    inj.arm(faults.BACKEND_DISPATCH, at=(1, 2, 3))
+    try:
+        outs = []
+        with inj:
+            for i in range(4):
+                out, got = serve(sess, f"brk{i}",
+                                 tuples_per_node=S_BREAKER_TUPLES)
+                record("s2", out, got)
+                outs.append((out, got))
+            clock.t += 61.0                   # the cooldown elapses
+            for qid in ("probe", "after"):
+                out, got = serve(sess, qid, tuples_per_node=S_BREAKER_TUPLES)
+                record("s2", out, got)
+                outs.append((out, got))
+        for out, got in outs[:3]:
+            if (out.failure_class != "backend_unavailable"
+                    or any(got.values())):
+                raise AssertionError(f"(s2) outage: {out} {got}")
+        cpu_out, cpu_got = outs[3]
+        # the degraded engine launches nothing on the card (a CPU dry run
+        # of this phase has no card to tell apart)
+        need("s2", cpu_out, cpu_got, () if cuda else ("radix_pass",),
+             status="ok", engine="cpu_fallback", degraded=True,
+             breaker_state="open")
+        for out, got in outs[4:]:
+            need("s2", out, got, ("radix_pass", "merge_scan"), status="ok",
+                 engine="primary", breaker_state="closed")
+        c = meas.counters
+        if (c.get("BRKTRIP"), c.get("BRKPROBE"), c.get("QDEGRADED")) != (
+                1, 1, 1) or "degrade" not in [
+                e["event"] for e in meas.meta["events"]]:
+            raise AssertionError(f"(s2) counters {dict(c)}")
+        emit({"phase": "serve_summary", "cell": "s2",
+              "breaker": sess.breaker.snapshot(),
+              "cpu_fallback_ms": cpu_out.latency_ms,
+              "probe_ms": outs[4][0].latency_ms,
+              "summary": sess.summary(), **card})
+    finally:
+        sess.close()
+    return total
+
+
+def s3_case(dev, group, rank, world, n):
+    """(s3), one rank of phase (p)'s gloo group: a ``JoinSession`` of the
+    four ranks (``probe_algorithm="bucket"``, 1024 MiB resident) serves
+    q0-q2 at ``n`` tuples a rank (q1 and q2 warm), then a delta base and
+    one delta-merge query at :data:`S3_DELTA_BASE` a rank.  Returns this
+    rank's outcomes (without their latencies, which it reports apart)."""
+    import torch.distributed as dist
+    from tpu_radix_join_torch import JoinConfig
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+
+    meas = Measurements(node_id=rank, num_nodes=world)
+    sess = JoinSession(JoinConfig(num_nodes=world, probe_algorithm="bucket"),
+                       ServiceConfig(resident_budget_bytes=S_RESIDENT_MB
+                                     << 20),
+                       measurements=meas, device=dev, group=group)
+    reqs = [QueryRequest(f"q{i}", tuples_per_node=n, seed=1234 + 2 * i)
+            for i in range(3)]
+    reqs += [QueryRequest(f"d{i}", tuples_per_node=S3_DELTA_BASE, seed=77,
+                          delta_tuples_per_node=S_DELTA_TUPLES)
+             for i in range(2)]
+    try:
+        dist.barrier()
+        outs = []
+        for req in reqs:
+            sess.submit(req)
+            outs.append(sess.run_next().to_json())
+        latency = {o["query_id"]: o.pop("latency_ms") for o in outs}
+        return {"outcomes": outs, "latency_ms": latency,
+                "counters": {k: meas.counters.get(k, 0)
+                             for k in ("QWARM", "DELTAMERGE", "RESBYTES")},
+                "events": sorted({e["event"]
+                                  for e in meas.meta.get("events", [])})}
+    finally:
+        sess.close()
+
+
+def check_s3(results: list, card: dict) -> None:
+    """(s3)'s checks: every rank reports the same outcomes and counters, q1
+    and q2 warm, the delta query merged, every count the oracle's."""
+    ref = results[0]["serve"]
+    for res in results[1:]:
+        if (res["serve"]["outcomes"] != ref["outcomes"]
+                or res["serve"]["counters"] != ref["counters"]):
+            raise AssertionError(f"(s3) rank {res['rank']}: "
+                                 f"{res['serve']} against rank 0's {ref}")
+    outs = ref["outcomes"]
+    if ([(o["status"], o["served_by"], o["warm"]) for o in outs] != [
+            ("ok", "execute", False), ("ok", "execute", True),
+            ("ok", "execute", True), ("ok", "execute", False),
+            ("ok", "delta_merge", False)]
+            or any(o["matches"] != o["expected"] for o in outs)
+            or "degrade" in ref["events"]
+            or "batch_fallback" in ref["events"]):
+        raise AssertionError(f"(s3): {ref}")
+    emit({"phase": "serve", "cell": "s3", "backend": P_BACKEND,
+          "ranks": P_RANKS, "outcomes": outs, "counters": ref["counters"],
+          "latency_ms_by_rank": [r["serve"]["latency_ms"] for r in results],
+          **card})
 
 
 def phase_p_rank(rank: int, world: int, init_method: str,
@@ -1578,6 +1976,10 @@ def phase_p_rank(rank: int, world: int, init_method: str,
                 del got
             out["cases"][name] = case
             del eng, eng_m
+        placed.clear()
+        if cuda:
+            torch.cuda.empty_cache()
+        out["serve"] = s3_case(dev, group, rank, world, n)
     finally:
         placed.clear()
         multihost.shutdown()
@@ -1780,6 +2182,7 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
               "launches": launches, "collectives": c["collectives"],
               **card})
     check_p6(results, seconds, card, cases, p5, total)
+    check_s3(results, card)
     for name, (c, pc, per_rank, launches) in cases.items():
         hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
         hot_p = {"p1_unsplit": hot1, "p2": ()}.get(name, hot)

@@ -51,6 +51,20 @@ chunked = tx.HashJoin(tx.JoinConfig(chunk_size=1000), device="cpu",
     tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
 rel = tx.Relation(3000, 1, "unique", seed=1).generate("cpu")
 shuffled = distribute(rel, OneRankWorld(), seed=3)
+from tpu_radix_join_torch.core.config import ServiceConfig
+from tpu_radix_join_torch.service import JoinSession, QueryRequest
+session = JoinSession(tx.JoinConfig(),
+                      ServiceConfig(result_cache_max=2, batch_window_ms=1.0,
+                                    resident_budget_bytes=1 << 20),
+                      device="cpu")
+for q in (QueryRequest("s0", tuples_per_node=512),
+          QueryRequest("s1", tuples_per_node=512, delta_tuples_per_node=8),
+          QueryRequest("s2", tuples_per_node=512, delta_tuples_per_node=8),
+          QueryRequest("s3", tuples_per_node=256, seed=1),
+          QueryRequest("s4", tuples_per_node=256, seed=2)):
+    session.submit(q)
+served = [(o.served_by, o.matches == o.expected) for o in session.drain()]
+session.close()
 raised = {}
 for name, call in [
         ("HashJoin", lambda: tx.HashJoin()),
@@ -73,7 +87,9 @@ for name, call in [
         ("stream_chunks_device", lambda: next(stream_chunks_device(
             tx.Relation(64), 0, 16))),
         ("main --grid-chunk-tuples", lambda: tx.main.main(
-            ["--grid-chunk-tuples", "16", "--tuples-per-node", "64"]))]:
+            ["--grid-chunk-tuples", "16", "--tuples-per-node", "64"])),
+        ("JoinSession", lambda: JoinSession(tx.JoinConfig())),
+        ("main --serve", lambda: tx.main.main(["--serve", "absent.jsonl"]))]:
     try:
         call()
         raised[name] = None
@@ -91,7 +107,8 @@ print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
                               sorted(meas.times_us)],
                   "shuffled": [sorted(shuffled.key.tolist())
                                == sorted(rel.key.tolist()),
-                               shuffled.key.tolist() != rel.key.tolist()]}))
+                               shuffled.key.tolist() != rel.key.tolist()],
+                  "served": served}))
 """
 
 
@@ -114,6 +131,9 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",
                                            "SWINALLOC"]]
     assert got["shuffled"] == [True, True]
+    assert got["served"] == [["execute", True], ["execute", True],
+                             ["delta_merge", True], ["batched", True],
+                             ["batched", True]]
     for name, msg in got["raised"].items():
         assert msg is not None and "no CUDA device" in msg, name
 

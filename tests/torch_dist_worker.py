@@ -246,6 +246,61 @@ def _checksums(task, world):
     return {"checksums": _np(got.reshape(-1))}
 
 
+#: the outcome fields a ``serve`` task returns (latency varies)
+SERVE_FIELDS = ("query_id", "tenant", "status", "failure_class", "matches",
+                "expected", "warm", "served_by", "engine", "degraded",
+                "breaker_state", "detail")
+
+
+def _serve(task, world_group):
+    """The task's ``"requests"`` (QueryRequest fields) through one
+    ``JoinSession`` of ``"config"`` and ``"service"`` over the world, each
+    request submitted and served in turn (``"drain"``: all submitted, then
+    drained).  ``"tick_clock"`` gives every rank's session a clock that
+    advances one second a read (the session reads rank 0's); ``"faults"``
+    (``[[site, [hits]], ...]``) arms those sites on every rank.  Returns
+    every outcome's fields, the registry's counters and the session's
+    summary."""
+    import torch
+    import tpu_radix_join_torch as tx
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+
+    class TickClock:
+        t = 0.0
+
+        def __call__(self):
+            self.t += 1.0
+            return self.t - 1.0
+
+    cfg = tx.JoinConfig(**task["config"])
+    meas = Measurements(node_id=torch.distributed.get_rank(),
+                        num_nodes=cfg.num_nodes)
+    kw = {"clock": TickClock()} if task.get("tick_clock") else {}
+    sess = JoinSession(cfg, ServiceConfig(**task.get("service", {})),
+                       measurements=meas, device="cpu", group=world_group,
+                       **kw)
+    injector = faults.FaultInjector(seed=5)
+    for site, hits in task.get("faults", []):
+        injector.arm(site, at=tuple(hits))
+    try:
+        outs = []
+        with injector:
+            for req in task["requests"]:
+                sess.submit(QueryRequest(**req))
+                if not task.get("drain"):
+                    outs.append(sess.run_next())
+            outs += sess.drain()
+        return {"outcomes": [{k: getattr(o, k) for k in SERVE_FIELDS}
+                             for o in outs],
+                "counters": dict(meas.counters),
+                "summary": sess.summary()}
+    finally:
+        sess.close()
+
+
 def worker(rank: int, world_size: int, init_method: str) -> None:
     import torch
     torch.set_num_threads(1)
@@ -262,7 +317,8 @@ def worker(rank: int, world_size: int, init_method: str) -> None:
              "exchange": lambda t: _exchange(t, DistWorld(group)),
              "distribute": lambda t: _distribute(t, DistWorld(group)),
              "checksums": lambda t: _checksums(t, DistWorld(group)),
-             "hierarchical": lambda t: _hierarchical(t, group)}
+             "hierarchical": lambda t: _hierarchical(t, group),
+             "serve": lambda t: _serve(t, group)}
     for line in sys.stdin:
         task = json.loads(line)
         if task["kind"] == "exit":

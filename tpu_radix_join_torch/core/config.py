@@ -288,3 +288,74 @@ class JoinConfig:
         cap = int(math.ceil(total_slots / max(1, num_buckets)
                             * self.allocation_factor))
         return max(8, -(-cap // 8) * 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Knobs of the resident join service (service/), the JAX package's
+    ``ServiceConfig`` (``core/config.py:385-471``) with its fields,
+    defaults and checks.  None of them changes what a join computes, so
+    none enters a plan-cache or checkpoint fingerprint.
+
+      * ``max_queue_depth`` / ``tenant_quota``: pending queries over all
+        tenants, in-flight queries a tenant (service/admission.py).
+      * ``default_deadline_s``: a query's budget when its request names
+        none; None is unlimited (service/deadline.py).
+      * ``breaker_threshold`` / ``breaker_cooldown_s``: consecutive
+        backend failures that trip the breaker, and the open state's wait
+        before its half-open probe (service/breaker.py).
+      * ``outcomes_keep``: recent outcomes a session keeps.
+      * ``place_cache_max``: placed relations a session keeps.
+      * ``result_cache_max`` / ``result_cache_ttl_s``: the content
+        fingerprint result cache (service/resultcache.py); 0 disables it.
+      * ``batch_window_ms`` / ``batch_max_queries``: the micro-batch
+        coalescer (service/microbatch.py); 0.0 disables it.
+      * ``resident_budget_bytes``: device bytes of resident sorted unions
+        behind the delta merge (service/resident.py); 0 disables it.
+    """
+
+    max_queue_depth: int = 64
+    tenant_quota: int = 8
+    default_deadline_s: Optional[float] = None
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    outcomes_keep: int = 512
+    place_cache_max: int = 8
+    result_cache_max: int = 0
+    result_cache_ttl_s: Optional[float] = None
+    batch_window_ms: float = 0.0
+    batch_max_queries: int = 8
+    resident_budget_bytes: int = 0
+
+    def __post_init__(self):
+        if self.max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1")
+        if self.tenant_quota < 1:
+            raise ValueError("tenant_quota must be >= 1")
+        if (self.default_deadline_s is not None
+                and self.default_deadline_s < 0):
+            raise ValueError("default_deadline_s must be >= 0 (or None)")
+        if self.breaker_threshold < 1:
+            raise ValueError("breaker_threshold must be >= 1")
+        if self.breaker_cooldown_s < 0:
+            raise ValueError("breaker_cooldown_s must be >= 0")
+        if self.outcomes_keep < 1:
+            raise ValueError("outcomes_keep must be >= 1")
+        if self.place_cache_max < 0:
+            raise ValueError("place_cache_max must be >= 0 (0 = no reuse)")
+        if self.result_cache_max < 0:
+            raise ValueError("result_cache_max must be >= 0 (0 = disabled)")
+        if (self.result_cache_ttl_s is not None
+                and self.result_cache_ttl_s <= 0):
+            raise ValueError("result_cache_ttl_s must be > 0 (or None)")
+        if self.batch_window_ms < 0:
+            raise ValueError("batch_window_ms must be >= 0 (0 = disabled)")
+        if self.batch_max_queries < 2:
+            raise ValueError("batch_max_queries must be >= 2 (a batch of "
+                             "one is the serial path)")
+        if self.resident_budget_bytes < 0:
+            raise ValueError(
+                "resident_budget_bytes must be >= 0 (0 = disabled)")
+
+    def replace(self, **kw) -> "ServiceConfig":
+        return dataclasses.replace(self, **kw)

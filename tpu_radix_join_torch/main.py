@@ -37,6 +37,17 @@ checksums every network partition across it (repairing out of core, in
 ``--grid-pipeline``'s mode).
 Its last line is one JSON object: the result, the host-clock join time, and
 the registry's ``phases_us`` and ``counters``.
+``--serve FILE`` (``-`` = stdin) runs the resident join service instead
+(``_run_serve``, service/): one JoinSession serves every JSON request line
+of FILE through the result cache (``--result-cache``), micro-batching
+(``--batch-window-ms``), the delta merge (``--resident-budget-mb``) or the
+engine, behind admission (``--serve-queue-depth``,
+``--serve-tenant-quota``, ``--serve-batch``), deadlines
+(``--serve-deadline-s``) and the breaker (``--breaker-threshold``,
+``--breaker-cooldown-s``), warm-started by the plan cache
+(``--plan-cache-dir``, ``--profile``); it prints one outcome line a query
+and a summary line, and under torchrun every rank serves the same file and
+rank 0 prints.  ``--fleet`` (A16b) and ``--statusz`` (A18) are refused.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
 both relations streamed in device-generated chunks of N tuples, every
 chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
@@ -58,6 +69,8 @@ Usage:
     python -m tpu_radix_join_torch.main --device cpu --grid-chunk-tuples 4096 --tuples-per-node 16384
     python -m tpu_radix_join_torch.main --pipeline-repeats --repeat 3 --generation host
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --exchange-codec pack --exchange-stages 4 --verify check
+    python -m tpu_radix_join_torch.main --serve requests.jsonl --probe bucket --result-cache 8 --resident-budget-mb 1024
+    torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --serve requests.jsonl
 """
 
 from __future__ import annotations
@@ -196,6 +209,72 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeat", type=positive_int, default=1)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
+    # --- the resident join service (service/) ----------------------------
+    p.add_argument("--serve", default=None, metavar="FILE",
+                   help="resident service mode: read one JSON query request "
+                        "a line from FILE ('-' = stdin), serve them all "
+                        "through one JoinSession (engine, kernels and "
+                        "converged capacities stay warm), and print one "
+                        "outcome JSON line a query and a summary line with "
+                        "the SLO percentiles")
+    p.add_argument("--serve-batch", type=int, default=1, metavar="N",
+                   help="serve mode: submit N requests before draining "
+                        "(default 1 = closed loop)")
+    p.add_argument("--serve-queue-depth", type=int, default=64,
+                   help="serve mode: admission queue depth bound "
+                        "(exceeded -> admission_rejected/queue_full)")
+    p.add_argument("--serve-tenant-quota", type=int, default=8,
+                   help="serve mode: max in-flight queries per tenant "
+                        "(exceeded -> admission_rejected/tenant_quota)")
+    p.add_argument("--serve-deadline-s", type=float, default=None,
+                   metavar="SEC",
+                   help="serve mode: default per-query latency budget "
+                        "(a request's own deadline_s wins; expiry -> "
+                        "deadline_exceeded)")
+    p.add_argument("--result-cache", type=int, default=0, metavar="N",
+                   help="serve mode: a result cache of N entries keyed by "
+                        "relation content; repeated queries answer before "
+                        "admission, served_by=cache_hit (default 0 = off)")
+    p.add_argument("--result-cache-ttl-s", type=float, default=None,
+                   metavar="SEC",
+                   help="serve mode: expire result-cache entries older "
+                        "than SEC (default: no TTL)")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   metavar="MS",
+                   help="serve mode: coalesce co-batchable queries arriving "
+                        "within MS into one fused device program (one K2 "
+                        "sort, one probe), served_by=batched (default 0 = "
+                        "off)")
+    p.add_argument("--batch-max", type=int, default=8, metavar="N",
+                   help="serve mode: max queries fused into one batch")
+    p.add_argument("--place-cache-max", type=int, default=8, metavar="N",
+                   help="serve mode: placed relations a session keeps on "
+                        "the device")
+    p.add_argument("--resident-budget-mb", type=float, default=0.0,
+                   metavar="MB",
+                   help="serve mode: device memory for resident sorted "
+                        "inner lanes; incremental requests "
+                        "(delta_tuples_per_node > 0) then sort only their "
+                        "delta and merge it, served_by=delta_merge "
+                        "(default 0 = off)")
+    p.add_argument("--breaker-threshold", type=int, default=3,
+                   help="serve mode: consecutive backend failures that trip "
+                        "the circuit breaker onto the degraded CPU engine")
+    p.add_argument("--breaker-cooldown-s", type=float, default=30.0,
+                   help="serve mode: seconds the breaker stays open before "
+                        "its half-open health probe")
+    p.add_argument("--plan-cache-dir", default=None,
+                   help="serve mode: persist the engine's converged window "
+                        "capacities here (fingerprinted by the profile, the "
+                        "shapes and the config), so a later run skips the "
+                        "sizing pass; default: a session-private directory")
+    p.add_argument("--profile", default="h100",
+                   help="device profile the plan cache is keyed under: a "
+                        "packaged name ('h100') or a profile JSON path")
+    p.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="not ported (ROADMAP A16b): the fleet supervisor")
+    p.add_argument("--statusz", type=int, default=None, metavar="PORT",
+                   help="not ported (ROADMAP A18): the live status endpoint")
     return p
 
 
@@ -278,6 +357,18 @@ def main(argv=None) -> int:
                      "fence per program — drop one of the two")
     if args.nodes > 1 and args.grid_chunk_tuples is not None:
         parser.error("the grid join runs on one GPU (--nodes 1)")
+    if args.fleet is not None:
+        parser.error("--fleet is not ported to PyTorch yet (ROADMAP.md "
+                     "queue A, A16b: the fleet supervisor)")
+    if args.statusz is not None:
+        parser.error("--statusz is not ported to PyTorch yet (ROADMAP.md "
+                     "queue A, A18: host-side modules)")
+    if args.serve is not None and args.grid_chunk_tuples is not None:
+        parser.error("--serve runs the in-core resident engine; the "
+                     "out-of-core grid is a one-shot mode")
+    if args.serve == "-" and args.nodes > 1:
+        parser.error("--serve - reads stdin, which only one rank has: give "
+                     "every rank the same request FILE")
     from tpu_radix_join_torch.parallel import multihost
 
     group = None
@@ -288,15 +379,209 @@ def main(argv=None) -> int:
                          "tpu_radix_join_torch.main ...)")
         group = dist.group.WORLD
     try:
+        if args.serve is not None:
+            return _run_serve(args, group)
         return _run_join(args, group)
     finally:
         multihost.shutdown()
 
 
+def _join_config(args):
+    """The JoinConfig of the command line's join flags."""
+    from tpu_radix_join_torch import JoinConfig
+
+    return JoinConfig(network_fanout_bits=args.network_fanout,
+                      local_fanout_bits=args.local_fanout,
+                      two_level=args.two_level, probe_algorithm=args.probe,
+                      assignment_policy=args.assignment,
+                      window_sizing=args.window_sizing,
+                      key_range=args.key_range, num_nodes=args.nodes,
+                      num_hosts=args.hosts, max_retries=args.max_retries,
+                      retry_backoff_s=args.retry_backoff,
+                      skew_threshold=args.skew_threshold,
+                      fallback=args.fallback,
+                      chunk_size=args.chunk_size,
+                      debug_checks=args.debug_checks,
+                      generation=args.generation,
+                      measure_phases=args.measure_phases,
+                      exchange_codec=args.exchange_codec,
+                      exchange_stages=args.exchange_stages,
+                      verify=args.verify, grid_pipeline=args.grid_pipeline)
+
+
+def _serve_lines(args, batcher, flush_groups):
+    """The request lines of ``--serve``: the file's, or stdin's as they
+    come.  Under a batch window stdin is read by a thread into a timed
+    queue, so a parked group flushes when its window expires even while
+    stdin is quiet (``_run_serve``, tpu_radix_join/main.py:802-842)."""
+    if args.serve != "-":
+        with open(args.serve) as f:
+            return f.read().splitlines()
+    if args.batch_window_ms <= 0:
+        return iter(sys.stdin)
+    import queue
+    import threading
+
+    lineq: "queue.Queue" = queue.Queue()
+
+    def read_lines():
+        try:
+            for raw in sys.stdin:
+                lineq.put(raw)
+        finally:
+            lineq.put(None)
+
+    threading.Thread(target=read_lines, name="serve-stdin",
+                     daemon=True).start()
+
+    def timed_lines():
+        while True:
+            nd = batcher.next_deadline_s()
+            wait = 0.2 if nd is None else max(0.001, min(0.2, nd))
+            try:
+                raw = lineq.get(timeout=wait)
+            except queue.Empty:
+                flush_groups(batcher.due())
+                continue
+            if raw is None:
+                return
+            yield raw
+
+    return timed_lines()
+
+
+def _run_serve(args, group) -> int:
+    """Resident service mode (``_run_serve``, tpu_radix_join/main.py:
+    643-905): every request flows through one :class:`JoinSession`.  One
+    outcome JSON line a query, then a summary line with the SLO snapshot;
+    over several ranks every rank serves the same stream and rank 0
+    prints.  Returns 1 when a request line was malformed or a query
+    failed (admission rejections are backpressure, not failures), 2 on a
+    plan-cache manifest of another topology or profile."""
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.performance.measurements import Measurements
+    from tpu_radix_join_torch.service import (AdmissionRejected, JoinSession,
+                                              MicroBatcher, QueryRequest)
+
+    nodes = args.nodes
+    rank = dist.get_rank(group) if group is not None else 0
+    meas = Measurements(node_id=rank, num_nodes=nodes)
+    plan_cache = None
+    if args.plan_cache_dir:
+        from tpu_radix_join_torch.planner import (ManifestMismatch,
+                                                  PlanCache, load_profile)
+        plan_cache = PlanCache(args.plan_cache_dir, load_profile(args.profile),
+                               measurements=meas)
+        try:
+            plan_cache.check_manifest(nodes)
+        except ManifestMismatch as e:
+            print(f"[PLAN] {e}", file=sys.stderr)
+            return 2
+        plan_cache.write_manifest(nodes, rank=rank)
+    svc = ServiceConfig(
+        max_queue_depth=args.serve_queue_depth,
+        tenant_quota=args.serve_tenant_quota,
+        default_deadline_s=args.serve_deadline_s,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        place_cache_max=args.place_cache_max,
+        result_cache_max=args.result_cache,
+        result_cache_ttl_s=args.result_cache_ttl_s,
+        batch_window_ms=args.batch_window_ms,
+        batch_max_queries=args.batch_max,
+        resident_budget_bytes=int(args.resident_budget_mb * (1 << 20)))
+    session = JoinSession(_join_config(args), svc, measurements=meas,
+                          plan_cache=plan_cache, profile=args.profile,
+                          device=args.device, group=group)
+    # the coalescer is the serve loop's (no threads of its own), on the
+    # session's clock (rank 0's over several ranks)
+    batcher = MicroBatcher(svc.batch_window_ms, svc.batch_max_queries,
+                           clock=session._clock)
+    errors = 0
+    fuse = svc.batch_window_ms > 0
+
+    def emit(out):
+        if rank == 0:
+            print(json.dumps({"event": "outcome", **out.to_json()}),
+                  flush=True)
+
+    def flush_groups(groups):
+        # submit every member of every due group, then drain: contiguous
+        # co-signature queries fuse inside run_next_batch
+        submitted = 0
+        for grp in groups:
+            for request in grp:
+                try:
+                    session.submit(request)
+                    submitted += 1
+                except AdmissionRejected as e:
+                    emit(session.rejection_outcome(request, e))
+        if submitted:
+            session.drain(on_outcome=emit)
+
+    lines = _serve_lines(args, batcher, flush_groups)
+    batch = max(1, args.serve_batch)
+    try:
+        pending = 0
+        for lineno, line in enumerate(lines, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            qid = None
+            try:
+                obj = json.loads(line)
+                if not isinstance(obj, dict):
+                    raise ValueError("request must be a JSON object")
+                obj.setdefault("query_id", f"line{lineno}")
+                qid = obj.get("query_id")
+                request = QueryRequest.from_json(obj)
+            except (ValueError, TypeError) as e:
+                # a malformed line is the client's bug: report it and keep
+                # serving
+                errors += 1
+                if rank == 0:
+                    print(json.dumps({"event": "request_error",
+                                      "line": lineno, "query_id": qid,
+                                      "error": str(e)}), flush=True)
+                continue
+            # a result-cache hit answers before admission
+            hit = session.try_cache(request)
+            if hit is not None:
+                emit(hit)
+                continue
+            if fuse and request.delta_tuples_per_node == 0:
+                # park in the signature window; the key bound is the widest
+                # key any generated lane of the request can carry
+                key_bound = max(request.tuples_per_node * nodes,
+                                request.modulo or 0)
+                grp = batcher.offer(request, key_bound)
+                if grp is not None:
+                    flush_groups([grp])
+                flush_groups(batcher.due())
+                continue
+            try:
+                session.submit(request)
+                pending += 1
+            except AdmissionRejected as e:
+                emit(session.rejection_outcome(request, e))
+            if pending >= batch:
+                session.drain(on_outcome=emit)
+                pending = 0
+        if fuse:
+            flush_groups(batcher.flush())
+        session.drain(on_outcome=emit)
+        summary = session.summary()
+        if rank == 0:
+            print(json.dumps({"event": "summary", **summary}), flush=True)
+        return 1 if (errors or summary.get("queries_failed", 0)) else 0
+    finally:
+        session.close()
+
+
 def _run_join(args, group) -> int:
     """One join of ``--nodes`` ranks (or the grid), its result line from
     rank 0; every rank returns 1 unless the result equals the oracle."""
-    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch import HashJoin, Relation
 
     nodes = args.nodes
     n = args.tuples_per_node * nodes
@@ -316,23 +601,7 @@ def _run_join(args, group) -> int:
     from tpu_radix_join_torch.performance.measurements import (
         RESULTS, Measurements, print_results)
 
-    cfg = JoinConfig(network_fanout_bits=args.network_fanout,
-                     local_fanout_bits=args.local_fanout,
-                     two_level=args.two_level, probe_algorithm=args.probe,
-                     assignment_policy=args.assignment,
-                     window_sizing=args.window_sizing,
-                     key_range=args.key_range, num_nodes=nodes,
-                     num_hosts=args.hosts, max_retries=args.max_retries,
-                     retry_backoff_s=args.retry_backoff,
-                     skew_threshold=args.skew_threshold,
-                     fallback=args.fallback,
-                     chunk_size=args.chunk_size,
-                     debug_checks=args.debug_checks,
-                     generation=args.generation,
-                     measure_phases=args.measure_phases,
-                     exchange_codec=args.exchange_codec,
-                     exchange_stages=args.exchange_stages,
-                     verify=args.verify, grid_pipeline=args.grid_pipeline)
+    cfg = _join_config(args)
     rank = dist.get_rank(group) if group is not None else 0
     meas = Measurements(node_id=rank, num_nodes=nodes)
     engine = HashJoin(cfg, device=args.device, group=group,

@@ -97,6 +97,17 @@ Every rank issues the same collectives in the same order: each host
 decision that precedes a collective reads an all-reduced value or the
 configuration.
 
+**Serving hooks** (the join service, service/session.py): ``plan_cache``
+(a ``planner.PlanCache``) stores a successful join's converged capacities
+under its global shapes and config, and a later join of those shapes
+takes them instead of the sizing pass (no JHIST; ``_cache_eligible``: not
+the one-rank sort probe, static sizing or a skew split; over several ranks
+the warm verdict and the capacities are all-reduced).  ``cancel``, a
+callable of the phase name, is consulted at the boundaries "start" (before
+JTOTAL), "sized", "probe" (each attempt) and "stalled" (the fault site
+``backend.stall`` spins there) and raises to cancel the join; JTOTAL is
+closed on the way out.
+
 **Measurements** (``HashJoin(..., measurements=Measurements())``; timer
 placement of ``hash_join.py:1780-1935``): JTOTAL spans the join, the
 key-range probe included; SWINALLOC the sizing pass, whose execution is
@@ -119,6 +130,7 @@ VFAIL and VREPAIR and the events ``data_corruption`` and ``repair``.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -258,7 +270,9 @@ class HashJoin:
 
     ``measurements``, a ``performance.measurements.Measurements``, records
     every join's timers and counters (see the module docstring); its
-    ``gather_all(engine.world)`` collects every rank's."""
+    ``gather_all(engine.world)`` collects every rank's.  ``plan_cache``
+    (a ``planner.PlanCache``) warm-starts the sizing pass, and ``cancel``
+    is the cooperative cancellation hook (:meth:`_check_cancel`)."""
 
     #: phase keys nested inside another recorded phase (SNETCOMPL in JMPI;
     #: BPBUILD/BPPROBE in JPROC): rolled back from their own columns on a
@@ -266,9 +280,20 @@ class HashJoin:
     _NESTED_PHASES = frozenset({SNETCOMPL, BPBUILD, BPPROBE})
 
     def __init__(self, config: Optional[JoinConfig] = None, device="cuda",
-                 group=None, measurements=None):
+                 group=None, measurements=None, plan_cache=None):
         self.config = config if config is not None else JoinConfig()
         self.measurements = measurements
+        #: planner.PlanCache or None: a warm join takes the converged
+        #: capacities of an earlier join of its shapes instead of the
+        #: sizing pass, and a successful join stores its own
+        self.plan_cache = plan_cache
+        #: the cooperative cancellation hook: an optional ``callable(phase:
+        #: str)`` consulted at the join's phase boundaries ("start",
+        #: "sized", "stalled", "probe"), which raises to cancel the join
+        #: between launches (service/deadline.py).  Over several ranks it
+        #: must decide the same on every rank (the session's deadlines
+        #: read rank 0's clock)
+        self.cancel = None
         self.device = resolve_device(device)
         self.world = make_world(self.config.num_nodes, group,
                                 self.config.num_hosts)
@@ -422,6 +447,7 @@ class HashJoin:
                 "the measure_phases split timers need a fence per program "
                 "— loop synchronous joins instead")
         self._check_batches(r, s)
+        self._check_cancel("start")
         with self._measured():
             if self.config.sort_probe and self.world.size == 1:
                 return self._sort_probe_join(r, s, key_bound, repeats)
@@ -446,6 +472,7 @@ class HashJoin:
         off here, nor does this one.  Every key must lie below the pads
         (no 31-bit packing: the probe compares whole keys)."""
         self._check_batches(r, s)
+        self._check_cancel("start")
         with self._measured():
             return self._materialize_join(r, s)
 
@@ -455,6 +482,7 @@ class HashJoin:
         probe then runs on the exchange's pad-filled receive buffers, as a
         rank of an N-rank world does, instead of on the relations."""
         self._check_batches(r, s)
+        self._check_cancel("start")
         with self._measured():
             return self._shuffled_join(r, s, key_bound)
 
@@ -675,8 +703,12 @@ class HashJoin:
             # no sizing pass: the one-rank sort probe has no windows
             m.start(SWINALLOC)
             m.stop(SWINALLOC)
+        self._check_cancel("sized")
+        self._stall_site()
         s, _ = self._inject_exchange_corrupt(s)
         for attempt in range(cfg.max_retries + 1 if repeats == 1 else 1):
+            if repeats == 1:
+                self._check_cancel("probe")
             if m is not None:
                 m.start(JPROC)
             for _ in range(repeats):
@@ -740,23 +772,32 @@ class HashJoin:
                                 dtype=np.uint32)
 
     # ------------------------------------------------------ generic body
-    def _sized(self, r: TupleBatch, s: TupleBatch):
-        """(plan, cap_r, cap_s, skew): the sizing pass under its timers,
-        SWINALLOC and, with measured windows, JHIST, both stopped at the
-        sizing readback, which has fenced the pass."""
+    def _sized(self, r: TupleBatch, s: TupleBatch, warm: bool = False):
+        """(plan, cap_r, cap_s, skew, local_slack): the sizing pass under
+        its timers, SWINALLOC and, with measured windows, JHIST, both
+        stopped at the sizing readback, which has fenced the pass.  With
+        ``warm`` the plan cache's converged capacities of these shapes,
+        when it has them (:meth:`_warm_capacities`), replace the sizing
+        pass (``hash_join.py:1805-1818``): no JHIST, and the histograms and
+        the assignment that every attempt needs run inside SWINALLOC."""
         m = self.measurements
-        measured = self.config.window_sizing == "measured"
         if m is not None:
             m.start(SWINALLOC)
-            if measured:
-                m.start(JHIST)
+        caps = self._warm_capacities(r, s) if warm else None
+        measured = self.config.window_sizing == "measured" and caps is None
+        if m is not None and measured:
+            m.start(JHIST)
         plan = self._shuffle_plan(r, s)
-        cap_r, cap_s, skew = self._measure_capacities(r, s, plan)
+        if caps is not None:
+            (cap_r, cap_s, slack), skew = caps, None
+        else:
+            (cap_r, cap_s, skew), slack = (
+                self._measure_capacities(r, s, plan), 1)
         if m is not None:
             if measured:
                 m.stop(JHIST)
             m.stop(SWINALLOC)
-        return plan, cap_r, cap_s, skew
+        return plan, cap_r, cap_s, skew, slack
 
     def _shuffled_join(self, r: TupleBatch, s: TupleBatch,
                        key_bound: Optional[int],
@@ -775,7 +816,7 @@ class HashJoin:
         if m is not None and route in ("narrow", "full"):
             m.meta["key_range"] = route
         self._measured_key_bound = None   # only this join's sizing counts
-        plan, cap_r, cap_s, skew = self._sized(r, s)
+        plan, cap_r, cap_s, skew, local_slack = self._sized(r, s, warm=True)
         self._xplan = self._resolve_exchange_plan(r, s, key_bound)
         caps = (cap_r, cap_s)
         if m is not None:
@@ -783,20 +824,28 @@ class HashJoin:
             m.meta["exchange_plan"] = xs
             m.counters[PACKRATIO] = int(round(xs["pack_ratio_pct"]))
             m.counters[XSTAGES] = int(xs["stages"])
+        self._check_cancel("sized")
+        self._stall_site()
         verify = cfg.verify != "off"
         pre = self._verify_pre(r, s, skew) if verify else None
         s, pristine_s = self._inject_exchange_corrupt(s)
         if repeats > 1:
             counts, flags, _, vchk = self._shuffled_attempt(
-                r, s, plan, route, cap_r, cap_s, 1, skew, repeats, verify)
+                r, s, plan, route, cap_r, cap_s, local_slack, skew, repeats,
+                verify)
             diag = self._flags_to_diag(flags)
             if verify and not flags.any():
-                return self._verified_finish(r, s, pristine_s, counts, flags,
-                                             diag, pre, vchk, caps, skew,
-                                             repeats)
-            return self._result(r, s, counts, flags, diag, caps, repeats)
-        local_slack = 1
+                result = self._verified_finish(
+                    r, s, pristine_s, counts, flags, diag, pre, vchk, caps,
+                    skew, repeats)
+            else:
+                result = self._result(r, s, counts, flags, diag, caps,
+                                      repeats)
+            self._cache_store_capacities(r, s, cap_r, cap_s, local_slack,
+                                         result.ok)
+            return result
         for attempt in range(cfg.max_retries + 1):
+            self._check_cancel("probe")
             counts, flags, dts, vchk = self._shuffled_attempt(
                 r, s, plan, route, cap_r, cap_s, local_slack, skew,
                 verify=verify)
@@ -824,10 +873,15 @@ class HashJoin:
         if verify and not flags.any():
             # the checksums judge only a flag-clean accepted attempt: a
             # capacity shortfall drops tuples by its own failure class
-            return self._verified_finish(r, s, pristine_s, counts, flags,
-                                         diag, pre, vchk, caps, skew, 1,
-                                         attempt)
-        return self._result(r, s, counts, flags, diag, caps, retries=attempt)
+            result = self._verified_finish(r, s, pristine_s, counts, flags,
+                                           diag, pre, vchk, caps, skew, 1,
+                                           attempt)
+        else:
+            result = self._result(r, s, counts, flags, diag, caps,
+                                  retries=attempt)
+        self._cache_store_capacities(r, s, cap_r, cap_s, local_slack,
+                                     result.ok)
+        return result
 
     def _result(self, r: TupleBatch, s: TupleBatch, counts: np.ndarray,
                 flags: np.ndarray, diag: dict, caps, repeats: int = 1,
@@ -994,6 +1048,96 @@ class HashJoin:
         return TupleBatch(key=key, rid=torch.zeros_like(key),
                           key_hi=None if b.key_hi is None
                           else torch.masked_select(b.key_hi, sel))
+
+    # ------------------------------------------------ plan cache, cancel
+    def _cache_config_fp(self) -> dict:
+        """The JoinConfig fields window capacities depend on
+        (``_cache_config_fp``, hash_join.py:399-416): configs agreeing here
+        size the same windows for the same inputs.  The port has no
+        membership epoch yet (ROADMAP A18): it is 0."""
+        cfg = self.config
+        return {"num_nodes": cfg.num_nodes, "num_hosts": cfg.num_hosts,
+                "network_fanout_bits": cfg.network_fanout_bits,
+                "local_fanout_bits": cfg.local_fanout_bits,
+                "key_bits": cfg.key_bits, "two_level": cfg.two_level,
+                "probe_algorithm": cfg.probe_algorithm,
+                "assignment_policy": cfg.assignment_policy,
+                "window_sizing": cfg.window_sizing,
+                "exchange_codec": cfg.exchange_codec,
+                "exchange_stages": cfg.exchange_stages,
+                "membership_epoch": 0}
+
+    def _cache_eligible(self) -> bool:
+        """Warm capacities apply only where the sizing pass would run and
+        its result depends on the shapes and the config alone: not the
+        one-rank sort probe (it never sizes), not static sizing (free
+        already), not a skew split (its hot set is measured)."""
+        cfg = self.config
+        return (self.plan_cache is not None
+                and not (cfg.sort_probe and self.world.size == 1)
+                and cfg.window_sizing == "measured"
+                and cfg.skew_threshold is None)
+
+    def _cache_sizes(self, r: TupleBatch, s: TupleBatch):
+        """The relations' global sizes, the cache key's shapes."""
+        return r.size * self.world.size, s.size * self.world.size
+
+    def _warm_capacities(self, r: TupleBatch, s: TupleBatch):
+        """(cap_r, cap_s, local_slack) from the plan cache, or None.  Over
+        several ranks the verdict is one all-reduced decision, so no rank
+        sizes while another does not: the join is warm only when every
+        rank found the entry, at the largest capacities any rank holds."""
+        if not self._cache_eligible():
+            return None
+        _, warm = self.plan_cache.lookup(*self._cache_sizes(r, s),
+                                         self._cache_config_fp())
+        caps = (None if warm is None else
+                (int(warm["cap_r"]), int(warm["cap_s"]),
+                 int(warm.get("local_slack", 1))))
+        if self.world.size > 1:
+            got = self.world.all_reduce(torch.tensor(
+                [caps is None, *(caps or (0, 0, 0))], dtype=torch.int64,
+                device=self.device), op="max").cpu().tolist()
+            caps = None if got[0] else tuple(got[1:])
+        return caps
+
+    def _cache_store_capacities(self, r: TupleBatch, s: TupleBatch,
+                                cap_r: int, cap_s: int, local_slack: int,
+                                ok: bool) -> None:
+        """After a successful join, persist the converged capacities (after
+        any retry doublings) for the next join of these shapes."""
+        if not ok or not self._cache_eligible():
+            return
+        self.plan_cache.store(*self._cache_sizes(r, s),
+                              self._cache_config_fp(),
+                              capacities={"cap_r": cap_r, "cap_s": cap_s,
+                                          "local_slack": local_slack})
+
+    def _check_cancel(self, phase: str) -> None:
+        """Consult the cancellation hook at a phase boundary
+        (``_check_cancel``, hash_join.py:1969-2010); it raises to cancel.
+        JTOTAL, when running, is closed by :meth:`_measured` on the way
+        out.  Every rank reaches the same boundaries in the same order, so
+        a hook that decides alike on every rank leaves no collective
+        half-entered."""
+        if self.cancel is not None:
+            self.cancel(phase)
+
+    def _stall_site(self) -> None:
+        """Fault site ``backend.stall`` (hash_join.py:1838-1858): a hung
+        launch, simulated by spinning at the ``"stalled"`` boundary, where
+        only the cancel hook can end it; after ``TPU_RADIX_STALL_CAP_S``
+        seconds (120 by default) it raises ``TransientFault``
+        (``backend_unavailable``).  The cap is rank 0's clock's verdict."""
+        if not faults.fires(faults.BACKEND_STALL, self.measurements):
+            return
+        cap_s = float(os.environ.get("TPU_RADIX_STALL_CAP_S", "120"))
+        t0 = time.monotonic()
+        while True:
+            self._check_cancel("stalled")
+            if self.world.broadcast_object(time.monotonic() - t0 >= cap_s):
+                raise faults.TransientFault(faults.BACKEND_STALL, 1)
+            time.sleep(0.01)
 
     def _retry_backoff(self, attempt: int) -> None:
         """The pause after capacity retry ``attempt`` (``_retry_backoff``,
@@ -1588,7 +1732,7 @@ class HashJoin:
         cfg = self.config
         m = self.measurements
         self._measured_key_bound = None
-        plan, cap_r, cap_s, skew = self._sized(r, s)
+        plan, cap_r, cap_s, skew, _ = self._sized(r, s)
         self._xplan = self._resolve_exchange_plan(r, s, None)
         rate_cap = cfg.match_rate_cap
         for attempt in range(cfg.max_retries + 1):

@@ -67,6 +67,14 @@ class OneRankWorld:
         _check_block(x, self.size, block)
         return x
 
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` (a picklable host value)."""
+        return obj
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj`` in rank order."""
+        return [obj]
+
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Chunk j of ``x``'s leading axis to rank j of ``group``, rank i's
@@ -198,6 +206,32 @@ class DistWorld:
             out = _all_to_all(x, self.group)
         self.counts["all_to_all"] += 1
         return out
+
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` (a picklable host value) on every rank: the
+        host decisions every rank must share (a deadline's clock, a stall's
+        cap) come from one rank.  Not counted in ``counts``."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._global_rank(0),
+                                   group=self.group)
+        return box[0]
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj`` (picklable host values) in rank order.  Not
+        counted in ``counts``."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def _global_rank(self, rank: int) -> int:
+        if self.group is None or self.group is dist.group.WORLD:
+            return rank
+        return dist.get_global_rank(self.group, rank)
 
 
 def make_world(num_nodes: int, group=None, num_hosts: int = 1):

@@ -84,6 +84,29 @@ VCHK = "VCHK"              # integrity verification's time (times only:
 VCHKN = "VCHKN"            # integrity checksum comparisons performed
 VFAIL = "VFAIL"            # checksum mismatches found (robustness/verify.py)
 VREPAIR = "VREPAIR"        # damaged partitions recomputed (verify="repair")
+QADMIT = "QADMIT"          # queries admitted by the service queue
+QREJECT = "QREJECT"        # queries rejected at admission (depth / quota)
+QDEADLINE = "QDEADLINE"    # queries cancelled by their deadline
+QWARM = "QWARM"            # warm queries (capacity-cache hit: no sizing pass)
+QDEGRADED = "QDEGRADED"    # queries served by the degraded CPU engine
+BRKTRIP = "BRKTRIP"        # circuit-breaker trips (closed/half-open -> open)
+BRKPROBE = "BRKPROBE"      # half-open health probes dispatched
+RCHIT = "RCHIT"            # result-cache hits (service/resultcache.py)
+RCMISS = "RCMISS"          # result-cache misses (cold, TTL expiry, or a
+                           # digest/epoch check dropping a stale entry)
+BATCHN = "BATCHN"          # fused micro-batches dispatched as one program
+BATCHQ = "BATCHQ"          # queries served through fused micro-batches
+DELTAMERGE = "DELTAMERGE"  # queries served O(N+delta) by the delta merge
+RESBYTES = "RESBYTES"      # gauge: high-water device-resident sorted-union
+                           # bytes (service/resident.py)
+# the JAX session also reads these; nothing of the port ticks them yet
+# (the compile monitor and elastic membership are ROADMAP A18)
+NCOMPILE = "NCOMPILE"      # backend compiles observed
+COMPILEMS = "COMPILEMS"    # total backend-compile milliseconds
+MEPOCH = "MEPOCH"          # gauge: membership epoch
+RANKLOST = "RANKLOST"      # ranks declared lost
+RECOVERN = "RECOVERN"      # partitions recomputed by elastic recovery
+RECOVERMS = "RECOVERMS"    # elastic-recovery milliseconds
 JRATE = "JRATE"            # derived: (R+S) tuples / JTOTAL second
 JPROCRATE = "JPROCRATE"    # derived: (R+S) tuples / JPROC second
 HILOCRATE = "HILOCRATE"    # derived: inner tuples / JHIST second

@@ -3,8 +3,10 @@
 The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
 (``:95-251``) with the sites the out-of-core grid, the chunk stream, the
 checkpoints, the process-group connect (``parallel/multihost.initialize``),
-the join engine's retry loops (``engine.shuffle_overflow``) and its
-exchange (``exchange.corrupt_lane``) consult.  An armed
+the join engine's retry loops (``engine.shuffle_overflow``), its
+exchange (``exchange.corrupt_lane``) and its cancel hook (``backend.stall``),
+and the join service (``backend.dispatch``, ``serve.cache_poison``)
+consult.  An armed
 :class:`FaultInjector` decides from its seed whether a site fires on each
 hit; a fired site raises (a simulated kill or transient error) or tells its
 caller to damage its own state (a sentinel key in a streamed lane, a
@@ -38,9 +40,17 @@ CKPT_LOAD = "checkpoint.load"              # checkpoint read I/O error
 COORD_CONNECT = "multihost.coordinator_connect"   # process-group connect
 SHUFFLE_OVERFLOW = "engine.shuffle_overflow"   # a reported outer shortfall
 EXCHANGE_CORRUPT = "exchange.corrupt_lane"     # a bit-flipped outer key
+BACKEND_DISPATCH = "backend.dispatch"      # a query's dispatch fails
+                                           # (service/session.py)
+BACKEND_STALL = "backend.stall"            # the engine spins at its cancel
+                                           # hook, as a hung collective would
+CACHE_POISON = "serve.cache_poison"        # a stored result-cache entry is
+                                           # corrupted in place; the read's
+                                           # digest check must drop it
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
-         COORD_CONNECT, SHUFFLE_OVERFLOW, EXCHANGE_CORRUPT)
+         COORD_CONNECT, SHUFFLE_OVERFLOW, EXCHANGE_CORRUPT, BACKEND_DISPATCH,
+         BACKEND_STALL, CACHE_POISON)
 
 
 class InjectedFault(RuntimeError):

@@ -4,7 +4,9 @@ A join has no weights: its state is the configuration and the relations'
 lanes.  :func:`from_jax_state` takes ``dataclasses.asdict`` of a JAX
 ``JoinConfig`` and the JAX lanes as numpy arrays, and returns the port's
 ``JoinConfig`` and ``TupleBatch`` — so the port can be held against the JAX
-package on exactly the same inputs, without importing it.
+package on exactly the same inputs, without importing it.  A join
+service's ``ServiceConfig`` carries across through
+:func:`service_config_from_jax`.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Mapping, Optional, Tuple
 
 import numpy as np
 
-from tpu_radix_join_torch.core.config import JoinConfig
+from tpu_radix_join_torch.core.config import JoinConfig, ServiceConfig
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 
@@ -49,6 +51,17 @@ def config_from_jax(config_dict: Mapping) -> JoinConfig:
         elif name not in _UNREAD:
             raise ValueError(f"unknown JoinConfig field {name!r}")
     return JoinConfig(**kw)
+
+
+def service_config_from_jax(config_dict: Mapping) -> ServiceConfig:
+    """The port's ServiceConfig for ``dataclasses.asdict`` of a JAX
+    ``ServiceConfig``: every field carries across; an unknown one raises
+    ``ValueError``."""
+    own = set(ServiceConfig.__dataclass_fields__)
+    unknown = set(config_dict) - own
+    if unknown:
+        raise ValueError(f"unknown ServiceConfig fields {sorted(unknown)}")
+    return ServiceConfig(**config_dict)
 
 
 def batch_from_numpy(key: np.ndarray, rid: np.ndarray,
