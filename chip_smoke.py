@@ -181,6 +181,25 @@ A16), through ``JoinSession`` and ``python -m tpu_radix_join_torch.main
        base and delta merge at 2**20 a rank; every rank reports the same
        outcomes.
 
+Phase (t), wider fanout and the implementation choice (ROADMAP A19, A21;
+phase_t), on the one card, run before (n):
+
+  (t1) each wide kernel path bit-exact against its plain version: K1 past
+       128 bins (20M ids into 256, 1024, 2**14 and 2**16 bins, random and
+       sorted, counts and weight sums), K3 and K5 past 128 partitions
+       (fanouts 8, 10, 12 on (a)'s and (h)'s unions), K4 past 256 groups
+       (dense 257, 1025 and 4097 groups; grouped 16 x 32 and 4 x 256 at
+       2**23 slots a block, clipped), each timed beside its bytes bound,
+       its device time and the library call (``torch.bincount``,
+       ``argsort(stable=True)``);
+  (t2) 20,000,000 ⋈ 20,000,000 unique joins, median of 3, beside the
+       fanout-5 join each extends: the sort probe at network fanout 8 and
+       10, 64-bit at 10, bucketed at local fanout 10, two-level 8 + 10;
+       each wide path's counter shows it ran and no baseline counter moved;
+  (t3) (a) and (d) under ``sort_impl="xla"`` and ``partition_impl=
+       "sort"``: the kernels' counts, the baseline counters ticked, K2 and
+       K4 at zero, ``baseline_arms`` in the result.
+
 Phase (p), the skew split and the hierarchical exchange (phase_p): four
 rank processes of one gloo group on this one card
 (``multihost.initialize(device="cuda", backend="gloo")``, ``file://``
@@ -214,7 +233,10 @@ domain, generated on the card:
        each exactly; and ``verify="repair"`` with ``exchange.corrupt_lane``
        armed once: the oracle count, one partition repaired.  Each prints
        ``pack_ratio_pct``, WIREBYTES against MWINBYTES and
-       ``peak_exchange_bytes`` against the fused raw exchange's.
+       ``peak_exchange_bytes`` against the fused raw exchange's;
+  (p7) the packed exchange at network fanout 7 (A19): the grouped
+       scatter's 4 x 128 = 512 groups on K4's wide path, exact and equal on
+       every rank.
 
 Each case prints every rank's join median of 3, its exchange (JMPI) and
 local probe (JPROC) under ``measure_phases``, and its device busy time.
@@ -1643,6 +1665,327 @@ def phase_s(dev, n, group, card) -> dict:
     return total
 
 
+#: phase (t)'s sizes: the ids of the kernel shapes, K4's grouped block
+T_IDS = 20_000_000
+T_GROUPED_BLOCK = 1 << 23
+
+
+def phase_t(dev, n, time_ms, device_us, card):
+    """Phase (t): wider fanout (ROADMAP A19) and the implementation choice
+    (A21) on the one card.  Returns ``(launches, rows)``: the main paths'
+    launches and, for the final kernels line, one row a wide kernel path
+    (``histogram_wide``, ``merge_scan_fanout``, ``merge_scan_wide_fanout``,
+    ``partition_lsd``) at its representative shape.
+
+      (t1) each wide path bit-exact against its plain version (max abs err
+           0): K1 at ``T_IDS`` ids into 256, 1024, 2**14 and 2**16 bins,
+           random and sorted, counts and weight sums; K3 and K5 at fanouts
+           8, 10 and 12 on (a)'s and (h)'s unions; K4 dense at 257, 1025
+           and 4097 groups, and grouped 16 x 32 and 4 x 256 at
+           ``T_GROUPED_BLOCK`` slots a block, clipped, slots and two moved
+           lanes.  Each timed: event ms, device ms, the bytes bound at
+           3.35 TB/s, the library call (``torch.bincount``;
+           ``argsort(stable=True)``; none for K3 / K5), whether it reaches
+           half its bound and whether it beats the library;
+      (t2) joins of n ⋈ n unique, exact, median of 3 with its spread,
+           beside the fanout-5 join each extends, measured here: (a) at
+           network fanout 8 and 10, (h) 64-bit at 10, (d) bucketed at
+           local fanout 10, two-level 8 + 10; the first join of each with
+           the counts set to 0 shows its wide path launched and no
+           baseline counter moved;
+      (t3) (a) and (d) under ``sort_impl="xla"``, ``partition_impl="sort"``:
+           the kernel joins' counts, the baseline counters ticked, K2 and
+           K4 (both paths) at zero, the result naming its arms; times
+           beside the kernels'."""
+    import torch
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch.data.tuples import narrow, widen
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.kernels import histogram as k1
+    from tpu_radix_join_torch.ops.kernels import merge_scan as k3
+    from tpu_radix_join_torch.ops.kernels import merge_scan_wide as k5
+    from tpu_radix_join_torch.ops.kernels import partition as k4
+    from tpu_radix_join_torch.ops.merge_count import (_pack_pm, _rotate_pid,
+                                                      _side_tags)
+    from tpu_radix_join_torch.ops.sorting import (sort_lex_unstable,
+                                                  sort_unstable)
+
+    hbm = 3.35e12
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def rand(m, hi):
+        return narrow(torch.randint(0, hi, (m,), generator=gen, device=dev,
+                                    dtype=torch.int64))
+
+    def as_int(x):
+        return widen(x) if x.dtype == torch.int32 else x.to(torch.int64)
+
+    def exact(got, want, what) -> int:
+        """The measured max abs difference over every output; raises
+        unless it is 0 (and the shapes agree)."""
+        got = [got] if torch.is_tensor(got) else list(got)
+        want = [want] if torch.is_tensor(want) else list(want)
+        err = 0
+        for g, w in zip(got, want, strict=True):
+            if g.shape != w.shape:
+                raise AssertionError(f"phase (t) {what}: shape {g.shape} "
+                                     f"against {w.shape}")
+            if g.numel():
+                err = max(err, int((as_int(g) - as_int(w)).abs().max()))
+        if err:
+            raise AssertionError(f"phase (t) {what}: the kernel differs "
+                                 f"from its plain version (max abs err {err})")
+        return err
+
+    def device_ms(fn) -> float:
+        return sum(device_us(fn, reps=5).values()) / 1e3
+
+    def timed(kernel, shape, fn, nbytes, err, library=None, plain=None):
+        """One shape's line: event and device time, bound, library, and
+        ``err``, the max abs err that :func:`exact` measured on these very
+        inputs."""
+        row = {"ms": time_ms(fn), "device_ms": device_ms(fn),
+               "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+               "library_ms": None if library is None else time_ms(library),
+               "plain_ms": None if plain is None else time_ms(plain, reps=3),
+               "max_abs_err": err}
+        row["half_bound"] = row["bound_ms"] >= 0.5 * row["device_ms"]
+        row["beats_library"] = (None if library is None
+                                else row["ms"] < row["library_ms"])
+        emit({"phase": "wide_kernel", "kernel": kernel, "shape": shape,
+              **row, **card})
+        return row
+
+    rows = {}
+    # (t1) K1 past 128 bins
+    checks = 0
+
+    def k1_exact(x, w, bins, what) -> int:
+        nonlocal checks
+        checks += 1
+        return exact(k1.histogram(x, w, num_bins=bins),
+                     k1.histogram_plain(x, w, bins), f"K1 {bins} bins {what}")
+
+    for bins in (256, 1024, 1 << 14, 1 << 16):
+        ids = rand(T_IDS, bins + bins // 8)        # ids >= bins ignored
+        w = rand(T_IDS, 1 << 32)
+        for kind, x in (("random", ids), ("sorted", torch.sort(ids).values)):
+            k1_exact(x, None, bins, kind)
+            k1_exact(x, w, bins, f"{kind} weighted")
+        inside = rand(T_IDS, bins)
+        srt = torch.sort(inside).values
+        row = timed("histogram_wide", {"ids": T_IDS, "bins": bins},
+                    lambda: k1.histogram(inside, num_bins=bins),
+                    4 * T_IDS + 4 * bins,
+                    k1_exact(inside, None, bins, "timed random"),
+                    library=lambda: torch.bincount(inside, minlength=bins),
+                    plain=lambda: k1.histogram_plain(inside, None, bins))
+        timed("histogram_wide", {"ids": T_IDS, "bins": bins,
+                                 "sorted": True},
+              lambda: k1.histogram(srt, num_bins=bins), 4 * T_IDS + 4 * bins,
+              k1_exact(srt, None, bins, "timed sorted"),
+              library=lambda: torch.bincount(srt, minlength=bins))
+        timed("histogram_wide", {"ids": T_IDS, "bins": bins,
+                                 "weighted": True},
+              lambda: k1.histogram(inside, w, num_bins=bins),
+              8 * T_IDS + 4 * bins,
+              k1_exact(inside, w, bins, "timed weighted"))
+        if bins == 1024:
+            rows["histogram_wide"] = row
+        del ids, w, inside, srt
+    # K3 and K5 past 128 partitions on (a)'s and (h)'s unions
+    rels_a = [Relation(n, 1, "unique", seed=s).generate(dev)
+              for s in (1234, 1235)]
+    rels_h = [Relation(n, 1, "unique", seed=s, key_bits=64).generate(dev)
+              for s in (1234, 1235)]
+    for f in (8, 10, 12):
+        packed = sort_unstable(_pack_pm(rels_a[0].key, rels_a[1].key, f))
+        m = packed.numel()
+        err = exact(k3.merge_scan_partitions(packed, num_partitions=1 << f),
+                    k3.merge_scan_plain(packed, f), f"K3 fanout {f}")
+        checks += 1
+        row = timed("merge_scan_fanout", {"positions": m, "fanout_bits": f},
+                    lambda: k3.merge_scan_partitions(packed,
+                                                     num_partitions=1 << f),
+                    4 * m + 4 * ((1 << f) + 1), err,
+                    plain=lambda: k3.merge_scan_plain(packed, f))
+        if f == 10:
+            rows["merge_scan_fanout"] = row
+        del packed
+        lo, hi, tag = sort_lex_unstable(
+            torch.cat([_rotate_pid(r.key, f) for r in rels_h]),
+            torch.cat([r.key_hi for r in rels_h]),
+            _side_tags(rels_h[0].key, rels_h[1].key), num_keys=2)
+        err = exact(k5.merge_scan_partitions_wide(
+            lo, hi, tag, num_partitions=1 << f),
+            k5.merge_scan_wide_plain(lo, hi, tag, f), f"K5 fanout {f}")
+        checks += 1
+        row = timed("merge_scan_wide_fanout",
+                    {"positions": m, "fanout_bits": f, "hi": True},
+                    lambda: k5.merge_scan_partitions_wide(
+                        lo, hi, tag, num_partitions=1 << f),
+                    12 * m + 4 * ((1 << f) + 1), err,
+                    plain=lambda: k5.merge_scan_wide_plain(lo, hi, tag, f))
+        if f == 10:
+            rows["merge_scan_wide_fanout"] = row
+        del lo, hi, tag
+    del rels_a, rels_h
+    # K4 past 256 groups: dense, then grouped with the clip
+    key, rid = rand(T_IDS, 1 << 32), rand(T_IDS, 1 << 32)
+    fills = [0xFFFFFFFF, 0xFFFFFFFE]
+    for groups, gsize, cap in ((257, 1, None), (1025, 1, None),
+                               (4097, 1, None),
+                               (16 * 32, 32, T_GROUPED_BLOCK),
+                               (4 * 256, 256, T_GROUPED_BLOCK)):
+        ids = rand(T_IDS, groups + groups // 16)   # a few invalid ids
+        if cap is not None:                        # one hot block: clipped
+            ids = torch.where(rand(T_IDS, 2) == 0, ids % gsize, ids)
+        shape = {"ids": T_IDS, "groups": groups, "group_size": gsize,
+                 "capacity": cap, "lanes": 2}
+        exact(k4.partition_slots(ids, num_groups=groups, group_size=gsize,
+                                 capacity=cap),
+              k4.partition_slots_plain(ids, groups, gsize, cap),
+              f"K4 slots {shape}")
+        got = k4.partition_scatter(ids, [key, rid], fills, num_groups=groups,
+                                   group_size=gsize, capacity=cap)
+        want = k4.partition_scatter_plain(ids, [key, rid], fills, groups,
+                                          gsize, cap)
+        err = exact(got[0] + [got[1]], want[0] + [want[1]],
+                    f"K4 lanes {shape}")
+        checks += 2
+        size = k4.out_size(T_IDS, groups, gsize, cap)
+        g = torch.where(widen(ids) < groups, widen(ids), groups)
+        row = timed("partition_lsd", shape,
+                    lambda: k4.partition_scatter(
+                        ids, [key, rid], fills, num_groups=groups,
+                        group_size=gsize, capacity=cap),
+                    4 * T_IDS + 8 * T_IDS + 8 * size, err,
+                    library=lambda: torch.argsort(g, stable=True),
+                    plain=lambda: k4.partition_scatter_plain(
+                        ids, [key, rid], fills, groups, gsize, cap))
+        if groups == 1025:
+            rows["partition_lsd"] = row
+        del ids, got, want, g
+    del key, rid
+    emit({"phase": "wide_kernels_checked", "checks": checks,
+          "seconds": time.perf_counter() - t_start, **card})
+
+    # (t2) joins at n ⋈ n, beside the fanout-5 join each extends
+    inner = Relation(n, 1, "unique", seed=1234)
+    outer = Relation(n, 1, "unique", seed=1235)
+    inner64 = Relation(n, 1, "unique", seed=1234, key_bits=64)
+    outer64 = Relation(n, 1, "unique", seed=1235, key_bits=64)
+    bucket = dict(probe_algorithm="bucket")
+    two = dict(two_level=True, max_retries=4)
+    cells = [   # name, config, 64-bit, the fanout-5 twin, wide counters
+        ("a_f8", dict(network_fanout_bits=8), False, "a_f5",
+         ("merge_scan_fanout",)),
+        ("a_f10", dict(network_fanout_bits=10), False, "a_f5",
+         ("merge_scan_fanout",)),
+        ("h_f10", dict(network_fanout_bits=10, key_bits=64), True, "h_f5",
+         ("merge_scan_wide_fanout",)),
+        ("d_lf10", dict(bucket, local_fanout_bits=10, max_retries=4), False,
+         "d_f5",
+         ("partition_lsd", "histogram_wide")),
+        ("two_level_8_10", dict(two, network_fanout_bits=8,
+                                local_fanout_bits=10), False,
+         "two_level_5_5", ("partition_lsd", "histogram_wide")),
+    ]
+    twins = {"a_f5": (dict(), False), "h_f5": (dict(key_bits=64), True),
+             "d_f5": (bucket, False), "two_level_5_5": (two, False)}
+    baseline_keys = ("baseline_sort", "baseline_partition",
+                     "baseline_histogram")
+    placed = {}
+
+    def lanes(wide):
+        if wide not in placed:
+            placed.clear()
+            torch.cuda.empty_cache()
+            eng = HashJoin(JoinConfig(key_bits=64 if wide else 32), dev)
+            placed[wide] = ((eng.place(inner64), eng.place(outer64)) if wide
+                            else (eng.place(inner), eng.place(outer)))
+        return placed[wide]
+
+    def run(cfg_kw, wide):
+        """(first result, its launches, median ms, min, max)."""
+        eng = HashJoin(JoinConfig(**cfg_kw), dev)
+        r, s = lanes(wide)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = eng.join_arrays(r, s)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.join_arrays(r, s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not (res.ok and res.matches == n):
+            raise AssertionError(f"phase (t) {cfg_kw}: {res}")
+        return res, launched, statistics.median(times), times
+
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def add(launched):
+        for k, v in launched.items():
+            launches[k] += v
+
+    twin_ms = {}
+    for name, cfg_kw, wide, twin, wide_keys in sorted(cells,
+                                                      key=lambda c: c[2]):
+        if twin not in twin_ms:
+            twin_ms[twin] = run(*twins[twin])[2]
+        res, launched, ms, times = run(cfg_kw, wide)
+        add(launched)
+        for k in wide_keys:
+            if launched[k] <= 0:
+                raise AssertionError(f"phase (t) {name}: {k} did not launch")
+        if any(launched[k] for k in baseline_keys):
+            raise AssertionError(f"phase (t) {name}: a baseline arm ran")
+        if "baseline_arms" in res.diagnostics:
+            raise AssertionError(f"phase (t) {name}: {res.diagnostics}")
+        emit({"phase": "wide_join", "cell": name, "config": cfg_kw,
+              "matches": res.matches, "ok": res.ok, "retries": res.retries,
+              "join_ms": ms, "join_runs_ms": times,
+              "tuples_per_s": 2 * n / ms * 1e3, "fanout5_cell": twin,
+              "fanout5_join_ms": twin_ms[twin], "launches": launched,
+              **card})
+
+    # (t3) the library baseline arms, beside the kernels
+    arms = dict(sort_impl="xla", partition_impl="sort")
+    for name, cfg_kw in (("a", dict()), ("d", bucket)):
+        kern, _, kern_ms, _ = run(cfg_kw, False)
+        res, launched, ms, times = run(dict(cfg_kw, **arms), False)
+        add(launched)
+        if not (res.partition_counts.tolist()
+                == kern.partition_counts.tolist()):
+            raise AssertionError(f"phase (t) {name} baseline: the counts "
+                                 "differ from the kernels'")
+        zero = ("radix_histogram", "radix_pass", "partition",
+                "partition_lsd")
+        need = ("baseline_sort",) + (("baseline_partition",
+                                      "baseline_histogram")
+                                     if name == "d" else ())
+        if any(launched[k] for k in zero) or not all(launched[k]
+                                                     for k in need):
+            raise AssertionError(f"phase (t) {name} baseline: launches "
+                                 f"{launched}")
+        if res.diagnostics.get("baseline_arms") != arms:
+            raise AssertionError(f"phase (t) {name}: {res.diagnostics}")
+        emit({"phase": "baseline_join", "cell": name, "arms": arms,
+              "matches": res.matches, "ok": res.ok, "join_ms": ms,
+              "join_runs_ms": times, "kernel_join_ms": kern_ms,
+              "launches": launched, **card})
+    placed.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "wide_seconds", "seconds": time.perf_counter() - t_start,
+          **card})
+    return launches, rows
+
+
 def s3_case(dev, group, rank, world, n):
     """(s3), one rank of phase (p)'s gloo group: a ``JoinSession`` of the
     four ranks (``probe_algorithm="bucket"``, 1024 MiB resident) serves
@@ -1795,6 +2138,10 @@ def phase_p_rank(rank: int, world: int, init_method: str,
         "p6_materialize_pack": (JoinConfig(**split, exchange_codec="pack"),
                                 (n, 32)),
         "p6_repair": (JoinConfig(**base, verify="repair"), (n, 32)),
+        # (p7): the packed exchange at network fanout 7 (A19): 4 x 128
+        # = 512 groups, past K4's onesweep, on its wide path
+        "p7_pack_f7": (JoinConfig(**base, exchange_codec="pack",
+                                  network_fanout_bits=7), (n, 32)),
         "p3": (JoinConfig(**split, key_bits=64), (n, 64)),
         "p6_pack_64": (JoinConfig(**split, key_bits=64,
                                   exchange_codec="pack"), (n, 64)),
@@ -1897,7 +2244,7 @@ def phase_p_rank(rank: int, world: int, init_method: str,
                 placed[shape] = (inner, outer, eng0.place(inner),
                                  eng0.place(outer))
             inner, outer, r, s = placed[shape]
-            if name.startswith("p6"):
+            if name.startswith(("p6", "p7")):
                 out["cases"][name] = p6_case(name, cfg, inner, outer, r, s)
                 if cuda:
                     torch.cuda.empty_cache()
@@ -2087,7 +2434,7 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
     and returns the launches summed over the cases and ranks."""
     import numpy as np
     names = [k for k in results[0]["cases"]
-             if not k.startswith(("p5", "p6"))]
+             if not k.startswith(("p5", "p6", "p7"))]
     for res in results:
         if res["backend"] != "gloo" or not res["gloo_on_card"]:
             raise AssertionError(f"phase (p): rank {res['rank']} ran on "
@@ -2182,6 +2529,7 @@ def check_phase_p(results: list, seconds: float, card: dict) -> dict:
               "launches": launches, "collectives": c["collectives"],
               **card})
     check_p6(results, seconds, card, cases, p5, total)
+    check_p7(results, seconds, card, total)
     check_s3(results, card)
     for name, (c, pc, per_rank, launches) in cases.items():
         hot = [p for p in range(32) if (c["hot_bits"] or 0) >> p & 1]
@@ -2294,6 +2642,46 @@ def check_p6(results: list, seconds: float, card: dict, cases: dict,
               "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
               "launches": launches, "collectives": c["collectives"],
               **card})
+
+
+def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
+    """(p7)'s checks: the packed join at network fanout 7 equal on every
+    rank and to the oracle, packed, with K4's wide path (the grouped
+    scatter's 512 groups) and no baseline arm launched; emits its line and
+    adds its launches to ``total``."""
+    per_rank = [res["cases"]["p7_pack_f7"] for res in results]
+    c = per_rank[0]
+    for other in per_rank[1:]:
+        for k in ("matches", "ok", "retries", "diagnostics",
+                  "partition_counts", "exchange_plan"):
+            if other.get(k) != c.get(k):
+                raise AssertionError(f"phase (p) p7_pack_f7: ranks differ "
+                                     f"in {k}")
+    if not (c["ok"] and c["matches"] == c["expected"]
+            and len(c["partition_counts"]) == P_RANKS * 128):
+        raise AssertionError(f"phase (p) p7_pack_f7: {c['matches']} "
+                             f"matches, expected {c['expected']}, "
+                             f"{c['diagnostics']}")
+    plan = c["exchange_plan"]
+    launches = {k: sum(r["launches"][k] for r in per_rank)
+                for k in c["launches"]}
+    if (plan["codec_r"] != "pack" or plan["codec_s"] != "pack"
+            or launches["partition_lsd"] <= 0 or launches["merge_scan"] <= 0
+            or any(v for k, v in launches.items()
+                   if k.startswith("baseline"))):
+        raise AssertionError(f"phase (p) p7_pack_f7: plan {plan}, "
+                             f"launches {launches}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    emit({"phase": "multi_rank", "cell": "p7_pack_f7", "backend": P_BACKEND,
+          "ranks": P_RANKS, "seconds": seconds,
+          "tuples_per_rank": c["tuples_per_rank"], "network_fanout_bits": 7,
+          "matches": c["matches"], "expected": c["expected"],
+          "retries": c["retries"], "equal_on_every_rank": True,
+          "pack_ratio_pct": plan["pack_ratio_pct"],
+          "join_ms_by_rank": [r["join_ms"] for r in per_rank],
+          "join_runs_ms_by_rank": [r["join_runs_ms"] for r in per_rank],
+          "launches": launches, "collectives": c["collectives"], **card})
 
 
 def main() -> int:
@@ -3605,6 +3993,11 @@ def main() -> int:
             del lanes, ordered
     del r, s
 
+    # (t): wider fanout and the implementation choice
+    torch.cuda.empty_cache()
+    launches_t, wide_rows = phase_t(dev, n_main, time_ms, device_us, card)
+    launches = {k: v + launches_t[k] for k, v in launches.items()}
+
     # (n): the generic body on an NCCL group of one rank
     torch.cuda.empty_cache()
     launches_n = phase_n(dev, n_main, {
@@ -3643,6 +4036,22 @@ def main() -> int:
           "shapes": k2_shapes, **card})
     results["radix_sort"]["shapes"] = k2_shapes
     results["radix_sort"]["histogram_launches"] = launches["radix_histogram"]
+    # the wide paths of K1, K3, K5 and K4 (phase (t)), each at its
+    # representative shape, counted under its own name
+    wide_sources = {
+        "histogram_wide": sources["histogram"][:2],
+        "merge_scan_fanout": (
+            "tpu_radix_join_torch/csrc/merge_scan_partitions.cuh",
+            sources["merge_scan"][1]),
+        "merge_scan_wide_fanout": (
+            "tpu_radix_join_torch/csrc/merge_scan_partitions.cuh",
+            sources["merge_scan_wide"][1]),
+        "partition_lsd": ("tpu_radix_join_torch/csrc/partition_wide.cu",
+                          sources["partition"][1]),
+    }
+    for name, (src, replaces) in wide_sources.items():
+        results[name] = wide_rows[name]
+        sources[name] = (src, replaces, name)
     table = []
     for name, (src, replaces, counter) in sources.items():
         r = results[name]

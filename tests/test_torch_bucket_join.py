@@ -198,7 +198,6 @@ def test_partitioned_config_agrees_with_jax():
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("local_fanout_bits", 9, "queue A"),
     ("window_sizing", "exact", "window sizing"),
     ("allocation_factor", 0.5, "allocation_factor"),
     ("assignment_policy", "hash", "assignment policy"),
@@ -207,6 +206,19 @@ def test_partitioned_config_agrees_with_jax():
 def test_partitioned_settings_out_of_range_raise(field, value, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         tx.JoinConfig(probe_algorithm="bucket", **{field: value})
+
+
+def test_local_fanout_past_k4s_groups_joins_as_jax():
+    """Local fanout 9 (512 buckets, past K4's 256 onesweep groups: its wide
+    path) carries across from the JAX config and joins as the JAX engine
+    does, bucket counts and flags included."""
+    cfg = config_from_jax(dataclasses.asdict(jx.JoinConfig(
+        probe_algorithm="bucket", local_fanout_bits=9, max_retries=3)))
+    assert cfg.local_fanout_bits == 9
+    got, oracle = _both(dict(probe_algorithm="bucket", local_fanout_bits=9,
+                             max_retries=3), 1 << 13, ("unique", {}))
+    assert got.partition_counts.size == 512
+    assert got.ok and got.matches == oracle
 
 
 @pytest.mark.parametrize("argv,retries", [

@@ -126,11 +126,11 @@ def test_raw_arrays_probe_the_key_range():
     ("num_nodes", 4, "A7"), ("exchange_codec", "pack", "A13"),
     ("verify", "check", "A15"), ("skew_threshold", 2.0, "A10"),
     ("chunk_size", 1024, "A7"), ("debug_checks", True, "A7"),
-    ("network_fanout_bits", 8, "A19"), ("local_fanout_bits", 9, "A19"),
 ])
 def test_settings_outside_the_slice_raise(field, value, item):
-    """A setting the port does not run raises, naming its ROADMAP item:
-    only the fanouts past the kernels' bins (A19) are left.
+    """Every setting that once raised, naming its ROADMAP item, now runs;
+    the fanouts past the kernels' bins (A19) are held in
+    :func:`test_wide_fanouts_carry_across_and_join_as_jax`.
     A7, the distributed main path, is ported: ``num_nodes`` and
     ``debug_checks`` carry across (a world of 4 then needs its process
     group); so does ``chunk_size`` (A7b), whose chunked probe then joins
@@ -178,8 +178,29 @@ def test_settings_outside_the_slice_raise(field, value, item):
             _assert_same(got, want)
             assert got.ok and got.matches == host_join_count(r_key, s_key)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        config_from_jax(d)
+    raise AssertionError(f"no case for {field}")
+
+
+@pytest.mark.parametrize("field,value", [("network_fanout_bits", 8),
+                                         ("local_fanout_bits", 9)])
+def test_wide_fanouts_carry_across_and_join_as_jax(field, value):
+    """The fanouts past the kernels' shared bins (A19) carry across from
+    the JAX config and join exactly as the JAX engine does: the sort probe
+    at network fanout 8 (256 partition counts), the bucket join at local
+    fanout 9 (512 bucket counts)."""
+    extra = {} if field == "network_fanout_bits" else {
+        "probe_algorithm": "bucket"}
+    jcfg = jx.JoinConfig(**{field: value}, **extra)
+    assert getattr(config_from_jax(dataclasses.asdict(jcfg)), field) == value
+    rng = np.random.default_rng(value)
+    r_key = rng.integers(0, 1 << 16, 4096, dtype=np.uint32)
+    s_key = np.concatenate([r_key[:1500],
+                            rng.integers(0, 1 << 16, 2500, dtype=np.uint32)])
+    got, want = _carried(jcfg, r_key, s_key)
+    _assert_same(got, want)
+    assert got.partition_counts.size == 1 << value
+    if got.ok:
+        assert got.matches == host_join_count(r_key, s_key)
 
 
 @pytest.mark.parametrize("field,value", [("key_bits", 64),
@@ -235,18 +256,24 @@ def test_exchange_stages_is_refused_not_dropped():
 
 
 def test_fields_the_port_does_not_read_are_pinned():
-    """Every JAX config field is the port's, an implementation choice the
-    port has one of, or one of the three the port's joins never read; no
-    other field is dropped without a word (``grid_pipeline`` came off with
-    the repair, A15)."""
+    """Every JAX config field is the port's or one of the three the port's
+    joins never read; no other field is dropped without a word
+    (``grid_pipeline`` came off with the repair, A15, and the
+    implementation choices ``sort_impl`` / ``partition_impl`` with A21:
+    they carry across as they are)."""
     from tpu_radix_join_torch import state
     assert state._UNREAD == {"payload_bits", "mesh_axis",
                              "result_aggregation_node"}
-    assert state._ONE_IMPL == {"sort_impl", "partition_impl"}
+    assert not hasattr(state, "_ONE_IMPL")
     jax_fields = set(jx.JoinConfig.__dataclass_fields__)
     own = set(tx.JoinConfig.__dataclass_fields__)
-    assert jax_fields == own | state._UNREAD | state._ONE_IMPL
+    assert jax_fields == own | state._UNREAD
     assert not own & state._UNREAD
+    for field, value in (("sort_impl", "xla"), ("sort_impl", "pallas"),
+                         ("partition_impl", "sort"),
+                         ("partition_impl", "pallas_interpret")):
+        d = dataclasses.asdict(jx.JoinConfig(**{field: value}))
+        assert getattr(config_from_jax(d), field) == value
     for field, value in (("match_rate_cap", 3), ("generation", "host"),
                          ("exchange_stages", 1), ("grid_pipeline", "on")):
         d = dataclasses.asdict(jx.JoinConfig(**{field: value}))

@@ -120,4 +120,4 @@ def test_merge_scan_rejects_bad_partition_counts():
     with pytest.raises(ValueError):
         k3.merge_scan_partitions(lane, num_partitions=3)
     with pytest.raises(ValueError):
-        k3.merge_scan_partitions(lane, num_partitions=256)
+        k3.merge_scan_partitions(lane, num_partitions=1 << 31)

@@ -404,7 +404,7 @@ def test_scratch_layout_sizes_stated_in_perf():
         4_007, 32_056, 32_192)
     lay = k5.scratch_layout((1 << 23) + (1 << 20), 5)
     assert (lay.tiles, lay.bytes) == (946, 7_704)
-    for bad in ((1 << 31, 5), (-1, 5), (10, 8), (10, -1)):
+    for bad in ((1 << 31, 5), (-1, 5), (10, 31), (10, -1)):
         with pytest.raises(ValueError):
             k3.scratch_layout(*bad)
 

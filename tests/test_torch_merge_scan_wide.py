@@ -248,7 +248,8 @@ def test_wide_merge_scan_rejects_bad_inputs():
     with pytest.raises(ValueError):
         k5.merge_scan_partitions_wide(lane, lane, lane, num_partitions=3)
     with pytest.raises(ValueError):
-        k5.merge_scan_partitions_wide(lane, None, lane, num_partitions=256)
+        k5.merge_scan_partitions_wide(lane, None, lane,
+                                      num_partitions=1 << 31)
     with pytest.raises(ValueError, match="equal-length"):
         k5.merge_scan_partitions_wide(lane, lane[:4].contiguous(), lane,
                                       num_partitions=2)

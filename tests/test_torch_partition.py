@@ -100,7 +100,7 @@ def test_partition_slots_many_tiles(capacity):
 def test_partition_rejects_bad_geometry():
     ids = _lane(np.zeros(16, np.uint32))
     with pytest.raises(ValueError, match="num_groups"):
-        partition_slots(ids, num_groups=257)
+        partition_slots(ids, num_groups=0)
     with pytest.raises(ValueError, match="multiple"):
         partition_slots(ids, num_groups=10, group_size=4, capacity=8)
     with pytest.raises(ValueError, match="capacity"):

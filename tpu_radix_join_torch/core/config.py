@@ -15,11 +15,15 @@ import dataclasses
 import math
 from typing import Optional
 
-#: the kernels' shared bins hold 128 partitions (csrc/histogram.cu,
-#: csrc/merge_scan_partitions.cuh)
-MAX_NETWORK_FANOUT_BITS = 7
-#: K4 groups at most 256 buckets (csrc/partition.cu)
-MAX_LOCAL_FANOUT_BITS = 8
+#: JAX's ``partition_impl`` and ``sort_impl`` choices (``ops/radix.py``,
+#: ``ops/sorting.py`` and ``main.py`` read these two tuples)
+PARTITION_IMPLS = ("auto", "sort", "pallas", "pallas_interpret")
+SORT_IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
+
+
+def _expected(choices) -> str:
+    """JAX's wording of a choice list: ``'a', 'b', or 'c'``."""
+    return ", ".join(map(repr, choices[:-1])) + f", or {choices[-1]!r}"
 
 
 def _not_ported(setting: str, item: str) -> NotImplementedError:
@@ -66,8 +70,13 @@ class JoinConfig:
         the pads and ignore it.
       * ``window_sizing``: "measured" sizes the exchange blocks from a
         histogram pass, "static" from ``allocation_factor`` alone.
-      * ``sort_impl`` / ``partition_impl``: the port has one sort (K2) and
-        one partition pass (K4), so only "auto".
+      * ``sort_impl`` / ``partition_impl``: JAX's implementation choice
+        (``ops/sorting``, ``ops/radix``).  "auto", "pallas" and
+        "pallas_interpret" run the hand-written kernels (K2; K1 and K4) at
+        every fanout; ``sort_impl="xla"`` and ``partition_impl="sort"`` are
+        the library baseline arms (stable ``torch.sort``; a stable
+        ``argsort`` and ``bincount``), counted apart and named in a join's
+        ``diagnostics["baseline_arms"]``.
       * ``max_retries``: capacity-shortfall retries, each doubling what fell
         short; the sort probe has no capacity and never retries.
       * ``retry_backoff_s``, ``retry_backoff_mult``, ``retry_backoff_max_s``
@@ -153,16 +162,6 @@ class JoinConfig:
     def __post_init__(self):
         if self.network_fanout_bits < 0 or self.local_fanout_bits < 0:
             raise ValueError("fanout bits must be non-negative")
-        if self.network_fanout_bits > MAX_NETWORK_FANOUT_BITS:
-            raise _not_ported(
-                f"network_fanout_bits={self.network_fanout_bits} (the "
-                f"kernels hold {1 << MAX_NETWORK_FANOUT_BITS} partitions)",
-                "queue A, A19: wider fanout")
-        if self.local_fanout_bits > MAX_LOCAL_FANOUT_BITS:
-            raise _not_ported(
-                f"local_fanout_bits={self.local_fanout_bits} (K4 groups "
-                f"{1 << MAX_LOCAL_FANOUT_BITS} buckets)",
-                "queue A, A19: wider fanout")
         if self.num_nodes < 1:
             raise ValueError("num_nodes must be >= 1")
         if self.num_hosts < 1 or self.num_nodes % self.num_hosts:
@@ -195,11 +194,14 @@ class JoinConfig:
             raise ValueError("match_rate_cap must be >= 1")
         if self.generation not in ("auto", "host", "device"):
             raise ValueError(f"unknown generation mode {self.generation!r}")
-        for name in ("partition_impl", "sort_impl"):
-            if getattr(self, name) != "auto":
-                raise ValueError(
-                    f"unknown {name} {getattr(self, name)!r}: the port has "
-                    "one implementation of each kernel ('auto')")
+        if self.partition_impl not in PARTITION_IMPLS:
+            raise ValueError(
+                f"unknown partition impl {self.partition_impl!r} (expected "
+                f"{_expected(PARTITION_IMPLS)})")
+        if self.sort_impl not in SORT_IMPLS:
+            raise ValueError(
+                f"unknown sort impl {self.sort_impl!r} (expected "
+                f"{_expected(SORT_IMPLS)})")
         if self.assignment_policy not in ("round_robin", "load_aware"):
             raise ValueError(
                 f"unknown assignment policy {self.assignment_policy!r}")

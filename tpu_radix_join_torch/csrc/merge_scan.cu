@@ -66,7 +66,7 @@ struct PackedLane {
 
 extern "C" {
 
-// packed: sorted uint32 [m], m < 2**31; fanout_bits <= 7; scratch: one block
+// packed: sorted uint32 [m], m < 2**31; fanout_bits <= 30; scratch: one block
 // of scratch_bytes = 8 * num_tiles + 8 + 4 * 2**fanout_bits bytes, laid out as
 // the look-back table (num_tiles words of 8 bytes), the tile counter, the
 // max weight and the 1 << fanout_bits partition counts (uint32 each).

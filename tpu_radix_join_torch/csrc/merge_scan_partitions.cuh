@@ -5,8 +5,8 @@
 // Over a sorted union every S position weighs the number of R tuples in its
 // run of equal keys (merge_scan_lookback.cuh has the recurrence and the tile
 // carry), and the weights are summed by partition, the top f bits of the key
-// (f <= 7).  Sums wrap mod 2**32 like the TPU's int32 sums; the largest single
-// weight is kept beside them.
+// (f <= 30: a word below holds the pid in 30 bits).  Sums wrap mod 2**32 like
+// the TPU's int32 sums; the largest single weight is kept beside them.
 //
 // One launch.  A block claims the next tile of kTile positions from a counter
 // and reads its lanes once, with 16-byte loads when the tile is whole and
@@ -28,6 +28,15 @@
 // atomicAdd per touched bin and one atomicMax for the weight.  A run of equal
 // keys longer than a tile is carried through B, never walked.
 //
+// Past 128 partitions (f > 7, the wide fanouts) the same kernel bins
+// relative to the tile's first pid: the union is sorted pid-major, so a tile
+// covers one contiguous pid range, and the kMaxBins shared bins hold the
+// pids [first, first + 128) of the tile; a pid past them (a tile that spans
+// more than 128 partitions: short partitions) adds its thread's sum straight
+// to the global count with one atomic where the pid changes.  So a tile
+// zeroes and flushes 128 bins at every fanout, not 2**f.  The f <= 7 path is
+// the kWideBins = false instance, unchanged.
+//
 // The look-back table, the tile counter, the max weight and the partition
 // counts are one scratch block (scratch_bytes), zeroed by one memset.
 #pragma once
@@ -47,7 +56,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 39;
 constexpr int kTile = kThreads * kItems;  // SCAN_TILE in ops/kernels/merge_scan.py
 constexpr int kChunks = kTile / 4;        // 16-byte chunks of one lane
-constexpr int kMaxBins = 128;             // fanout_bits <= 7
+constexpr int kMaxBins = 128;             // shared bins: every pid at fanout_bits <= 7
+constexpr int kMaxFanoutBits = 30;        // the pid's bits in a word
 static_assert(kTile % 32 == 0 && (kChunks % kThreads) % 32 == 0,
               "every load loop's trip count is warp-uniform");
 
@@ -85,6 +95,21 @@ struct Shared {
   uint32_t tile;
   Carry carry;
 };
+
+// Adds a thread's sum acc of partition pid to the shared bins; on the wide
+// path the bins start at the tile's first pid, and a pid past them adds to
+// the global count.
+template <bool kWideBins>
+__device__ __forceinline__ void add_bin(Shared& s, const Scratch& out, uint32_t pid,
+                                        uint32_t first_pid, uint32_t acc) {
+  if (!kWideBins) {
+    atomicAdd(s.bins + pid, acc);
+  } else if (pid - first_pid < (uint32_t)kMaxBins) {
+    atomicAdd(s.bins + (pid - first_pid), acc);
+  } else {
+    atomicAdd(out.counts + pid, acc);
+  }
+}
 
 // Fills s.words with the words of tile t and returns its valid length.  L is
 // the kernel's lanes: Pos (one position), load(i), load4(i, p) (positions
@@ -126,7 +151,10 @@ __device__ __forceinline__ int load_words(Shared& s, const L& in, long long m, u
 }
 
 // Weighs the tile's words, bins the weights by partition and adds the bins
-// and the largest weight to the outputs.  Every thread calls it.
+// and the largest weight to the outputs.  kWideBins: the bins hold the pids
+// from the tile's first on, and a pid past them adds to the global count.
+// Every thread calls it.
+template <bool kWideBins>
 __device__ __forceinline__ void scan_words(Shared& s, uint32_t t, int valid, int fanout_bits,
                                            const Scratch& out) {
   const int tid = threadIdx.x;
@@ -163,6 +191,9 @@ __device__ __forceinline__ void scan_words(Shared& s, uint32_t t, int valid, int
   const int b0 = max(before.base, excl_base >= 0 ? (int)before.r + excl_base : -1);
   uint32_t base = b0 >= 0 ? (uint32_t)b0 : 0u;
   uint32_t maxw = 0u;
+  // the tile's first pid (its words are sorted pid-major): bin 0 of the
+  // shared bins on the wide path
+  const uint32_t first_pid = kWideBins ? s.words[0] >> 2 : 0u;
   if (lo < hi) {
     uint32_t pid = s.words[lo] >> 2;
     uint32_t acc = 0u;
@@ -173,20 +204,26 @@ __device__ __forceinline__ void scan_words(Shared& s, uint32_t t, int valid, int
       if (w & 2u) base = c_r - (1u - is_s);
       const uint32_t weight = is_s * (c_r - base);
       if ((w >> 2) != pid) {
-        if (acc != 0u) atomicAdd(s.bins + pid, acc);
+        if (acc != 0u) add_bin<kWideBins>(s, out, pid, first_pid, acc);
         pid = w >> 2;
         acc = 0u;
       }
       acc += weight;
       maxw = weight > maxw ? weight : maxw;
     }
-    if (acc != 0u) atomicAdd(s.bins + pid, acc);
+    if (acc != 0u) add_bin<kWideBins>(s, out, pid, first_pid, acc);
   }
   maxw = rj::warp_reduce(maxw, rj::MaxOp());
   if (lane == 0) s.red[warp] = maxw;
   __syncthreads();
-  for (int b = tid; b < (1 << fanout_bits); b += kThreads) {
-    if (s.bins[b] != 0u) atomicAdd(out.counts + b, s.bins[b]);
+  if (kWideBins) {
+    for (int b = tid; b < kMaxBins; b += kThreads) {
+      if (s.bins[b] != 0u) atomicAdd(out.counts + first_pid + b, s.bins[b]);
+    }
+  } else {
+    for (int b = tid; b < (1 << fanout_bits); b += kThreads) {
+      if (s.bins[b] != 0u) atomicAdd(out.counts + b, s.bins[b]);
+    }
   }
   if (tid == 0) {
     uint32_t mx = 0u;
@@ -196,7 +233,7 @@ __device__ __forceinline__ void scan_words(Shared& s, uint32_t t, int valid, int
   }
 }
 
-template <class L>
+template <class L, bool kWideBins>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(L in, long long m, int fanout_bits, Scratch out) {
   __shared__ Shared s;
@@ -205,23 +242,29 @@ scan_kernel(L in, long long m, int fanout_bits, Scratch out) {
   __syncthreads();
   const uint32_t t = s.tile;
   const int valid = load_words(s, in, m, t);
-  scan_words(s, t, valid, fanout_bits, out);
+  scan_words<kWideBins>(s, t, valid, fanout_bits, out);
 }
 
 // Checks the arguments and the scratch size, zeroes the scratch block with
-// one memset and launches scan_kernel over m positions on `stream`.  Returns
-// a cudaError_t.
+// one memset and launches scan_kernel over m positions on `stream`: the
+// 128-partition instance at fanout_bits <= 7, the wide-bins one past it.
+// Returns a cudaError_t.
 template <class L>
 int launch(const L& in, long long m, int fanout_bits, void* scratch, long long bytes,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fanout_bits < 0 || fanout_bits > 7 || m < 0 || m > 0x7FFFFFFFll ||
+  if (fanout_bits < 0 || fanout_bits > kMaxFanoutBits || m < 0 || m > 0x7FFFFFFFll ||
       bytes != scratch_bytes(m, fanout_bits))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)bytes, st);
   if (err != cudaSuccess || m == 0) return (int)(err != cudaSuccess ? err : cudaGetLastError());
-  scan_kernel<<<(unsigned)num_tiles(m), kThreads, 0, st>>>(in, m, fanout_bits,
-                                                          split(scratch, m));
+  if (fanout_bits <= 7) {
+    scan_kernel<L, false><<<(unsigned)num_tiles(m), kThreads, 0, st>>>(in, m, fanout_bits,
+                                                                      split(scratch, m));
+  } else {
+    scan_kernel<L, true><<<(unsigned)num_tiles(m), kThreads, 0, st>>>(in, m, fanout_bits,
+                                                                     split(scratch, m));
+  }
   return (int)cudaGetLastError();
 }
 

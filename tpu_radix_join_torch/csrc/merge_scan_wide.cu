@@ -86,7 +86,7 @@ struct Lanes {
 extern "C" {
 
 // lo_rot, tag: sorted uint32 [m], m < 2**31; hi: uint32 [m] or null (all
-// zero); fanout_bits <= 7; scratch: one block of scratch_bytes bytes, K3's
+// zero); fanout_bits <= 30; scratch: one block of scratch_bytes bytes, K3's
 // layout (rj_merge_scan).  Refuses any other size.  Zeroes the block with
 // one memset, launches one kernel on `stream` and returns a cudaError_t.
 int rj_merge_scan_wide(const void* lo_rot, const void* hi, const void* tag, long long m,

@@ -17,12 +17,14 @@ from tpu_radix_join_torch.ops.radix import local_histogram
 
 
 def compute_local_histogram(batch: TupleBatch, fanout_bits: int,
-                            valid: Optional[torch.Tensor] = None
+                            valid: Optional[torch.Tensor] = None,
+                            impl: str = "auto"
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pid int32 [n], histogram int32 [1 << fanout_bits] of uint32
-    counts)."""
+    counts), K1 at every fanout; ``impl`` is the histogram's arm
+    (``ops/radix.local_histogram``)."""
     pid = partition_ids(batch, fanout_bits)
-    return pid, local_histogram(pid, 1 << fanout_bits, valid)
+    return pid, local_histogram(pid, 1 << fanout_bits, valid, impl=impl)
 
 
 def compute_global_histogram(local_hist: torch.Tensor,

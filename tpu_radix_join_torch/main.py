@@ -34,7 +34,11 @@ host`` generates the relations with numpy and copies them to the device.
 ``--exchange-codec pack|auto`` bit-packs the exchange, ``--exchange-stages
 K`` exchanges it in K column groups, and ``--verify check|repair``
 checksums every network partition across it (repairing out of core, in
-``--grid-pipeline``'s mode).
+``--grid-pipeline``'s mode).  ``--sort-impl`` and ``--partition-impl`` take
+JAX's choices: "auto" (and "pallas", "pallas_interpret") runs the kernels at
+every ``--network-fanout`` / ``--local-fanout``; "xla" / "sort" runs the
+library baseline arm, counted apart and named in the result's
+``baseline_arms``.
 Its last line is one JSON object: the result, the host-clock join time, and
 the registry's ``phases_us`` and ``counters``.
 ``--serve FILE`` (``-`` = stdin) runs the resident join service instead
@@ -85,6 +89,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from tpu_radix_join_torch.core.config import PARTITION_IMPLS, SORT_IMPLS
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -110,6 +116,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="32-bit sort-probe discipline: the packed 31-bit "
                         "probe (narrow), the full-range one (full), or per "
                         "join from the key bounds (auto)")
+    p.add_argument("--partition-impl",
+                   choices=PARTITION_IMPLS,
+                   default="auto",
+                   help="partition/reorder implementation (ops/radix.py): "
+                        "'auto' takes the hand-written histogram (K1) and "
+                        "partition (K4) kernels at every fanout, past their "
+                        "shared bins on their wide paths; 'pallas' and "
+                        "'pallas_interpret' (JAX's kernel names) take them "
+                        "too; 'sort' forces the library baseline arm (a "
+                        "stable argsort and bincount), counted apart")
+    p.add_argument("--sort-impl",
+                   choices=SORT_IMPLS,
+                   default="auto",
+                   help="sort implementation behind every hot reorder "
+                        "(ops/sorting.py): 'auto' takes the hand-written "
+                        "LSD radix sort (K2), fewer digit passes when key "
+                        "bounds shrink the effective width; 'pallas' and "
+                        "'pallas_interpret' take it too; 'xla' forces the "
+                        "library baseline arm (stable torch.sort), counted "
+                        "apart")
     p.add_argument("--assignment", choices=["round_robin", "load_aware"],
                    default="round_robin")
     p.add_argument("--window-sizing", choices=["measured", "static"],
@@ -315,7 +341,7 @@ def _run_grid(args, inner, outer, expected) -> int:
             min(chunk, 1 << 20), checkpoint_path=ckpt_path,
             checkpoint_tag=tag, progress=True, key_range=args.key_range,
             measurements=meas, retry_policy=policy,
-            pipeline=args.grid_pipeline)
+            pipeline=args.grid_pipeline, sort_impl=args.sort_impl)
     except Exception as e:
         cls = getattr(e, "failure_class", None)
         if cls is None:
@@ -406,7 +432,9 @@ def _join_config(args):
                       measure_phases=args.measure_phases,
                       exchange_codec=args.exchange_codec,
                       exchange_stages=args.exchange_stages,
-                      verify=args.verify, grid_pipeline=args.grid_pipeline)
+                      verify=args.verify, grid_pipeline=args.grid_pipeline,
+                      sort_impl=args.sort_impl,
+                      partition_impl=args.partition_impl)
 
 
 def _serve_lines(args, batcher, flush_groups):

@@ -393,13 +393,24 @@ class HashJoin:
         diag["failure_class"] = classify_diagnostics(diag)
         return diag
 
-    @staticmethod
-    def _stamp_fault_sites(diag: dict) -> dict:
-        """The active fault injector's per-site hits and fires, stamped into
-        the result's ``diagnostics["fault_sites"]`` (no injector, no key)."""
+    def _stamp(self, diag: dict) -> dict:
+        """The result's stamps: the active fault injector's per-site hits
+        and fires in ``diagnostics["fault_sites"]`` (no injector, no key),
+        and the library baseline arms the config asked for by name in
+        ``diagnostics["baseline_arms"]`` (``{"sort_impl": "xla",
+        "partition_impl": "sort"}`` or a part of it; a join on the kernels
+        alone has no key), so a baseline run never passes for a kernel
+        run."""
         inj = faults.active()
         if inj is not None:
             diag["fault_sites"] = inj.site_stats()
+        cfg = self.config
+        arms = {name: arm for name, arm in (("sort_impl", cfg.sort_impl),
+                                            ("partition_impl",
+                                             cfg.partition_impl))
+                if arm in ("xla", "sort")}
+        if arms:
+            diag["baseline_arms"] = arms
         return diag
 
     def _inject_shuffle_fault(self, flags: np.ndarray) -> np.ndarray:
@@ -583,7 +594,8 @@ class HashJoin:
             codec, _ = self._wire_side(cap, rid_bound)
             return Window(self.world, cap, side, codec=codec, mode=mode,
                           fanout_bits=cfg.network_fanout_bits,
-                          key_bound=key_bound, rid_bound=rid_bound)
+                          key_bound=key_bound, rid_bound=rid_bound,
+                          partition_impl=cfg.partition_impl)
 
         return one(cap_r, "inner", rid_r), one(cap_s, "outer", rid_s)
 
@@ -728,7 +740,7 @@ class HashJoin:
         self._finish(r, s, matches, repeats=repeats)
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts,
-                          diagnostics=self._stamp_fault_sites(diag),
+                          diagnostics=self._stamp(diag),
                           retries=attempt)
 
     def _sort_probe_attempt(self, r: TupleBatch, s: TupleBatch,
@@ -737,17 +749,18 @@ class HashJoin:
         [2 + P] of the contract violation, the max weight and the
         per-partition counts."""
         fanout = self.config.network_fanout_bits
+        impl = self.config.sort_impl
         keys_ok = self._keys_in_contract(r, s, route == "narrow")
         if route == "wide":
             counts, maxw = merge_count_wide_per_partition(
                 r.key, r.key_hi, s.key, s.key_hi, fanout,
-                return_max_weight=True)
+                return_max_weight=True, sort_impl=impl)
         elif route == "full":
             counts, maxw = merge_count_per_partition_full(
-                r.key, s.key, fanout, return_max_weight=True)
+                r.key, s.key, fanout, return_max_weight=True, sort_impl=impl)
         else:
             counts, maxw = merge_count_per_partition(
-                r.key, s.key, fanout, return_max_weight=True)
+                r.key, s.key, fanout, return_max_weight=True, sort_impl=impl)
         return torch.cat([(~keys_ok).to(torch.int64).reshape(1),
                           widen(maxw).reshape(1), widen(counts)])
 
@@ -763,7 +776,8 @@ class HashJoin:
         scalar_limit = (2**32 - 1) // max(1, s.size)
         if maxw > scalar_limit:
             s_pid = torch.bitwise_and(s.key, num_p - 1)
-            s_hist = local_histogram(s_pid, num_p)
+            s_hist = local_histogram(s_pid, num_p,
+                                     impl=self.config.partition_impl)
             count_risk = self._count_risk(
                 maxw, s_hist.cpu().numpy().view(np.uint32))
         else:
@@ -893,7 +907,7 @@ class HashJoin:
         self._finish(r, s, matches, caps, repeats)
         return JoinResult(matches=matches, ok=not flags.any(),
                           partition_counts=counts,
-                          diagnostics=self._stamp_fault_sites(diag),
+                          diagnostics=self._stamp(diag),
                           retries=retries)
 
     # ------------------------------------------------- integrity verify
@@ -913,9 +927,11 @@ class HashJoin:
         r_valid = None if skew is None else ~is_hot(r_pid, skew.hot_bits)
         pre = torch.stack([
             global_partition_checksums(r.key, r_pid, num_p, self.world,
-                                       valid=r_valid, key_hi=r.key_hi),
+                                       valid=r_valid, key_hi=r.key_hi,
+                                       sort_impl=cfg.sort_impl),
             global_partition_checksums(s.key, s_pid, num_p, self.world,
-                                       key_hi=s.key_hi)])
+                                       key_hi=s.key_hi,
+                                       sort_impl=cfg.sort_impl)])
         if m is not None:
             m.stop(VCHK, fence=pre)
         return pre
@@ -1009,7 +1025,8 @@ class HashJoin:
         if cfg.bucket_path or not dmg:
             scope = "full"
             matches = chunked_join_count(whole_r, whole_s, slab,
-                                         key_range="auto")
+                                         key_range="auto",
+                                         sort_impl=cfg.sort_impl)
             counts_out = np.array([matches % (1 << 32)], np.uint32)
         else:
             cols = counts.reshape(self.world.size, num_p).astype(np.uint64)
@@ -1024,12 +1041,12 @@ class HashJoin:
                 if r_p.size and s_p.size:
                     cnt = chunked_join_grid(
                         [r_p], [s_p], min(slab, s_p.size), measurements=m,
-                        pipeline=cfg.grid_pipeline)
+                        pipeline=cfg.grid_pipeline, sort_impl=cfg.sort_impl)
                 cols[0, p] = cnt % (1 << 32)
                 repaired += cnt
             matches = intact + repaired
             counts_out = cols.astype(np.uint32).reshape(counts.shape)
-        diag = self._stamp_fault_sites(dict(
+        diag = self._stamp(dict(
             diag, repaired=scope, repaired_partitions=[int(p) for p in dmg]))
         if m is not None:
             m.incr(VREPAIR, max(1, len(dmg)))
@@ -1184,12 +1201,13 @@ class HashJoin:
         ``degraded="chunked"``; an error of the count is reported in
         ``fallback_error``, never raised."""
         m = self.measurements
-        diag = self._stamp_fault_sites(dict(
+        diag = self._stamp(dict(
             diag, failure_class=CAPACITY_OVERFLOW, degraded="chunked"))
         r, s = self._whole(r), self._whole(s)
         slab = min(FALLBACK_SLAB, s.size)
         try:
-            matches = chunked_join_count(r, s, slab, key_range="auto")
+            matches = chunked_join_count(r, s, slab, key_range="auto",
+                                         sort_impl=self.config.sort_impl)
         except Exception as e:   # the degraded path never raises past here
             diag["fallback_error"] = repr(e)
             diag["failure_class"] = RETRIES_EXHAUSTED
@@ -1220,8 +1238,10 @@ class HashJoin:
         sizing pass and every attempt share one computation.  Every rank
         computes the same assignment from the same global histograms."""
         cfg = self.config
-        _, r_hist = compute_local_histogram(r, cfg.network_fanout_bits)
-        _, s_hist = compute_local_histogram(s, cfg.network_fanout_bits)
+        _, r_hist = compute_local_histogram(r, cfg.network_fanout_bits,
+                                            impl=cfg.partition_impl)
+        _, s_hist = compute_local_histogram(s, cfg.network_fanout_bits,
+                                            impl=cfg.partition_impl)
         r_ghist = compute_global_histogram(r_hist, self.world)
         s_ghist = compute_global_histogram(s_hist, self.world)
         return ShufflePlan(r_hist, s_hist, r_ghist, s_ghist,
@@ -1315,7 +1335,8 @@ class HashJoin:
         fanout = cfg.network_fanout_bits
         spread = local_histogram(
             spread_destinations(s.rid, n), n,
-            is_hot(partition_ids(s, fanout), hot_bits))
+            is_hot(partition_ids(s, fanout), hot_bits),
+            impl=cfg.partition_impl)
         hot_count = is_hot(partition_ids(r, fanout), hot_bits).sum()
         host = self.world.all_reduce(
             torch.cat([r_demand, s_demand + widen(spread),
@@ -1380,7 +1401,7 @@ class HashJoin:
             # replicate the hot build side: this rank's block, gathered
             hot_blocks, hot_counts, hot_ovf = scatter_to_blocks(
                 r, torch.zeros_like(r_pid), 1, hot_cap, "inner",
-                valid=is_hot_r)
+                valid=is_hot_r, impl=cfg.partition_impl)
             hot_batch = TupleBatch(*(
                 None if lane is None
                 else self.world.all_gather(lane).reshape(-1)
@@ -1389,7 +1410,8 @@ class HashJoin:
             # the spread histogram, the extraction overflow, the extracted
             # count and the outer overflow, summed in one all_reduce
             summed = self.world.all_reduce(torch.cat([
-                widen(local_histogram(dest_spread, n, is_hot_s)),
+                widen(local_histogram(dest_spread, n, is_hot_s,
+                                      impl=cfg.partition_impl)),
                 hot_ovf.reshape(1),
                 torch.clamp(widen(hot_counts[:1]), max=hot_cap),
                 sp.send_overflow.reshape(1)]))
@@ -1428,7 +1450,8 @@ class HashJoin:
         bad = torch.zeros((), dtype=torch.bool, device=self.device)
         for part, ghist, lost in ((rp, plan.r_ghist, lost_r),
                                   (sp, plan.s_ghist, lost_s)):
-            got = widen(local_histogram(part.pid, num_p, part.valid))
+            got = widen(local_histogram(part.pid, num_p, part.valid,
+                                        impl=self.config.partition_impl))
             want = torch.where(mine, widen(mask_hot(ghist, hot_bits)), 0)
             bad = bad | (((got != want) & cold).any() & (lost == 0))
         for lhist, ghist in ((plan.r_hist, plan.r_ghist),
@@ -1476,7 +1499,7 @@ class HashJoin:
                                outer_rows: torch.Tensor,
                                inner_hi: Optional[torch.Tensor] = None,
                                outer_hi: Optional[torch.Tensor] = None,
-                               run=None):
+                               run=None, sort_impl: str = "auto"):
         """(counts, count-overflow risk): a bucket's count is at most
         lcap_r * lcap_s, so the max-weight bound runs only when that
         product can reach 2**32.  64-bit keys add their hi-lane rows;
@@ -1484,11 +1507,12 @@ class HashJoin:
         lcap_r, lcap_s = inner_rows.shape[1], outer_rows.shape[1]
         if lcap_r * lcap_s < 1 << 32:
             return (probe_count_bucketized(inner_rows, outer_rows, inner_hi,
-                                           outer_hi, run=run),
+                                           outer_hi, run=run,
+                                           sort_impl=sort_impl),
                     torch.zeros((), dtype=torch.bool, device=inner_rows.device))
         counts, maxw = probe_count_bucketized(inner_rows, outer_rows, inner_hi,
                                               outer_hi, return_max_weight=True,
-                                              run=run)
+                                              run=run, sort_impl=sort_impl)
         return counts, widen(maxw) > 0xFFFFFFFF // lcap_s
 
     def _local_partition(self, rp, sp, cap_r: int, cap_s: int,
@@ -1504,9 +1528,11 @@ class HashJoin:
         inner, inner_valid = self._concat_hot_valid(rp.batch, rp.valid,
                                                     hot_batch)
         return (local_partition(inner, inner_valid, cfg.network_fanout_bits,
-                                cfg.local_fanout_bits, lcap_r, "inner"),
+                                cfg.local_fanout_bits, lcap_r, "inner",
+                                impl=cfg.partition_impl),
                 local_partition(sp.batch, sp.valid, cfg.network_fanout_bits,
-                                cfg.local_fanout_bits, lcap_s, "outer"))
+                                cfg.local_fanout_bits, lcap_s, "outer",
+                                impl=cfg.partition_impl))
 
     def _bucket_probe(self, lr, ls, run=None):
         """The bucketized probe of the local partitions: (per-bucket
@@ -1518,7 +1544,7 @@ class HashJoin:
             lr.blocks.key_hi.view(nb, lcap_r), ls.blocks.key_hi.view(nb, lcap_s))
         return self._guarded_bucket_counts(
             lr.blocks.key.view(nb, lcap_r), ls.blocks.key.view(nb, lcap_s), *hi,
-            run=run)
+            run=run, sort_impl=self.config.sort_impl)
 
     def _local_process(self, rp, sp, cap_r: int, cap_s: int,
                        local_slack: int,
@@ -1542,7 +1568,8 @@ class HashJoin:
             sets = [global_partition_checksums(
                         b.key, partition_ids(b, cfg.network_fanout_bits),
                         cfg.network_partition_count, self.world,
-                        valid=valid_mask(b, side), key_hi=b.key_hi)
+                        valid=valid_mask(b, side), key_hi=b.key_hi,
+                        sort_impl=cfg.sort_impl)
                     for b, side in ((lr.blocks, "inner"),
                                     (ls.blocks, "outer"))]
         return counts, lr.overflow + ls.overflow, risk, sets
@@ -1574,17 +1601,19 @@ class HashJoin:
             counts, maxw = probe_count_chunked(
                 _as_compressed(r), _as_compressed(s), sp.pid,
                 cfg.network_partition_count, cfg.chunk_size,
-                return_max_weight=True)
+                return_max_weight=True, sort_impl=cfg.sort_impl)
         elif route == "wide":
             counts, maxw = merge_count_wide_per_partition(
                 r_key, r_hi, s.key, s.key_hi, fanout,
-                return_max_weight=True)
+                return_max_weight=True, sort_impl=cfg.sort_impl)
         elif route == "full":
             counts, maxw = merge_count_per_partition_full(
-                r_key, s.key, fanout, return_max_weight=True)
+                r_key, s.key, fanout, return_max_weight=True,
+                sort_impl=cfg.sort_impl)
         else:
             counts, maxw = merge_count_per_partition(
-                r_key, s.key, fanout, return_max_weight=True)
+                r_key, s.key, fanout, return_max_weight=True,
+                sort_impl=cfg.sort_impl)
         limit = 0xFFFFFFFF // torch.clamp(widen(maxw), min=1)
         zero = torch.zeros((), dtype=torch.int64, device=counts.device)
         return counts, zero, (widen(s_ghist) > limit).any()
@@ -1757,7 +1786,7 @@ class HashJoin:
         self._finish(r, s, r_rid.size, caps)
         return MaterializedJoinResult(
             r_rid=r_rid, s_rid=s_rid, matches=int(r_rid.size),
-            ok=not flags.any(), diagnostics=self._stamp_fault_sites(diag),
+            ok=not flags.any(), diagnostics=self._stamp(diag),
             retries=attempt)
 
     def _materialize_attempt(self, r: TupleBatch, s: TupleBatch,
@@ -1792,9 +1821,11 @@ class HashJoin:
         outer = _as_compressed(sh.sp.batch)
         if cfg.chunk_size:
             mm = probe_materialize_chunked(inner, outer, rate_cap,
-                                           cfg.chunk_size)
+                                           cfg.chunk_size,
+                                           sort_impl=cfg.sort_impl)
         else:
-            mm = probe_materialize(inner, outer, rate_cap)
+            mm = probe_materialize(inner, outer, rate_cap,
+                                   sort_impl=cfg.sort_impl)
         if split:
             dts[JPROC] = m.stop(JPROC, fence=mm)
         summed = self.world.all_reduce(torch.stack([

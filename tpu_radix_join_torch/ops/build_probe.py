@@ -101,24 +101,26 @@ def _per_partition_counts(r_sorted: torch.Tensor, s_keys: torch.Tensor,
 
 def probe_count_per_partition(inner: CompressedBatch, outer: CompressedBatch,
                               outer_pid: torch.Tensor, num_partitions: int,
-                              return_max_weight: bool = False):
+                              return_max_weight: bool = False,
+                              sort_impl: str = "auto"):
     """Per-partition match counts, int32 [num_partitions] of uint32 bits;
     ``return_max_weight`` also returns the largest single-outer-tuple count
     (0-d int32).  Narrow keys: the inner lane sorted on K2 and
     :func:`_per_partition_counts`.  64-bit keys: K2 and K5 over the union,
     partitions from the keys' low bits (see the module docstring), so
-    ``outer_pid`` must hold those bits at every real outer tuple."""
+    ``outer_pid`` must hold those bits at every real outer tuple.
+    ``sort_impl`` is every sort's arm (``ops/sorting``)."""
     if inner.key_rem_hi is not None:
         fanout = num_partitions.bit_length() - 1
         if num_partitions != 1 << fanout:
             raise ValueError("num_partitions must be a power of two")
         counts, maxw = merge_count_wide_per_partition(
             inner.key_rem, inner.key_rem_hi, outer.key_rem, outer.key_rem_hi,
-            fanout, return_max_weight=True)
+            fanout, return_max_weight=True, sort_impl=sort_impl)
     else:
         counts, maxw = _per_partition_counts(
-            sort_unstable(inner.key_rem), outer.key_rem, outer_pid,
-            num_partitions)
+            sort_unstable(inner.key_rem, impl=sort_impl), outer.key_rem,
+            outer_pid, num_partitions)
     return (counts, maxw) if return_max_weight else counts
 
 
@@ -135,7 +137,8 @@ def _slabs(lane: torch.Tensor, slab_size: int, fill: int):
 
 def probe_count_chunked(inner: CompressedBatch, outer: CompressedBatch,
                         outer_pid: torch.Tensor, num_partitions: int,
-                        slab_size: int, return_max_weight: bool = False):
+                        slab_size: int, return_max_weight: bool = False,
+                        sort_impl: str = "auto"):
     """Per-partition counts with the outer side streamed in ``slab_size``
     slabs (the JAX ``lax.scan`` as a loop): the same numbers as
     :func:`probe_count_per_partition`, with a working set of O(inner +
@@ -149,7 +152,7 @@ def probe_count_chunked(inner: CompressedBatch, outer: CompressedBatch,
     dev = outer.key_rem.device
     total = torch.zeros(num_partitions, dtype=torch.int64, device=dev)
     maxws = []
-    r_sorted = None if wide else sort_unstable(inner.key_rem)
+    r_sorted = None if wide else sort_unstable(inner.key_rem, impl=sort_impl)
     hi_slabs = (_slabs(outer.key_rem_hi, slab_size, fill) if wide
                 else itertools.repeat(None))
     for lo, hi, pid in zip(_slabs(outer.key_rem, slab_size, fill), hi_slabs,
@@ -157,7 +160,7 @@ def probe_count_chunked(inner: CompressedBatch, outer: CompressedBatch,
         if wide:
             counts, maxw = probe_count_per_partition(
                 inner, CompressedBatch(lo, pid, hi), pid, num_partitions,
-                return_max_weight=True)
+                return_max_weight=True, sort_impl=sort_impl)
         else:
             counts, maxw = _per_partition_counts(r_sorted, lo, pid,
                                                  num_partitions)
@@ -175,7 +178,8 @@ def probe_count_bucketized(inner_blocks: torch.Tensor,
                            outer_blocks: torch.Tensor,
                            inner_hi: Optional[torch.Tensor] = None,
                            outer_hi: Optional[torch.Tensor] = None,
-                           return_max_weight: bool = False, run=None):
+                           return_max_weight: bool = False, run=None,
+                           sort_impl: str = "auto"):
     """Per-bucket match counts, int32 [nb] of uint32 bits; with
     ``return_max_weight`` also the largest single-outer-tuple match count
     (0-d int32).  Dense equality for tiny buckets, else the batched
@@ -192,12 +196,13 @@ def probe_count_bucketized(inner_blocks: torch.Tensor,
     return probe_count_bucketized_merge(inner_blocks, outer_blocks, inner_hi,
                                         outer_hi,
                                         return_max_weight=return_max_weight,
-                                        run=run)
+                                        run=run, sort_impl=sort_impl)
 
 
 def bucket_rows_sort(inner_blocks: torch.Tensor, outer_blocks: torch.Tensor,
                      inner_hi: Optional[torch.Tensor] = None,
-                     outer_hi: Optional[torch.Tensor] = None):
+                     outer_hi: Optional[torch.Tensor] = None,
+                     sort_impl: str = "auto"):
     """BUILD stage: every (inner | outer) bucket row sorted by key — (hi,
     key) for 64-bit keys — with the tag, 0 for inner and 1 for outer,
     riding.  Returns (keys, tags), or (his, keys, tags) for 64-bit keys,
@@ -211,8 +216,9 @@ def bucket_rows_sort(inner_blocks: torch.Tensor, outer_blocks: torch.Tensor,
     # the wide sort moves (row, hi, key, tag): four lanes, K2's limit.
     if inner_hi is not None:
         his = torch.cat([inner_hi, outer_hi], dim=1)
-        return sort_lex_rows_unstable(his, keys, tag, num_keys=2)
-    return sort_lex_rows_unstable(keys, tag, num_keys=1)
+        return sort_lex_rows_unstable(his, keys, tag, num_keys=2,
+                                      impl=sort_impl)
+    return sort_lex_rows_unstable(keys, tag, num_keys=1, impl=sort_impl)
 
 
 def bucket_rows_count(*sorted_lanes: torch.Tensor,
@@ -254,7 +260,8 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
                                  outer_blocks: torch.Tensor,
                                  inner_hi: Optional[torch.Tensor] = None,
                                  outer_hi: Optional[torch.Tensor] = None,
-                                 return_max_weight: bool = False, run=None):
+                                 return_max_weight: bool = False, run=None,
+                                 sort_impl: str = "auto"):
     """:func:`bucket_rows_sort` then :func:`bucket_rows_count`, over groups
     of rows of at most :data:`ROW_CHUNK_ELEMS` slots each.  Rows are
     independent, so the chunking changes no count; it bounds the row sort's
@@ -274,7 +281,8 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
 
     parts = [run("BPPROBE", bucket_rows_count, *run(
         "BPBUILD", bucket_rows_sort, rows(inner_blocks, lo),
-        rows(outer_blocks, lo), rows(inner_hi, lo), rows(outer_hi, lo)),
+        rows(outer_blocks, lo), rows(inner_hi, lo), rows(outer_hi, lo),
+        sort_impl=sort_impl),
         return_max_weight=True) for lo in range(0, nb, step)]
     counts = torch.cat([c for c, _ in parts])
     if return_max_weight:
@@ -283,16 +291,17 @@ def probe_count_bucketized_merge(inner_blocks: torch.Tensor,
 
 
 # ---------------------------------------------------------------- probes
-def _probe_bounds(r_keys: torch.Tensor, s_keys: torch.Tensor):
+def _probe_bounds(r_keys: torch.Tensor, s_keys: torch.Tensor,
+                  sort_impl: str = "auto"):
     """(inner lane sorted on K2, lower bounds, upper bounds) of each outer
     key."""
-    r_sorted = sort_unstable(r_keys)
+    r_sorted = sort_unstable(r_keys, impl=sort_impl)
     lo, hi = search_bounds(r_sorted, s_keys)
     return r_sorted, lo, hi
 
 
 def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
-                     *carried: torch.Tensor):
+                     *carried: torch.Tensor, sort_impl: str = "auto"):
     """The rank-space scan of the (hi, lo) union: the 64-bit keys'
     replacement for ``searchsorted``.  One K2 sort of (hi, lo) with the side
     tag and at most one ``carried`` lane ([n_outer], the inner slots filled
@@ -310,7 +319,8 @@ def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
     pad = torch.full((n_r,), narrow(torch.tensor(PAD_RID)).item(),
                      dtype=torch.int32, device=dev)
     hi, lo, tag, *carried_sorted = sort_lex_unstable(
-        hi, lo, tag, *(torch.cat([pad, c]) for c in carried), num_keys=2)
+        hi, lo, tag, *(torch.cat([pad, c]) for c in carried), num_keys=2,
+        impl=sort_impl)
     run_start = torch.ones(lo.numel(), dtype=torch.bool, device=dev)
     run_start[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
     is_r = 1 - tag
@@ -321,15 +331,15 @@ def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
     return (tag, base, c_r, *carried_sorted)
 
 
-def probe_count(inner: CompressedBatch, outer: CompressedBatch
-                ) -> torch.Tensor:
+def probe_count(inner: CompressedBatch, outer: CompressedBatch,
+                sort_impl: str = "auto") -> torch.Tensor:
     """Exact number of matching (r, s) pairs, duplicates on both sides
     included, as a 0-d int32 holding the uint32 count (mod 2**32, as the
     JAX function's uint32 sum).  64-bit keys take the union scan."""
     if inner.key_rem_hi is not None:
-        tag, base, c_r = _wide_union_scan(inner, outer)
+        tag, base, c_r = _wide_union_scan(inner, outer, sort_impl=sort_impl)
         return narrow((tag * (c_r - base)).to(torch.int64).sum())
-    _, lo, hi = _probe_bounds(inner.key_rem, outer.key_rem)
+    _, lo, hi = _probe_bounds(inner.key_rem, outer.key_rem, sort_impl)
     return narrow((hi - lo).to(torch.int64).sum())
 
 
@@ -374,27 +384,31 @@ def _materialize_rows_narrow(r_sorted: torch.Tensor,
 
 
 def probe_materialize(inner: CompressedBatch, outer: CompressedBatch,
-                      cap: int) -> MaterializedMatches:
+                      cap: int, sort_impl: str = "auto"
+                      ) -> MaterializedMatches:
     """Matching rid pairs, up to ``cap`` an outer tuple, and the overflow.
     Narrow keys: [n_outer, cap] rows.  64-bit keys: [n_inner + n_outer,
     cap] rows in the union's sorted order, the inner positions all
     invalid (the JAX layout)."""
     if inner.key_rem_hi is not None:
         _, _, r_rid_sorted = sort_lex_unstable(
-            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2)
-        tag, base, c_r, s_rid_sorted = _wide_union_scan(inner, outer,
-                                                        outer.rid)
+            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2,
+            impl=sort_impl)
+        tag, base, c_r, s_rid_sorted = _wide_union_scan(
+            inner, outer, outer.rid, sort_impl=sort_impl)
         r_rid, valid, overflow = _rows(r_rid_sorted, base, c_r, cap,
                                        tag == 1)
         return MaterializedMatches(
             r_rid, s_rid_sorted[:, None].expand(-1, cap), valid, overflow)
-    r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid)
+    r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid,
+                                              impl=sort_impl)
     return MaterializedMatches(*_materialize_rows_narrow(
         r_sorted, r_rid_sorted, outer.key_rem, outer.rid, cap))
 
 
 def probe_materialize_chunked(inner: CompressedBatch, outer: CompressedBatch,
-                              cap: int, slab_size: int
+                              cap: int, slab_size: int,
+                              sort_impl: str = "auto"
                               ) -> MaterializedMatches:
     """:func:`probe_materialize` with the outer side streamed in
     ``slab_size`` slabs (the JAX ``lax.scan`` as a loop; the reference's LD
@@ -418,18 +432,21 @@ def probe_materialize_chunked(inner: CompressedBatch, outer: CompressedBatch,
     wide = inner.key_rem_hi is not None
     if wide:
         _, _, r_rid_sorted = sort_lex_unstable(
-            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2)
+            inner.key_rem_hi, inner.key_rem, inner.rid, num_keys=2,
+            impl=sort_impl)
         pos_lane = torch.arange(slab_size, dtype=torch.int32, device=dev)
         hi_slabs = _slabs(outer.key_rem_hi, slab_size, fill)
     else:
-        r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid)
+        r_sorted, r_rid_sorted = sort_kv_unstable(inner.key_rem, inner.rid,
+                                                  impl=sort_impl)
         hi_slabs = itertools.repeat(None)
     for off, lo, hi in zip(range(0, n_pad, slab_size),
                            _slabs(outer.key_rem, slab_size, fill), hi_slabs):
         rids = s_rid[off:off + slab_size]
         if wide:
             tag, base, c_r, pos = _wide_union_scan(
-                inner, CompressedBatch(lo, rids, hi), pos_lane)
+                inner, CompressedBatch(lo, rids, hi), pos_lane,
+                sort_impl=sort_impl)
             outer_rows = tag == 1
             rows_r, rows_v, ovf = _rows(r_rid_sorted, base[outer_rows],
                                         c_r[outer_rows], cap)

@@ -79,37 +79,42 @@ def _stack(totals, mws) -> Tuple[torch.Tensor, torch.Tensor]:
     return narrow(torch.stack(totals)), narrow(torch.stack(mws).max())
 
 
-def _scan_probe(r_keys: torch.Tensor, s_keys: torch.Tensor, num_slabs: int):
+def _scan_probe(r_keys: torch.Tensor, s_keys: torch.Tensor, num_slabs: int,
+                sort_impl: str = "auto"):
     """The narrow packed count of every slab of ``s_keys``: K2 on the slab's
     union with ``r_keys``, then K6 into 1024 partial sums."""
     totals, mws = [], []
     for slab in s_keys.view(num_slabs, -1):
         c, mw = merge_count_chunks(r_keys, slab, num_chunks=SLAB_WINDOWS,
-                                   return_max_weight=True)
+                                   return_max_weight=True,
+                                   sort_impl=sort_impl)
         totals.append(widen(c).sum())
         mws.append(widen(mw))
     return _stack(totals, mws)
 
 
 def _scan_probe_full(r_keys: torch.Tensor, s_keys: torch.Tensor,
-                     num_slabs: int):
+                     num_slabs: int, sort_impl: str = "auto"):
     """Full-range twin of :func:`_scan_probe` for keys above the 31-bit
     packing, which would land on the pads there and count nothing."""
     totals, mws = [], []
     for slab in s_keys.view(num_slabs, -1):
         c, mw = merge_count_per_partition_full(r_keys, slab, 0,
-                                               return_max_weight=True)
+                                               return_max_weight=True,
+                                               sort_impl=sort_impl)
         totals.append(widen(c[0]))
         mws.append(widen(mw))
     return _stack(totals, mws)
 
 
-def _scan_probe_wide(r_lo, r_hi, s_lo, s_hi, num_slabs: int):
+def _scan_probe_wide(r_lo, r_hi, s_lo, s_hi, num_slabs: int,
+                     sort_impl: str = "auto"):
     """64-bit (hi, lo lanes) twin of :func:`_scan_probe`."""
     totals, mws = [], []
     for lo, hi in zip(s_lo.view(num_slabs, -1), s_hi.view(num_slabs, -1)):
         c, mw = merge_count_wide_per_partition(r_lo, r_hi, lo, hi, 0,
-                                               return_max_weight=True)
+                                               return_max_weight=True,
+                                               sort_impl=sort_impl)
         totals.append(widen(c).sum())
         mws.append(widen(mw))
     return _stack(totals, mws)
@@ -186,7 +191,8 @@ def _max_key(r: TupleBatch, s: TupleBatch) -> torch.Tensor:
 
 def chunked_join_count(r: TupleBatch, s: TupleBatch, slab_size: int,
                        key_range: str = "auto",
-                       key_bound: Optional[int] = None) -> int:
+                       key_bound: Optional[int] = None,
+                       sort_impl: str = "auto") -> int:
     """Exact match count, the outer side streamed in ``slab_size`` slabs
     (padded to a slab multiple with the outer pad).  64-bit batches take
     the wide count; mixed widths raise.
@@ -198,7 +204,8 @@ def chunked_join_count(r: TupleBatch, s: TupleBatch, slab_size: int,
     full-range count.  ``key_bound``, an inclusive max over both lanes known
     to the caller, replaces those reads with host arithmetic.  A key in the
     pad range raises :class:`DataCorruption` under "auto"; a slab whose
-    uint32 sums could wrap raises ``OverflowError``."""
+    uint32 sums could wrap raises ``OverflowError``.  ``sort_impl`` is every
+    sort's arm (``ops/sorting``)."""
     if key_range not in ("auto", "narrow", "full"):
         raise ValueError(f"unknown key range mode {key_range!r}")
     _check_widths(r, s)
@@ -208,7 +215,7 @@ def chunked_join_count(r: TupleBatch, s: TupleBatch, slab_size: int,
     if r.key_hi is not None:
         per_slab, maxw = _scan_probe_wide(r.key, r.key_hi, keys,
                                           _pad_outer(s.key_hi, slab_size),
-                                          num_slabs)
+                                          num_slabs, sort_impl)
     else:
         full = key_range == "full"
         if key_range == "auto":
@@ -218,9 +225,10 @@ def chunked_join_count(r: TupleBatch, s: TupleBatch, slab_size: int,
                 raise _sentinel_corruption(mx)
             full = mx > MAX_MERGE_KEY
         if full:
-            per_slab, maxw = _scan_probe_full(r.key, keys, num_slabs)
+            per_slab, maxw = _scan_probe_full(r.key, keys, num_slabs,
+                                              sort_impl)
         else:
-            per_slab, maxw = _scan_probe(r.key, keys, num_slabs)
+            per_slab, maxw = _scan_probe(r.key, keys, num_slabs, sort_impl)
             if key_range == "narrow":
                 if key_bound is not None:
                     if int(key_bound) > MAX_MERGE_KEY:
@@ -328,7 +336,8 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
                       measurements=None,
                       retry_policy=None,
                       retry_on=None,
-                      pipeline: str = "off") -> int:
+                      pipeline: str = "off",
+                      sort_impl: str = "auto") -> int:
     """Both sides streamed; every inner chunk joins every outer chunk once.
 
     ``s_chunks`` is walked once per inner chunk: pass a list or tuple, or a
@@ -339,7 +348,8 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
     "on" is the pipelined engine (module docstring), its lookahead
     ``_PREFETCH_DEPTH`` chunks and its pending readbacks at most
     ``_READBACK_DEPTH`` pairs; "auto" is "on" unless the grid is one pair.
-    Both return the same total and share the checkpoint format.
+    Both return the same total and share the checkpoint format.  ``sort_impl``
+    is every sort's arm (``ops/sorting``).
 
     ``checkpoint_path`` (with a ``checkpoint_tag`` naming the inputs) saves
     the total and the next pair's (i, j) after every resolved pair; a rerun
@@ -522,7 +532,8 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
                 total += run_pair(
                     lambda r=r, s=s, kb=kb: chunked_join_count(
                         r, s, min(slab_size, s.key.shape[0]),
-                        key_range=key_range, key_bound=kb), i, j)
+                        key_range=key_range, key_bound=kb,
+                        sort_impl=sort_impl), i, j)
                 if measurements is not None:
                     measurements.incr(GRIDPAIRS)
                 done_this_run += 1
@@ -547,7 +558,7 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
             # for two-lane keys) but ride the other pipeline stages
             per_slab, maxw = _scan_probe_wide(r.key, r.key_hi, keys,
                                               _pad_outer(s.key_hi, slab),
-                                              num_slabs)
+                                              num_slabs, sort_impl)
             return (per_slab, maxw,
                     max(slab, -(-(r.key.shape[0] + slab) // SLAB_WINDOWS)))
         # the binary search compares raw keys: an inner key in the pad
@@ -611,7 +622,7 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
                     reused = r_sorted is not None
                     if r.key_hi is None and r_sorted is None:
                         with _span(measurements, "presort", i=i):
-                            r_sorted = presort_keys(r.key)
+                            r_sorted = presort_keys(r.key, sort_impl)
                     kb = (max(rb, sb) if rb is not None and sb is not None
                           else None)
                     res = run_pair(

@@ -11,11 +11,21 @@ from __future__ import annotations
 
 from typing import Dict
 
-#: launches on the card per wrapper since the last :func:`reset_launches`
+#: launches on the card per wrapper since the last :func:`reset_launches`:
+#: each kernel path past the narrow kernels' shared bins counts under its
+#: own name (``histogram_wide``, ``merge_scan_fanout``,
+#: ``merge_scan_wide_fanout``, ``partition_lsd``), and the ``baseline_*``
+#: entries count the calls of the library arms a caller asked for by name
+#: (``sort_impl="xla"``, ``partition_impl="sort"``) on either device
 LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_histogram": 0,
                              "radix_pass": 0, "merge_scan": 0,
                              "partition": 0, "merge_scan_wide": 0,
-                             "merge_scan_chunks": 0}
+                             "merge_scan_chunks": 0, "histogram_wide": 0,
+                             "merge_scan_fanout": 0,
+                             "merge_scan_wide_fanout": 0,
+                             "partition_lsd": 0, "baseline_sort": 0,
+                             "baseline_partition": 0,
+                             "baseline_histogram": 0}
 
 
 def reset_launches() -> None:

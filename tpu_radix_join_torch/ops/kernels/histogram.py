@@ -2,7 +2,10 @@
 
 Counterpart of ``tpu_radix_join/ops/pallas/histogram.py::histogram_pallas``:
 uint32 counts (or wrapping uint32 weight sums) of ``pid`` into
-``num_bins <= 128`` bins; ids >= ``num_bins`` are ignored.
+``num_bins >= 1`` bins; ids >= ``num_bins`` are ignored.  Up to
+:data:`MAX_BINS` bins the card runs the per-warp tables of ``rj_histogram``
+(launches counted as ``histogram``); past them the per-block or global
+tables of ``rj_histogram_wide`` (counted as ``histogram_wide``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from tpu_radix_join_torch.data.tuples import check_lane, narrow, widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 
-MAX_BINS = 128
+MAX_BINS = 128   # the per-warp tables of the narrow path
 
 
 def histogram_plain(pid: torch.Tensor, weights: Optional[torch.Tensor],
@@ -35,7 +38,8 @@ def histogram_plain(pid: torch.Tensor, weights: Optional[torch.Tensor],
 
 def _histogram_cuda(pid: torch.Tensor, weights: Optional[torch.Tensor],
                     num_bins: int) -> torch.Tensor:
-    fn = c_function("histogram", "rj_histogram",
+    wide = num_bins > MAX_BINS
+    fn = c_function("histogram", "rj_histogram_wide" if wide else "rj_histogram",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     out = torch.empty(num_bins, dtype=torch.int32, device=pid.device)
@@ -44,7 +48,7 @@ def _histogram_cuda(pid: torch.Tensor, weights: Optional[torch.Tensor],
              weights.data_ptr() if weights is not None else None,
              pid.numel(), num_bins, out.data_ptr(), stream)
     check(err, "histogram kernel")
-    LAUNCHES["histogram"] += 1
+    LAUNCHES["histogram_wide" if wide else "histogram"] += 1
     return out
 
 
@@ -60,8 +64,8 @@ def histogram(pid: torch.Tensor, weights: Optional[torch.Tensor] = None, *,
         if weights.shape != pid.shape or weights.device != pid.device:
             raise ValueError("histogram weights must match the ids' shape "
                              "and device")
-    if not 1 <= num_bins <= MAX_BINS:
-        raise ValueError(f"num_bins must be in [1, {MAX_BINS}], got {num_bins}")
+    if not 1 <= num_bins < 1 << 31:
+        raise ValueError(f"num_bins must be in [1, 2**31), got {num_bins}")
     if pid.device.type == "cpu":
         return histogram_plain(pid, weights, num_bins)
     if pid.device.type == "cuda":

@@ -4,7 +4,11 @@ Counterpart of ``tpu_radix_join/ops/pallas/merge_scan.py::
 merge_scan_partitions``: per-partition uint32 match counts and the largest
 single weight over a sorted partition-major packed union (see
 ``ops/merge_count._pack_pm``).  Unlike the TPU kernel it takes any length:
-the tile multiple was Mosaic's requirement.
+the tile multiple was Mosaic's requirement.  Up to :data:`NARROW_FANOUT_BITS`
+the card's shared bins hold every partition (launches counted as
+``merge_scan``); past them the same kernel bins relative to each tile's
+first partition (counted as ``merge_scan_fanout``), up to
+:data:`MAX_FANOUT_BITS`, the partition id's bits in the kernel's word.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from tpu_radix_join_torch.data.tuples import U32_MASK, check_lane, narrow, widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 
-MAX_FANOUT_BITS = 7   # 128 partitions: the kernel's shared bins
+NARROW_FANOUT_BITS = 7   # 128 partitions: the kernel's shared bins
+MAX_FANOUT_BITS = 30     # pid << 2 | run start << 1 | side in 32 bits
 #: positions a tile of the card's kernel holds (kTile in
 #: csrc/merge_scan_partitions.cuh, shared with K5)
 SCAN_TILE = 256 * 39
@@ -52,8 +57,8 @@ def _weights(packed_sorted: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def scan_fanout_bits(num_partitions: int, length: int) -> int:
     """log2 of ``num_partitions`` for a merge scan of ``length`` positions;
-    raises unless the partitions are a power of two the kernels' shared
-    bins hold and the positions count in 32 bits."""
+    raises unless the partitions are a power of two whose id fits the
+    kernels' word and the positions count in 32 bits."""
     if num_partitions < 1 or num_partitions & (num_partitions - 1):
         raise ValueError("num_partitions must be a power of two")
     fanout_bits = num_partitions.bit_length() - 1
@@ -140,7 +145,8 @@ def _merge_scan_cuda(packed_sorted: torch.Tensor, fanout_bits: int
     err = fn(packed_sorted.data_ptr(), m, fanout_bits, scratch.data_ptr(),
              lay.bytes, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "merge scan kernel")
-    LAUNCHES["merge_scan"] += 1
+    LAUNCHES["merge_scan_fanout" if fanout_bits > NARROW_FANOUT_BITS
+             else "merge_scan"] += 1
     return (scratch[lay.counts_offset:lay.words],
             scratch[lay.max_offset].reshape(()))
 

@@ -10,7 +10,9 @@ run is a stretch of equal (lo, hi) pairs, and every S position weighs the R
 tuples before it in its run.  ``hi=None`` means an all-zero hi lane (the
 full-range uint32 probe), which is never materialised.  Unlike the TPU
 kernel it takes any length: the tile multiple and its all-ones pad triple
-were Mosaic's requirements.
+were Mosaic's requirements.  Past 128 partitions the card bins relative to
+each tile's first partition (K3's wide bins; launches counted as
+``merge_scan_wide_fanout``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 # K5 shares K3's tile and scratch layout (csrc/merge_scan_partitions.cuh)
 from tpu_radix_join_torch.ops.kernels.merge_scan import (  # noqa: F401
-    SCAN_TILE, _run_weights, scan_fanout_bits, scratch_layout)
+    NARROW_FANOUT_BITS, SCAN_TILE, _run_weights, scan_fanout_bits,
+    scratch_layout)
 
 
 def merge_scan_wide_plain(lo_rot: torch.Tensor, hi: Optional[torch.Tensor],
@@ -64,7 +67,8 @@ def _merge_scan_wide_cuda(lo_rot: torch.Tensor, hi: Optional[torch.Tensor],
              tag.data_ptr(), m, fanout_bits, scratch.data_ptr(), lay.bytes,
              torch.cuda.current_stream(dev).cuda_stream)
     check(err, "wide merge scan kernel")
-    LAUNCHES["merge_scan_wide"] += 1
+    LAUNCHES["merge_scan_wide_fanout" if fanout_bits > NARROW_FANOUT_BITS
+             else "merge_scan_wide"] += 1
     return (scratch[lay.counts_offset:lay.words],
             scratch[lay.max_offset].reshape(()))
 

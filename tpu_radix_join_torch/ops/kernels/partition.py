@@ -1,8 +1,8 @@
 """K4: radix partition pass — ``csrc/partition.cu`` and its plain version.
 
 Counterpart of ``tpu_radix_join/ops/pallas/partition.py::
-partition_slots_pallas``: uint32 ids [n] with ``num_groups <= 256`` groups
-→ (slots, exact hist).  ``capacity=None`` gives a dense stable grouping
+partition_slots_pallas``: uint32 ids [n] with ``num_groups`` groups →
+(slots, exact hist).  ``capacity=None`` gives a dense stable grouping
 permutation (id order across groups, input order within one); a capacity
 gives the blocked layout where ``group_size`` consecutive groups share the
 block ``id // group_size`` and a tuple whose unclipped position in its block
@@ -11,7 +11,12 @@ nowhere and dropped.
 
 :func:`partition_slots` exposes the contract; :func:`partition_scatter` is
 what the join calls: it groups lanes into pad-filled outputs.  On the card
-K4 moves the lanes and writes the pads itself; on the CPU
+K4 moves the lanes and writes the pads itself: up to :data:`MAX_GROUPS`
+groups in one onesweep call (``csrc/partition.cu``, launches counted as
+``partition``), past them by the wide path (``csrc/partition_wide.cu``:
+the groups sorted with their indices by K2's stable digit passes, the
+totals from K1's wide path, then one placing launch; counted as
+``partition_lsd``).  On the CPU
 :func:`partition_scatter_plain` applies the plain slots with the dropped
 ones masked out first (a torch index of -1, the int32 view of
 ``0xFFFFFFFF``, would write the last element).
@@ -27,8 +32,10 @@ import torch
 from tpu_radix_join_torch.data.tuples import U32_MASK, check_lane, narrow, widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
+from tpu_radix_join_torch.ops.kernels.histogram import histogram
+from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
 
-MAX_GROUPS = 256   # MAX_PARTITIONS of the TPU kernel, the kernel's shared bins
+MAX_GROUPS = 256   # the onesweep call's groups (MAX_PARTITIONS of the TPU kernel)
 MAX_LANES = 4      # lanes one pass on the card moves (csrc/partition.cu)
 TILE_IDS = 4096    # ids a tile of the onesweep launch holds (kTile there)
 DROPPED = U32_MASK
@@ -37,8 +44,8 @@ DROPPED = U32_MASK
 def _check_geometry(ids: torch.Tensor, num_groups: int, group_size: int,
                     capacity: Optional[int]) -> None:
     check_lane(ids, "partition ids")
-    if not 1 <= num_groups <= MAX_GROUPS:
-        raise ValueError(f"num_groups must be in [1, {MAX_GROUPS}], got "
+    if not 1 <= num_groups < 1 << 31:
+        raise ValueError(f"num_groups must be in [1, 2**31), got "
                          f"{num_groups}")
     if group_size < 1 or num_groups % group_size:
         raise ValueError(f"num_groups {num_groups} not a multiple of "
@@ -182,6 +189,66 @@ def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
     return slots, outs, totals
 
 
+def _partition_wide_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
+                         capacity: Optional[int],
+                         lanes: Sequence[torch.Tensor], fills: Sequence[int],
+                         with_slots: bool
+                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
+                                    torch.Tensor]:
+    """One grouping past :data:`MAX_GROUPS` groups (csrc/partition_wide.cu):
+    (slots or None, the moved lanes, hist)."""
+    n = ids.numel()
+    dev = ids.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keys_fn = c_function("partition_wide", "rj_partition_keys",
+                         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    place_fn = c_function("partition_wide", "rj_partition_place",
+                          [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p])
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    index = torch.empty(n, dtype=torch.int32, device=dev)
+    check(keys_fn(ids.data_ptr(), n, num_groups, keys.data_ptr(),
+                  index.data_ptr(), stream), "partition keys kernel")
+    if n > 1:
+        keys, index = radix_sort((keys, index), num_keys=1,
+                                 key_bounds=(num_groups + 1,))
+    hist = histogram(ids, num_bins=num_groups)
+    # the first sorted position of every group, then of every layout block
+    lead = torch.cumsum(widen(hist), 0)
+    lead = torch.cat([lead.new_zeros(1), lead])
+    block_start = (lead[[0, num_groups]] if capacity is None
+                   else lead[::group_size].contiguous())
+    size = out_size(n, num_groups, group_size, capacity)
+    slots = torch.empty(n, dtype=torch.int32, device=dev) if with_slots else None
+    outs = [torch.empty(size, dtype=torch.int32, device=dev) for _ in lanes]
+    ptrs_in = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in lanes])
+    ptrs_out = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in outs])
+    fill_words = (ctypes.c_uint32 * MAX_LANES)(*[int(f) & U32_MASK
+                                                 for f in fills])
+    err = place_fn(keys.data_ptr(), index.data_ptr(), n, num_groups,
+                   group_size, -1 if capacity is None else capacity,
+                   block_start.data_ptr(),
+                   slots.data_ptr() if slots is not None else None,
+                   len(lanes), ptrs_in, ptrs_out, fill_words, size, stream)
+    check(err, "partition place kernel")
+    LAUNCHES["partition_lsd"] += 1
+    return slots, outs, hist
+
+
+def _grouping_cuda(ids, num_groups, group_size, capacity, lanes, fills,
+                   with_slots):
+    """The card's grouping: the onesweep call up to :data:`MAX_GROUPS`
+    groups, the wide path past them."""
+    run = _partition_cuda if num_groups <= MAX_GROUPS else _partition_wide_cuda
+    return run(ids, num_groups, group_size, capacity, lanes, fills,
+               with_slots)
+
+
 # --------------------------------------------------------------- wrappers
 
 def partition_slots(ids: torch.Tensor, *, num_groups: int,
@@ -193,8 +260,8 @@ def partition_slots(ids: torch.Tensor, *, num_groups: int,
     if ids.device.type == "cpu":
         return partition_slots_plain(ids, num_groups, group_size, capacity)
     if ids.device.type == "cuda":
-        slots, _, hist = _partition_cuda(ids, num_groups, group_size,
-                                         capacity, [], [], with_slots=True)
+        slots, _, hist = _grouping_cuda(ids, num_groups, group_size,
+                                        capacity, [], [], with_slots=True)
         return slots, hist
     raise ValueError(f"partition runs on cpu or cuda, not {ids.device}")
 
@@ -207,8 +274,9 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     :func:`out_size` slots whose other slots hold its entry of ``fills``
     (uint32 values); dropped tuples are not written.  CPU: plain slots,
     masked and applied over filled outputs; CUDA: one K4 call (a histogram
-    and a onesweep launch) that moves the lanes (at most four) and writes
-    the pads itself."""
+    and a onesweep launch, or the wide path past :data:`MAX_GROUPS`
+    groups) that moves the lanes (at most four) and writes the pads
+    itself."""
     _check_geometry(ids, num_groups, group_size, capacity)
     lanes = list(lanes)
     if len(fills) != len(lanes):
@@ -226,6 +294,6 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     if len(lanes) > MAX_LANES:
         raise ValueError(f"a partition pass on the card moves at most "
                          f"{MAX_LANES} lanes, got {len(lanes)}")
-    _, outs, hist = _partition_cuda(ids, num_groups, group_size, capacity,
-                                    lanes, fills, with_slots=False)
+    _, outs, hist = _grouping_cuda(ids, num_groups, group_size, capacity,
+                                   lanes, fills, with_slots=False)
     return outs, hist

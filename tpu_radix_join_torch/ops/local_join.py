@@ -31,13 +31,15 @@ from tpu_radix_join_torch.ops.sorting import (sort_lex_rows_unstable,
                                               sort_unstable)
 
 
-def local_join_sorted(r: TupleBatch, s: TupleBatch) -> torch.Tensor:
+def local_join_sorted(r: TupleBatch, s: TupleBatch,
+                      sort_impl: str = "auto") -> torch.Tensor:
     """Total match count, a 0-d int32 of the uint32 count (mod 2**32)."""
-    lo, hi = search_bounds(sort_unstable(r.key), s.key)
+    lo, hi = search_bounds(sort_unstable(r.key, impl=sort_impl), s.key)
     return narrow((hi - lo).to(torch.int64).sum())
 
 
-def local_join_merge(r: TupleBatch, s: TupleBatch) -> torch.Tensor:
+def local_join_merge(r: TupleBatch, s: TupleBatch,
+                     sort_impl: str = "auto") -> torch.Tensor:
     """4096 uint32 partial counts (an int32 lane; the host sums them in
     uint64) by the sort-merge count.  32-bit keys only, each at most
     ``MAX_MERGE_KEY``: larger keys pack to the pads and count nothing."""
@@ -45,11 +47,12 @@ def local_join_merge(r: TupleBatch, s: TupleBatch) -> torch.Tensor:
         raise NotImplementedError(
             "local_join_merge compares the 32-bit key lane only; 64-bit "
             "keys take merge_count.merge_count_wide_per_partition")
-    return merge_count_chunks(r.key, s.key)
+    return merge_count_chunks(r.key, s.key, sort_impl=sort_impl)
 
 
 def local_join_partitioned(r: TupleBatch, s: TupleBatch, fanout_bits: int,
-                           capacity: int
+                           capacity: int, sort_impl: str = "auto",
+                           partition_impl: str = "auto"
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(per-partition match counts, an int32 lane [1 << fanout_bits] of
     uint32 counts; the tuples that did not fit ``capacity``, 0-d int64):
@@ -57,10 +60,12 @@ def local_join_partitioned(r: TupleBatch, s: TupleBatch, fanout_bits: int,
     first tuples and reports the rest as overflow."""
     num_p = 1 << fanout_bits
     r_blocks, _, r_ovf = scatter_to_blocks(r, partition_ids(r, fanout_bits),
-                                           num_p, capacity, "inner")
+                                           num_p, capacity, "inner",
+                                           impl=partition_impl)
     s_blocks, _, s_ovf = scatter_to_blocks(s, partition_ids(s, fanout_bits),
-                                           num_p, capacity, "outer")
+                                           num_p, capacity, "outer",
+                                           impl=partition_impl)
     (rk,) = sort_lex_rows_unstable(r_blocks.key.view(num_p, capacity),
-                                   num_keys=1)
+                                   num_keys=1, impl=sort_impl)
     lo, hi = search_bounds(rk, s_blocks.key.view(num_p, capacity))
     return narrow((hi - lo).to(torch.int64).sum(dim=1)), r_ovf + s_ovf

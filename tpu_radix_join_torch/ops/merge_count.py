@@ -80,11 +80,11 @@ def _pack(r_keys: torch.Tensor, s_keys: torch.Tensor) -> torch.Tensor:
     return _pack_pm(r_keys, s_keys, 0)
 
 
-def presort_keys(keys: torch.Tensor) -> torch.Tensor:
+def presort_keys(keys: torch.Tensor, sort_impl: str = "auto") -> torch.Tensor:
     """Sort a raw key lane once (K2) for reuse across many probes: the inner
     side of :func:`merge_count_presorted`.  No packing and no side tag, so
     every key below the pads joins, with no ``MAX_MERGE_KEY`` ceiling."""
-    return sort_unstable(keys)
+    return sort_unstable(keys, impl=sort_impl)
 
 
 def search_bounds(r_sorted: torch.Tensor, s_keys: torch.Tensor):
@@ -130,7 +130,8 @@ def merge_count_presorted(r_sorted: torch.Tensor, s_keys: torch.Tensor,
 
 def merge_count_chunks(r_keys: torch.Tensor, s_keys: torch.Tensor,
                        num_chunks: int = 4096,
-                       return_max_weight: bool = False):
+                       return_max_weight: bool = False,
+                       sort_impl: str = "auto"):
     """Match count as ``num_chunks`` uint32 partial sums over equal windows
     of positions of the sorted packed union (an int32 lane; the caller sums
     them in uint64): K2, then K6 at width ``ceil(n / num_chunks)``, the
@@ -141,7 +142,7 @@ def merge_count_chunks(r_keys: torch.Tensor, s_keys: torch.Tensor,
     check it (``ops/chunked.chunked_join_count``).  Keys above
     ``MAX_MERGE_KEY`` pack to the pads and count nothing: the callers flag
     them."""
-    packed = sort_unstable(_pack(r_keys, s_keys))
+    packed = sort_unstable(_pack(r_keys, s_keys), impl=sort_impl)
     c = max(1, num_chunks)
     counts, maxw = merge_scan_chunks(packed,
                                      width=max(1, -(-packed.numel() // c)))
@@ -152,20 +153,21 @@ def merge_count_chunks(r_keys: torch.Tensor, s_keys: torch.Tensor,
     return counts
 
 
-def merge_count_pallas(r_keys: torch.Tensor, s_keys: torch.Tensor
-                       ) -> torch.Tensor:
+def merge_count_pallas(r_keys: torch.Tensor, s_keys: torch.Tensor,
+                       sort_impl: str = "auto") -> torch.Tensor:
     """The JAX package's fused count under its name: K2 on the packed union,
     then K6 at the TPU tile width, so the uint32 per-tile partial counts
     equal the TPU kernel's (an int32 lane [ceil(n / TILE)]; host uint64
     sum).  The TPU path padded the union to a tile multiple with the S pad
     before the sort; the pads sort last and weigh 0, so no pad is needed."""
-    return merge_scan_chunks(sort_unstable(_pack(r_keys, s_keys)),
-                             width=TILE)[0]
+    return merge_scan_chunks(sort_unstable(_pack(r_keys, s_keys),
+                                           impl=sort_impl), width=TILE)[0]
 
 
 def merge_count_per_partition(r_keys: torch.Tensor, s_keys: torch.Tensor,
                               fanout_bits: int,
-                              return_max_weight: bool = False):
+                              return_max_weight: bool = False,
+                              sort_impl: str = "auto"):
     """Per-network-partition match counts, an int32 lane [1 << fanout_bits]
     of uint32 counts (each must stay below 2**32).  ``return_max_weight``
     also returns the largest single-outer-tuple match count (0-d int32 of
@@ -173,8 +175,11 @@ def merge_count_per_partition(r_keys: torch.Tensor, s_keys: torch.Tensor,
 
     The TPU path padded the sorted lane to a multiple of its 32768-element
     tile with the S pad; K3 takes any length, and the pad's weight is 0, so
-    counts and max weight are the same without it."""
-    packed = sort_unstable(_pack_pm(r_keys, s_keys, fanout_bits))
+    counts and max weight are the same without it.  Every fanout up to 30
+    bits packs and scans (K3 bins past 128 partitions relative to each
+    tile's first); ``sort_impl`` is the sort's arm (``ops/sorting``)."""
+    packed = sort_unstable(_pack_pm(r_keys, s_keys, fanout_bits),
+                           impl=sort_impl)
     counts, maxw = merge_scan_partitions(packed,
                                          num_partitions=1 << fanout_bits)
     if return_max_weight:
@@ -202,7 +207,8 @@ def _side_tags(r_keys: torch.Tensor, s_keys: torch.Tensor) -> torch.Tensor:
 
 def merge_count_per_partition_full(r_keys: torch.Tensor, s_keys: torch.Tensor,
                                    fanout_bits: int,
-                                   return_max_weight: bool = False):
+                                   return_max_weight: bool = False,
+                                   sort_impl: str = "auto"):
     """Full-range uint32 merge count: every key joins, with no 31-bit
     ``MAX_MERGE_KEY`` ceiling (the join's key contract still reserves the
     pads 0xFFFFFFFE/0xFFFFFFFF).  A one-key sort of the rotated keys with
@@ -211,7 +217,7 @@ def merge_count_per_partition_full(r_keys: torch.Tensor, s_keys: torch.Tensor,
     rot, tag = sort_lex_unstable(
         torch.cat([_rotate_pid(r_keys, fanout_bits),
                    _rotate_pid(s_keys, fanout_bits)]),
-        _side_tags(r_keys, s_keys), num_keys=1)
+        _side_tags(r_keys, s_keys), num_keys=1, impl=sort_impl)
     counts, maxw = merge_scan_partitions_wide(
         rot, None, tag, num_partitions=1 << fanout_bits)
     if return_max_weight:
@@ -222,7 +228,8 @@ def merge_count_per_partition_full(r_keys: torch.Tensor, s_keys: torch.Tensor,
 def merge_count_wide_per_partition(r_lo: torch.Tensor, r_hi: torch.Tensor,
                                    s_lo: torch.Tensor, s_hi: torch.Tensor,
                                    fanout_bits: int,
-                                   return_max_weight: bool = False):
+                                   return_max_weight: bool = False,
+                                   sort_impl: str = "auto"):
     """64-bit-key match counting on two uint32 lanes: a two-key sort of
     (rotated lo, hi) with the side tag riding (8 passes, 3 lanes), then K5.
     The pads sit in both lanes and the R and S pads differ in the hi lane,
@@ -231,7 +238,8 @@ def merge_count_wide_per_partition(r_lo: torch.Tensor, r_hi: torch.Tensor,
     lo_rot, hi, tag = sort_lex_unstable(
         torch.cat([_rotate_pid(r_lo, fanout_bits),
                    _rotate_pid(s_lo, fanout_bits)]),
-        torch.cat([r_hi, s_hi]), _side_tags(r_lo, s_lo), num_keys=2)
+        torch.cat([r_hi, s_hi]), _side_tags(r_lo, s_lo), num_keys=2,
+        impl=sort_impl)
     counts, maxw = merge_scan_partitions_wide(
         lo_rot, hi, tag, num_partitions=1 << fanout_bits)
     if return_max_weight:

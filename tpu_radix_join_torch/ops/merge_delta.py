@@ -95,13 +95,13 @@ def merge_sorted(a_sorted: torch.Tensor,
 
 def delta_merge_count(resident_sorted: torch.Tensor,
                       delta_keys: torch.Tensor,
-                      outer_keys: torch.Tensor
+                      outer_keys: torch.Tensor, sort_impl: str = "auto"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One incremental query: sort only the Δ keys (K2), merge them into
     the resident sorted union and probe the outer lane against the merged
     union.  Returns ``(new_resident_sorted, total)``, the total a 0-d int32
-    of the wrapped uint32 count."""
-    delta_sorted = sort_unstable(delta_keys)
+    of the wrapped uint32 count.  ``sort_impl`` is the sort's arm."""
+    delta_sorted = sort_unstable(delta_keys, impl=sort_impl)
     union = merge_sorted(resident_sorted, delta_sorted)
     return union, merge_count_presorted(union, outer_keys)
 
@@ -114,7 +114,8 @@ def compiled_delta_merge_count(n_resident: int, n_delta: int, n_outer: int):
 
 def delta_merge_increment(resident_sorted: torch.Tensor,
                           delta_keys: torch.Tensor,
-                          outer_sorted: torch.Tensor
+                          outer_sorted: torch.Tensor,
+                          sort_impl: str = "auto"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One incremental query whose outer is unchanged since the last one
     on this relation: sort the Δ (K2), splice it into the resident union
@@ -122,7 +123,7 @@ def delta_merge_increment(resident_sorted: torch.Tensor,
     (``count(s, A ⊎ Δ) = count(s, A) + count(s, Δ)``).  Returns
     ``(new_resident_sorted, increment)``, the increment a 0-d int32 of the
     wrapped uint32 sum."""
-    delta_sorted = sort_unstable(delta_keys)
+    delta_sorted = sort_unstable(delta_keys, impl=sort_impl)
     union = merge_sorted(resident_sorted, delta_sorted)
     lb, ub = search_bounds(outer_sorted, delta_sorted)
     return union, narrow((ub - lb).to(torch.int64).sum())
@@ -138,7 +139,8 @@ def compiled_delta_merge_increment(n_resident: int, n_delta: int,
 
 def batched_merge_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
                         r_sizes: Tuple[int, ...], s_sizes: Tuple[int, ...],
-                        key_bound: int) -> torch.Tensor:
+                        key_bound: int, sort_impl: str = "auto"
+                        ) -> torch.Tensor:
     """Fused multi-query count: one K2 sort and one probe over the
     concatenated per-query lanes.  ``r_keys`` / ``s_keys`` are the
     queries' inner and outer key lanes concatenated in query order,
@@ -166,7 +168,7 @@ def batched_merge_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
             output_size=keys.numel())
         return narrow((qid << shift) | widen(keys))
 
-    rc_sorted = sort_unstable(tagged(r_keys, r_sizes))
+    rc_sorted = sort_unstable(tagged(r_keys, r_sizes), impl=sort_impl)
     lb, ub = search_bounds(rc_sorted, tagged(s_keys, s_sizes))
     csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum((ub - lb).to(torch.int64), 0)])
@@ -179,6 +181,7 @@ def batched_merge_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
 def compiled_batched_merge_count(r_sizes: Tuple[int, ...],
                                  s_sizes: Tuple[int, ...], key_bound: int):
     """:func:`batched_merge_count` for one batch shape class (the JAX name
-    of its per-shape program): a call of the two key lanes."""
-    return lambda r, s: batched_merge_count(r, s, r_sizes, s_sizes,
-                                            key_bound)
+    of its per-shape program): a call of the two key lanes (and the sort's
+    arm, ``sort_impl``)."""
+    return lambda r, s, sort_impl="auto": batched_merge_count(
+        r, s, r_sizes, s_sizes, key_bound, sort_impl)

@@ -4,8 +4,13 @@ Counterpart of ``tpu_radix_join/ops/sorting.py``: every hot reorder is an
 unstable sort of uint32 lanes, and here each one is the K2 radix sort
 (``ops/kernels/radix_sort.py``) at every size.  The JAX package's
 ``PALLAS_SORT_MIN_ELEMS`` threshold and its degrade to ``lax.sort`` were
-TPU choices; the port has no second sort to route to, so a lane the kernel
-cannot take raises.  The JAX row sort (``sort_lex_unstable(...,
+TPU choices: the port never degrades.  Its ``impl=`` choice is JAX's
+(``resolve_sort_impl``): "auto", "pallas" and "pallas_interpret" run K2;
+"xla", asked for by name, is the library baseline arm, stable
+``torch.sort`` key by key, least significant first, which gives K2's
+order, counted apart in ``LAUNCHES["baseline_sort"]``.  The choice comes
+down from the engine's ``JoinConfig.sort_impl`` as an argument, never as
+a process default.  The JAX row sort (``sort_lex_unstable(...,
 dimension=1)``) was an XLA sort there, since the radix arm took 1-D lanes
 only; here :func:`sort_lex_rows_unstable` runs it on K2 with the row index
 as the most significant key.  :func:`segmented_xor_fold` (the checksums of
@@ -19,43 +24,75 @@ from typing import Optional
 
 import torch
 
+from tpu_radix_join_torch.core.config import SORT_IMPLS
+from tpu_radix_join_torch.data.tuples import widen
+from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
 
 #: values a row of :func:`_prefix_xor_at`'s blocked reduction holds
 _XOR_BLOCK = 1024
 
 
-def sort_unstable(x: torch.Tensor, *,
-                  key_bound: Optional[int] = None) -> torch.Tensor:
-    """Sort one uint32 lane."""
-    return radix_sort((x,), num_keys=1, key_bounds=(key_bound,))[0]
+def check_sort_impl(impl: str) -> str:
+    """``impl`` if it is one of :data:`SORT_IMPLS`, else ValueError (JAX's
+    ``set_default_sort_impl`` text)."""
+    if impl not in SORT_IMPLS:
+        raise ValueError(
+            f"unknown sort impl {impl!r} (expected one of {SORT_IMPLS})")
+    return impl
 
 
-def sort_kv_unstable(key: torch.Tensor, *values: torch.Tensor,
-                     key_bound: Optional[int] = None):
-    """Key-value sort; returns (sorted key, *values in key order)."""
-    return radix_sort((key, *values), num_keys=1, key_bounds=(key_bound,))
+def library_sort(operands, num_keys: int):
+    """The baseline arm: a stable ``torch.sort`` of each key lane in turn,
+    least significant first, each on the lane's unsigned value (int64), the
+    order carried by index; every lane gathered once at the end.  Stable
+    passes compose, so the order is K2's."""
+    LAUNCHES["baseline_sort"] += 1
+    order = None
+    for k in range(num_keys - 1, -1, -1):
+        key = widen(operands[k] if order is None else operands[k][order])
+        step = torch.sort(key, stable=True).indices
+        order = step if order is None else order[step]
+    return tuple(o[order] for o in operands)
 
 
-def sort_lex_unstable(*operands: torch.Tensor, num_keys: int,
-                      key_bounds=None):
-    """Lexicographic sort on the first ``num_keys`` lanes (most significant
-    first); the remaining lanes ride along as values."""
+def _sort(operands, num_keys: int, key_bounds, impl: str):
+    if check_sort_impl(impl) == "xla":
+        return library_sort(operands, num_keys)
     return radix_sort(operands, num_keys=num_keys, key_bounds=key_bounds)
 
 
+def sort_unstable(x: torch.Tensor, *, key_bound: Optional[int] = None,
+                  impl: str = "auto") -> torch.Tensor:
+    """Sort one uint32 lane."""
+    return _sort((x,), 1, (key_bound,), impl)[0]
+
+
+def sort_kv_unstable(key: torch.Tensor, *values: torch.Tensor,
+                     key_bound: Optional[int] = None, impl: str = "auto"):
+    """Key-value sort; returns (sorted key, *values in key order)."""
+    return _sort((key, *values), 1, (key_bound,), impl)
+
+
+def sort_lex_unstable(*operands: torch.Tensor, num_keys: int,
+                      key_bounds=None, impl: str = "auto"):
+    """Lexicographic sort on the first ``num_keys`` lanes (most significant
+    first); the remaining lanes ride along as values."""
+    return _sort(operands, num_keys, key_bounds, impl)
+
+
 def sort_lex_rows_unstable(*operands: torch.Tensor, num_keys: int,
-                           key_bounds=None):
+                           key_bounds=None, impl: str = "auto"):
     """:func:`sort_lex_unstable` along every row of equal-shape
-    [rows, width] lanes: one K2 sort of the flattened rows with the row
-    index prepended as the most significant key (bound ``rows``: one 8-bit
+    [rows, width] lanes: one sort of the flattened rows with the row index
+    prepended as the most significant key (bound ``rows``: one 8-bit K2
     pass while rows <= 256).  Returns the lanes, reshaped back."""
     rows, width = operands[0].shape
     row = torch.arange(rows, dtype=torch.int32,
                        device=operands[0].device).repeat_interleave(width)
     bounds = (rows, *(key_bounds or (None,) * num_keys))
-    out = radix_sort((row, *[o.reshape(-1) for o in operands]),
-                     num_keys=num_keys + 1, key_bounds=bounds)
+    out = _sort((row, *[o.reshape(-1) for o in operands]), num_keys + 1,
+                bounds, impl)
     return tuple(o.view(rows, width) for o in out[1:])
 
 
@@ -91,7 +128,7 @@ def _prefix_xor_at(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def segmented_xor_fold(segment: torch.Tensor, values: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int, impl: str = "auto") -> torch.Tensor:
     """Per-segment xor: ``out[q] = XOR of values[i] where segment[i] ==
     q``, an int32 lane [num_segments] of uint32 bits
     (``segmented_xor_fold``, ``ops/sorting.py:210-240``).
@@ -103,7 +140,7 @@ def segmented_xor_fold(segment: torch.Tensor, values: torch.Tensor,
     folds to 0.  The segment ``num_segments`` is the discard bucket:
     callers route invalid lanes to exactly that value."""
     seg_s, val_s = sort_kv_unstable(segment, values,
-                                    key_bound=num_segments + 1)
+                                    key_bound=num_segments + 1, impl=impl)
     ends = torch.searchsorted(
         seg_s, torch.arange(num_segments, dtype=torch.int32,
                             device=seg_s.device), right=True) - 1

@@ -46,7 +46,7 @@ def shuffle_keys(n: int, rank: int, seed: int, device) -> torch.Tensor:
 
 
 def distribute(batch: TupleBatch, world, seed: int = 0,
-               mode: str = "fused") -> TupleBatch:
+               mode: str = "fused", sort_impl: str = "auto") -> TupleBatch:
     """Redistribute so every rank holds a uniform slice of the whole data:
     this rank's shard is cut into ``world.size`` equal blocks, block ``j``
     travels to rank ``j`` with every lane (``key_hi`` included), and the
@@ -57,7 +57,8 @@ def distribute(batch: TupleBatch, world, seed: int = 0,
     ("fused" | "staged:<k>" | "auto" | k, ``window.block_all_to_all``):
     redistribution moves the whole relation at once, so it gains first from
     bounding the live exchange buffer to about 1/k.  The received tuples
-    are the same in every mode."""
+    are the same in every mode.  ``sort_impl`` is the sort's arm
+    (``ops/sorting``)."""
     n = batch.size
     if n % world.size != 0:
         raise ValueError(f"local size {n} must divide by {world.size} nodes")
@@ -66,6 +67,7 @@ def distribute(batch: TupleBatch, world, seed: int = 0,
                 else block_all_to_all(world, lane, block, mode)
                 for lane in batch]
     h = shuffle_keys(n, world.rank, seed, batch.key.device)
-    out = sort_kv_unstable(h, *[lane for lane in received if lane is not None])
+    out = sort_kv_unstable(h, *[lane for lane in received if lane is not None],
+                           impl=sort_impl)
     return TupleBatch(key=out[1], rid=out[2],
                       key_hi=out[3] if batch.key_hi is not None else None)

@@ -111,9 +111,11 @@ class Window:
     def __init__(self, world, capacity: int, side: str, codec: str = "off",
                  mode="fused", fanout_bits: int = 0,
                  key_bound: Optional[int] = None,
-                 rid_bound: Optional[int] = None):
+                 rid_bound: Optional[int] = None,
+                 partition_impl: str = "auto"):
         """``world``: a ``OneRankWorld`` or ``DistWorld``
-        (parallel/world.py)."""
+        (parallel/world.py); ``partition_impl`` is the scatter's arm
+        (``ops/radix``)."""
         if codec not in ("off", "pack"):
             raise ValueError(
                 f"window codec must be 'off' or 'pack', got {codec!r} "
@@ -126,6 +128,7 @@ class Window:
         self.fanout_bits = fanout_bits
         self.key_bound = key_bound
         self.rid_bound = rid_bound
+        self.partition_impl = partition_impl
 
     def wire_spec(self, wide: bool) -> WireSpec:
         """The packed-wire geometry of this window's bounds."""
@@ -148,14 +151,16 @@ class Window:
                     "partition membership — pass pid= to exchange()")
             spec = self.wire_spec(wide=batch.key_hi is not None)
             blocks, _, group_counts, overflow = scatter_to_blocks_grouped(
-                batch, dest, pid, n, spec.num_sub, c, self.side, valid=valid)
+                batch, dest, pid, n, spec.num_sub, c, self.side, valid=valid,
+                impl=self.partition_impl)
             words = block_all_to_all(self.world,
                                      pack_blocks(spec, blocks, group_counts),
                                      spec.block_words, self.mode)
             received, counts = unpack_blocks(spec, words, self.side)
             return ExchangeResult(received, widen(counts), overflow)
-        blocks, counts, overflow = scatter_to_blocks(batch, dest, n, c,
-                                                     self.side, valid=valid)
+        blocks, counts, overflow = scatter_to_blocks(
+            batch, dest, n, c, self.side, valid=valid,
+            impl=self.partition_impl)
         # every lane goes through the all_to_all, the hi key lane included:
         # a batch rebuilt without it would join truncated keys
         received = TupleBatch(*(None if lane is None

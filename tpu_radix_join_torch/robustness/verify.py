@@ -56,19 +56,22 @@ def checksum_rows(wide: bool) -> int:
 def device_partition_checksums(key: torch.Tensor, pid: torch.Tensor,
                                num_partitions: int,
                                valid: Optional[torch.Tensor] = None,
-                               key_hi: Optional[torch.Tensor] = None
+                               key_hi: Optional[torch.Tensor] = None,
+                               sort_impl: str = "auto"
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's fingerprint halves: ``adds``, int32 [1 + lanes, P] (the
     count row, then each lane's wrapping sum), and ``xors``, int32
     [lanes, P] (each lane's xor-fold), all of uint32 bits.  Invalid slots
-    go to the discard bucket ``num_partitions``."""
+    go to the discard bucket ``num_partitions``.  The sums run on K1 at any
+    partition count; ``sort_impl`` is the xor-folds' sort arm."""
     p = pid if valid is None else torch.where(valid, pid, num_partitions)
     p = p.to(torch.int32)
     lanes = [key] if key_hi is None else [key, key_hi]
     adds = torch.stack([histogram(p, None, num_bins=num_partitions)]
                        + [histogram(p, lane, num_bins=num_partitions)
                           for lane in lanes])
-    xors = torch.stack([segmented_xor_fold(p, lane, num_partitions)
+    xors = torch.stack([segmented_xor_fold(p, lane, num_partitions,
+                                           impl=sort_impl)
                         for lane in lanes])
     return adds, xors
 
@@ -76,14 +79,15 @@ def device_partition_checksums(key: torch.Tensor, pid: torch.Tensor,
 def global_partition_checksums(key: torch.Tensor, pid: torch.Tensor,
                                num_partitions: int, world,
                                valid: Optional[torch.Tensor] = None,
-                               key_hi: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               key_hi: Optional[torch.Tensor] = None,
+                               sort_impl: str = "auto") -> torch.Tensor:
     """The world's int32 ``[rows, P]`` fingerprint
     (``global_partition_checksums``): the count and sum rows summed over
     the ranks modulo 2**32, the xor rows by per-bit parity, in one
     ``all_reduce`` over ``world`` (parallel/world.py)."""
     adds, xors = device_partition_checksums(key, pid, num_partitions,
-                                            valid=valid, key_hi=key_hi)
+                                            valid=valid, key_hi=key_hi,
+                                            sort_impl=sort_impl)
     if world.size == 1:
         return torch.cat([adds, xors])
     bits = torch.arange(32, dtype=torch.int64, device=key.device)

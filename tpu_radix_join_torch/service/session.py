@@ -482,7 +482,7 @@ class JoinSession:
             r_cat = torch.cat([rk for rk, _, _, _ in lanes])
             s_cat = torch.cat([sk for _, sk, _, _ in lanes])
             for _ in range(max(1, group[0].repeats)):
-                counts = fn(r_cat, s_cat)
+                counts = fn(r_cat, s_cat, sort_impl=self.config.sort_impl)
             return [e for _, _, e, _ in lanes], lane_to_numpy(counts)
 
         try:
@@ -612,7 +612,8 @@ class JoinSession:
                 if lane is None:
                     base = inner.generate(dev).key
                     mirror2 = np.concatenate([lane_to_numpy(base), delta_np])
-                    union = presort_keys(torch.cat([base, delta]))
+                    union = presort_keys(torch.cat([base, delta]),
+                                         self.config.sort_impl)
                     n = int(merge_count_presorted(union, s_dev)) & U32_MASK
                     return (union, n, host_join_count(mirror2, s_host),
                             mirror2, None)
@@ -622,7 +623,8 @@ class JoinSession:
                     # resident sorted outer lane (counts are additive)
                     fn = compiled_delta_merge_increment(
                         lane.numel(), delta.numel(), s_lane.numel())
-                    union, inc = fn(lane, delta, s_lane)
+                    union, inc = fn(lane, delta, s_lane,
+                                    sort_impl=self.config.sort_impl)
                     ds = np.sort(delta_np)
                     sh = probe["s_sorted_host"]
                     exp = probe["expected"] + int(
@@ -632,7 +634,8 @@ class JoinSession:
                             exp, mirror2, probe)
                 fn = compiled_delta_merge_count(lane.numel(), delta.numel(),
                                                 s_dev.numel())
-                union, total = fn(lane, delta, s_dev)
+                union, total = fn(lane, delta, s_dev,
+                                  sort_impl=self.config.sort_impl)
                 return (union, int(total) & U32_MASK,
                         host_join_count(mirror2, s_host), mirror2, None)
 
@@ -656,7 +659,8 @@ class JoinSession:
                 if seed_probe and self.resident.budget_bytes:
                     # (re)seed the incremental-probe state under the same
                     # budget; with residency off the outer is never sorted
-                    if self.resident.put(rprobe, presort_keys(s_dev), epoch):
+                    if self.resident.put(rprobe, presort_keys(
+                            s_dev, self.config.sort_impl), epoch):
                         self._resident_probe[rkey] = {
                             "outer_fp": outer_fp, "union_len": len(mirror),
                             "total": matches, "expected": expected,

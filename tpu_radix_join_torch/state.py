@@ -24,28 +24,21 @@ from tpu_radix_join_torch.data.tuples import TupleBatch, lane_from_numpy
 _UNREAD = frozenset({
     "payload_bits", "mesh_axis", "result_aggregation_node",
 })
-#: implementation choices among versions of the same kernel: the port has
-#: one of each, so they map to "auto"
-_ONE_IMPL = frozenset({"sort_impl", "partition_impl"})
 
 
 def config_from_jax(config_dict: Mapping) -> JoinConfig:
     """The port's JoinConfig for ``dataclasses.asdict(jax_config)``.
 
-    ``sort_impl`` and ``partition_impl`` pick among implementations of the
-    same kernel, and the port has one of each, so they map to "auto".
-    ``num_nodes``, ``num_hosts``, ``skew_threshold``, ``debug_checks``,
+    ``sort_impl`` and ``partition_impl`` carry across as they are: "auto",
+    "pallas" and "pallas_interpret" run the kernels, "xla" / "sort" the
+    library baseline arms.  ``num_nodes``, ``num_hosts``, ``skew_threshold``, ``debug_checks``,
     ``chunk_size``, ``measure_phases``, ``match_rate_cap``, ``generation``,
     ``exchange_codec``, ``exchange_stages``, ``verify``, ``grid_pipeline``
-    and the four retry-backoff fields carry across; a setting the port does
-    not run yet (a fanout past the kernels' bins) raises
-    ``NotImplementedError`` from :class:`JoinConfig`, naming its ROADMAP.md
-    item; an unknown field raises ``ValueError``."""
+    and the four retry-backoff fields carry across, as do the fanouts at
+    every width; an unknown field raises ``ValueError``."""
     own = {f for f in JoinConfig.__dataclass_fields__}
     kw = {}
     for name, value in config_dict.items():
-        if name in _ONE_IMPL:
-            continue
         if name in own:
             kw[name] = value
         elif name not in _UNREAD:
