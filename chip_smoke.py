@@ -299,7 +299,7 @@ P_BACKEND = "gloo-cuda, 4 ranks on one card"
 
 #: the sources whose registers, shared memory and spills the run prints
 PTXAS_SOURCES = ("partition", "merge_scan_chunks", "merge_scan",
-                 "merge_scan_wide")
+                 "merge_scan_wide", "partition_wide")
 
 
 def emit(obj) -> None:
@@ -312,6 +312,11 @@ def ptxas_summary(log: str) -> dict:
              "onesweep_kernelILb1": "onesweep_kernel<slots>",
              "onesweep_kernelILb0": "onesweep_kernel<moving>",
              "histogram_kernel": "histogram_kernel",
+             "count_kernel": "count_kernel",
+             "carry_kernel": "carry_kernel",
+             "starts_kernel": "starts_kernel",
+             "sweep_kernelILb1": "sweep_kernel<slots>",
+             "sweep_kernelILb0": "sweep_kernel<moving>",
              "PackedLane": "scan_kernel<packed>",
              "LanesILb1": "scan_kernel<lo, hi, tag>",
              "LanesILb0": "scan_kernel<lo, tag>"}
@@ -1670,32 +1675,82 @@ T_IDS = 20_000_000
 T_GROUPED_BLOCK = 1 << 23
 
 
+def k4_huge_check(dev, widen, groups, m=(1 << 31) + 4097) -> dict:
+    """K4 past 2**31 ids in slots mode: 2**31 + 4097 ids into ``groups``
+    groups (4: the onesweep kernel; 1025: the wide one), all but 2048 in
+    group 0, so group 0's look-back counts, chunk words and positions pass
+    2**31.  Held without the plain version: the histogram, group 0's slots
+    (each position less the others before it) and the others' slots (their
+    group's start plus their rank), in chunks."""
+    import numpy as np
+    import torch
+    from tpu_radix_join_torch.ops.kernels import partition as k4
+    ids = torch.zeros(m, dtype=torch.int32, device=dev)
+    at = torch.arange(2048, device=dev, dtype=torch.int64) * (m // 2048) + 3
+    g_at = np.random.default_rng(17).integers(1, groups, 2048)
+    ids[at] = torch.from_numpy(g_at).to(dev).to(torch.int32)
+    slots, hist = k4.partition_slots(ids, num_groups=groups)
+    want_hist = np.bincount(g_at, minlength=groups)
+    want_hist[0] = m - 2048
+    ok = [bool(np.array_equal(widen(hist).cpu().numpy(), want_hist))]
+    zeros_ok = True
+    step = 1 << 28
+    for c in range(0, m, step):
+        i = torch.arange(c, min(m, c + step), device=dev)
+        zero = ids[c:c + step] == 0
+        zeros_ok &= bool(torch.equal(widen(slots[c:c + step])[zero],
+                                     (i - torch.searchsorted(at, i))[zero]))
+        del i, zero
+    ok.append(zeros_ok)
+    start = np.cumsum(want_hist) - want_hist
+    order = np.argsort(g_at, kind="stable")
+    sorted_g = g_at[order]
+    want_at = np.empty(2048, np.int64)
+    want_at[order] = start[sorted_g] + np.arange(2048) - np.searchsorted(
+        sorted_g, sorted_g)
+    ok.append(bool(np.array_equal(widen(slots[at]).cpu().numpy(), want_at)))
+    del ids, slots, hist
+    if not all(ok):
+        raise AssertionError(f"partition slots of {m} ids into {groups} "
+                             f"groups: hist, group 0's slots, the others' "
+                             f"slots: {ok}")
+    return {"elements": m, "groups": groups, "largest_group": m - 2048,
+            "checks": len(ok), "max_abs_err": 0}
+
+
 def phase_t(dev, n, time_ms, device_us, card):
     """Phase (t): wider fanout (ROADMAP A19) and the implementation choice
     (A21) on the one card.  Returns ``(launches, rows)``: the main paths'
     launches and, for the final kernels line, one row a wide kernel path
     (``histogram_wide``, ``merge_scan_fanout``, ``merge_scan_wide_fanout``,
-    ``partition_lsd``) at its representative shape.
+    ``partition_wide``, ``partition_lsd``) at its representative shape.
 
       (t1) each wide path bit-exact against its plain version (max abs err
            0): K1 at ``T_IDS`` ids into 256, 1024, 2**14 and 2**16 bins,
            random and sorted, counts and weight sums; K3 and K5 at fanouts
-           8, 10 and 12 on (a)'s and (h)'s unions; K4 dense at 257, 1025
-           and 4097 groups, and grouped 16 x 32 and 4 x 256 at
-           ``T_GROUPED_BLOCK`` slots a block, clipped, slots and two moved
-           lanes.  Each timed: event ms, device ms, the bytes bound at
-           3.35 TB/s, the library call (``torch.bincount``;
-           ``argsort(stable=True)``; none for K3 / K5), whether it reaches
-           half its bound and whether it beats the library;
+           8, 10 and 12 on (a)'s and (h)'s unions; K4's wide kernel dense
+           at 257, 1025 and 4097 groups, and grouped 16 x 32 and 4 x 256
+           at ``T_GROUPED_BLOCK`` slots a block, clipped, slots and two
+           moved lanes, each also timed on the LSD composition (the earlier
+           design) on the same inputs; its edges (tile and chunk
+           boundaries, one group across every tile, every id invalid,
+           capacity 1, sorted ids, the cap's 8192 groups) and 2**31 + 4097
+           ids into 1025 groups in slots mode, held by formula; and one
+           group past the cap, dense, on the LSD composition.  Each timed:
+           event ms, device ms, the bytes bound at 3.35 TB/s, the library
+           call (``torch.bincount``; ``argsort(stable=True)``; none for K3
+           / K5), whether it reaches half its bound and whether it beats
+           the library;
       (t2) joins of n ⋈ n unique, exact, median of 3 with its spread,
            beside the fanout-5 join each extends, measured here: (a) at
            network fanout 8 and 10, (h) 64-bit at 10, (d) bucketed at
-           local fanout 10, two-level 8 + 10; the first join of each with
-           the counts set to 0 shows its wide path launched and no
-           baseline counter moved;
+           local fanout 10 (the wide K4) and 14 (past its cap: the LSD
+           composition), two-level 8 + 10; the first join of each with
+           the counts set to 0 shows its wide path launched, the other K4
+           path idle and no baseline counter moved;
       (t3) (a) and (d) under ``sort_impl="xla"``, ``partition_impl="sort"``:
            the kernel joins' counts, the baseline counters ticked, K2 and
-           K4 (both paths) at zero, the result naming its arms; times
+           K4 (every path) at zero, the result naming its arms; times
            beside the kernels'."""
     import torch
     from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
@@ -1741,15 +1796,20 @@ def phase_t(dev, n, time_ms, device_us, card):
     def device_ms(fn) -> float:
         return sum(device_us(fn, reps=5).values()) / 1e3
 
-    def timed(kernel, shape, fn, nbytes, err, library=None, plain=None):
+    def timed(kernel, shape, fn, nbytes, err, library=None, plain=None,
+              beside=None):
         """One shape's line: event and device time, bound, library, and
         ``err``, the max abs err that :func:`exact` measured on these very
-        inputs."""
+        inputs; ``beside``: name -> another path's call on them, timed
+        too."""
         row = {"ms": time_ms(fn), "device_ms": device_ms(fn),
                "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
                "library_ms": None if library is None else time_ms(library),
                "plain_ms": None if plain is None else time_ms(plain, reps=3),
                "max_abs_err": err}
+        for name, other in (beside or {}).items():
+            row[f"{name}_ms"] = time_ms(other)
+            row[f"{name}_device_ms"] = device_ms(other)
         row["half_bound"] = row["bound_ms"] >= 0.5 * row["device_ms"]
         row["beats_library"] = (None if library is None
                                 else row["ms"] < row["library_ms"])
@@ -1831,9 +1891,35 @@ def phase_t(dev, n, time_ms, device_us, card):
             rows["merge_scan_wide_fanout"] = row
         del lo, hi, tag
     del rels_a, rels_h
-    # K4 past 256 groups: dense, then grouped with the clip
+    # K4 past 256 groups: the wide kernel dense, then grouped with the clip,
+    # beside the LSD composition on the same inputs
     key, rid = rand(T_IDS, 1 << 32), rand(T_IDS, 1 << 32)
     fills = [0xFFFFFFFF, 0xFFFFFFFE]
+
+    def k4_exact(ids, groups, gsize, cap, what, path) -> int:
+        """Slots and two moved lanes against the plain versions, with the
+        counts set to 0 first: the wrapper must take ``path``."""
+        nonlocal checks
+        m = ids.numel()
+        lanes = [key[:m], rid[:m]]
+        kernels.reset_launches()
+        err = exact(k4.partition_slots(ids, num_groups=groups,
+                                       group_size=gsize, capacity=cap),
+                    k4.partition_slots_plain(ids, groups, gsize, cap),
+                    f"K4 slots {what}")
+        got = k4.partition_scatter(ids, lanes, fills, num_groups=groups,
+                                   group_size=gsize, capacity=cap)
+        want = k4.partition_scatter_plain(ids, lanes, fills, groups, gsize,
+                                          cap)
+        err = max(err, exact(got[0] + [got[1]], want[0] + [want[1]],
+                             f"K4 lanes {what}"))
+        launched = kernels.launch_counts()
+        if launched[path] != 2 or sum(launched[k] for k in (
+                "partition", "partition_wide", "partition_lsd")) != 2:
+            raise AssertionError(f"phase (t) K4 {what}: launches {launched}")
+        checks += 2
+        return err
+
     for groups, gsize, cap in ((257, 1, None), (1025, 1, None),
                                (4097, 1, None),
                                (16 * 32, 32, T_GROUPED_BLOCK),
@@ -1843,31 +1929,77 @@ def phase_t(dev, n, time_ms, device_us, card):
             ids = torch.where(rand(T_IDS, 2) == 0, ids % gsize, ids)
         shape = {"ids": T_IDS, "groups": groups, "group_size": gsize,
                  "capacity": cap, "lanes": 2}
-        exact(k4.partition_slots(ids, num_groups=groups, group_size=gsize,
-                                 capacity=cap),
-              k4.partition_slots_plain(ids, groups, gsize, cap),
-              f"K4 slots {shape}")
-        got = k4.partition_scatter(ids, [key, rid], fills, num_groups=groups,
-                                   group_size=gsize, capacity=cap)
-        want = k4.partition_scatter_plain(ids, [key, rid], fills, groups,
-                                          gsize, cap)
-        err = exact(got[0] + [got[1]], want[0] + [want[1]],
-                    f"K4 lanes {shape}")
-        checks += 2
+        err = k4_exact(ids, groups, gsize, cap, shape, "partition_wide")
         size = k4.out_size(T_IDS, groups, gsize, cap)
         g = torch.where(widen(ids) < groups, widen(ids), groups)
-        row = timed("partition_lsd", shape,
+        row = timed("partition_wide", dict(
+            shape, launches_a_call=4,
+            matrix_bytes=k4.wide_scratch_layout(
+                T_IDS, groups, gsize, cap).matrix_bytes),
                     lambda: k4.partition_scatter(
                         ids, [key, rid], fills, num_groups=groups,
                         group_size=gsize, capacity=cap),
                     4 * T_IDS + 8 * T_IDS + 8 * size, err,
                     library=lambda: torch.argsort(g, stable=True),
                     plain=lambda: k4.partition_scatter_plain(
-                        ids, [key, rid], fills, groups, gsize, cap))
+                        ids, [key, rid], fills, groups, gsize, cap),
+                    beside={"lsd": lambda: k4._partition_lsd_cuda(
+                        ids, groups, gsize, cap, [key, rid], fills, False),
+                        "slots": lambda: k4.partition_slots(
+                            ids, num_groups=groups, group_size=gsize,
+                            capacity=cap)})
         if groups == 1025:
-            rows["partition_lsd"] = row
-        del ids, got, want, g
-    del key, rid
+            rows["partition_wide"] = row
+        del ids, g
+    # the wide kernel's edges: tile and chunk boundaries, one group across
+    # every tile, every id invalid, capacity 1, sorted ids, the cap
+    tile = k4.WIDE_TILE_IDS
+    edge_errs = []
+    for m in (1, tile - 1, tile, tile + 1, tile * k4.WIDE_CHUNK_TILES,
+              tile * k4.WIDE_CHUNK_TILES + 1, 7 * tile + 5):
+        ids = rand(m, 1025 + 64)
+        edge_errs.append(k4_exact(ids, 1025, 1, None, f"n={m} dense",
+                                  "partition_wide"))
+        edge_errs.append(k4_exact(ids, 1024, 32, 5, f"n={m} blocked",
+                                  "partition_wide"))
+    one = torch.full((T_IDS,), 700, dtype=torch.int32, device=dev)
+    edge_errs.append(k4_exact(one, 1025, 1, None, "one group",
+                              "partition_wide"))
+    edge_errs.append(k4_exact(one, 1024, 256, T_GROUPED_BLOCK,
+                              "one group, clipped", "partition_wide"))
+    edge_errs.append(k4_exact(rand(T_IDS, 1 << 20) + 1025, 1025, 1, None,
+                              "every id invalid", "partition_wide"))
+    edge_errs.append(k4_exact(rand(T_IDS, 4097), 4097, 1, 1, "capacity 1",
+                              "partition_wide"))
+    edge_errs.append(k4_exact(torch.sort(rand(T_IDS, 1025)).values, 1025, 1,
+                              None, "sorted", "partition_wide"))
+    edge_errs.append(k4_exact(rand(T_IDS, k4.WIDE_MAX_GROUPS + 512),
+                              k4.WIDE_MAX_GROUPS, 1, None, "the cap",
+                              "partition_wide"))
+    del one
+    # one group past the cap: the LSD composition (kernels line's
+    # partition_lsd row)
+    groups = k4.WIDE_MAX_GROUPS + 1
+    ids = rand(T_IDS, groups + groups // 16)
+    err = k4_exact(ids, groups, 1, None, "past the cap", "partition_lsd")
+    g = torch.where(widen(ids) < groups, widen(ids), groups)
+    rows["partition_lsd"] = timed(
+        "partition_lsd", {"ids": T_IDS, "groups": groups, "group_size": 1,
+                          "capacity": None, "lanes": 2},
+        lambda: k4.partition_scatter(ids, [key, rid], fills,
+                                     num_groups=groups),
+        4 * T_IDS + 16 * T_IDS, err,
+        library=lambda: torch.argsort(g, stable=True),
+        plain=lambda: k4.partition_scatter_plain(ids, [key, rid], fills,
+                                                 groups))
+    del ids, g, key, rid
+    torch.cuda.empty_cache()
+    huge = k4_huge_check(dev, widen, 1025)
+    checks += huge["checks"]
+    emit({"phase": "wide_kernel_edges", "kernel": "partition_wide",
+          "checks": len(edge_errs), "max_abs_err": max(edge_errs),
+          "past_2p31": huge, **card})
+    torch.cuda.empty_cache()
     emit({"phase": "wide_kernels_checked", "checks": checks,
           "seconds": time.perf_counter() - t_start, **card})
 
@@ -1878,19 +2010,22 @@ def phase_t(dev, n, time_ms, device_us, card):
     outer64 = Relation(n, 1, "unique", seed=1235, key_bits=64)
     bucket = dict(probe_algorithm="bucket")
     two = dict(two_level=True, max_retries=4)
-    cells = [   # name, config, 64-bit, the fanout-5 twin, wide counters
+    cells = [   # name, config, 64-bit, the fanout-5 twin, wide counters,
+                # counters that stay at zero
         ("a_f8", dict(network_fanout_bits=8), False, "a_f5",
-         ("merge_scan_fanout",)),
+         ("merge_scan_fanout",), ()),
         ("a_f10", dict(network_fanout_bits=10), False, "a_f5",
-         ("merge_scan_fanout",)),
+         ("merge_scan_fanout",), ()),
         ("h_f10", dict(network_fanout_bits=10, key_bits=64), True, "h_f5",
-         ("merge_scan_wide_fanout",)),
+         ("merge_scan_wide_fanout",), ()),
         ("d_lf10", dict(bucket, local_fanout_bits=10, max_retries=4), False,
-         "d_f5",
-         ("partition_lsd", "histogram_wide")),
+         "d_f5", ("partition_wide",), ("partition_lsd",)),
+        ("d_lf14", dict(bucket, local_fanout_bits=14, max_retries=4), False,
+         "d_f5", ("partition_lsd", "histogram_wide"), ("partition_wide",)),
         ("two_level_8_10", dict(two, network_fanout_bits=8,
                                 local_fanout_bits=10), False,
-         "two_level_5_5", ("partition_lsd", "histogram_wide")),
+         "two_level_5_5", ("partition_wide", "histogram_wide"),
+         ("partition_lsd",)),
     ]
     twins = {"a_f5": (dict(), False), "h_f5": (dict(key_bits=64), True),
              "d_f5": (bucket, False), "two_level_5_5": (two, False)}
@@ -1934,8 +2069,8 @@ def phase_t(dev, n, time_ms, device_us, card):
             launches[k] += v
 
     twin_ms = {}
-    for name, cfg_kw, wide, twin, wide_keys in sorted(cells,
-                                                      key=lambda c: c[2]):
+    for name, cfg_kw, wide, twin, wide_keys, idle in sorted(
+            cells, key=lambda c: c[2]):
         if twin not in twin_ms:
             twin_ms[twin] = run(*twins[twin])[2]
         res, launched, ms, times = run(cfg_kw, wide)
@@ -1943,6 +2078,8 @@ def phase_t(dev, n, time_ms, device_us, card):
         for k in wide_keys:
             if launched[k] <= 0:
                 raise AssertionError(f"phase (t) {name}: {k} did not launch")
+        if any(launched[k] for k in idle):
+            raise AssertionError(f"phase (t) {name}: launches {launched}")
         if any(launched[k] for k in baseline_keys):
             raise AssertionError(f"phase (t) {name}: a baseline arm ran")
         if "baseline_arms" in res.diagnostics:
@@ -1965,7 +2102,7 @@ def phase_t(dev, n, time_ms, device_us, card):
             raise AssertionError(f"phase (t) {name} baseline: the counts "
                                  "differ from the kernels'")
         zero = ("radix_histogram", "radix_pass", "partition",
-                "partition_lsd")
+                "partition_wide", "partition_lsd")
         need = ("baseline_sort",) + (("baseline_partition",
                                       "baseline_histogram")
                                      if name == "d" else ())
@@ -2646,9 +2783,9 @@ def check_p6(results: list, seconds: float, card: dict, cases: dict,
 
 def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
     """(p7)'s checks: the packed join at network fanout 7 equal on every
-    rank and to the oracle, packed, with K4's wide path (the grouped
-    scatter's 512 groups) and no baseline arm launched; emits its line and
-    adds its launches to ``total``."""
+    rank and to the oracle, packed, with K4's wide kernel (the grouped
+    scatter's 512 groups), not the LSD composition, and no baseline arm
+    launched; emits its line and adds its launches to ``total``."""
     per_rank = [res["cases"]["p7_pack_f7"] for res in results]
     c = per_rank[0]
     for other in per_rank[1:]:
@@ -2666,7 +2803,8 @@ def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
     launches = {k: sum(r["launches"][k] for r in per_rank)
                 for k in c["launches"]}
     if (plan["codec_r"] != "pack" or plan["codec_s"] != "pack"
-            or launches["partition_lsd"] <= 0 or launches["merge_scan"] <= 0
+            or launches["partition_wide"] <= 0 or launches["partition_lsd"]
+            or launches["merge_scan"] <= 0
             or any(v for k, v in launches.items()
                    if k.startswith("baseline"))):
         raise AssertionError(f"phase (p) p7_pack_f7: plan {plan}, "
@@ -3238,41 +3376,8 @@ def main() -> int:
          k4_shapes, ids, lanes)
     torch.cuda.empty_cache()
 
-    # past 2**31 ids in slots mode: 2**31 + 4097 ids, all but 2048 in group
-    # 0, so group 0's look-back counts pass 2**31.  Held without the plain
-    # version: the histogram, group 0's slots (each position less the
-    # others before it) and the others' slots (their group's start plus
-    # their rank), in chunks.
-    def k4_huge_check():
-        n = (1 << 31) + 4097
-        ids = torch.zeros(n, dtype=torch.int32, device=dev)
-        at = torch.arange(2048, device=dev, dtype=torch.int64) * (n // 2048) + 3
-        g_at = torch.randint(1, 4, (2048,), generator=gen)
-        ids[at] = g_at.to(dev).to(torch.int32)
-        slots, hist = k4.partition_slots(ids, num_groups=4)
-        want_hist = torch.bincount(g_at, minlength=4)
-        want_hist[0] = n - 2048
-        ok = [bool(torch.equal(widen(hist).cpu(), want_hist))]
-        zeros_ok = True
-        for c in range(0, n, 1 << 28):
-            i = torch.arange(c, min(n, c + (1 << 28)), device=dev)
-            zero = ids[c:c + (1 << 28)] == 0
-            zeros_ok &= bool(torch.equal(widen(slots[c:c + (1 << 28)])[zero],
-                                         (i - torch.searchsorted(at, i))[zero]))
-            del i, zero
-        ok.append(zeros_ok)
-        start = torch.cumsum(want_hist, 0) - want_hist
-        want_at = torch.empty(2048, dtype=torch.int64)
-        for g in range(1, 4):
-            sel = (g_at == g).nonzero().flatten()
-            want_at[sel] = start[g] + torch.arange(sel.numel())
-        ok.append(bool(torch.equal(widen(slots[at]).cpu(), want_at)))
-        if not all(ok):
-            raise AssertionError(f"partition slots of {n} ids: hist, group "
-                                 f"0's slots, the others' slots: {ok}")
-        return {"elements": n, "largest_group": n - 2048, "checks": len(ok)}
-
-    huge4 = k4_huge_check()
+    # past 2**31 ids in slots mode: group 0's look-back counts pass 2**31
+    huge4 = k4_huge_check(dev, widen, 4)
     errs += [0] * huge4["checks"]
     torch.cuda.empty_cache()
     results["partition"]["max_abs_err"] = max(errs)
@@ -4037,7 +4142,8 @@ def main() -> int:
     results["radix_sort"]["shapes"] = k2_shapes
     results["radix_sort"]["histogram_launches"] = launches["radix_histogram"]
     # the wide paths of K1, K3, K5 and K4 (phase (t)), each at its
-    # representative shape, counted under its own name
+    # representative shape, counted under its own name (K4's LSD
+    # composition at one group past the wide kernel's cap)
     wide_sources = {
         "histogram_wide": sources["histogram"][:2],
         "merge_scan_fanout": (
@@ -4046,7 +4152,9 @@ def main() -> int:
         "merge_scan_wide_fanout": (
             "tpu_radix_join_torch/csrc/merge_scan_partitions.cuh",
             sources["merge_scan_wide"][1]),
-        "partition_lsd": ("tpu_radix_join_torch/csrc/partition_wide.cu",
+        "partition_wide": ("tpu_radix_join_torch/csrc/partition_wide.cu",
+                           sources["partition"][1]),
+        "partition_lsd": ("tpu_radix_join_torch/csrc/partition_lsd.cu",
                           sources["partition"][1]),
     }
     for name, (src, replaces) in wide_sources.items():

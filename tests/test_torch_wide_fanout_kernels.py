@@ -17,8 +17,10 @@ plain versions:
     ``scatter_to_blocks_grouped``, ``reorder_by_partition`` with ``valid``)
     at 257, 1025 and 4097 groups, dense and blocked (32 x 16 blocks,
     256 x 4), clipped, against JAX's sort arm and a numpy stable oracle,
-    and the wide design of ``csrc/partition_wide.cu`` (clamped groups,
-    8-bit LSD digit passes, block starts, the placing formulas) emulated;
+    and the LSD composition of ``csrc/partition_lsd.cu`` (clamped groups,
+    8-bit LSD digit passes, block starts, the placing formulas; the card's
+    path past 8192 groups) emulated, up to one group past that cap (the
+    wide kernel below it: ``tests/test_torch_partition_wide.py``);
   * the packed wire's geometry at fanouts 6-10.
 
 JAX's sort arm is ``lax.sort(is_stable=False)``, so within one group its
@@ -266,7 +268,7 @@ def _stable_oracle(ids, num_groups, group_size, capacity):
 
 def _lsd_emulation(ids, num_groups, group_size, capacity, lanes=(),
                    fills=()):
-    """``csrc/partition_wide.cu`` and its wrapper: each id's group (the
+    """``csrc/partition_lsd.cu`` and its wrapper: each id's group (the
     invalid group num_groups last) beside its index, 8-bit LSD digit passes
     (each a stable counting placement) over ceil(log2(num_groups + 1) / 8)
     digits, the exact totals, each layout block's first sorted position,
@@ -320,6 +322,7 @@ GROUPINGS = [   # id, ids, groups, group_size, capacity
     ("dense_4097", 4097, 1, None),
     ("blocked_32x16", 512, 32, 150), ("blocked_256x4", 1024, 256, 700),
     ("clip_1_4097", 4097, 1, 1),
+    ("dense_8193_past_the_wide_cap", k4.WIDE_MAX_GROUPS + 1, 1, None),
 ]
 
 

@@ -11,12 +11,14 @@ nowhere and dropped.
 
 :func:`partition_slots` exposes the contract; :func:`partition_scatter` is
 what the join calls: it groups lanes into pad-filled outputs.  On the card
-K4 moves the lanes and writes the pads itself: up to :data:`MAX_GROUPS`
-groups in one onesweep call (``csrc/partition.cu``, launches counted as
-``partition``), past them by the wide path (``csrc/partition_wide.cu``:
-the groups sorted with their indices by K2's stable digit passes, the
-totals from K1's wide path, then one placing launch; counted as
-``partition_lsd``).  On the CPU
+K4 moves the lanes and writes the pads itself, by one of three paths chosen
+by ``num_groups`` alone: up to :data:`MAX_GROUPS` groups one onesweep call
+(``csrc/partition.cu``, launches counted as ``partition``); up to
+:data:`WIDE_MAX_GROUPS` the wide grouping kernel (``csrc/partition_wide.cu``:
+count, carry, starts and one sorting sweep a tile; ``partition_wide``);
+past it the LSD composition (``csrc/partition_lsd.cu``: the groups sorted
+with their indices by K2's stable digit passes, the totals from K1's wide
+path, then one placing launch; ``partition_lsd``).  On the CPU
 :func:`partition_scatter_plain` applies the plain slots with the dropped
 ones masked out first (a torch index of -1, the int32 view of
 ``0xFFFFFFFF``, would write the last element).
@@ -38,6 +40,9 @@ from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
 MAX_GROUPS = 256   # the onesweep call's groups (MAX_PARTITIONS of the TPU kernel)
 MAX_LANES = 4      # lanes one pass on the card moves (csrc/partition.cu)
 TILE_IDS = 4096    # ids a tile of the onesweep launch holds (kTile there)
+WIDE_MAX_GROUPS = 8192   # the wide kernel's groups (kMaxGroups there)
+WIDE_TILE_IDS = 8192     # ids a tile of its sweep holds (kTile there)
+WIDE_CHUNK_TILES = 4     # tiles a block of its count launch takes (kChunk)
 DROPPED = U32_MASK
 
 
@@ -154,14 +159,68 @@ def scratch_layout(n: int, num_groups: int) -> ScratchLayout:
                          word_bytes=8, totals_words=MAX_GROUPS)
 
 
+class WideScratchLayout(NamedTuple):
+    """The one scratch block of a wide K4 call (csrc/partition_wide.cu,
+    ``rj_partition_wide_scratch_bytes``), written before it is read, so no
+    memset: the pad slots before each layout region (8-byte words), the
+    group starts, the exact totals (the call's hist), the chunk words and
+    the 16-bit tile rows, each part rounded up to 8 bytes, in that order."""
+
+    tiles: int
+    chunks: int
+    num_groups: int
+    regions: int
+
+    def _parts(self) -> Tuple[int, ...]:
+        g = self.num_groups
+        return tuple(-(-b // 8) * 8 for b in (
+            8 * (self.regions + 1), 4 * (g + 1), 4 * g, 4 * self.chunks * g,
+            2 * self.tiles * g))
+
+    @property
+    def totals_offset(self) -> int:
+        """Where the totals start, in int32 words."""
+        return sum(self._parts()[:2]) // 4
+
+    @property
+    def matrix_bytes(self) -> int:
+        """The count matrix: the chunk words and the tile rows."""
+        return sum(self._parts()[3:])
+
+    @property
+    def bytes(self) -> int:
+        return sum(self._parts())
+
+
+def wide_scratch_layout(n: int, num_groups: int, group_size: int = 1,
+                        capacity: Optional[int] = None) -> WideScratchLayout:
+    """The scratch of the wide kernel over ``n`` ids: one tile per
+    :data:`WIDE_TILE_IDS` ids, one chunk per :data:`WIDE_CHUNK_TILES` tiles
+    (at least one), a row of ``num_groups`` counters a tile (16-bit) and a
+    chunk (32-bit), and one pad word a layout region and one more."""
+    if not 0 <= n < 1 << 32 or not 1 <= num_groups <= WIDE_MAX_GROUPS:
+        raise ValueError(f"the wide K4 takes 0 <= n < 2**32 ids and "
+                         f"1..{WIDE_MAX_GROUPS} groups, got {n}, "
+                         f"{num_groups}")
+    tiles = -(-n // WIDE_TILE_IDS)
+    return WideScratchLayout(
+        tiles=tiles, chunks=max(1, -(-tiles // WIDE_CHUNK_TILES)),
+        num_groups=num_groups,
+        regions=1 if capacity is None else num_groups // group_size)
+
+
 def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
                     capacity: Optional[int], lanes: Sequence[torch.Tensor],
-                    fills: Sequence[int], with_slots: bool
+                    fills: Sequence[int], with_slots: bool, wide: bool = False
                     ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
                                torch.Tensor]:
-    """One K4 call: (slots or None, the moved lanes, hist)."""
+    """One K4 call of the onesweep kernel (csrc/partition.cu) or, with
+    ``wide``, of the wide kernel (csrc/partition_wide.cu, four launches):
+    (slots or None, the moved lanes, hist).  The two share their C
+    signature; each sizes its own scratch."""
     n = ids.numel()
-    fn = c_function("partition", "rj_partition",
+    name = "partition_wide" if wide else "partition"
+    fn = c_function(name, f"rj_{name}",
                     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -171,8 +230,9 @@ def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
     size = out_size(n, num_groups, group_size, capacity)
     slots = torch.empty(n, dtype=torch.int32, device=dev) if with_slots else None
     outs = [torch.empty(size, dtype=torch.int32, device=dev) for _ in lanes]
-    lay = scratch_layout(n, num_groups)
-    scratch = torch.empty(lay.words, dtype=torch.int64, device=dev)
+    lay = (wide_scratch_layout(n, num_groups, group_size, capacity) if wide
+           else scratch_layout(n, num_groups))
+    scratch = torch.empty(lay.bytes // 8, dtype=torch.int64, device=dev)
     ptrs_in = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in lanes])
     ptrs_out = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in outs])
     fill_words = (ctypes.c_uint32 * MAX_LANES)(*[int(f) & U32_MASK
@@ -182,28 +242,28 @@ def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
              slots.data_ptr() if slots is not None else None,
              len(lanes), ptrs_in, ptrs_out, fill_words, scratch.data_ptr(),
              lay.bytes, torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "partition kernel")
-    LAUNCHES["partition"] += 1
+    check(err, f"{name} kernel")
+    LAUNCHES[name] += 1
     totals = scratch.view(torch.int32)[lay.totals_offset:
                                        lay.totals_offset + num_groups]
     return slots, outs, totals
 
 
-def _partition_wide_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
-                         capacity: Optional[int],
-                         lanes: Sequence[torch.Tensor], fills: Sequence[int],
-                         with_slots: bool
-                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
-                                    torch.Tensor]:
-    """One grouping past :data:`MAX_GROUPS` groups (csrc/partition_wide.cu):
-    (slots or None, the moved lanes, hist)."""
+def _partition_lsd_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
+                        capacity: Optional[int],
+                        lanes: Sequence[torch.Tensor], fills: Sequence[int],
+                        with_slots: bool
+                        ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
+                                   torch.Tensor]:
+    """One grouping past :data:`WIDE_MAX_GROUPS` groups
+    (csrc/partition_lsd.cu): (slots or None, the moved lanes, hist)."""
     n = ids.numel()
     dev = ids.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    keys_fn = c_function("partition_wide", "rj_partition_keys",
+    keys_fn = c_function("partition_lsd", "rj_partition_keys",
                          [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    place_fn = c_function("partition_wide", "rj_partition_place",
+    place_fn = c_function("partition_lsd", "rj_partition_place",
                           [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_longlong, ctypes.c_void_p,
@@ -243,10 +303,13 @@ def _partition_wide_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
 def _grouping_cuda(ids, num_groups, group_size, capacity, lanes, fills,
                    with_slots):
     """The card's grouping: the onesweep call up to :data:`MAX_GROUPS`
-    groups, the wide path past them."""
-    run = _partition_cuda if num_groups <= MAX_GROUPS else _partition_wide_cuda
-    return run(ids, num_groups, group_size, capacity, lanes, fills,
-               with_slots)
+    groups, the wide kernel up to :data:`WIDE_MAX_GROUPS`, the LSD
+    composition past it."""
+    if num_groups > WIDE_MAX_GROUPS:
+        return _partition_lsd_cuda(ids, num_groups, group_size, capacity,
+                                   lanes, fills, with_slots)
+    return _partition_cuda(ids, num_groups, group_size, capacity, lanes,
+                           fills, with_slots, wide=num_groups > MAX_GROUPS)
 
 
 # --------------------------------------------------------------- wrappers
@@ -274,9 +337,9 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     :func:`out_size` slots whose other slots hold its entry of ``fills``
     (uint32 values); dropped tuples are not written.  CPU: plain slots,
     masked and applied over filled outputs; CUDA: one K4 call (a histogram
-    and a onesweep launch, or the wide path past :data:`MAX_GROUPS`
-    groups) that moves the lanes (at most four) and writes the pads
-    itself."""
+    and a onesweep launch; past :data:`MAX_GROUPS` groups the wide kernel's
+    four launches, past :data:`WIDE_MAX_GROUPS` the LSD composition) that
+    moves the lanes (at most four) and writes the pads itself."""
     _check_geometry(ids, num_groups, group_size, capacity)
     lanes = list(lanes)
     if len(fills) != len(lanes):
