@@ -299,7 +299,8 @@ P_BACKEND = "gloo-cuda, 4 ranks on one card"
 
 #: the sources whose registers, shared memory and spills the run prints
 PTXAS_SOURCES = ("partition", "merge_scan_chunks", "merge_scan",
-                 "merge_scan_wide", "partition_wide")
+                 "merge_scan_wide", "partition_wide", "partition_msd",
+                 "histogram")
 
 
 def emit(obj) -> None:
@@ -317,6 +318,15 @@ def ptxas_summary(log: str) -> dict:
              "starts_kernel": "starts_kernel",
              "sweep_kernelILb1": "sweep_kernel<slots>",
              "sweep_kernelILb0": "sweep_kernel<moving>",
+             "histogram_range_kernelILb0": "histogram_range_kernel",
+             "histogram_range_kernelILb1": "histogram_range_kernel<weighted>",
+             "histogram_global_kernelILb0": "histogram_global_kernel",
+             "histogram_global_kernelILb1": "histogram_global_kernel<weighted>",
+             "pass_kernelILb0ELb0": "pass_kernel<coarse, moving>",
+             "pass_kernelILb0ELb1": "pass_kernel<coarse, slots>",
+             "pass_kernelILb1ELb0": "pass_kernel<last, moving>",
+             "pass_kernelILb1ELb1": "pass_kernel<last, slots>",
+             "4PlanENS_4Maps": "scan_kernel<starts, tile maps>",
              "PackedLane": "scan_kernel<packed>",
              "LanesILb1": "scan_kernel<lo, hi, tag>",
              "LanesILb0": "scan_kernel<lo, tag>"}
@@ -1673,15 +1683,18 @@ def phase_s(dev, n, group, card) -> dict:
 #: phase (t)'s sizes: the ids of the kernel shapes, K4's grouped block
 T_IDS = 20_000_000
 T_GROUPED_BLOCK = 1 << 23
+#: the blocked MSD shape's capacity (16,384 groups of one, the hot one clips)
+T_MSD_CAPACITY = 1500
 
 
 def k4_huge_check(dev, widen, groups, m=(1 << 31) + 4097) -> dict:
     """K4 past 2**31 ids in slots mode: 2**31 + 4097 ids into ``groups``
-    groups (4: the onesweep kernel; 1025: the wide one), all but 2048 in
-    group 0, so group 0's look-back counts, chunk words and positions pass
-    2**31.  Held without the plain version: the histogram, group 0's slots
-    (each position less the others before it) and the others' slots (their
-    group's start plus their rank), in chunks."""
+    groups (4: the onesweep kernel; 1025: the wide one; 8193: the MSD
+    passes), all but 2048 in group 0, so group 0's look-back counts, chunk
+    words and positions pass 2**31.  Held without the plain version: the
+    histogram, group 0's slots (each position less the others before it)
+    and the others' slots (their group's start plus their rank), in
+    chunks."""
     import numpy as np
     import torch
     from tpu_radix_join_torch.ops.kernels import partition as k4
@@ -1723,20 +1736,26 @@ def phase_t(dev, n, time_ms, device_us, card):
     (A21) on the one card.  Returns ``(launches, rows)``: the main paths'
     launches and, for the final kernels line, one row a wide kernel path
     (``histogram_wide``, ``merge_scan_fanout``, ``merge_scan_wide_fanout``,
-    ``partition_wide``, ``partition_lsd``) at its representative shape.
+    ``partition_wide``, ``partition_msd``) at its representative shape.
 
       (t1) each wide path bit-exact against its plain version (max abs err
-           0): K1 at ``T_IDS`` ids into 256, 1024, 2**14 and 2**16 bins,
-           random and sorted, counts and weight sums; K3 and K5 at fanouts
+           0): K1 (its range tables) at ``T_IDS`` ids into 256, 1024, 2**14,
+           2**15 + 1, 2**16 and 2**17 bins, random, sorted and constant,
+           counts and weight sums, and its global table at 2**18 + 1 bins;
+           K3 and K5 at fanouts
            8, 10 and 12 on (a)'s and (h)'s unions; K4's wide kernel dense
            at 257, 1025 and 4097 groups, and grouped 16 x 32 and 4 x 256
            at ``T_GROUPED_BLOCK`` slots a block, clipped, slots and two
-           moved lanes, each also timed on the LSD composition (the earlier
-           design) on the same inputs; its edges (tile and chunk
-           boundaries, one group across every tile, every id invalid,
-           capacity 1, sorted ids, the cap's 8192 groups) and 2**31 + 4097
-           ids into 1025 groups in slots mode, held by formula; and one
-           group past the cap, dense, on the LSD composition.  Each timed:
+           moved lanes; its edges (tile and chunk boundaries, one group
+           across every tile, every id invalid, capacity 1, sorted ids, the
+           cap's 8192 groups) and 2**31 + 4097 ids into 1025 groups in
+           slots mode, held by formula; K4 past the cap on the MSD passes:
+           dense 8193, 16,385 and 65,537 groups, blocked 16,384 x 1 clipped
+           (``d_lf14``'s layout), grouped 4 x 4096, and 30% of the ids in
+           one group, slots and two moved lanes; its edges (tile
+           boundaries, one group, every id invalid, capacity 1, sorted
+           ids, 2**20 + 1 and 2**24 + 1 groups: three and four passes) and
+           2**31 + 4097 ids into 8193 groups by formula.  Each timed:
            event ms, device ms, the bytes bound at 3.35 TB/s, the library
            call (``torch.bincount``; ``argsort(stable=True)``; none for K3
            / K5), whether it reaches half its bound and whether it beats
@@ -1744,8 +1763,9 @@ def phase_t(dev, n, time_ms, device_us, card):
       (t2) joins of n ⋈ n unique, exact, median of 3 with its spread,
            beside the fanout-5 join each extends, measured here: (a) at
            network fanout 8 and 10, (h) 64-bit at 10, (d) bucketed at
-           local fanout 10 (the wide K4) and 14 (past its cap: the LSD
-           composition), two-level 8 + 10; the first join of each with
+           local fanout 10 (the wide K4) and 14 (past its cap: K1's range
+           tables and the MSD passes), two-level 8 + 10; the first join of
+           each with
            the counts set to 0 shows its wide path launched, the other K4
            path idle and no baseline counter moved;
       (t3) (a) and (d) under ``sort_impl="xla"``, ``partition_impl="sort"``:
@@ -1827,7 +1847,8 @@ def phase_t(dev, n, time_ms, device_us, card):
         return exact(k1.histogram(x, w, num_bins=bins),
                      k1.histogram_plain(x, w, bins), f"K1 {bins} bins {what}")
 
-    for bins in (256, 1024, 1 << 14, 1 << 16):
+    for bins in (256, 1024, 1 << 14, (1 << 15) + 1, 1 << 16, 1 << 17,
+                 (1 << 18) + 1):
         ids = rand(T_IDS, bins + bins // 8)        # ids >= bins ignored
         w = rand(T_IDS, 1 << 32)
         for kind, x in (("random", ids), ("sorted", torch.sort(ids).values)):
@@ -1835,25 +1856,27 @@ def phase_t(dev, n, time_ms, device_us, card):
             k1_exact(x, w, bins, f"{kind} weighted")
         inside = rand(T_IDS, bins)
         srt = torch.sort(inside).values
-        row = timed("histogram_wide", {"ids": T_IDS, "bins": bins},
+        const = torch.full_like(inside, bins - 1)
+        shape = {"ids": T_IDS, "bins": bins, "table": k1.wide_table(bins)}
+        row = timed("histogram_wide", shape,
                     lambda: k1.histogram(inside, num_bins=bins),
                     4 * T_IDS + 4 * bins,
                     k1_exact(inside, None, bins, "timed random"),
                     library=lambda: torch.bincount(inside, minlength=bins),
                     plain=lambda: k1.histogram_plain(inside, None, bins))
-        timed("histogram_wide", {"ids": T_IDS, "bins": bins,
-                                 "sorted": True},
-              lambda: k1.histogram(srt, num_bins=bins), 4 * T_IDS + 4 * bins,
-              k1_exact(srt, None, bins, "timed sorted"),
-              library=lambda: torch.bincount(srt, minlength=bins))
-        timed("histogram_wide", {"ids": T_IDS, "bins": bins,
-                                 "weighted": True},
+        for kind, x in (("sorted", srt), ("constant", const)):
+            timed("histogram_wide", dict(shape, ids_kind=kind),
+                  lambda: k1.histogram(x, num_bins=bins),
+                  4 * T_IDS + 4 * bins,
+                  k1_exact(x, None, bins, f"timed {kind}"),
+                  library=lambda: torch.bincount(x, minlength=bins))
+        timed("histogram_wide", dict(shape, weighted=True),
               lambda: k1.histogram(inside, w, num_bins=bins),
               8 * T_IDS + 4 * bins,
               k1_exact(inside, w, bins, "timed weighted"))
-        if bins == 1024:
+        if bins == 1 << 14:
             rows["histogram_wide"] = row
-        del ids, w, inside, srt
+        del ids, w, inside, srt, const
     # K3 and K5 past 128 partitions on (a)'s and (h)'s unions
     rels_a = [Relation(n, 1, "unique", seed=s).generate(dev)
               for s in (1234, 1235)]
@@ -1891,8 +1914,7 @@ def phase_t(dev, n, time_ms, device_us, card):
             rows["merge_scan_wide_fanout"] = row
         del lo, hi, tag
     del rels_a, rels_h
-    # K4 past 256 groups: the wide kernel dense, then grouped with the clip,
-    # beside the LSD composition on the same inputs
+    # K4 past 256 groups: the wide kernel dense, then grouped with the clip
     key, rid = rand(T_IDS, 1 << 32), rand(T_IDS, 1 << 32)
     fills = [0xFFFFFFFF, 0xFFFFFFFE]
 
@@ -1915,7 +1937,7 @@ def phase_t(dev, n, time_ms, device_us, card):
                              f"K4 lanes {what}"))
         launched = kernels.launch_counts()
         if launched[path] != 2 or sum(launched[k] for k in (
-                "partition", "partition_wide", "partition_lsd")) != 2:
+                "partition", "partition_wide", "partition_msd")) != 2:
             raise AssertionError(f"phase (t) K4 {what}: launches {launched}")
         checks += 2
         return err
@@ -1943,9 +1965,7 @@ def phase_t(dev, n, time_ms, device_us, card):
                     library=lambda: torch.argsort(g, stable=True),
                     plain=lambda: k4.partition_scatter_plain(
                         ids, [key, rid], fills, groups, gsize, cap),
-                    beside={"lsd": lambda: k4._partition_lsd_cuda(
-                        ids, groups, gsize, cap, [key, rid], fills, False),
-                        "slots": lambda: k4.partition_slots(
+                    beside={"slots": lambda: k4.partition_slots(
                             ids, num_groups=groups, group_size=gsize,
                             capacity=cap)})
         if groups == 1025:
@@ -1977,27 +1997,76 @@ def phase_t(dev, n, time_ms, device_us, card):
                               k4.WIDE_MAX_GROUPS, 1, None, "the cap",
                               "partition_wide"))
     del one
-    # one group past the cap: the LSD composition (kernels line's
-    # partition_lsd row)
-    groups = k4.WIDE_MAX_GROUPS + 1
-    ids = rand(T_IDS, groups + groups // 16)
-    err = k4_exact(ids, groups, 1, None, "past the cap", "partition_lsd")
-    g = torch.where(widen(ids) < groups, widen(ids), groups)
-    rows["partition_lsd"] = timed(
-        "partition_lsd", {"ids": T_IDS, "groups": groups, "group_size": 1,
-                          "capacity": None, "lanes": 2},
-        lambda: k4.partition_scatter(ids, [key, rid], fills,
-                                     num_groups=groups),
-        4 * T_IDS + 16 * T_IDS, err,
-        library=lambda: torch.argsort(g, stable=True),
-        plain=lambda: k4.partition_scatter_plain(ids, [key, rid], fills,
-                                                 groups))
-    del ids, g, key, rid
+    # past the cap: the MSD passes (the kernels line's partition_msd row:
+    # dense 16,385), then their edges
+    for name, groups, gsize, cap, hot in (
+            ("dense", 8193, 1, None, False), ("dense", 16385, 1, None, False),
+            ("dense", 65537, 1, None, False),
+            ("blocked", 16384, 1, T_MSD_CAPACITY, False),
+            ("grouped", 4 * 4096, 4096, T_GROUPED_BLOCK, False),
+            ("skewed", 16385, 1, None, True)):
+        ids = rand(T_IDS, groups + groups // 16)   # a few invalid ids
+        if cap is not None:                        # one hot block: clipped
+            ids = torch.where(rand(T_IDS, 2) == 0, ids % gsize, ids)
+        if hot:                                    # 30% in one group
+            ids = torch.where(rand(T_IDS, 10) < 3, 77, ids)
+        shape = {"ids": T_IDS, "groups": groups, "group_size": gsize,
+                 "capacity": cap, "lanes": 2, "input": name,
+                 "passes": len(k4.msd_plan(groups))}
+        err = k4_exact(ids, groups, gsize, cap, shape, "partition_msd")
+        size = k4.out_size(T_IDS, groups, gsize, cap)
+        g = torch.where(widen(ids) < groups, widen(ids), groups)
+        row = timed("partition_msd", shape,
+                    lambda: k4.partition_scatter(
+                        ids, [key, rid], fills, num_groups=groups,
+                        group_size=gsize, capacity=cap),
+                    4 * T_IDS + 8 * T_IDS + 8 * size, err,
+                    library=lambda: torch.argsort(g, stable=True),
+                    plain=lambda: k4.partition_scatter_plain(
+                        ids, [key, rid], fills, groups, gsize, cap),
+                    beside={"slots": lambda: k4.partition_slots(
+                        ids, num_groups=groups, group_size=gsize,
+                        capacity=cap)})
+        if groups == 16385 and not hot:
+            rows["partition_msd"] = row
+        del ids, g
+    msd_errs = []
+    for m in (1, k4.MSD_TILE_IDS - 1, k4.MSD_TILE_IDS, k4.MSD_TILE_IDS + 1,
+              3 * k4.MSD_TILE_IDS + 5):
+        ids = rand(m, 8193 + 512)
+        msd_errs.append(k4_exact(ids, 8193, 1, None, f"msd n={m} dense",
+                                 "partition_msd"))
+        msd_errs.append(k4_exact(ids, 16000, 1000, 5, f"msd n={m} blocked",
+                                 "partition_msd"))
+    one = torch.full((T_IDS,), 9000, dtype=torch.int32, device=dev)
+    msd_errs.append(k4_exact(one, 16385, 1, None, "msd one group",
+                             "partition_msd"))
+    msd_errs.append(k4_exact(one, 16384, 4096, T_GROUPED_BLOCK,
+                             "msd one group, clipped", "partition_msd"))
+    del one
+    msd_errs.append(k4_exact(rand(T_IDS, 1 << 20) + 16385, 16385, 1, None,
+                             "msd every id invalid", "partition_msd"))
+    msd_errs.append(k4_exact(rand(T_IDS, 16385), 16385, 1, 1,
+                             "msd capacity 1", "partition_msd"))
+    msd_errs.append(k4_exact(torch.sort(rand(T_IDS, 16385)).values, 16385,
+                             1, None, "msd sorted", "partition_msd"))
+    for groups in ((1 << 20) + 1, (1 << 24) + 1):   # three and four passes
+        msd_errs.append(k4_exact(rand(min(T_IDS, 1_000_000),
+                                      groups + groups // 16),
+                                 groups, 1, None, f"msd {groups} groups",
+                                 "partition_msd"))
+    del ids, key, rid
     torch.cuda.empty_cache()
     huge = k4_huge_check(dev, widen, 1025)
     checks += huge["checks"]
     emit({"phase": "wide_kernel_edges", "kernel": "partition_wide",
           "checks": len(edge_errs), "max_abs_err": max(edge_errs),
+          "past_2p31": huge, **card})
+    torch.cuda.empty_cache()
+    huge = k4_huge_check(dev, widen, 8193)
+    checks += huge["checks"]
+    emit({"phase": "wide_kernel_edges", "kernel": "partition_msd",
+          "checks": len(msd_errs), "max_abs_err": max(msd_errs),
           "past_2p31": huge, **card})
     torch.cuda.empty_cache()
     emit({"phase": "wide_kernels_checked", "checks": checks,
@@ -2019,13 +2088,13 @@ def phase_t(dev, n, time_ms, device_us, card):
         ("h_f10", dict(network_fanout_bits=10, key_bits=64), True, "h_f5",
          ("merge_scan_wide_fanout",), ()),
         ("d_lf10", dict(bucket, local_fanout_bits=10, max_retries=4), False,
-         "d_f5", ("partition_wide",), ("partition_lsd",)),
+         "d_f5", ("partition_wide",), ("partition_msd",)),
         ("d_lf14", dict(bucket, local_fanout_bits=14, max_retries=4), False,
-         "d_f5", ("partition_lsd", "histogram_wide"), ("partition_wide",)),
+         "d_f5", ("partition_msd", "histogram_wide"), ("partition_wide",)),
         ("two_level_8_10", dict(two, network_fanout_bits=8,
                                 local_fanout_bits=10), False,
          "two_level_5_5", ("partition_wide", "histogram_wide"),
-         ("partition_lsd",)),
+         ("partition_msd",)),
     ]
     twins = {"a_f5": (dict(), False), "h_f5": (dict(key_bits=64), True),
              "d_f5": (bucket, False), "two_level_5_5": (two, False)}
@@ -2102,7 +2171,7 @@ def phase_t(dev, n, time_ms, device_us, card):
             raise AssertionError(f"phase (t) {name} baseline: the counts "
                                  "differ from the kernels'")
         zero = ("radix_histogram", "radix_pass", "partition",
-                "partition_wide", "partition_lsd")
+                "partition_wide", "partition_msd")
         need = ("baseline_sort",) + (("baseline_partition",
                                       "baseline_histogram")
                                      if name == "d" else ())
@@ -2784,7 +2853,7 @@ def check_p6(results: list, seconds: float, card: dict, cases: dict,
 def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
     """(p7)'s checks: the packed join at network fanout 7 equal on every
     rank and to the oracle, packed, with K4's wide kernel (the grouped
-    scatter's 512 groups), not the LSD composition, and no baseline arm
+    scatter's 512 groups), not the MSD passes, and no baseline arm
     launched; emits its line and adds its launches to ``total``."""
     per_rank = [res["cases"]["p7_pack_f7"] for res in results]
     c = per_rank[0]
@@ -2803,7 +2872,7 @@ def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
     launches = {k: sum(r["launches"][k] for r in per_rank)
                 for k in c["launches"]}
     if (plan["codec_r"] != "pack" or plan["codec_s"] != "pack"
-            or launches["partition_wide"] <= 0 or launches["partition_lsd"]
+            or launches["partition_wide"] <= 0 or launches["partition_msd"]
             or launches["merge_scan"] <= 0
             or any(v for k, v in launches.items()
                    if k.startswith("baseline"))):
@@ -4142,8 +4211,8 @@ def main() -> int:
     results["radix_sort"]["shapes"] = k2_shapes
     results["radix_sort"]["histogram_launches"] = launches["radix_histogram"]
     # the wide paths of K1, K3, K5 and K4 (phase (t)), each at its
-    # representative shape, counted under its own name (K4's LSD
-    # composition at one group past the wide kernel's cap)
+    # representative shape, counted under its own name (K4's MSD passes at
+    # 16,385 groups, K1's range tables at 2**14 bins)
     wide_sources = {
         "histogram_wide": sources["histogram"][:2],
         "merge_scan_fanout": (
@@ -4154,7 +4223,7 @@ def main() -> int:
             sources["merge_scan_wide"][1]),
         "partition_wide": ("tpu_radix_join_torch/csrc/partition_wide.cu",
                            sources["partition"][1]),
-        "partition_lsd": ("tpu_radix_join_torch/csrc/partition_lsd.cu",
+        "partition_msd": ("tpu_radix_join_torch/csrc/partition_msd.cu",
                           sources["partition"][1]),
     }
     for name, (src, replaces) in wide_sources.items():

@@ -370,15 +370,15 @@ def test_carry_lanes_cross_chunk_runs():
 @pytest.mark.parametrize("groups,path", [
     (k4.MAX_GROUPS, "onesweep"), (k4.MAX_GROUPS + 1, "wide"),
     (4097, "wide"), (k4.WIDE_MAX_GROUPS, "wide"),
-    (k4.WIDE_MAX_GROUPS + 1, "lsd")])
+    (k4.WIDE_MAX_GROUPS + 1, "msd"), (65537, "msd")])
 def test_the_group_count_alone_picks_the_card_path(monkeypatch, groups, path):
     """The onesweep call up to 256 groups, the wide kernel up to the cap,
-    the LSD composition one group past it."""
+    the MSD passes past it."""
     called = []
     monkeypatch.setattr(k4, "_partition_cuda", lambda *a, wide=False:
                         called.append("wide" if wide else "onesweep"))
-    monkeypatch.setattr(k4, "_partition_lsd_cuda",
-                        lambda *a: called.append("lsd"))
+    monkeypatch.setattr(k4, "_partition_msd_cuda",
+                        lambda *a: called.append("msd"))
     k4._grouping_cuda(None, groups, 1, None, [], [], True)
     assert called == [path]
 

@@ -4,10 +4,11 @@ the JAX package's XLA and sort arms (the arms JAX's ``auto`` takes on the
 CPU), and numpy emulations of the card's wide designs held against the
 plain versions:
 
-  * K1 (``histogram_plain``, ``local_histogram``) at 129, 1024, 4097 and
-    2**16 bins, counts, valid masks and uint32 weights, on random, sorted,
-    constant and out-of-range ids, against JAX ``local_histogram(impl=
-    "xla")`` (uint32 weights against numpy, JAX's Pallas arm holding 128);
+  * K1 (``histogram_plain``, ``local_histogram``) at 129, 1024, 4097,
+    2**14, 2**15 + 1, 2**16 and 2**17 bins, counts, valid masks and
+    uint32 weights, on random, sorted, constant and out-of-range ids,
+    against JAX ``local_histogram(impl="xla")`` (uint32 weights against
+    numpy, JAX's Pallas arm holding 128);
   * K3 and K5 (``merge_count_per_partition``, ``_full``,
     ``merge_count_wide_per_partition``) at fanouts 8, 10 and 12 against
     JAX's XLA path, and the wide binning of
@@ -17,10 +18,13 @@ plain versions:
     ``scatter_to_blocks_grouped``, ``reorder_by_partition`` with ``valid``)
     at 257, 1025 and 4097 groups, dense and blocked (32 x 16 blocks,
     256 x 4), clipped, against JAX's sort arm and a numpy stable oracle,
-    and the LSD composition of ``csrc/partition_lsd.cu`` (clamped groups,
-    8-bit LSD digit passes, block starts, the placing formulas; the card's
-    path past 8192 groups) emulated, up to one group past that cap (the
-    wide kernel below it: ``tests/test_torch_partition_wide.py``);
+    and the MSD passes of ``csrc/partition_msd.cu`` (K1's totals, the
+    starts, a coarse pass by the top digit that drops invalid ids, the
+    segmented passes with their tile maps and per-segment look-back, the
+    final layout and the pads; the card's path past 8192 groups) emulated
+    from one group past that cap to 65,537 groups, dense, blocked, clipped
+    and grouped 4 x 4096, against the plain version and JAX's sort arm
+    (the wide kernel below it: ``tests/test_torch_partition_wide.py``);
   * the packed wire's geometry at fanouts 6-10.
 
 JAX's sort arm is ``lax.sort(is_stable=False)``, so within one group its
@@ -78,7 +82,8 @@ def _ids(kind, n, bins, rng):
     return ids
 
 
-@pytest.mark.parametrize("bins", [129, 1024, 4097, 1 << 16])
+@pytest.mark.parametrize("bins", [129, 1024, 4097, 1 << 14, (1 << 15) + 1,
+                                  1 << 16, 1 << 17])
 @pytest.mark.parametrize("kind", ["random", "sorted", "constant",
                                   "out_of_range"])
 def test_histogram_past_128_bins_equals_jax_xla(bins, kind):
@@ -266,55 +271,149 @@ def _stable_oracle(ids, num_groups, group_size, capacity):
             full[:num_groups].astype(np.uint32))
 
 
-def _lsd_emulation(ids, num_groups, group_size, capacity, lanes=(),
-                   fills=()):
-    """``csrc/partition_lsd.cu`` and its wrapper: each id's group (the
-    invalid group num_groups last) beside its index, 8-bit LSD digit passes
-    (each a stable counting placement) over ceil(log2(num_groups + 1) / 8)
-    digits, the exact totals, each layout block's first sorted position,
-    then the placing formulas: slots over the sorted positions, or each
-    output slot gathered from its block's sorted run or filled."""
+def _kary_search(tile_map, segments, tile, ways):
+    """The last segment whose first tile is <= ``tile``, as the pass kernel
+    finds it: a ``ways``-ary search (256 threads on the card), each round
+    one parallel load a thread and a count of the ones at or below."""
+    a, b = 0, segments
+    while b - a > 1:
+        step = -(-(b - a) // ways)
+        below = sum(1 for i in range(ways)
+                    if a + i * step < b and tile_map[a + i * step] <= tile)
+        a += (below - 1) * step
+        b = min(a + step, b)
+    return a
+
+
+def _msd_emulation(ids, num_groups, group_size, capacity, lanes=(), fills=(),
+                   tile=32, ways=4, seed=0):
+    """``csrc/partition_msd.cu`` and its wrapper, tile by tile: K1's exact
+    totals and the scan's starts; the passes of ``msd_plan`` (the coarse
+    pass over the whole input drops the invalid ids, each later pass takes
+    its tiles from the tile map of its segments, a tile never straddling
+    two, the grid at the upper bound with surplus tiles idle); a look-back
+    word a tile and digit (aggregate, then inclusive, some tiles left at
+    aggregate as a tile still running would be) summed back to the
+    segment's first tile; each digit's base from the starts; the final
+    layout with the clip; the pads written region by region in each
+    block's share.  Returns (slots, hist, outs); every output slot is
+    written exactly once."""
+    rng = np.random.default_rng(seed)
     n = ids.size
-    keys = np.where(ids < num_groups, ids, num_groups).astype(np.int64)
-    index = np.arange(n, dtype=np.int64)
-    passes = -(-int(num_groups).bit_length() // 8)
-    for p in range(passes):
-        digit = (keys >> (8 * p)) & 255
-        counts = np.bincount(digit, minlength=256)
-        cursor = np.cumsum(counts) - counts
-        dest = np.empty(n, np.int64)
-        for i in range(n):            # stable: input order within a digit
-            dest[i] = cursor[digit[i]]
-            cursor[digit[i]] += 1
-        keys_next, index_next = np.empty_like(keys), np.empty_like(index)
-        keys_next[dest], index_next[dest] = keys, index
-        keys, index = keys_next, index_next
-    hist = np.bincount(ids[ids < num_groups].astype(np.int64),
-                       minlength=num_groups)
-    lead = np.concatenate([[0], np.cumsum(hist)])
-    block_start = (lead[[0, num_groups]] if capacity is None
-                   else lead[::group_size])
-    slots = np.full(n, ONES, np.uint32)
-    for p in range(n):
-        g = keys[p]
-        if g < num_groups:
-            if capacity is None:
-                slots[index[p]] = p
-            else:
-                within = p - block_start[g // group_size]
-                if within < capacity:
-                    slots[index[p]] = (g // group_size) * capacity + within
-    region = n if capacity is None else capacity
+    ids64 = ids.astype(np.int64)
+    ok = ids64 < num_groups
+    hist = np.bincount(ids64[ok], minlength=num_groups)
+    starts = np.concatenate([[0], np.cumsum(hist)]).astype(np.int64)
+    plan = k4.msd_plan(num_groups)
     size = n if capacity is None else (num_groups // group_size) * capacity
-    x = np.arange(size)
-    b = x // max(region, 1)
-    w = x - b * region
-    first = block_start[b]
-    filled = w < block_start[b + 1] - first
-    src = np.where(filled, index[np.minimum(first + w, max(n - 1, 0))], 0)
-    outs = [np.where(filled, lane[src], np.uint32(f)).astype(np.uint32)
-            for lane, f in zip(lanes, fills)]
-    return slots, hist.astype(np.uint32), outs
+    slots = np.full(n, ONES, np.uint32)
+    outs = [np.full(size, -1, np.int64) for _ in lanes]
+    # riding: the id, the input index, the moved lanes
+    cur = [ids64, np.arange(n, dtype=np.int64)] + [
+        np.asarray(x, np.int64) for x in lanes]
+    grid = 0
+    for p, (bits, shift) in enumerate(plan):
+        last = p == len(plan) - 1
+        above = shift + bits
+        tiles0 = -(-n // tile)
+        if p == 0:
+            digits, segments = ((num_groups - 1) >> shift) + 1, 1
+            seg_lo, seg_hi = np.array([0]), np.array([n])
+            tile_map = np.array([0, tiles0])
+            grid = tiles0
+        else:
+            digits, segments = 1 << bits, ((num_groups - 1) >> above) + 1
+            q_all = np.arange(segments + 1, dtype=np.int64)
+            bounds = starts[np.minimum(q_all << above, num_groups)]
+            seg_lo, seg_hi = bounds[:-1], bounds[1:]
+            tile_map = np.concatenate([[0], np.cumsum(
+                -(-(seg_hi - seg_lo) // tile))])
+            grid = tiles0 + segments
+        nxt = [np.full(n, -1, np.int64) for _ in cur]
+        words = {}   # tile -> (inclusive, counts a digit)
+        for t in range(grid):
+            if t >= tile_map[segments]:
+                continue                              # a surplus block
+            q = 0 if p == 0 else _kary_search(tile_map, segments, t, ways)
+            first = tile_map[q]
+            assert first <= t < tile_map[q + 1]
+            lo = seg_lo[q] + (t - first) * tile
+            hi = min(seg_hi[q], lo + tile)
+            assert seg_lo[q] <= lo < hi <= seg_hi[q]  # never straddles
+            idv = cur[0][lo:hi]
+            if p == 0:
+                valid = idv < num_groups
+                d = np.where(valid, idv >> shift, digits)
+                slots[cur[1][lo:hi][~valid]] = ONES   # dropped here
+            else:
+                valid = np.ones(hi - lo, bool)
+                d = (idv >> shift) & ((1 << bits) - 1)
+            count = np.bincount(d[valid], minlength=digits)[:digits]
+            before = np.zeros(digits, np.int64)
+            if t > first:
+                k = t - 1
+                while True:                           # the look-back chain
+                    inclusive, c = words[k]
+                    before += c
+                    if inclusive or k == first:
+                        assert inclusive
+                        break
+                    k -= 1
+            words[t] = (t == first or rng.random() < 0.5,
+                        before + count if t > first else count)
+            if t > first and not words[t][0]:
+                words[t] = (False, count)             # still aggregate
+            local_start = np.cumsum(count) - count
+            order = np.argsort(np.where(valid, d, digits), kind="stable")
+            order = order[:int(valid.sum())]
+            dv = d[order]
+            local = np.arange(dv.size) - local_start[dv]
+            r = (q << bits) | np.arange(digits)
+            g = np.minimum(r << shift, num_groups)
+            base = starts[g]
+            if last and capacity is not None:
+                base = base - starts[(g // group_size) * group_size]
+            pos = base[dv] + before[dv] + local
+            rows = [x[lo:hi][order] for x in cur]
+            if not last:
+                for lane, row in zip(nxt, rows):
+                    assert (lane[pos] == -1).all()
+                    lane[pos] = row
+                continue
+            group = (q << bits) | dv
+            if capacity is None:
+                keep, dst = np.ones(dv.size, bool), pos
+            else:
+                keep = pos < capacity
+                dst = (group // group_size) * capacity + pos
+            slots[rows[1]] = np.where(keep, dst, ONES).astype(np.uint32)
+            for out, row in zip(outs, rows[2:]):
+                assert (out[dst[keep]] == -1).all()
+                out[dst[keep]] = row[keep]
+        cur = nxt
+    region = n if capacity is None else capacity
+    if region:
+        share = -(-size // grid) if grid else 0
+        for blk in range(grid):
+            lo_x, hi_x = blk * share, min(size, (blk + 1) * share)
+            b = lo_x // region
+            while b * region < hi_x:
+                if capacity is None:
+                    count = starts[num_groups]
+                else:
+                    count = (starts[min((b + 1) * group_size, num_groups)]
+                             - starts[b * group_size])
+                x0 = max(b * region + min(count, region), lo_x)
+                x1 = min((b + 1) * region, hi_x)
+                for out, f in zip(outs, fills):
+                    if x1 > x0:
+                        assert (out[x0:x1] == -1).all()
+                        out[x0:x1] = f
+                b += 1
+    for out in outs:
+        assert (out >= 0).all()                       # every slot once
+    return (slots, hist.astype(np.uint32),
+            [out.astype(np.uint32) for out in outs])
 
 
 GROUPINGS = [   # id, ids, groups, group_size, capacity
@@ -323,6 +422,10 @@ GROUPINGS = [   # id, ids, groups, group_size, capacity
     ("blocked_32x16", 512, 32, 150), ("blocked_256x4", 1024, 256, 700),
     ("clip_1_4097", 4097, 1, 1),
     ("dense_8193_past_the_wide_cap", k4.WIDE_MAX_GROUPS + 1, 1, None),
+    ("dense_16385", 16385, 1, None), ("dense_65537", 65537, 1, None),
+    ("blocked_16384x1_clipped", 16384, 1, 2),
+    ("blocked_12000_in_1000", 12000, 1000, 300),
+    ("grouped_4x4096", 4 * 4096, 4096, 900),
 ]
 
 
@@ -338,9 +441,11 @@ def _group_ids(rng, n, groups, gsize, hot=True):
                          ids=[g[0] for g in GROUPINGS])
 def test_grouping_past_256_groups_equals_the_stable_contract(case, groups,
                                                              gsize, cap):
-    """K4's plain version (the CPU's K4) and the card's LSD design,
+    """K4's plain version (the CPU's K4) and the card's MSD design,
     emulated, both equal the numpy stable oracle: slots, totals, and two
-    moved lanes with their pad fills."""
+    moved lanes with their pad fills; past the wide kernel's cap the lanes
+    equal JAX's sort arm's bit for bit wherever its order is the contract
+    (counts, overflow, each block's tuples as a set)."""
     rng = np.random.default_rng(len(case) + groups)
     n = 3000
     ids = _group_ids(rng, n, groups, gsize)
@@ -355,14 +460,56 @@ def test_grouping_past_256_groups_equals_the_stable_contract(case, groups,
     outs, hist = k4.partition_scatter(_lane(ids), [_lane(key), _lane(rid)],
                                       fills, num_groups=groups,
                                       group_size=gsize, capacity=cap)
-    e_slots, e_hist, e_outs = _lsd_emulation(ids, groups, gsize, cap,
-                                             (key, rid), fills)
+    e_slots, e_hist, e_outs = _msd_emulation(ids, groups, gsize, cap,
+                                             (key, rid), fills, seed=groups)
     np.testing.assert_array_equal(e_slots, want_slots)
     np.testing.assert_array_equal(e_hist, want_hist)
     for got, emu in zip(outs, e_outs):
         np.testing.assert_array_equal(_np(got), emu)
     kept = want_slots != ONES
     np.testing.assert_array_equal(e_outs[1][want_slots[kept]], rid[kept])
+    if groups > k4.WIDE_MAX_GROUPS:
+        _equals_jax_sort_arm(ids, groups, gsize, cap, key, rid, e_outs,
+                             want_hist)
+
+
+def _equals_jax_sort_arm(ids, groups, gsize, cap, key, rid, outs, hist):
+    """JAX's sort arm (``reorder_by_partition`` dense,
+    ``scatter_to_blocks_grouped`` blocked, ``impl="sort"``) against the
+    MSD emulation's lanes: the totals and the grouped lanes bit for bit
+    where its unstable order is not in play (each group's tuples as a set;
+    blocked: counts, clipped group counts, overflow, unclipped blocks)."""
+    valid = ids < groups
+    batch = JT.TupleBatch(jnp.asarray(key), jnp.asarray(rid))
+    if cap is None:
+        jb, jp, jh, jo = jradix.reorder_by_partition(
+            batch, jnp.asarray(np.where(valid, ids, 0).astype(np.uint32)),
+            groups, valid=jnp.asarray(valid), impl="sort")
+        np.testing.assert_array_equal(np.asarray(jh), hist)
+        m = int(valid.sum())
+        np.testing.assert_array_equal(np.asarray(jp)[:m],
+                                      np.repeat(np.arange(groups), hist))
+        bounds = np.concatenate([[0], np.cumsum(hist.astype(np.int64))])
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            if b > a:
+                assert sorted(zip(outs[0][a:b], outs[1][a:b])) == sorted(
+                    zip(np.asarray(jb.key)[a:b], np.asarray(jb.rid)[a:b]))
+        return
+    blocks = groups // gsize
+    safe = np.where(valid, ids, 0).astype(np.uint32)
+    jb, jc, jg, jo = jradix.scatter_to_blocks_grouped(
+        batch, jnp.asarray(safe // gsize), jnp.asarray(safe % gsize), blocks,
+        gsize, cap, "outer", valid=jnp.asarray(valid), impl="sort")
+    counts = hist.astype(np.int64).reshape(blocks, gsize).sum(1)
+    np.testing.assert_array_equal(np.asarray(jc), counts)
+    kept = np.minimum(np.cumsum(
+        hist.astype(np.int64).reshape(blocks, gsize), 1), cap)
+    np.testing.assert_array_equal(
+        np.asarray(jg).reshape(blocks, gsize),
+        np.concatenate([kept[:, :1], np.diff(kept, axis=1)], 1))
+    assert int(jo) == int(np.maximum(counts - cap, 0).sum())
+    assert _block_sets(outs, blocks, cap, counts) == _block_sets(
+        (jb.key, jb.rid), blocks, cap, counts)
 
 
 def _block_sets(lanes, num_blocks, cap, counts):

@@ -13,9 +13,9 @@ from typing import Dict
 
 #: launches on the card per wrapper since the last :func:`reset_launches`:
 #: each kernel path past the narrow kernels' shared bins counts under its
-#: own name (``histogram_wide``, ``merge_scan_fanout``,
-#: ``merge_scan_wide_fanout``, ``partition_wide``; ``partition_lsd`` past
-#: the wide K4's groups), and the ``baseline_*``
+#: own name (``histogram_wide``, ``merge_scan_fanout``, ``merge_scan_wide_fanout``,
+#: ``partition_wide``; ``partition_msd`` past the wide K4's groups), and
+#: the ``baseline_*``
 #: entries count the calls of the library arms a caller asked for by name
 #: (``sort_impl="xla"``, ``partition_impl="sort"``) on either device
 LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_histogram": 0,
@@ -25,7 +25,7 @@ LAUNCHES: Dict[str, int] = {"histogram": 0, "radix_histogram": 0,
                              "merge_scan_fanout": 0,
                              "merge_scan_wide_fanout": 0,
                              "partition_wide": 0,
-                             "partition_lsd": 0, "baseline_sort": 0,
+                             "partition_msd": 0, "baseline_sort": 0,
                              "baseline_partition": 0,
                              "baseline_histogram": 0}
 

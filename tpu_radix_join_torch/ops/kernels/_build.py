@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("histogram", "radix_sort", "merge_scan", "partition",
            "merge_scan_wide", "merge_scan_chunks", "partition_wide",
-           "partition_lsd")
+           "partition_msd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

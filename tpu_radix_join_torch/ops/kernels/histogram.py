@@ -4,8 +4,11 @@ Counterpart of ``tpu_radix_join/ops/pallas/histogram.py::histogram_pallas``:
 uint32 counts (or wrapping uint32 weight sums) of ``pid`` into
 ``num_bins >= 1`` bins; ids >= ``num_bins`` are ignored.  Up to
 :data:`MAX_BINS` bins the card runs the per-warp tables of ``rj_histogram``
-(launches counted as ``histogram``); past them the per-block or global
-tables of ``rj_histogram_wide`` (counted as ``histogram_wide``).
+(launches counted as ``histogram``); past them ``rj_histogram_wide``
+(counted as ``histogram_wide``), whose table :func:`wide_table` names as
+the kernel picks it, by ``num_bins`` alone: up to :data:`RANGE_MAX_BINS`
+bins the range tables, one a block for a range of at most
+:data:`MAX_RANGE_BINS` bins, past them the global table.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 
 MAX_BINS = 128   # the per-warp tables of the narrow path
+MAX_RANGE_BINS = 1 << 14     # bins a range table holds at most (kMaxRangeBins)
+MAX_RANGES = 8               # ranges at most (kMaxRanges)
+RANGE_MAX_BINS = MAX_RANGES * MAX_RANGE_BINS
 
 
 def histogram_plain(pid: torch.Tensor, weights: Optional[torch.Tensor],
@@ -36,10 +42,18 @@ def histogram_plain(pid: torch.Tensor, weights: Optional[torch.Tensor],
     return narrow(out)
 
 
+def wide_table(num_bins: int) -> str:
+    """The table ``rj_histogram_wide`` counts ``num_bins`` (past
+    :data:`MAX_BINS`) bins in: ``range`` up to :data:`RANGE_MAX_BINS`,
+    else ``global``."""
+    return "range" if num_bins <= RANGE_MAX_BINS else "global"
+
+
 def _histogram_cuda(pid: torch.Tensor, weights: Optional[torch.Tensor],
                     num_bins: int) -> torch.Tensor:
     wide = num_bins > MAX_BINS
-    fn = c_function("histogram", "rj_histogram_wide" if wide else "rj_histogram",
+    fn = c_function("histogram",
+                    "rj_histogram_wide" if wide else "rj_histogram",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     out = torch.empty(num_bins, dtype=torch.int32, device=pid.device)

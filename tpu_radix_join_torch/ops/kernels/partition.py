@@ -16,9 +16,10 @@ by ``num_groups`` alone: up to :data:`MAX_GROUPS` groups one onesweep call
 (``csrc/partition.cu``, launches counted as ``partition``); up to
 :data:`WIDE_MAX_GROUPS` the wide grouping kernel (``csrc/partition_wide.cu``:
 count, carry, starts and one sorting sweep a tile; ``partition_wide``);
-past it the LSD composition (``csrc/partition_lsd.cu``: the groups sorted
-with their indices by K2's stable digit passes, the totals from K1's wide
-path, then one placing launch; ``partition_lsd``).  On the CPU
+past it the MSD passes (``csrc/partition_msd.cu``: the exact totals from
+K1 at ``num_groups`` bins, a scan, then a coarse pass by the top digit and
+segmented passes by the lower ones, :func:`msd_plan`; ``partition_msd``).
+On the CPU
 :func:`partition_scatter_plain` applies the plain slots with the dropped
 ones masked out first (a torch index of -1, the int32 view of
 ``0xFFFFFFFF``, would write the last element).
@@ -35,7 +36,6 @@ from tpu_radix_join_torch.data.tuples import U32_MASK, check_lane, narrow, widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels._build import c_function, check
 from tpu_radix_join_torch.ops.kernels.histogram import histogram
-from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
 
 MAX_GROUPS = 256   # the onesweep call's groups (MAX_PARTITIONS of the TPU kernel)
 MAX_LANES = 4      # lanes one pass on the card moves (csrc/partition.cu)
@@ -43,6 +43,8 @@ TILE_IDS = 4096    # ids a tile of the onesweep launch holds (kTile there)
 WIDE_MAX_GROUPS = 8192   # the wide kernel's groups (kMaxGroups there)
 WIDE_TILE_IDS = 8192     # ids a tile of its sweep holds (kTile there)
 WIDE_CHUNK_TILES = 4     # tiles a block of its count launch takes (kChunk)
+MSD_TILE_IDS = 4096      # ids a tile of an MSD pass holds (kTile there)
+MSD_DIGIT_BITS = 8       # most bits an MSD pass groups by (kDigitBits)
 DROPPED = U32_MASK
 
 
@@ -249,40 +251,46 @@ def _partition_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
     return slots, outs, totals
 
 
-def _partition_lsd_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
+def msd_plan(num_groups: int) -> List[Tuple[int, int]]:
+    """The MSD passes past :data:`WIDE_MAX_GROUPS` groups, most significant
+    first, as (digit bits, shift): a group id of B = bit_length(num_groups
+    - 1) bits in ceil(B / 8) digits (two at least), the bits spread evenly,
+    the earlier passes taking the fewer, as ``plan_for`` in
+    csrc/partition_msd.cu splits them."""
+    b = max(int(num_groups) - 1, 0).bit_length()
+    passes = max(2, -(-b // MSD_DIGIT_BITS))
+    plan, below = [], b
+    for left in range(passes, 0, -1):
+        bits = below // left
+        below -= bits
+        plan.append((bits, below))
+    return plan
+
+
+def _partition_msd_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
                         capacity: Optional[int],
                         lanes: Sequence[torch.Tensor], fills: Sequence[int],
                         with_slots: bool
                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
                                    torch.Tensor]:
     """One grouping past :data:`WIDE_MAX_GROUPS` groups
-    (csrc/partition_lsd.cu): (slots or None, the moved lanes, hist)."""
+    (csrc/partition_msd.cu): K1's totals at ``num_groups`` bins, then one
+    call of the scan and the passes, nothing on the host between them:
+    (slots or None, the moved lanes, hist)."""
     n = ids.numel()
     dev = ids.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    keys_fn = c_function("partition_lsd", "rj_partition_keys",
-                         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    place_fn = c_function("partition_lsd", "rj_partition_place",
-                          [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_void_p])
-    keys = torch.empty(n, dtype=torch.int32, device=dev)
-    index = torch.empty(n, dtype=torch.int32, device=dev)
-    check(keys_fn(ids.data_ptr(), n, num_groups, keys.data_ptr(),
-                  index.data_ptr(), stream), "partition keys kernel")
-    if n > 1:
-        keys, index = radix_sort((keys, index), num_keys=1,
-                                 key_bounds=(num_groups + 1,))
+    bytes_fn = c_function("partition_msd", "rj_partition_msd_scratch_bytes",
+                          [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int], restype=ctypes.c_longlong)
+    fn = c_function("partition_msd", "rj_partition_msd",
+                    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_void_p])
     hist = histogram(ids, num_bins=num_groups)
-    # the first sorted position of every group, then of every layout block
-    lead = torch.cumsum(widen(hist), 0)
-    lead = torch.cat([lead.new_zeros(1), lead])
-    block_start = (lead[[0, num_groups]] if capacity is None
-                   else lead[::group_size].contiguous())
+    nbytes = bytes_fn(n, num_groups, int(with_slots), len(lanes))
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=dev)
     size = out_size(n, num_groups, group_size, capacity)
     slots = torch.empty(n, dtype=torch.int32, device=dev) if with_slots else None
     outs = [torch.empty(size, dtype=torch.int32, device=dev) for _ in lanes]
@@ -290,23 +298,23 @@ def _partition_lsd_cuda(ids: torch.Tensor, num_groups: int, group_size: int,
     ptrs_out = (ctypes.c_void_p * MAX_LANES)(*[a.data_ptr() for a in outs])
     fill_words = (ctypes.c_uint32 * MAX_LANES)(*[int(f) & U32_MASK
                                                  for f in fills])
-    err = place_fn(keys.data_ptr(), index.data_ptr(), n, num_groups,
-                   group_size, -1 if capacity is None else capacity,
-                   block_start.data_ptr(),
-                   slots.data_ptr() if slots is not None else None,
-                   len(lanes), ptrs_in, ptrs_out, fill_words, size, stream)
-    check(err, "partition place kernel")
-    LAUNCHES["partition_lsd"] += 1
+    err = fn(ids.data_ptr(), n, num_groups, group_size,
+             -1 if capacity is None else capacity, hist.data_ptr(),
+             slots.data_ptr() if slots is not None else None, len(lanes),
+             ptrs_in, ptrs_out, fill_words, scratch.data_ptr(), nbytes,
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "partition_msd kernel")
+    LAUNCHES["partition_msd"] += 1
     return slots, outs, hist
 
 
 def _grouping_cuda(ids, num_groups, group_size, capacity, lanes, fills,
                    with_slots):
     """The card's grouping: the onesweep call up to :data:`MAX_GROUPS`
-    groups, the wide kernel up to :data:`WIDE_MAX_GROUPS`, the LSD
-    composition past it."""
+    groups, the wide kernel up to :data:`WIDE_MAX_GROUPS`, the MSD passes
+    past it."""
     if num_groups > WIDE_MAX_GROUPS:
-        return _partition_lsd_cuda(ids, num_groups, group_size, capacity,
+        return _partition_msd_cuda(ids, num_groups, group_size, capacity,
                                    lanes, fills, with_slots)
     return _partition_cuda(ids, num_groups, group_size, capacity, lanes,
                            fills, with_slots, wide=num_groups > MAX_GROUPS)
@@ -338,7 +346,7 @@ def partition_scatter(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
     (uint32 values); dropped tuples are not written.  CPU: plain slots,
     masked and applied over filled outputs; CUDA: one K4 call (a histogram
     and a onesweep launch; past :data:`MAX_GROUPS` groups the wide kernel's
-    four launches, past :data:`WIDE_MAX_GROUPS` the LSD composition) that
+    four launches, past :data:`WIDE_MAX_GROUPS` K1 and the MSD passes) that
     moves the lanes (at most four) and writes the pads itself."""
     _check_geometry(ids, num_groups, group_size, capacity)
     lanes = list(lanes)
