@@ -243,6 +243,31 @@ local probe (JPROC) under ``measure_phases``, and its device busy time.
 The ranks are this script started with ``--phase-p-rank`` (one each); the
 kernels are built before they start.
 
+Phase (u), the planner (ROADMAP A17) and the run ledger (phase_u), after
+(p), its ledger and fits in a temporary directory:
+
+  (u1) three probe rounds on the card, each a ledger row a constant:
+       ``calibrate()`` (the elementwise envelope, the stable
+       ``torch.sort`` stage unit, the dispatch floor, the card's memory),
+       K2 alone on 20,000,000 random keys, K4 on 20,000,000 ids into 32
+       groups, the full-range sort over the narrow one at (a)'s union, the
+       ``partition_impl="sort"`` arm, a random gather and a session's
+       result-cache hit (its executed queries write ``query`` rows);
+       ``fit_profile`` over them, each constant printed with its CI beside
+       the packaged ``h100`` profile's value;
+  (u2) (a)'s workload planned under the packaged ``h100`` and run by
+       ``main --plan auto --ledger-dir`` in this process: exact, the
+       strategy's kernels launched, ``plan_vs_actual`` and PLANDRIFT; the
+       plan's config timed by the registry; the saved plan replayed with
+       ``--plan FILE``;
+  (u3) ``--plan explain --profile auto`` as a subprocess: exit 0, no
+       ``[RESULTS]``, the profile resolved to (u1)'s fit;
+  (u4) 2**26 ⋈ 2**26 planned under a copy of ``h100`` cut to 4 GiB: the
+       chunked plan run with a checkpoint whose fingerprint carries it and
+       ``--grid-pipeline auto`` taking its choice, then the cost table's
+       other grid row replayed; exact, K2 launched, K6 on the synchronous
+       grid.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -2891,6 +2916,379 @@ def check_p7(results: list, seconds: float, card: dict, total: dict) -> None:
           "launches": launches, "collectives": c["collectives"], **card})
 
 
+#: phase (u): probe repeats (run ids chip_smoke:u:<repeat>), the session's
+#: relations, the planned grid's relations and its memory cut, and what
+#: the in-process command lines add (nothing on the card)
+U_REPEATS = 3
+U_SESSION_TUPLES = 1 << 20
+U_GRID_TUPLES = 1 << 26
+U_GRID_HBM_BYTES = 4 << 30
+U_CLI_EXTRA = ()
+
+#: the kernels each planned strategy must launch (its sort arm aside)
+U_STRATEGY_KERNELS = {
+    "incore_fused_sort_narrow": ("merge_scan",),
+    "incore_split_sort_narrow": ("merge_scan",),
+    "incore_fused_sort_full": ("merge_scan_wide",),
+    "incore_split_sort_full": ("merge_scan_wide",),
+    "incore_fused_twolevel": ("histogram", "partition"),
+}
+
+
+def u_expected_kernels(plan) -> tuple:
+    """Counters a planned run must tick: the strategy's kernels, and its
+    sort arm's (K2's passes, or the named baseline arm under
+    ``sort_impl="xla"``); a grid's K2, and K6 on the synchronous grid."""
+    if plan.engine == "chunked":
+        return (("radix_pass", "merge_scan_chunks")
+                if plan.grid_pipeline == "off" else ("radix_pass",))
+    arm = ("baseline_sort",) if plan.sort_impl == "xla" else (
+        "radix_histogram", "radix_pass")
+    return U_STRATEGY_KERNELS[plan.strategy] + arm
+
+
+def phase_u(dev, n, time_ms, card) -> dict:
+    """Cell (u): the planner (ROADMAP A17) and the run ledger on the card.
+
+    (u1) ``U_REPEATS`` probe rounds, each a ledger row a constant under run
+    id ``chip_smoke:u:<round>`` (in a temporary directory): ``calibrate()``
+    on the card (``hbm_gbps``, ``sort_stage_unit_ms``, ``dispatch_floor_ms``,
+    ``hbm_bytes``); a ``--sort-bench``-shaped row from K2 alone on ``n``
+    random keys (``radix_sort_pass_unit_ms``); a ``--partition-bench``-
+    shaped row from K4 on ``n`` ids into 32 groups
+    (``partition_pass_unit_ms``); ``obs`` rows for the full-range sort over
+    the narrow one at (a)'s union (``full_range_sort_factor``), the
+    ``partition_impl="sort"`` arm's rate (``scatter_loop_melems_s``), a
+    random gather (``gather_melems_s``) and a session's cache hit
+    (``result_cache_lookup_ms``, a ``JoinSession(ledger=...)`` whose
+    executed queries write ``query`` rows).  ``fit_profile`` fits them;
+    each fitted constant is printed with its CI beside the packaged
+    ``h100`` profile's value, and the fit is written as
+    ``profile_fitted.json`` in the temporary directory.
+    (u2) (a)'s workload planned under the packaged ``h100`` and run by
+    ``main --plan auto --ledger-dir`` in this process: the oracle's total,
+    the strategy's kernels launched, the plan-vs-actual audit and
+    PLANDRIFT; the plan's config timed by the registry (JTOTAL, median of
+    3); the saved plan replayed with ``--plan FILE``.
+    (u3) ``--plan explain --profile auto --ledger-dir`` as a subprocess:
+    exit 0, no ``[RESULTS]``, the profile resolved to (u1)'s fit.
+    (u4) ``U_GRID_TUPLES`` ⋈ ``U_GRID_TUPLES`` planned under a copy of
+    ``h100`` cut to ``U_GRID_HBM_BYTES`` (a file in the temporary
+    directory): ``--plan auto`` with a checkpoint whose fingerprint carries
+    the plan and ``--grid-pipeline auto`` taking the plan's choice, then
+    the cost table's other grid row replayed with ``--plan FILE``; each
+    exact, K2 launched, K6 on the synchronous grid.
+    Every planned run's ``run`` row is in the ledger.  Returns the planned
+    runs' launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from tpu_radix_join_torch import HashJoin, JoinConfig
+    from tpu_radix_join_torch import main as cli
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.data.tuples import TupleBatch, narrow
+    from tpu_radix_join_torch.observability.ledger import Ledger, load_rows
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.kernels import partition as k4
+    from tpu_radix_join_torch.ops.kernels import radix_sort as k2
+    from tpu_radix_join_torch.ops.merge_count import (_pack_pm, _rotate_pid,
+                                                      _side_tags)
+    from tpu_radix_join_torch.ops.radix import scatter_to_blocks
+    from tpu_radix_join_torch.ops.sorting import (library_sort,
+                                                  sort_lex_unstable,
+                                                  sort_unstable)
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.planner import (Workload, calibrate,
+                                              fit_profile, load_profile,
+                                              plan_join, resolve_profile)
+    from tpu_radix_join_torch.planner.profile import FITTED_PROFILE_BASENAME
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+
+    if dist.is_initialized():
+        raise AssertionError("(u) runs the command line in this process, "
+                             "which leaves any process group")
+    cuda = dev.type == "cuda"
+    smi = card["nvidia_smi"]
+    total = {k: 0 for k in kernels.launch_counts()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_u_")
+    ledger = Ledger(tmp)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    # ------------------------------------------------------------ (u1)
+    packaged = load_profile("h100")
+    probes = {
+        "hbm_gbps": "calibrate() elementwise pass",
+        "sort_stage_unit_ms": "calibrate() stable torch.sort",
+        "dispatch_floor_ms": "calibrate() trivial op and synchronize",
+        "hbm_bytes": "calibrate() mem_get_info",
+        "radix_sort_pass_unit_ms": f"K2 alone on {n} random keys",
+        "partition_pass_unit_ms": f"K4 on {n} ids into 32 groups",
+        "full_range_sort_factor": f"the full-range sort over the narrow "
+                                  f"one at a {2 * n}-position union",
+        "scatter_loop_melems_s": f"the partition_impl=sort arm on {n} ids",
+        "gather_melems_s": f"a random gather of {n} of {n}",
+        "result_cache_lookup_ms": "a JoinSession result-cache hit",
+    }
+    base = packaged.replace_constants(**{
+        k: {"value": packaged.constants[k]["value"],
+            "source": f"chip_smoke.py phase (u): {what} on {smi}"}
+        for k, what in probes.items()})
+    gen = torch.Generator(device="cpu").manual_seed(20261018)
+
+    def lane(hi):
+        return narrow(torch.randint(0, hi, (n,), dtype=torch.int64,
+                                    generator=gen)).to(dev)
+
+    keys, ids = lane(1 << 32), lane(32)
+    rids = torch.arange(n, dtype=torch.int32, device=dev)
+    r_keys = lane(n)
+    s_keys = lane(n)
+    packed = _pack_pm(r_keys, s_keys, 5)
+    rot = torch.cat([_rotate_pid(r_keys, 5), _rotate_pid(s_keys, 5)])
+    tags = _side_tags(r_keys, s_keys)
+    perm = torch.randperm(n, device=dev)
+    cap = n // 32 * 3 // 2
+    batch = TupleBatch(key=keys, rid=rids)
+    svc = ServiceConfig(result_cache_max=8)
+    sess = JoinSession(JoinConfig(), svc, device=dev, ledger=ledger)
+    for qid, seed in (("u-q0", 7), ("u-q1", 8)):
+        sess.submit(QueryRequest(query_id=qid,
+                                 tuples_per_node=U_SESSION_TUPLES,
+                                 seed=seed))
+        out = sess.run_next()
+        if out.status != "ok" or out.matches != out.expected:
+            raise AssertionError(f"(u1) session query {qid}: {out}")
+    rounds = []
+    for rep in range(U_REPEATS):
+        rid = f"chip_smoke:u:{rep}"
+        cal = calibrate(base=base, device=dev)
+        for k in ("hbm_gbps", "sort_stage_unit_ms", "dispatch_floor_ms",
+                  "hbm_bytes"):
+            ledger.append("obs", {"constant": k, "value": cal.value(k)},
+                          run_id=rid)
+        kernel_ms = time_ms(lambda: k2.radix_sort([keys]), reps=5)
+        kv_ms = time_ms(lambda: k2.radix_sort([keys, rids]), reps=5)
+        lib_ms = time_ms(lambda: library_sort([keys, rids], 1), reps=5)
+        ledger.append("bench", {
+            "metric": "radix_sort_speedup", "value": lib_ms / kv_ms,
+            "size": n, "sort_ms": kv_ms, "sort_xla_ms": lib_ms,
+            "sort_kernel_ms": kernel_ms, "sort_passes": 4}, run_id=rid)
+        part_ms = time_ms(lambda: k4.partition_slots(
+            ids, num_groups=32, capacity=cap), reps=5)
+        fused_ms = time_ms(lambda: scatter_to_blocks(
+            batch, ids, 32, cap, "inner"), reps=5)
+        sort_arm_ms = time_ms(lambda: scatter_to_blocks(
+            batch, ids, 32, cap, "inner", impl="sort"), reps=5)
+        ledger.append("bench", {
+            "metric": "partition_fused_speedup",
+            "value": sort_arm_ms / fused_ms, "size": n, "num_blocks": 32,
+            "partition_ms": fused_ms, "partition_kernel_ms": part_ms,
+            "partition_sort_ms": sort_arm_ms}, run_id=rid)
+        narrow_ms = time_ms(lambda: sort_unstable(packed), reps=5)
+        full_ms = time_ms(lambda: sort_lex_unstable(rot, tags, num_keys=1),
+                          reps=5)
+        gather_ms = time_ms(lambda: keys[perm], reps=5)
+        hit = sess.try_cache(QueryRequest(
+            query_id=f"u-hit{rep}", tuples_per_node=U_SESSION_TUPLES,
+            seed=7))
+        if hit is None or hit.served_by != "cache_hit":
+            raise AssertionError(f"(u1) round {rep}: no cache hit: {hit}")
+        for k, v in (("full_range_sort_factor", full_ms / narrow_ms),
+                     ("scatter_loop_melems_s", n / 1e3 / sort_arm_ms),
+                     ("gather_melems_s", n / 1e3 / gather_ms),
+                     ("result_cache_lookup_ms", hit.latency_ms)):
+            ledger.append("obs", {"constant": k, "value": v}, run_id=rid)
+        rounds.append({"kernel_ms": kernel_ms, "kv_ms": kv_ms,
+                       "library_ms": lib_ms, "partition_kernel_ms": part_ms,
+                       "partition_ms": fused_ms,
+                       "partition_sort_ms": sort_arm_ms,
+                       "narrow_sort_ms": narrow_ms, "full_sort_ms": full_ms,
+                       "gather_ms": gather_ms, "hit_ms": hit.latency_ms})
+    sess.close()
+    queries = load_rows(tmp, kind="query")
+    if [q["query_id"] for q in queries] != ["u-q0", "u-q1"]:
+        raise AssertionError(f"(u1) session ledger rows: {queries}")
+    del keys, ids, rids, r_keys, s_keys, packed, rot, tags, perm, batch
+    fitted, fits = fit_profile(load_rows(tmp), base=base, name="h100",
+                               min_samples=2)
+    fitted = dataclasses.replace(fitted, notes=(
+        f"{smi}; fitted by chip_smoke.py phase (u) from {U_REPEATS} probe "
+        f"rounds (calibrate() and the K2, K4, sort, gather and result-cache "
+        f"probes); ici_gbps and ici_bytes_per_s unset (no interconnect "
+        f"measured)"))
+    want = set(probes)
+    if set(fits) != want:
+        raise AssertionError(f"(u1) fitted {sorted(fits)}, not "
+                             f"{sorted(want)}")
+    for k, f in fits.items():
+        src = fitted.source(k)
+        if not (f.value > 0 and f.n >= 2 and src.startswith("fit:")
+                and card["name"] in src):
+            raise AssertionError(f"(u1) {k}: {f} {src!r}")
+    fit_path = fitted.save(os.path.join(tmp, FITTED_PROFILE_BASENAME))
+    emit({"phase": "profile_fit", "rounds": rounds,
+          "constants": {k: {"value": f.value, "ci95": list(f.ci95),
+                            "n": f.n, "residual": f.residual,
+                            "packaged": packaged.constants[k]["value"]}
+                        for k, f in sorted(fits.items())},
+          "profile": fitted.to_dict(), **card})
+
+    # ------------------------------------------------------------ (u2)
+    def cli_run(cell, argv):
+        """``main(argv)`` in this process with the launch counts set to 0:
+        (its JSON line, the [PLAN] lines, the launches)."""
+        buf = io.StringIO()
+        sync()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*argv, *U_CLI_EXTRA])
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        lines = buf.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"(u) {cell}: exit {rc}: {lines[-5:]}")
+        doc = json.loads(lines[-1])
+        return doc, [x for x in lines if x.startswith("[PLAN]")], got
+
+    def check_run(cell, plan, doc, plan_lines, got, expected):
+        if not plan_lines or not plan_lines[0].startswith(
+                f"[PLAN] strategy={plan.strategy} "):
+            raise AssertionError(f"(u) {cell}: {plan_lines}")
+        if doc["matches"] != expected or not doc["ok"]:
+            raise AssertionError(f"(u) {cell}: {doc['matches']} matches, "
+                                 f"the oracle {expected}")
+        pva = doc.get("plan_vs_actual") or {}
+        if (pva.get("strategy") != plan.strategy
+                or "PLANDRIFT" not in doc["counters"]):
+            raise AssertionError(f"(u) {cell}: no audit: {pva}")
+        for k in u_expected_kernels(plan):
+            if got[k] <= 0:
+                raise AssertionError(f"(u) {cell}: {plan.strategy} did not "
+                                     f"launch {k}: {got}")
+        emit({"phase": "planner", "cell": cell, "strategy": plan.strategy,
+              "engine": plan.engine, "sort_impl": plan.sort_impl,
+              "grid_pipeline": plan.grid_pipeline,
+              "chunk_tuples": plan.chunk_tuples,
+              "predicted_ms": plan.predicted_ms,
+              "predicted_terms": plan.predicted_terms,
+              "actual_ms": pva["actual_ms"], "drift_pct": pva["drift_pct"],
+              "plandrift": doc["counters"]["PLANDRIFT"],
+              "launches": {k: v for k, v in got.items() if v}, **card})
+        return pva
+
+    # the packaged profile as the command line loads it
+    packaged = load_profile("h100")
+    work_a = Workload(r_tuples=n, s_tuples=n, key_bound=n)
+    plan_a, costs_a = plan_join(packaged, work_a)
+    emit({"phase": "planner", "cell": "u_costs_a",
+          "costs": [c.to_dict() for c in costs_a], **card})
+    doc, plan_lines, got = cli_run("u_a_auto", [
+        "--plan", "auto", "--tuples-per-node", str(n), "--ledger-dir", tmp])
+    pva_a = check_run("u_a_auto", plan_a, doc, plan_lines, got, n)
+    # the plan's config alone, JTOTAL by the registry (median of 3)
+    meas = Measurements()
+    eng = HashJoin(dataclasses.replace(JoinConfig(),
+                                       **plan_a.config_kwargs()),
+                   device=dev, measurements=meas)
+    from tpu_radix_join_torch import Relation
+    r = eng.place(Relation(n, 1, "unique", seed=1234))
+    s = eng.place(Relation(n, 1, "unique", seed=1235))
+    jt = []
+    for _ in range(4):
+        before = meas.times_us.get("JTOTAL", 0.0)
+        if eng.join_arrays(r, s, key_bound=n).matches != n:
+            raise AssertionError("(u2) the plan's config is not exact")
+        jt.append((meas.times_us["JTOTAL"] - before) / 1e3)
+    del r, s, eng
+    emit({"phase": "planner", "cell": "u_a_jtotal",
+          "strategy": plan_a.strategy, "predicted_ms": plan_a.predicted_ms,
+          "jtotal_ms": jt, "jtotal_median_ms": statistics.median(jt[1:]),
+          "cli_actual_ms": pva_a["actual_ms"], **card})
+    plan_path = plan_a.save(os.path.join(tmp, "plan_a.json"))
+    doc, plan_lines, got = cli_run("u_a_replay", [
+        "--plan", plan_path, "--tuples-per-node", str(n),
+        "--ledger-dir", tmp])
+    check_run("u_a_replay", plan_a, doc, plan_lines, got, n)
+
+    # ------------------------------------------------------------ (u3)
+    if resolve_profile("auto", ledger_dir=tmp) != fit_path:
+        raise AssertionError("(u3) --profile auto did not resolve to the "
+                             "fit")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_radix_join_torch.main", "--plan",
+         "explain", "--profile", "auto", "--ledger-dir", tmp,
+         "--tuples-per-node", str(n), *U_CLI_EXTRA],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if (proc.returncode != 0 or "[RESULTS]" in proc.stdout
+            or f"[PROFILE] auto -> {fit_path}" not in proc.stderr
+            or "chosen:" not in proc.stdout
+            or "provenance/staleness" not in proc.stdout):
+        raise AssertionError(f"(u3) --plan explain: exit {proc.returncode}"
+                             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    emit({"phase": "planner", "cell": "u_explain",
+          "table": proc.stdout.splitlines(), **card})
+
+    # ------------------------------------------------------------ (u4)
+    cut = packaged.replace_constants(
+        name="h100_4gib", hbm_bytes={
+            "value": U_GRID_HBM_BYTES,
+            "source": f"chip_smoke.py phase (u): h100 cut to "
+                      f"{U_GRID_HBM_BYTES} bytes"})
+    cut_path = cut.save(os.path.join(tmp, "h100_4gib.json"))
+    plan_g, costs_g = plan_join(cut, Workload(
+        r_tuples=U_GRID_TUPLES, s_tuples=U_GRID_TUPLES,
+        key_bound=U_GRID_TUPLES))
+    if plan_g.engine != "chunked":
+        raise AssertionError(f"(u4) the 4 GiB plan is {plan_g}")
+    other = ("chunked_grid" if plan_g.strategy == "chunked_grid_pipelined"
+             else "chunked_grid_pipelined")
+    row = next(c for c in costs_g if c.strategy == other)
+    plan_o = dataclasses.replace(
+        plan_g, strategy=other, predicted_ms=row.cost_ms,
+        predicted_terms={k: round(v, 4) for k, v in row.terms.items()},
+        grid_pipeline="on" if other.endswith("_pipelined") else "off")
+    emit({"phase": "planner", "cell": "u_costs_grid",
+          "costs": [c.to_dict() for c in costs_g], **card})
+    for cell, plan, argv in (
+            ("u_grid_auto", plan_g, ["--plan", "auto", "--profile",
+                                      cut_path]),
+            ("u_grid_replay", plan_o, ["--plan", plan_o.save(
+                os.path.join(tmp, "plan_grid.json"))])):
+        ckpt = os.path.join(tmp, cell)
+        doc, plan_lines, got = cli_run(cell, [
+            *argv, "--tuples-per-node", str(U_GRID_TUPLES),
+            "--checkpoint-dir", ckpt, "--ledger-dir", tmp])
+        check_run(cell, plan, doc, plan_lines, got, U_GRID_TUPLES)
+        with open(os.path.join(ckpt, "grid.ckpt")) as f:
+            fp = json.load(f)["fingerprint"]
+        if (doc["grid_pipeline"] != plan.grid_pipeline
+                or doc["chunk_tuples"] != plan.chunk_tuples
+                or fp.get("plan") != {"strategy": plan.strategy,
+                                      "chunk_tuples": plan.chunk_tuples}):
+            raise AssertionError(f"(u4) {cell}: {doc['grid_pipeline']}, "
+                                 f"{doc['chunk_tuples']}, {fp}")
+    runs = load_rows(tmp, kind="run")
+    if (len(runs) != 4 or not all(r.get("plan") and r.get("plan_vs_actual")
+                                  for r in runs)):
+        raise AssertionError(f"(u) ledger run rows: {len(runs)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "planner", "cell": "u_done",
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4185,6 +4583,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_p = phase_p(dev, card)
     launches = {k: v + launches_p.get(k, 0) for k, v in launches.items()}
+
+    # (u): the planner's cost model fitted on this card and its plans run
+    torch.cuda.empty_cache()
+    launches_u = phase_u(dev, n_main, time_ms, card)
+    launches = {k: v + launches_u[k] for k, v in launches.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

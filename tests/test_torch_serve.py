@@ -269,13 +269,15 @@ def test_breaker_trip_degrade_probe_recover_equal_jax():
 
 
 def test_session_refuses_unported_arguments_and_closes_twice():
-    for kw in ({"forensics_dir": "x"}, {"ledger": object()},
+    for kw in ({"forensics_dir": "x"},
                {"membership": object()}, {"elastic": True},
                {"elastic_grow": True}, {"hedge": "on"},
                {"partition_manifest": object()}):
         with pytest.raises(NotImplementedError, match="A18"):
             tsvc.JoinSession(JoinConfig(), device="cpu", **kw)
-    sess = tsvc.JoinSession(JoinConfig(), device="cpu")
+    ledger = object()                  # ported: one row an executed query
+    sess = tsvc.JoinSession(JoinConfig(), device="cpu", ledger=ledger)
+    assert sess.ledger is ledger
     with pytest.raises(NotImplementedError, match="A18"):
         sess.attach_heartbeat("hb.jsonl", 1.0)
     sess.close()

@@ -300,10 +300,20 @@ def test_service_config_carries_across():
 def test_profile_is_the_ports_own():
     prof = load_profile()
     assert prof.name == "h100"
-    assert all(v is None for v in prof.fingerprint()["constants"].values())
     assert set(prof.constants) == set(j_load_profile().constants)
-    with pytest.raises(ProfileError):
-        prof.value("hbm_gbps")                 # unset, not a TPU number
+    card = prof.notes.split(";")[0]            # name, power limit
+    tpu = j_load_profile()
+    for key in prof.constants:
+        if not prof.is_set(key):
+            continue
+        # measured on the card: cited to a calibration or a fit naming it,
+        # and no TPU number
+        assert prof.source(key).startswith(("calibrate:", "fit:"))
+        assert "H100" in card and card in prof.source(key)
+        assert prof.value(key) > 0 and prof.value(key) != tpu.value(key)
+    for key in ("ici_gbps", "ici_bytes_per_s"):
+        with pytest.raises(ProfileError, match="unset"):
+            prof.value(key)                    # no interconnect measured
     with pytest.raises(ProfileError):
         load_profile("v5e_lite")
 

@@ -57,6 +57,16 @@ both relations streamed in device-generated chunks of N tuples, every
 chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
 ``--resume`` continues from (a checkpoint of the JAX package's CLI
 resumes here too, and the reverse).
+``--plan auto`` prices every execution discipline under ``--profile``'s
+constants (planner/: the cost model, ``plan_join``) and runs the cheapest:
+its ``[PLAN]`` line, ``meta["plan"]``, the plan's JoinConfig, a chunked
+plan's ``--grid-chunk-tuples`` and ``--grid-pipeline``, and the
+plan-vs-actual audit (``[PLAN] actual_ms=...``, PLANDRIFT); ``--plan
+FILE`` replays a saved plan; ``--plan explain`` prints the cost table and
+the profile's provenance and exits 0 without joining.  ``--profile auto``
+takes the ledger's fresh ``profile_fitted.json``, else ``h100``;
+``--ledger-dir`` appends one run row at exit (and a row a query under
+``--serve``).
 
 Usage:
     python -m tpu_radix_join_torch.main --tuples-per-node 20000000
@@ -74,6 +84,8 @@ Usage:
     python -m tpu_radix_join_torch.main --pipeline-repeats --repeat 3 --generation host
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --exchange-codec pack --exchange-stages 4 --verify check
     python -m tpu_radix_join_torch.main --serve requests.jsonl --probe bucket --result-cache 8 --resident-budget-mb 1024
+    python -m tpu_radix_join_torch.main --plan auto --tuples-per-node 20000000 --ledger-dir /tmp/ledger
+    python -m tpu_radix_join_torch.main --plan explain --profile auto --ledger-dir /tmp/ledger
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --serve requests.jsonl
 """
 
@@ -81,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -289,14 +302,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--breaker-cooldown-s", type=float, default=30.0,
                    help="serve mode: seconds the breaker stays open before "
                         "its half-open health probe")
+    p.add_argument("--plan", default=None, metavar="auto|explain|FILE",
+                   help="planner (planner/): 'auto' prices every execution "
+                        "discipline against the --profile constants and "
+                        "runs the cheapest feasible one; 'explain' prints "
+                        "the per-strategy cost table and the profile's "
+                        "provenance and exits without joining; a path "
+                        "replays a saved JoinPlan JSON")
     p.add_argument("--plan-cache-dir", default=None,
-                   help="serve mode: persist the engine's converged window "
-                        "capacities here (fingerprinted by the profile, the "
-                        "shapes and the config), so a later run skips the "
-                        "sizing pass; default: a session-private directory")
+                   help="persist the engine's converged window capacities "
+                        "(and a --plan auto plan) here, fingerprinted by "
+                        "the profile, the shapes and the config, so a later "
+                        "run skips planning and the sizing pass; serve "
+                        "mode's default: a session-private directory")
     p.add_argument("--profile", default="h100",
-                   help="device profile the plan cache is keyed under: a "
-                        "packaged name ('h100') or a profile JSON path")
+                   help="device profile of the planner and the plan cache: "
+                        "a packaged name ('h100', fitted on the card), a "
+                        "profile JSON path, or 'auto': the ledger's fitted "
+                        "profile_fitted.json while fresh, else 'h100'")
+    p.add_argument("--ledger-dir", default=None,
+                   help="append this run's distilled registry (phase times, "
+                        "counters, plan and plan-vs-actual) to the run "
+                        "ledger here at exit, and in serve mode one row a "
+                        "query (observability/ledger.py; default: "
+                        "$TPU_RADIX_LEDGER_DIR, else off); --profile auto "
+                        "and --plan explain read it")
     p.add_argument("--fleet", type=int, default=None, metavar="N",
                    help="not ported (ROADMAP A16b): the fleet supervisor")
     p.add_argument("--statusz", type=int, default=None, metavar="PORT",
@@ -304,16 +334,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _run_grid(args, inner, outer, expected) -> int:
+def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
     """Grid mode: both relations streamed in device-generated chunks,
     every (inner, outer) chunk pair probed once; slabs of
-    ``min(chunk, 2**20)``.  Prints one JSON line; a classified failure
-    (``failure_class`` on the exception) prints it and returns 1."""
+    ``min(chunk, 2**20)``.  ``--grid-pipeline auto`` takes a chunked
+    plan's choice, and a plan is folded into the checkpoint's fingerprint
+    and audited against the grid's JTOTAL.  Prints one JSON line; a
+    classified failure (``failure_class`` on the exception) prints it and
+    returns 1."""
     from tpu_radix_join_torch.core.device import resolve_device
     from tpu_radix_join_torch.data.streaming import stream_chunks_device
     from tpu_radix_join_torch.ops import kernels
     from tpu_radix_join_torch.ops.chunked import chunked_join_grid
-    from tpu_radix_join_torch.performance.measurements import Measurements
+    from tpu_radix_join_torch.planner.audit import audit_plan, phase_snapshot
     from tpu_radix_join_torch.robustness.retry import RetryPolicy
 
     dev = resolve_device(args.device)
@@ -330,10 +363,16 @@ def _run_grid(args, inner, outer, expected) -> int:
     policy = (RetryPolicy(max_attempts=args.max_retries + 1,
                           base_delay_s=0.5, jitter=0.1)
               if args.max_retries else None)
-    meas = Measurements()
+    # "auto" defers to a chunked plan (the cost model priced both grid
+    # rows); an explicit off/on wins
+    pipeline = args.grid_pipeline
+    if pipeline == "auto" and plan is not None and plan.engine == "chunked":
+        pipeline = plan.grid_pipeline
     cuda = dev.type == "cuda"
     kernels.reset_launches()
+    times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
+    meas.start("JTOTAL")
     try:
         total = chunked_join_grid(
             stream_chunks_device(inner, 0, chunk, dev),
@@ -341,17 +380,25 @@ def _run_grid(args, inner, outer, expected) -> int:
             min(chunk, 1 << 20), checkpoint_path=ckpt_path,
             checkpoint_tag=tag, progress=True, key_range=args.key_range,
             measurements=meas, retry_policy=policy,
-            pipeline=args.grid_pipeline, sort_impl=args.sort_impl)
+            pipeline=pipeline, sort_impl=args.sort_impl, plan=plan)
     except Exception as e:
         cls = getattr(e, "failure_class", None)
         if cls is None:
             raise
+        meas.stop("JTOTAL")
+        meas.meta["failure_class"] = cls
         print(json.dumps({"ok": False, "failure_class": cls,
                           "error": str(e)}))
         return 1
     if cuda:
         torch.cuda.synchronize(dev)
+    meas.stop("JTOTAL")
     grid_s = time.perf_counter() - t0
+    audit = audit_plan(plan, meas, times0=times0)
+    if audit is not None:
+        print(f"[PLAN] actual_ms={audit['actual_ms']:.1f} "
+              f"predicted_ms={audit['predicted_ms']:.1f} "
+              f"drift={audit['drift_pct']:.1f}%")
     pairs = meas.counters.get("GRIDPAIRS", 0)
     ok = expected is None or total == expected
     if args.output_dir:
@@ -363,11 +410,116 @@ def _run_grid(args, inner, outer, expected) -> int:
         "pairs": pairs, "pairs_per_s": pairs / grid_s,
         "matches_per_s": total / grid_s,
         "counters": dict(meas.counters), "launches": kernels.launch_counts(),
-        "chunk_tuples": chunk, "grid_pipeline": args.grid_pipeline,
+        "chunk_tuples": chunk, "grid_pipeline": pipeline,
         "key_range": args.key_range,
+        "plan": plan.strategy if plan is not None else None,
+        "plan_vs_actual": audit,
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
     }))
     return 0 if ok else 1
+
+
+def _ledger_dir(args):
+    """The run ledger's directory: the flag, then $TPU_RADIX_LEDGER_DIR;
+    None keeps no ledger."""
+    return args.ledger_dir or os.environ.get("TPU_RADIX_LEDGER_DIR")
+
+
+def _ledger_flush(args, meas) -> None:
+    """Append this run's registry as one ``run`` row at exit.  A run that
+    measured nothing (``--plan explain``) writes none; a failed write is a
+    line on stderr, never the run's exit code."""
+    d = _ledger_dir(args)
+    if not d or (not meas.times_us and not meas.counters):
+        return
+    try:
+        from tpu_radix_join_torch.observability.ledger import (Ledger,
+                                                               run_payload)
+        led = Ledger(d)
+        row = led.append("run", run_payload(meas))
+        print(f"[OBS] ledger row {row['run_id']} -> {led.path}",
+              file=sys.stderr)
+    except Exception as e:   # noqa: BLE001 — the ledger never fails a run
+        print(f"[OBS] ledger append failed: {e!r}", file=sys.stderr)
+
+
+def _plan(args, nodes: int, rank: int, meas):
+    """The planner's part of a join run (``tpu_radix_join/main.py:
+    1520-1630``): (rc, plan, costs, plan cache).  ``rc`` is not None when
+    the run ends here: 0 after ``--plan explain`` has printed the cost
+    table and the profile's provenance (staleness from the ledger's
+    rows); 2 on a plan-cache manifest of another topology or profile, an
+    unreadable plan or profile, or a profile constant the plan needs and
+    the profile leaves unset."""
+    from tpu_radix_join_torch.planner import (PlanError, ProfileError,
+                                              load_profile)
+
+    try:
+        return _plan_with(args, nodes, rank, meas, load_profile(args.profile))
+    except (PlanError, ProfileError) as e:
+        print(f"[PLAN] {e}", file=sys.stderr)
+        return 2, None, None, None
+
+
+def _plan_with(args, nodes, rank, meas, profile):
+    from tpu_radix_join_torch.planner import (JoinPlan, ManifestMismatch,
+                                              PlanCache, Workload,
+                                              explain_table, plan_join)
+
+    global_size = args.tuples_per_node * nodes
+    plan = costs = plan_cache = None
+    if args.plan_cache_dir:
+        plan_cache = PlanCache(args.plan_cache_dir, profile,
+                               measurements=meas)
+        try:
+            plan_cache.check_manifest(nodes)
+        except ManifestMismatch as e:
+            print(f"[PLAN] {e}", file=sys.stderr)
+            return 2, None, None, None
+        plan_cache.write_manifest(nodes, rank=rank)
+    if args.plan in ("auto", "explain"):
+        workload = Workload(r_tuples=global_size, s_tuples=global_size,
+                            key_bound=global_size,   # keys lie in [0, N)
+                            num_nodes=nodes, repeats=args.repeat)
+        wl_fp = {"workload": dataclasses.asdict(workload)}
+        if plan_cache is not None and args.plan == "auto":
+            plan, _ = plan_cache.lookup(global_size, global_size, wl_fp)
+        if plan is None:
+            plan, costs = plan_join(profile, workload)
+            if args.plan == "explain":
+                from tpu_radix_join_torch.observability.ledger import (
+                    default_ledger_dir, load_rows)
+                from tpu_radix_join_torch.planner import (detect_stale,
+                                                          format_provenance)
+                if rank == 0:
+                    print(explain_table(costs, plan))
+                    ld = _ledger_dir(args) or default_ledger_dir()
+                    print(format_provenance(
+                        profile, stale=detect_stale(load_rows(ld))))
+                return 0, plan, costs, plan_cache
+            if plan_cache is not None:
+                plan_cache.store(global_size, global_size, wl_fp, plan=plan)
+    elif args.plan is not None:
+        plan = JoinPlan.load(args.plan)
+    if plan is not None:
+        if rank == 0:
+            print(f"[PLAN] strategy={plan.strategy} engine={plan.engine} "
+                  f"predicted_ms={plan.predicted_ms:.1f} "
+                  f"profile={plan.profile_name or profile.name}")
+        meas.meta["plan"] = plan.to_dict()
+        meas.event("plan_decision", strategy=plan.strategy,
+                   engine=plan.engine,
+                   predicted_ms=round(plan.predicted_ms, 3))
+        # the JAX registry tags its spans with these (ROADMAP A18d)
+        meas.meta["trace_tags"] = {"strategy": plan.strategy,
+                                   "engine": plan.engine}
+        if plan.engine == "chunked" and nodes == 1:
+            if args.grid_chunk_tuples is None:
+                args.grid_chunk_tuples = plan.chunk_tuples or (1 << 20)
+        elif plan.engine == "chunked" and rank == 0:
+            print("[PLAN] the chunked engine runs on one rank; keeping the "
+                  "in-core engine at this world size", file=sys.stderr)
+    return None, plan, costs, plan_cache
 
 
 def main(argv=None) -> int:
@@ -395,6 +547,10 @@ def main(argv=None) -> int:
     if args.serve == "-" and args.nodes > 1:
         parser.error("--serve - reads stdin, which only one rank has: give "
                      "every rank the same request FILE")
+    if args.profile == "auto":
+        from tpu_radix_join_torch.planner import resolve_profile
+        args.profile = resolve_profile("auto", ledger_dir=_ledger_dir(args))
+        print(f"[PROFILE] auto -> {args.profile}", file=sys.stderr)
     from tpu_radix_join_torch.parallel import multihost
 
     group = None
@@ -518,9 +674,13 @@ def _run_serve(args, group) -> int:
         batch_window_ms=args.batch_window_ms,
         batch_max_queries=args.batch_max,
         resident_budget_bytes=int(args.resident_budget_mb * (1 << 20)))
+    ledger = None
+    if _ledger_dir(args):
+        from tpu_radix_join_torch.observability.ledger import Ledger
+        ledger = Ledger(_ledger_dir(args))
     session = JoinSession(_join_config(args), svc, measurements=meas,
                           plan_cache=plan_cache, profile=args.profile,
-                          device=args.device, group=group)
+                          device=args.device, group=group, ledger=ledger)
     # the coalescer is the serve loop's (no threads of its own), on the
     # session's clock (rank 0's over several ranks)
     batcher = MicroBatcher(svc.batch_window_ms, svc.batch_max_queries,
@@ -604,15 +764,47 @@ def _run_serve(args, group) -> int:
         return 1 if (errors or summary.get("queries_failed", 0)) else 0
     finally:
         session.close()
+        _ledger_flush(args, meas)
 
 
 def _run_join(args, group) -> int:
     """One join of ``--nodes`` ranks (or the grid), its result line from
-    rank 0; every rank returns 1 unless the result equals the oracle."""
+    rank 0; every rank returns 1 unless the result equals the oracle.  The
+    registry's run row goes to the ledger at exit (``--ledger-dir``)."""
+    from tpu_radix_join_torch.performance.measurements import Measurements
+
+    rank = dist.get_rank(group) if group is not None else 0
+    meas = Measurements(node_id=rank, num_nodes=args.nodes)
+    try:
+        return _join_body(args, group, rank, meas)
+    finally:
+        _ledger_flush(args, meas)
+
+
+def _join_body(args, group, rank, meas) -> int:
     from tpu_radix_join_torch import HashJoin, Relation
+    from tpu_radix_join_torch.performance.measurements import (RESULTS,
+                                                               print_results)
+    from tpu_radix_join_torch.planner.audit import (actuals_for_explain,
+                                                    audit_plan,
+                                                    phase_snapshot)
 
     nodes = args.nodes
+    cfg = _join_config(args)
+    plan = costs = plan_cache = None
+    if args.plan is not None or args.plan_cache_dir:
+        rc, plan, costs, plan_cache = _plan(args, nodes, rank, meas)
+        if rc is not None:
+            return rc
+        if (plan is not None and plan.engine == "incore"
+                and args.grid_chunk_tuples is None):
+            cfg = dataclasses.replace(cfg, **plan.config_kwargs())
+            if (plan.pipeline_repeats and args.repeat > 1
+                    and not cfg.measure_phases):
+                args.pipeline_repeats = True
     n = args.tuples_per_node * nodes
+    meas.meta.update(tuples_per_node=args.tuples_per_node, global_size=n,
+                     config=vars(args))
     inner = Relation(n, nodes, "unique", seed=args.seed)
     outer_kw = {}
     if args.outer_kind == "modulo":
@@ -624,16 +816,10 @@ def _run_join(args, group) -> int:
                      **outer_kw)
     expected = inner.expected_matches(outer)
     if args.grid_chunk_tuples is not None:
-        return _run_grid(args, inner, outer, expected)
+        return _run_grid(args, inner, outer, expected, meas, plan=plan)
 
-    from tpu_radix_join_torch.performance.measurements import (
-        RESULTS, Measurements, print_results)
-
-    cfg = _join_config(args)
-    rank = dist.get_rank(group) if group is not None else 0
-    meas = Measurements(node_id=rank, num_nodes=nodes)
     engine = HashJoin(cfg, device=args.device, group=group,
-                      measurements=meas)
+                      measurements=meas, plan_cache=plan_cache)
     # generation is set-up, outside the join's timers (main.cpp:94-116)
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
@@ -642,6 +828,7 @@ def _run_join(args, group) -> int:
         torch.cuda.synchronize(engine.device)
     trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
                  if args.trace else contextlib.nullcontext())
+    times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
     with trace_ctx:
         if args.pipeline_repeats and args.repeat > 1:
@@ -655,6 +842,8 @@ def _run_join(args, group) -> int:
     join_s = (time.perf_counter() - t0) / args.repeat
     ok = result.ok and (expected is None or result.matches == expected)
     meas.meta["failure_class"] = result.diagnostics["failure_class"]
+    # plan-vs-actual: the measured JTOTAL against the plan's prediction
+    audit = audit_plan(plan, meas, repeats=args.repeat, times0=times0)
     if args.repeat > 1:
         # the report's Tuples line is one join's result; times and tuple
         # counters stay cumulative
@@ -663,6 +852,14 @@ def _run_join(args, group) -> int:
         meas.measure_dispatch_floor(device=engine.device)
     all_meas = meas.gather_all(engine.world)
     if rank == 0:
+        if audit is not None:
+            print(f"[PLAN] actual_ms={audit['actual_ms']:.1f} "
+                  f"predicted_ms={audit['predicted_ms']:.1f} "
+                  f"drift={audit['drift_pct']:.1f}%")
+            if costs is not None:
+                from tpu_radix_join_torch.planner import explain_table
+                print(explain_table(costs, plan,
+                                    actuals=actuals_for_explain(audit)))
         if len(all_meas) == 1:
             print(f"[RESULTS] Tuples: {result.matches}")
         if expected is not None:
@@ -699,12 +896,15 @@ def _run_join(args, group) -> int:
                          else "shuffled_sort_probe" if cfg.sort_probe
                          else "chunked_probe" if cfg.chunk_size
                          else "partitioned"),
-            "key_range": args.key_range,
+            "key_range": cfg.key_range,
             "device": (torch.cuda.get_device_name(engine.device) if cuda
                        else "cpu"),
             "repeat": args.repeat,
             "pipeline_repeats": args.pipeline_repeats,
             "generation": args.generation,
+            "plan": plan.strategy if plan is not None else None,
+            "sort_impl": cfg.sort_impl,
+            "plan_vs_actual": audit,
             "phases_us": dict(meas.times_us),
             "counters": dict(meas.counters),
         }), flush=True)

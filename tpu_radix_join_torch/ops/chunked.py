@@ -337,7 +337,8 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
                       retry_policy=None,
                       retry_on=None,
                       pipeline: str = "off",
-                      sort_impl: str = "auto") -> int:
+                      sort_impl: str = "auto",
+                      plan=None) -> int:
     """Both sides streamed; every inner chunk joins every outer chunk once.
 
     ``s_chunks`` is walked once per inner chunk: pass a list or tuple, or a
@@ -354,8 +355,9 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
     ``checkpoint_path`` (with a ``checkpoint_tag`` naming the inputs) saves
     the total and the next pair's (i, j) after every resolved pair; a rerun
     skips the pairs done (their chunks are generated, not probed).  The
-    fingerprint (slab, tag, rows and cols where known) and the saved grid
-    extent guard against resuming another join
+    fingerprint (slab, tag, rows and cols where known, and a planner
+    ``plan``'s strategy and chunking) and the saved grid extent guard
+    against resuming another join
     (:class:`CheckpointMismatch`).  The file format is the JAX package's,
     so a run killed in either package resumes in the other.
 
@@ -388,6 +390,11 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
 
     fingerprint = {"slab": int(slab_size), "tag": checkpoint_tag,
                    "rows": rows_known, "cols": cols_known}
+    if plan is not None:
+        # a planned grid (main.py --plan) walks the plan's chunking: a
+        # checkpoint of another strategy or chunking must not resume here
+        fingerprint["plan"] = {"strategy": plan.strategy,
+                               "chunk_tuples": plan.chunk_tuples}
     ckpt = (CheckpointManager(checkpoint_path, fingerprint, measurements)
             if checkpoint_path else None)
     start_i, start_j, total = 0, 0, 0

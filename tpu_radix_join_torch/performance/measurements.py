@@ -99,6 +99,8 @@ BATCHQ = "BATCHQ"          # queries served through fused micro-batches
 DELTAMERGE = "DELTAMERGE"  # queries served O(N+delta) by the delta merge
 RESBYTES = "RESBYTES"      # gauge: high-water device-resident sorted-union
                            # bytes (service/resident.py)
+PLANDRIFT = "PLANDRIFT"    # gauge: |actual - predicted| JTOTAL as a percent
+                           # of the planner's prediction (planner/audit.py)
 # the JAX session also reads these; nothing of the port ticks them yet
 # (the compile monitor and elastic membership are ROADMAP A18)
 NCOMPILE = "NCOMPILE"      # backend compiles observed

@@ -44,7 +44,9 @@ resident unions and reports the same counts and outcomes; none of them
 issues a collective.  The degraded CPU engine joins over the same gloo
 group.
 
-Not ported here: forensics bundles, the telemetry ledger, the heartbeat
+``ledger=`` (observability/ledger.py) appends one ``query`` row an
+executed query, as JAX's does without its ``trace_id`` and ``ncompile``
+(ROADMAP A18d).  Not ported here: forensics bundles, the heartbeat
 sampler, elastic membership and hedging (ROADMAP A18), and the fleet
 supervisor (A16b); their constructor arguments raise
 ``NotImplementedError``.
@@ -194,7 +196,7 @@ class JoinSession:
 
         for name, value, off in (
                 ("forensics_dir", forensics_dir, None),
-                ("ledger", ledger, None), ("membership", membership, None),
+                ("membership", membership, None),
                 ("elastic", elastic, False),
                 ("partition_manifest", partition_manifest, None),
                 ("elastic_grow", elastic_grow, False),
@@ -206,6 +208,9 @@ class JoinSession:
         self.config = config
         self.service = service or ServiceConfig()
         self.measurements = measurements
+        #: the run ledger (observability/ledger.py): when set, every
+        #: executed query appends one ``kind="query"`` row
+        self.ledger = ledger
         self._cache_tmp = None
         if plan_cache is None:
             # a resident session warms by default: an ephemeral cache that
@@ -847,6 +852,19 @@ class JoinSession:
                         failure_class=None if cls == OK else cls,
                         degraded=not primary)
         self.outcomes.append(out)
+        if self.ledger is not None:
+            # a ledger write failure is an event, never the query's
+            try:
+                self.ledger.append("query", {
+                    "query_id": request.query_id, "tenant": request.tenant,
+                    "status": status, "failure_class": cls,
+                    "latency_ms": round(latency_ms, 3),
+                    "warm": warm, "engine": out.engine,
+                    "tuples_per_node": request.tuples_per_node,
+                    "repeats": request.repeats})
+            except Exception as e:   # noqa: BLE001 — isolation boundary
+                if m is not None:
+                    m.event("ledger_error", error=repr(e)[:200])
         return out
 
     # ----------------------------------------------------------- lifecycle
