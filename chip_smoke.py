@@ -268,6 +268,32 @@ Phase (u), the planner (ROADMAP A17) and the run ledger (phase_u), after
        other grid row replayed; exact, K2 launched, K6 on the synchronous
        grid.
 
+Phase (v), the serve worker's liveness and observability plane (ROADMAP
+A16b step 1, A18d; phase_v), last, at 20,000,000 tuples a node:
+
+  (v1) in this process, a ``JoinSession`` with the flight recorder, a span
+       tracer, the compile monitor, a one-rank ``MembershipView`` whose
+       lease the heartbeat (``attach_heartbeat``) writes every 0.25 s,
+       ``forensics_dir`` and a 2 s watchdog (``attach_watchdog``): two
+       sort-probe queries (K2, K3) and, through a second such session, a
+       bucket query (K1, K4, K2), each exact; a query with ``backend.stall``
+       armed ends as ``backend_unavailable`` within the timeout plus 3 s,
+       its bundle carrying every thread's stack, and the next query is
+       exact; NCOMPILE flat after each path's first query; the lease's age
+       read every 20 ms stays under its 2 s lapse window; the same warm
+       query with the plane on and off, (o3)'s registry overhead with the
+       ring on, one sampler tick;
+  (v2) ``python -m tpu_radix_join_torch.main --serve - --elastic on
+       --lease-dir ... --rank-lease-s 1 --rank-missed-beats 2
+       --metrics-interval 0.25 --timeline-dir ... --statusz 0
+       --forensics-dir ... --watchdog-timeout 30 --probe bucket --trace``
+       as a subprocess fed one query at a time on its stdin (three exact,
+       a missed deadline): ``/statusz``, ``/statusz/leases`` and
+       ``/healthz`` between them, each GET timed; the lease younger than
+       its lapse window while it serves and withdrawn at exit; one metrics
+       line a tick with the card's bytes in use; the span file merged into
+       a timeline with a device track; exit 1, the missed deadline's.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -3289,6 +3315,399 @@ def phase_u(dev, n, time_ms, card) -> dict:
     return total
 
 
+#: phase (v): the serve worker's liveness and observability plane (ROADMAP
+#: A16b step 1, A18d) at hpcjoin's 20,000,000 tuples a node: the lease
+#: window (lapse after V_MISSED_BEATS windows), the heartbeat's interval,
+#: the watchdog's timeout and the slack a trip may take past it, the
+#: queries timed with the plane on and off (interleaved), the stall cap of
+#: an unwatched stall
+V_LEASE_S = 1.0
+V_MISSED_BEATS = 2
+V_INTERVAL_S = 0.25
+V_WATCHDOG_S = 2.0
+V_TRIP_SLACK_S = 3.0
+V_LATENCY_REPS = 5
+V_STALL_CAP_S = "30"
+V_DEADLINE_S = 0.001
+#: arguments phase (v) adds to its command line (none on the card)
+V_CLI_EXTRA = ()
+
+
+def phase_v(dev, n, card) -> dict:
+    """Cell (v): the serve worker's liveness and observability plane
+    (ROADMAP A16b step 1 with A18d's flight recorder, spans, timeline,
+    metrics heartbeat, ``/statusz``, compile monitor, forensics bundles and
+    hang watchdog), at ``n`` tuples a node on the one card.
+
+    (v1) In this process: a ``JoinSession`` with a registry (the flight
+    recorder on), an attached span tracer, the compile monitor, a one-rank
+    ``MembershipView`` whose lease the heartbeat writes every
+    ``V_INTERVAL_S`` (``attach_heartbeat``), ``forensics_dir`` and a
+    watchdog of ``V_WATCHDOG_S`` (``attach_watchdog``).  It serves two
+    sort-probe queries (K2, K3) and, through a second such session with
+    ``probe_algorithm="bucket"``, one bucket query (K1, K4, K2), each equal
+    to the oracle, each with the launch counts set to 0 before it and read
+    after; then one query with ``backend.stall`` armed: the watchdog trips
+    within its timeout plus ``V_TRIP_SLACK_S``, the outcome is
+    ``backend_unavailable`` with a bundle carrying every thread's stack,
+    and the next query is exact.  NCOMPILE (which hears the process's
+    first-use builds) does not rise after the first query of each path.  A thread reads the lease file's age every 20 ms: it stays under
+    the lapse window.  Then the same warm query (placed relations cached)
+    is timed with the plane on and off (a session with no registry),
+    interleaved, ``V_LATENCY_REPS`` each; the registry's overhead on (a)'s
+    join with the ring on (phase (o3)'s row: a registry against none,
+    interleaved, 10 each); one sampler tick, timed.
+    (v2) The command line ``python -m tpu_radix_join_torch.main --serve -
+    --elastic on --lease-dir D --rank-lease-s 1 --rank-missed-beats 2
+    --metrics-interval 0.25 --timeline-dir T --statusz 0 --forensics-dir F
+    --watchdog-timeout 30 --probe bucket --trace --output-dir O`` as a
+    subprocess: three queries and a missed deadline written to its stdin
+    one at a time; between them the lease's age, ``/statusz``,
+    ``/statusz/leases`` and ``/healthz`` (each GET timed).  The lease is
+    younger than the lapse window while it serves and withdrawn at exit;
+    the metrics file holds one line a tick with the card's bytes in use;
+    the span file merges (``merge_timeline``) into a timeline with a
+    device track (``--trace``); the exit code is 1, the missed deadline's,
+    as (s1)'s.  Returns the launches of every query."""
+    import tempfile
+    import threading
+    import urllib.request
+    import torch
+    from tpu_radix_join_torch import JoinConfig
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.observability import (install_compile_monitor,
+                                                    load_bundle,
+                                                    load_samples,
+                                                    merge_timeline,
+                                                    uninstall_compile_monitor)
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.robustness.membership import (LeaseBoard,
+                                                            MembershipView)
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    lapse_s = V_LEASE_S * V_MISSED_BEATS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_v_")
+    os.environ["TPU_RADIX_STALL_CAP_S"] = V_STALL_CAP_S
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def launched(fn):
+        sync()
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    def serve(sess, qid, **kw):
+        kw.setdefault("tuples_per_node", n)
+
+        def one():
+            sess.submit(QueryRequest(query_id=qid, **kw))
+            return sess.run_next()
+        return launched(one)
+
+    def exact(out, got, names):
+        if out.status != "ok" or out.matches != out.expected:
+            raise AssertionError(f"(v) {out.query_id}: {out}")
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"(v) {out.query_id}: kernel {k} did "
+                                     f"not launch: {got}")
+
+    def plane(name, cfg):
+        meas = Measurements()
+        install_compile_monitor(meas)
+        meas.attach_tracer(nodes=1)
+        board = LeaseBoard(os.path.join(tmp, name, "leases"), rank=0,
+                           num_ranks=1, lease_s=V_LEASE_S,
+                           missed_beats=V_MISSED_BEATS, measurements=meas)
+        view = MembershipView(board, measurements=meas)
+        board.heartbeat(0)
+        sess = JoinSession(cfg, ServiceConfig(), measurements=meas,
+                           device=dev, membership=view, elastic=True,
+                           forensics_dir=os.path.join(tmp, name, "bundles"))
+        sess.attach_heartbeat(os.path.join(tmp, name, "0.metrics.jsonl"),
+                              V_INTERVAL_S)
+        sess.attach_watchdog(V_WATCHDOG_S)
+        return sess, meas, board
+
+    # ------------------------------------------------------------- (v1)
+    sess, meas, board = plane("sort", JoinConfig())
+    bsess, bmeas, bboard = plane("bucket", JoinConfig(probe_algorithm="bucket"))
+    ages, stop_ages = [], threading.Event()
+
+    def watch_lease():
+        while not stop_ages.wait(0.02):
+            for b in (board, bboard):
+                lease = b.read(0)
+                if lease is not None:
+                    ages.append(time.time() - lease.t_epoch_s)
+
+    watcher = threading.Thread(target=watch_lease, daemon=True)
+    watcher.start()
+    lines = []
+    try:
+        outs = []
+        for qid, s, seed in (("v0", sess, 1234), ("vb", bsess, 1234),
+                             ("v1", sess, 1240)):
+            out, got = serve(s, qid, seed=seed)
+            outs.append((out, got))
+            if qid == "vb":
+                # the monitor hears the process's builds: after the first
+                # query of each path every library is loaded
+                ncompile_after_first = meas.counters.get("NCOMPILE", 0)
+        exact(*outs[0], ("radix_pass", "merge_scan"))
+        exact(*outs[1], ("histogram", "partition", "radix_pass"))
+        exact(*outs[2], ("radix_pass", "merge_scan"))
+        inj = faults.FaultInjector(seed=21)
+        inj.arm(faults.BACKEND_STALL, at=1)
+        t0 = time.perf_counter()
+        with inj:
+            hung, got_h = serve(sess, "stall", seed=1234)
+        stall_s = time.perf_counter() - t0
+        outs.append((hung, got_h))
+        if (hung.status, hung.failure_class) != ("failed",
+                                                 "backend_unavailable"):
+            raise AssertionError(f"(v1) the stalled query: {hung}")
+        if stall_s > V_WATCHDOG_S + V_TRIP_SLACK_S:
+            raise AssertionError(f"(v1) the watchdog took {stall_s:.3f} s")
+        bundle = load_bundle(hung.bundle)
+        if (bundle["reason"] != "watchdog_trip" or not bundle["stacks"]
+                or "JTOTAL" not in bundle["open_phases"]
+                or bundle["query_id"] != "stall"):
+            raise AssertionError(f"(v1) the trip's bundle: "
+                                 f"{ {k: bundle.get(k) for k in ('reason', 'open_phases', 'query_id')} }")
+        after, got_a = serve(sess, "v_after", seed=1234)
+        outs.append((after, got_a))
+        exact(after, got_a, ("radix_pass", "merge_scan"))
+        if meas.counters.get("NCOMPILE", 0) != ncompile_after_first:
+            raise AssertionError(f"(v1) NCOMPILE rose after the first "
+                                 f"query: {ncompile_after_first} -> "
+                                 f"{meas.counters.get('NCOMPILE')}")
+        if meas.counters.get("WDOGTRIP") != 1:
+            raise AssertionError(f"(v1) WDOGTRIP {dict(meas.counters)}")
+        for out, got in outs:
+            line = {"phase": "plane", "cell": "v1", **out.to_json(),
+                    "launches": {k: v for k, v in got.items() if v}}
+            line.pop("detail")
+            lines.append(line)
+            emit(dict(line, **card))
+        # the same warm query with the plane on and off, interleaved
+        off = JoinSession(JoinConfig(), ServiceConfig(), device=dev)
+        try:
+            lat = {"on": [], "off": []}
+            for i in range(V_LATENCY_REPS + 1):
+                for key, s in (("on", sess), ("off", off)):
+                    out, _ = serve(s, f"lat_{key}{i}", seed=1234)
+                    if out.matches != n:
+                        raise AssertionError(f"(v1) latency: {out}")
+                    if i:                       # the first warms the cache
+                        lat[key].append(out.latency_ms)
+        finally:
+            off.close()
+        # one sampler tick (a line written), timed
+        tick = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sess._sampler.sample()
+            tick.append((time.perf_counter() - t0) * 1e3)
+        summary = sess.summary()
+        ring = len(meas.flightrec)
+    finally:
+        stop_ages.set()
+        watcher.join(5.0)
+        sess.close()
+        bsess.close()
+        uninstall_compile_monitor(meas)
+        uninstall_compile_monitor(bmeas)
+    samples = load_samples(os.path.join(tmp, "sort", "0.metrics.jsonl"))
+    if not samples or not any(s.get("lease") for s in samples):
+        raise AssertionError("(v1) the heartbeat wrote no lease")
+    if cuda and not any(v > 0 for s in samples
+                        for k, v in s.get("devices", {}).items()
+                        if k.endswith("_bytes_in_use")):
+        raise AssertionError("(v1) no device bytes in the heartbeat")
+    if not ages or max(ages) >= lapse_s:
+        raise AssertionError(f"(v1) lease ages up to "
+                             f"{max(ages) if ages else None} s")
+    # the registry's overhead with the ring on: (a)'s join, a registry
+    # against none, interleaved (phase (o3)'s row)
+    from tpu_radix_join_torch import HashJoin, Relation
+    engines = {"registry": HashJoin(JoinConfig(), device=dev,
+                                    measurements=Measurements()),
+               "none": HashJoin(JoinConfig(), device=dev)}
+    r = engines["none"].place(Relation(n, 1, "unique", seed=1234))
+    s_ = engines["none"].place(Relation(n, 1, "unique", seed=1235))
+    reg = {"registry": [], "none": []}
+    for i in range(11):
+        for key, eng in engines.items():
+            sync()
+            t0 = time.perf_counter()
+            res = eng.join_arrays(r, s_, key_bound=n)
+            sync()
+            if res.matches != n:
+                raise AssertionError(f"(v1) (o3) row: {res}")
+            if i:
+                reg[key].append((time.perf_counter() - t0) * 1e3)
+    del r, s_, engines
+    med = {k: statistics.median(v) for k, v in lat.items()}
+    reg_med = {k: statistics.median(v) for k, v in reg.items()}
+    emit({"phase": "plane_summary", "cell": "v1", "tuples_per_node": n,
+          "stall_s": stall_s, "watchdog_s": V_WATCHDOG_S,
+          "latency_on_ms": lat["on"], "latency_off_ms": lat["off"],
+          "latency_median_ms": med,
+          "plane_overhead_pct": 100.0 * (med["on"] - med["off"])
+          / med["off"],
+          "registry_join_ms": reg["registry"], "none_join_ms": reg["none"],
+          "registry_median_ms": reg_med,
+          "registry_overhead_pct": 100.0 * (reg_med["registry"]
+                                            - reg_med["none"])
+          / reg_med["none"],
+          "sampler_tick_ms": statistics.median(tick),
+          "lease_age_s": {"n": len(ages), "max": max(ages),
+                          "median": statistics.median(ages)},
+          "lapse_window_s": lapse_s, "heartbeat_lines": len(samples),
+          "ring_records": ring, "ncompile": summary["ncompile"],
+          "counters": {k: meas.counters.get(k, 0) for k in (
+              "NCOMPILE", "COMPILEMS", "WDOGTRIP", "PMBUNDLE", "QWARM")},
+          **card})
+
+    # ------------------------------------------------------------- (v2)
+    d, tl, fdir, odir = (os.path.join(tmp, "cli", x)
+                         for x in ("D", "T", "F", "O"))
+    argv = [sys.executable, "-m", "tpu_radix_join_torch.main", "--serve",
+            "-", "--elastic", "on", "--lease-dir", d, "--rank-lease-s",
+            str(V_LEASE_S), "--rank-missed-beats", str(V_MISSED_BEATS),
+            "--metrics-interval", str(V_INTERVAL_S), "--timeline-dir", tl,
+            "--statusz", "0", "--forensics-dir", fdir,
+            "--watchdog-timeout", "30", "--probe", "bucket", "--trace",
+            "--output-dir", odir, *V_CLI_EXTRA]
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(argv, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    err_lines, port_box = [], []
+
+    def read_err():
+        for ln in proc.stderr:
+            err_lines.append(ln)
+            if "[STATUSZ] serving http://127.0.0.1:" in ln:
+                port_box.append(int(ln.split("127.0.0.1:")[1].split("/")[0]))
+
+    err_reader = threading.Thread(target=read_err, daemon=True)
+    err_reader.start()
+    lease_path = os.path.join(d, "lease_r0.json")
+
+    def get(path):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port_box[0]}{path}", timeout=30) as rsp:
+            body = json.load(rsp)
+            code = rsp.status
+        return code, body, (time.perf_counter() - t0) * 1e3
+
+    cli_outs, cli_ages, gets, health = [], [], [], []
+    reqs = [{"query_id": f"c{i}", "tuples_per_node": n, "seed": 1234 + 2 * i}
+            for i in range(3)]
+    reqs.append({"query_id": "c_deadline", "tuples_per_node": n,
+                 "seed": 999, "deadline_s": V_DEADLINE_S})
+    try:
+        for req in reqs:
+            proc.stdin.write(json.dumps(req) + "\n")
+            proc.stdin.flush()
+            line = ""
+            while not line.startswith('{"event": "outcome"'):
+                line = proc.stdout.readline()
+                if not line:
+                    raise AssertionError(f"(v2) the worker ended: "
+                                         f"{''.join(err_lines)[-3000:]}")
+            cli_outs.append(json.loads(line))
+            t0 = time.perf_counter()
+            while not port_box and time.perf_counter() - t0 < 30:
+                time.sleep(0.01)
+            with open(lease_path) as f:
+                cli_ages.append(time.time() - json.load(f)["t_epoch_s"])
+            for path in ("/statusz", "/statusz/leases", "/healthz"):
+                code, body, ms = get(path)
+                gets.append({"path": path, "code": code, "ms": ms})
+                if path == "/healthz":
+                    health.append(body)
+                if path == "/statusz" and set(body) - {"t_epoch_s"} != {
+                        "phase", "counters", "service", "leases"}:
+                    raise AssertionError(f"(v2) /statusz sections "
+                                         f"{sorted(body)}")
+        proc.stdin.close()
+        rest = proc.stdout.read()
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err_reader.join(10.0)
+    cli_s = time.perf_counter() - t_cli
+    recs = [json.loads(ln) for ln in rest.splitlines() if ln.startswith("{")]
+    cli_summary = next((r for r in recs if r.get("event") == "summary"), {})
+    want = [("ok", n)] * 3 + [("failed", None)]
+    if ([(o["status"], o["matches"]) for o in cli_outs] != want
+            or any(o["matches"] != o["expected"] for o in cli_outs[:3])
+            or proc.returncode != 1):
+        raise AssertionError(f"(v2) exited {proc.returncode}: {cli_outs}\n"
+                             f"{''.join(err_lines)[-3000:]}")
+    if os.path.exists(lease_path) or max(cli_ages) >= lapse_s:
+        raise AssertionError(f"(v2) lease ages {cli_ages}; withdrawn: "
+                             f"{not os.path.exists(lease_path)}")
+    if not all(h.get("ok") for h in health) or any(
+            g["code"] != 200 for g in gets):
+        raise AssertionError(f"(v2) health {health} {gets}")
+    samples = load_samples(os.path.join(tl, "0.metrics.jsonl"))
+    dev_bytes = [v for s in samples for k, v in s.get("devices", {}).items()
+                 if k.endswith("_bytes_in_use")]
+    if len(samples) < 2 or len(samples) > cli_s / V_INTERVAL_S + 3 or (
+            cuda and not any(v > 0 for v in dev_bytes)):
+        raise AssertionError(f"(v2) {len(samples)} heartbeat lines in "
+                             f"{cli_s:.1f} s, device bytes {dev_bytes[-3:]}")
+    doc = merge_timeline(tl)
+    device_track = [e for e in doc["traceEvents"]
+                    if e.get("tid") == 1 and e.get("ph") == "X"]
+    queries = [e for e in doc["traceEvents"] if e.get("name") == "query"]
+    if not device_track or len(queries) != 4:
+        raise AssertionError(f"(v2) timeline: {len(device_track)} device "
+                             f"ops, {len(queries)} query spans")
+    bundle = load_bundle(cli_outs[3]["bundle"])
+    if bundle["query_id"] != "c_deadline":
+        raise AssertionError(f"(v2) the deadline's bundle: {bundle}")
+    emit({"phase": "plane_cli", "cell": "v2", "seconds": cli_s,
+          "exit_code": proc.returncode,
+          "latency_ms": {o["query_id"]: o["latency_ms"] for o in cli_outs},
+          "lease_age_s": cli_ages, "lapse_window_s": lapse_s,
+          "statusz_get_ms": {p: statistics.median(
+              g["ms"] for g in gets if g["path"] == p)
+              for p in ("/statusz", "/statusz/leases", "/healthz")},
+          "heartbeat_lines": len(samples),
+          "device_bytes_in_use_max": max(dev_bytes) if dev_bytes else 0,
+          "timeline_device_ops": len(device_track),
+          "ncompile": cli_summary.get("ncompile"),
+          "compile_ms": cli_summary.get("compile_ms"),
+          "recompile_storms": cli_summary.get("recompile_storms"), **card})
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "plane", "cell": "v_done",
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4588,6 +5007,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_u = phase_u(dev, n_main, time_ms, card)
     launches = {k: v + launches_u[k] for k, v in launches.items()}
+
+    # (v): the serve worker's liveness and observability plane
+    torch.cuda.empty_cache()
+    launches_v = phase_v(dev, n_main, card)
+    launches = {k: v + launches_v[k] for k, v in launches.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

@@ -517,7 +517,7 @@ def test_fastpath_stats_and_summary_keys_equal_jax():
         ps, js = port.fastpath_stats(), jax_.fastpath_stats()
         assert ps == js
         psum, jsum = port.summary(), jax_.summary()
-        assert set(psum) == set(jsum) - {"recompile_storms"}
+        assert set(psum) == set(jsum)
         for k in ("queries_submitted", "queries_ok", "breaker_state",
                   "cache_hits", "resident_bytes", "delta_merges",
                   "warm_queries", "placed_bytes"):

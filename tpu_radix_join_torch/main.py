@@ -51,7 +51,24 @@ engine, behind admission (``--serve-queue-depth``,
 ``--breaker-cooldown-s``), warm-started by the plan cache
 (``--plan-cache-dir``, ``--profile``); it prints one outcome line a query
 and a summary line, and under torchrun every rank serves the same file and
-rank 0 prints.  ``--fleet`` (A16b) and ``--statusz`` (A18) are refused.
+rank 0 prints.
+The liveness and observability plane (``_observed``): ``--timeline-dir``
+writes the rank's span file (``<rank>.spans.json``, with the profiler's
+device summary under ``--trace``, which under ``--serve`` profiles the
+served queries); ``--metrics-interval`` a heartbeat line a tick
+(``<rank>.metrics.jsonl``); ``--elastic on`` (one rank) keeps a lease in
+``--lease-dir`` (``--rank-lease-s``, ``--rank-missed-beats``), written
+before any work and on every tick, withdrawn at exit; ``--forensics-dir``
+collects the bundles of failed queries and runs; ``--watchdog-timeout``
+cancels a stalled join; ``--statusz PORT`` serves ``/statusz`` and
+``/healthz``.  A fleet supervisor starts each worker as
+``--serve - --elastic on --lease-dir D --rank-lease-s S
+--rank-missed-beats N --metrics-interval I --timeline-dir T``.  The JAX
+command line's ``--fleet``, ``--fleet-dir``, ``--fleet-kill-at`` (A16b step 2),
+``--elastic-grow``, ``--elastic-join``, ``--rank-death-at``,
+``--rank-join-at``, ``--hedge``, ``--hedge-threshold``,
+``--straggle-factor`` (A18c), ``--cpu-fallback`` (A18b) and
+``--transfer-guard`` (A18e) are refused by name.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
 both relations streamed in device-generated chunks of N tuples, every
 chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
@@ -86,6 +103,7 @@ Usage:
     python -m tpu_radix_join_torch.main --serve requests.jsonl --probe bucket --result-cache 8 --resident-budget-mb 1024
     python -m tpu_radix_join_torch.main --plan auto --tuples-per-node 20000000 --ledger-dir /tmp/ledger
     python -m tpu_radix_join_torch.main --plan explain --profile auto --ledger-dir /tmp/ledger
+    python -m tpu_radix_join_torch.main --serve - --elastic on --lease-dir /tmp/w0/leases --rank-lease-s 1 --rank-missed-beats 2 --metrics-interval 0.25 --timeline-dir /tmp/w0 --statusz 0 --forensics-dir /tmp/w0/forensics --watchdog-timeout 30
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --serve requests.jsonl
 """
 
@@ -327,11 +345,262 @@ def build_parser() -> argparse.ArgumentParser:
                         "query (observability/ledger.py; default: "
                         "$TPU_RADIX_LEDGER_DIR, else off); --profile auto "
                         "and --plan explain read it")
-    p.add_argument("--fleet", type=int, default=None, metavar="N",
-                   help="not ported (ROADMAP A16b): the fleet supervisor")
+    # --- the liveness and observability plane (observability/, ---------
+    # robustness/membership.py)
+    p.add_argument("--timeline-dir", default=None,
+                   help="write this rank's phase spans and instant events as "
+                        "Chrome trace-event JSON (<rank>.spans.json; merge "
+                        "ranks with observability.merge_timeline), with the "
+                        "profiler's device summary under --trace")
+    p.add_argument("--metrics-interval", type=float, default=0.0,
+                   metavar="SEC",
+                   help="heartbeat: host memory, the card's memory and the "
+                        "counter registry every SEC seconds into "
+                        "<rank>.metrics.jsonl under --timeline-dir or "
+                        "--output-dir (with --elastic on, each tick writes "
+                        "the lease; under --serve it carries the session's "
+                        "SLO, breaker and caches); 0 = off")
     p.add_argument("--statusz", type=int, default=None, metavar="PORT",
-                   help="not ported (ROADMAP A18): the live status endpoint")
+                   help="a read-only live status endpoint on 127.0.0.1:PORT "
+                        "(observability/statusz.py): GET /statusz returns "
+                        "the phase, counters and, under --serve, the "
+                        "service, leases, cache and batch sections; "
+                        "/statusz/<section> one of them; /healthz 200 or "
+                        "503 with a reason; 0 = an ephemeral port (printed "
+                        "on stderr)")
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   metavar="SEC",
+                   help="hang watchdog (observability/watchdog.py): when the "
+                        "registry records nothing for SEC seconds while a "
+                        "phase is open, dump every thread's stack and the "
+                        "flight recorder into a forensics bundle and cancel "
+                        "the join at its next cancel point "
+                        "(backend_unavailable); 0 = off")
+    p.add_argument("--forensics-dir", default=None,
+                   help="where forensics bundles land "
+                        "(observability/postmortem.py): a failed query, a "
+                        "watchdog trip or a classified failure writes "
+                        "bundle_*.json (default: $TPU_RADIX_FORENSICS_DIR, "
+                        "else forensics/ under --output-dir or "
+                        "--timeline-dir)")
+    p.add_argument("--elastic", choices=["on", "off"], default="off",
+                   help="membership (robustness/membership.py) at one rank: "
+                        "heartbeat an epoch-stamped lease (lease_r0.json) "
+                        "under --lease-dir, the first before any work and "
+                        "one every --metrics-interval tick, withdrawn at "
+                        "exit; its age is the worker's liveness.  Recovery "
+                        "over several ranks is ROADMAP A18c")
+    p.add_argument("--lease-dir", default=None,
+                   help="directory of the lease files (default: "
+                        "$TPU_RADIX_LEASE_DIR, else leases/ under "
+                        "--output-dir or --timeline-dir, else a private "
+                        "temporary directory)")
+    p.add_argument("--rank-lease-s", type=float, default=5.0, metavar="SEC",
+                   help="the lease window in seconds (default 5.0)")
+    p.add_argument("--rank-missed-beats", type=int, default=2, metavar="N",
+                   help="a lease lapses after N windows of silence (lapse "
+                        "window = N x --rank-lease-s; default 2)")
+    # the JAX command line's flags the port refuses, each naming its item
+    for flag, item in REFUSED_FLAGS.items():
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=f"not ported (ROADMAP {item})")
     return p
+
+
+#: the JAX command line's flags the port refuses by name, with their items
+REFUSED_FLAGS = {
+    "--fleet": "A16b step 2: the fleet supervisor",
+    "--fleet-dir": "A16b step 2: the fleet supervisor",
+    "--fleet-kill-at": "A16b step 2: the fleet supervisor",
+    "--elastic-grow": "A18c: membership, recovery and stragglers",
+    "--elastic-join": "A18c: membership, recovery and stragglers",
+    "--rank-death-at": "A18c: membership, recovery and stragglers",
+    "--rank-join-at": "A18c: membership, recovery and stragglers",
+    "--hedge": "A18c: membership, recovery and stragglers",
+    "--hedge-threshold": "A18c: membership, recovery and stragglers",
+    "--straggle-factor": "A18c: membership, recovery and stragglers",
+    "--cpu-fallback": "A18b: the device-init fallback",
+    "--transfer-guard": "A18e: the sync guard",
+}
+
+
+def _forensics_dir(args):
+    """Where forensics bundles land (``_forensics_dir``,
+    tpu_radix_join/main.py:413-427): the flag, then
+    $TPU_RADIX_FORENSICS_DIR, then ``forensics/`` under the artifact
+    directory the run already writes; None (no bundles) without one."""
+    return (args.forensics_dir
+            or os.environ.get("TPU_RADIX_FORENSICS_DIR")
+            or (os.path.join(args.output_dir, "forensics")
+                if args.output_dir else None)
+            or (os.path.join(args.timeline_dir, "forensics")
+                if args.timeline_dir else None))
+
+
+def _lease_dir(args):
+    """Where the lease files live (``_lease_dir``, tpu_radix_join/main.py:
+    429-443): the flag, then $TPU_RADIX_LEASE_DIR, then ``leases/`` under
+    the artifact directory, else a private temporary directory (one rank
+    needs no shared one)."""
+    import tempfile
+    return (args.lease_dir
+            or os.environ.get("TPU_RADIX_LEASE_DIR")
+            or (os.path.join(args.output_dir, "leases")
+                if args.output_dir else None)
+            or (os.path.join(args.timeline_dir, "leases")
+                if args.timeline_dir else None)
+            or tempfile.mkdtemp(prefix="tpu_rj_leases_"))
+
+
+def _trace_identity(args, rank: int) -> str:
+    """One trace id for every rank of a run (``_trace_identity``,
+    tpu_radix_join/main.py:446-495): rank 0 mints it and writes it to
+    ``trace_id`` in the lease directory; the others read the file (one
+    written within the last 120 s, so an earlier run's is never taken),
+    polling for 10 s, then mint their own with a warning: correlation
+    degrades, the run does not."""
+    import tempfile
+
+    from tpu_radix_join_torch.observability.spans import new_trace_id
+
+    lease_dir = _lease_dir(args)
+    path = os.path.join(lease_dir, "trace_id")
+    if rank == 0:
+        tid = new_trace_id()
+        os.makedirs(lease_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=lease_dir, prefix=".trace_id.")
+        with os.fdopen(fd, "w") as f:
+            f.write(tid)
+        os.replace(tmp, path)
+        return tid
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        try:
+            if time.time() - os.stat(path).st_mtime <= 120.0:
+                with open(path) as f:
+                    tid = f.read().strip()
+                if tid:
+                    return tid
+        except OSError:
+            pass
+        time.sleep(0.05)
+    tid = new_trace_id()
+    print(f"[OBS] rank {rank}: no shared trace_id under {lease_dir} after "
+          f"10s; minted {tid} locally: cross-rank correlation degraded",
+          file=sys.stderr)
+    return tid
+
+
+def _emit_failure_bundle(meas, exc, args):
+    """A forensics bundle of a terminal classified failure
+    (``_emit_failure_bundle``, tpu_radix_join/main.py:520-550): a watchdog
+    trip's exception carries the bundle it wrote; anything else gets one
+    here.  A write error is a line on stderr, never a new failure."""
+    path = getattr(exc, "bundle", None)
+    if path:
+        return path
+    out_dir = _forensics_dir(args)
+    if not out_dir:
+        print("[FORENSICS] no bundle dir (--forensics-dir / --output-dir / "
+              "--timeline-dir all unset); skipping bundle", file=sys.stderr)
+        return None
+    try:
+        from tpu_radix_join_torch.observability.postmortem import write_bundle
+        extra = {"error": repr(exc)}
+        extra.update(getattr(exc, "bundle_extra", None) or {})
+        return write_bundle(
+            out_dir, meas, reason="failure",
+            failure_class=getattr(exc, "failure_class", None),
+            config=vars(args), extra=extra)
+    except Exception as e:   # noqa: BLE001 — forensics must not mask
+        print(f"[FORENSICS] bundle write failed: {e!r}", file=sys.stderr)
+        return None
+
+
+def _statusz(args, sections, readiness=None):
+    """The ``--statusz`` server, started (None without the flag)."""
+    if args.statusz is None:
+        return None
+    from tpu_radix_join_torch.observability.statusz import StatuszServer
+    server = StatuszServer(port=args.statusz, sections=sections,
+                           readiness=readiness)
+    server.start()
+    print(f"[STATUSZ] serving http://127.0.0.1:{server.port}/statusz",
+          file=sys.stderr)
+    return server
+
+
+@contextlib.contextmanager
+def _observed(args, meas, rank: int):
+    """The liveness and observability plane around a run (``main``,
+    tpu_radix_join/main.py:1365-1460): the compile monitor; with
+    ``--timeline-dir`` a span tracer (one trace id over the ranks, through
+    the lease directory); with ``--metrics-interval`` the heartbeat
+    sampler on the run's card; with ``--elastic on`` a one-rank lease
+    board and membership view, the first lease written before any work and
+    one every sampler tick.  Yields ``(sampler, membership)``; on the way
+    out, whatever happened, the sampler is stopped, the lease withdrawn,
+    the ledger row appended and the span file saved (with the profiler's
+    device summary after ``--trace``)."""
+    from tpu_radix_join_torch.observability.compilemon import (
+        install_compile_monitor, uninstall_compile_monitor)
+
+    install_compile_monitor(meas)
+    tracer = sampler = membership = board = None
+    try:
+        if args.timeline_dir:
+            os.makedirs(args.timeline_dir, exist_ok=True)
+            trace_id = (_trace_identity(args, rank) if args.nodes > 1
+                        else None)
+            tracer = meas.attach_tracer(trace_id=trace_id, nodes=args.nodes)
+        if args.metrics_interval:
+            from tpu_radix_join_torch.observability.metrics import (
+                MetricsSampler)
+            mdir = args.timeline_dir or args.output_dir
+            sampler = MetricsSampler(
+                os.path.join(mdir, f"{meas.node_id}.metrics.jsonl"),
+                args.metrics_interval, measurements=meas,
+                device=_card(args))
+        if args.elastic == "on":
+            from tpu_radix_join_torch.robustness.membership import (
+                LeaseBoard, MembershipView)
+            board = LeaseBoard(_lease_dir(args), rank=rank,
+                               num_ranks=args.nodes,
+                               lease_s=args.rank_lease_s,
+                               missed_beats=args.rank_missed_beats,
+                               measurements=meas)
+            membership = MembershipView(board, measurements=meas)
+            board.heartbeat(0)        # the first lease before any work
+            if sampler is not None:
+                sampler.extra = board.sampler_extra(
+                    epoch_of=membership.epoch_of,
+                    status_of=membership.my_status)
+        if sampler is not None:
+            sampler.start()
+        yield sampler, membership
+    finally:
+        # the sampler's last tick writes the lease: stop it first
+        if sampler is not None:
+            sampler.stop()
+        if board is not None:
+            # a clean exit withdraws the lease: a reader sees a departure,
+            # not a stale lease
+            board.withdraw(board.rank)
+        uninstall_compile_monitor(meas)
+        _ledger_flush(args, meas)
+        if tracer is not None:
+            path = tracer.save(args.timeline_dir,
+                               device_summary=meas.meta.get("trace"))
+            print(f"[OBS] timeline spans stored {path}", file=sys.stderr)
+
+
+def _card(args):
+    """The run's device for the heartbeat's memory block: this rank's card
+    (None on the CPU)."""
+    if torch.device(args.device).type != "cuda" or not \
+            torch.cuda.is_available():
+        return None
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
@@ -510,9 +779,8 @@ def _plan_with(args, nodes, rank, meas, profile):
         meas.event("plan_decision", strategy=plan.strategy,
                    engine=plan.engine,
                    predicted_ms=round(plan.predicted_ms, 3))
-        # the JAX registry tags its spans with these (ROADMAP A18d)
-        meas.meta["trace_tags"] = {"strategy": plan.strategy,
-                                   "engine": plan.engine}
+        # the decision tags every later span of the timeline
+        meas.set_trace_tags(strategy=plan.strategy, engine=plan.engine)
         if plan.engine == "chunked" and nodes == 1:
             if args.grid_chunk_tuples is None:
                 args.grid_chunk_tuples = plan.chunk_tuples or (1 << 20)
@@ -535,12 +803,28 @@ def main(argv=None) -> int:
                      "fence per program — drop one of the two")
     if args.nodes > 1 and args.grid_chunk_tuples is not None:
         parser.error("the grid join runs on one GPU (--nodes 1)")
-    if args.fleet is not None:
-        parser.error("--fleet is not ported to PyTorch yet (ROADMAP.md "
-                     "queue A, A16b: the fleet supervisor)")
-    if args.statusz is not None:
-        parser.error("--statusz is not ported to PyTorch yet (ROADMAP.md "
-                     "queue A, A18: host-side modules)")
+    for flag, item in REFUSED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            parser.error(f"{flag} is not ported to PyTorch yet (ROADMAP.md "
+                         f"queue A, {item})")
+    if args.elastic == "on" and args.nodes > 1:
+        parser.error("--elastic on keeps one rank's lease; membership over "
+                     "several ranks is not ported to PyTorch yet (ROADMAP.md "
+                     "queue A, A18c: membership, recovery and stragglers)")
+    if args.rank_missed_beats < 1:
+        parser.error("--rank-missed-beats must be >= 1")
+    if args.rank_lease_s <= 0:
+        parser.error("--rank-lease-s must be > 0")
+    if args.metrics_interval < 0 or args.watchdog_timeout < 0:
+        parser.error("--metrics-interval and --watchdog-timeout must be >= 0")
+    if args.metrics_interval and not (args.timeline_dir or args.output_dir):
+        parser.error("--metrics-interval writes <rank>.metrics.jsonl under "
+                     "--timeline-dir or --output-dir: pass one")
+    if args.serve is not None and args.nodes > 1 and args.watchdog_timeout:
+        parser.error("a session's watchdog kills one rank's query alone; "
+                     "over several ranks it is not ported to PyTorch yet "
+                     "(ROADMAP.md queue A, A18c: membership, recovery and "
+                     "stragglers)")
     if args.serve is not None and args.grid_chunk_tuples is not None:
         parser.error("--serve runs the in-core resident engine; the "
                      "out-of-core grid is a one-shot mode")
@@ -561,9 +845,14 @@ def main(argv=None) -> int:
                          "tpu_radix_join_torch.main ...)")
         group = dist.group.WORLD
     try:
-        if args.serve is not None:
-            return _run_serve(args, group)
-        return _run_join(args, group)
+        from tpu_radix_join_torch.performance.measurements import (
+            Measurements)
+        rank = dist.get_rank(group) if group is not None else 0
+        meas = Measurements(node_id=rank, num_nodes=args.nodes)
+        with _observed(args, meas, rank) as (sampler, membership):
+            if args.serve is not None:
+                return _run_serve(args, group, meas, sampler, membership)
+            return _join_body(args, group, rank, meas, membership)
     finally:
         multihost.shutdown()
 
@@ -634,22 +923,25 @@ def _serve_lines(args, batcher, flush_groups):
     return timed_lines()
 
 
-def _run_serve(args, group) -> int:
+def _run_serve(args, group, meas, sampler=None, membership=None) -> int:
     """Resident service mode (``_run_serve``, tpu_radix_join/main.py:
     643-905): every request flows through one :class:`JoinSession`.  One
     outcome JSON line a query, then a summary line with the SLO snapshot;
     over several ranks every rank serves the same stream and rank 0
-    prints.  Returns 1 when a request line was malformed or a query
-    failed (admission rejections are backpressure, not failures), 2 on a
-    plan-cache manifest of another topology or profile."""
+    prints.  The plane: failed queries' bundles (``--forensics-dir``),
+    the heartbeat's tick carrying the session's state and writing the
+    lease, the worker's incarnation in the ring's context, the watchdog
+    (``--watchdog-timeout``), ``--statusz``, and ``--trace`` profiling the
+    served queries.  Returns 1 when a request line was malformed or a
+    query failed (admission rejections are backpressure, not failures), 2
+    on a plan-cache manifest of another topology or profile."""
     from tpu_radix_join_torch.core.config import ServiceConfig
-    from tpu_radix_join_torch.performance.measurements import Measurements
     from tpu_radix_join_torch.service import (AdmissionRejected, JoinSession,
                                               MicroBatcher, QueryRequest)
+    from tpu_radix_join_torch.service.breaker import OPEN
 
     nodes = args.nodes
-    rank = dist.get_rank(group) if group is not None else 0
-    meas = Measurements(node_id=rank, num_nodes=nodes)
+    rank = meas.node_id
     plan_cache = None
     if args.plan_cache_dir:
         from tpu_radix_join_torch.planner import (ManifestMismatch,
@@ -680,12 +972,63 @@ def _run_serve(args, group) -> int:
         ledger = Ledger(_ledger_dir(args))
     session = JoinSession(_join_config(args), svc, measurements=meas,
                           plan_cache=plan_cache, profile=args.profile,
-                          device=args.device, group=group, ledger=ledger)
+                          device=args.device, group=group, ledger=ledger,
+                          forensics_dir=_forensics_dir(args),
+                          membership=membership,
+                          elastic=args.elastic == "on")
     # the coalescer is the serve loop's (no threads of its own), on the
     # session's clock (rank 0's over several ranks)
     batcher = MicroBatcher(svc.batch_window_ms, svc.batch_max_queries,
                            clock=session._clock)
-    errors = 0
+    # a fleet worker's incarnation id (w<slot>i<n>) groups its bundles
+    incarnation = os.environ.get("TPU_RJ_WORKER_INCARNATION")
+    if incarnation:
+        meas.flightrec.set_context(worker_incarnation=incarnation)
+    if sampler is not None:
+        # the tick carries the session's state and writes the lease
+        sampler.extra = session.heartbeat_tick
+    if args.watchdog_timeout > 0:
+        session.attach_watchdog(args.watchdog_timeout)
+    statusz = None
+    if args.statusz is not None:
+        from tpu_radix_join_torch.observability.statusz import (
+            measurements_sections)
+        # JAX's serve sections (tpu_radix_join/main.py:722-780) but
+        # "hedge" and "critical_paths", whose sources are ROADMAP A18c and
+        # A18d's critpath.py
+        sections = dict(measurements_sections(meas))
+        sections["service"] = session._heartbeat_extra
+        if membership is not None:
+            sections["leases"] = membership.board.sampler_extra(
+                epoch_of=membership.epoch_of)
+        if svc.result_cache_max or svc.resident_budget_bytes:
+            sections["cache"] = (lambda: {
+                "result_cache": session.result_cache.stats(),
+                "resident": session.resident.stats(),
+                "placed_bytes": session.placed_bytes()})
+        if svc.batch_window_ms > 0:
+            sections["batch"] = (lambda: {
+                **batcher.stats(),
+                "session_fused_batches": session.batches_fused,
+                "session_fused_queries": session.batch_queries_fused})
+
+        def readiness():
+            # do not route here: a closed session, an open breaker, or an
+            # own lease older than the lapse window
+            if session._closed:
+                return {"ok": False, "reason": "session_closed"}
+            if session.breaker.state == OPEN:
+                return {"ok": False, "reason": "breaker_open"}
+            if membership is not None:
+                lease = membership.board.read(membership.board.rank)
+                if lease is not None:
+                    age = time.time() - lease.t_epoch_s
+                    if age > membership.board.lapse_window_s:
+                        return {"ok": False,
+                                "reason": f"heartbeat_stale_{age:.1f}s"}
+            return {"ok": True}
+
+        statusz = _statusz(args, sections, readiness)
     fuse = svc.batch_window_ms > 0
 
     def emit(out):
@@ -709,79 +1052,83 @@ def _run_serve(args, group) -> int:
 
     lines = _serve_lines(args, batcher, flush_groups)
     batch = max(1, args.serve_batch)
+    trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
+                 if args.trace else contextlib.nullcontext())
     try:
-        pending = 0
-        for lineno, line in enumerate(lines, 1):
-            line = line.strip()
-            if not line or line.startswith("#"):
-                continue
-            qid = None
-            try:
-                obj = json.loads(line)
-                if not isinstance(obj, dict):
-                    raise ValueError("request must be a JSON object")
-                obj.setdefault("query_id", f"line{lineno}")
-                qid = obj.get("query_id")
-                request = QueryRequest.from_json(obj)
-            except (ValueError, TypeError) as e:
-                # a malformed line is the client's bug: report it and keep
-                # serving
-                errors += 1
-                if rank == 0:
-                    print(json.dumps({"event": "request_error",
-                                      "line": lineno, "query_id": qid,
-                                      "error": str(e)}), flush=True)
-                continue
-            # a result-cache hit answers before admission
-            hit = session.try_cache(request)
-            if hit is not None:
-                emit(hit)
-                continue
-            if fuse and request.delta_tuples_per_node == 0:
-                # park in the signature window; the key bound is the widest
-                # key any generated lane of the request can carry
-                key_bound = max(request.tuples_per_node * nodes,
-                                request.modulo or 0)
-                grp = batcher.offer(request, key_bound)
-                if grp is not None:
-                    flush_groups([grp])
-                flush_groups(batcher.due())
-                continue
-            try:
-                session.submit(request)
-                pending += 1
-            except AdmissionRejected as e:
-                emit(session.rejection_outcome(request, e))
-            if pending >= batch:
-                session.drain(on_outcome=emit)
-                pending = 0
-        if fuse:
-            flush_groups(batcher.flush())
-        session.drain(on_outcome=emit)
-        summary = session.summary()
-        if rank == 0:
-            print(json.dumps({"event": "summary", **summary}), flush=True)
-        return 1 if (errors or summary.get("queries_failed", 0)) else 0
+        with trace_ctx:
+            return _serve_loop(args, session, batcher, lines, emit,
+                               flush_groups, rank, nodes, batch, fuse)
     finally:
+        if statusz is not None:
+            statusz.stop()
         session.close()
-        _ledger_flush(args, meas)
 
 
-def _run_join(args, group) -> int:
+def _serve_loop(args, session, batcher, lines, emit, flush_groups, rank,
+                nodes, batch, fuse) -> int:
+    """The request loop of :func:`_run_serve`."""
+    from tpu_radix_join_torch.service import AdmissionRejected, QueryRequest
+
+    errors = 0
+    pending = 0
+    for lineno, line in enumerate(lines, 1):
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        qid = None
+        try:
+            obj = json.loads(line)
+            if not isinstance(obj, dict):
+                raise ValueError("request must be a JSON object")
+            obj.setdefault("query_id", f"line{lineno}")
+            qid = obj.get("query_id")
+            request = QueryRequest.from_json(obj)
+        except (ValueError, TypeError) as e:
+            # a malformed line is the client's bug: report it and keep
+            # serving
+            errors += 1
+            if rank == 0:
+                print(json.dumps({"event": "request_error",
+                                  "line": lineno, "query_id": qid,
+                                  "error": str(e)}), flush=True)
+            continue
+        # a result-cache hit answers before admission
+        hit = session.try_cache(request)
+        if hit is not None:
+            emit(hit)
+            continue
+        if fuse and request.delta_tuples_per_node == 0:
+            # park in the signature window; the key bound is the widest
+            # key any generated lane of the request can carry
+            key_bound = max(request.tuples_per_node * nodes,
+                            request.modulo or 0)
+            grp = batcher.offer(request, key_bound)
+            if grp is not None:
+                flush_groups([grp])
+            flush_groups(batcher.due())
+            continue
+        try:
+            session.submit(request)
+            pending += 1
+        except AdmissionRejected as e:
+            emit(session.rejection_outcome(request, e))
+        if pending >= batch:
+            session.drain(on_outcome=emit)
+            pending = 0
+    if fuse:
+        flush_groups(batcher.flush())
+    session.drain(on_outcome=emit)
+    summary = session.summary()
+    if rank == 0:
+        print(json.dumps({"event": "summary", **summary}), flush=True)
+    return 1 if (errors or summary.get("queries_failed", 0)) else 0
+
+
+def _join_body(args, group, rank, meas, membership=None) -> int:
     """One join of ``--nodes`` ranks (or the grid), its result line from
-    rank 0; every rank returns 1 unless the result equals the oracle.  The
-    registry's run row goes to the ledger at exit (``--ledger-dir``)."""
-    from tpu_radix_join_torch.performance.measurements import Measurements
-
-    rank = dist.get_rank(group) if group is not None else 0
-    meas = Measurements(node_id=rank, num_nodes=args.nodes)
-    try:
-        return _join_body(args, group, rank, meas)
-    finally:
-        _ledger_flush(args, meas)
-
-
-def _join_body(args, group, rank, meas) -> int:
+    rank 0; every rank returns 1 unless the result equals the oracle, and
+    1 with ``[RESULTS] failure/failure_class`` and a forensics bundle when
+    the join raises a classified failure (a watchdog trip)."""
     from tpu_radix_join_torch import HashJoin, Relation
     from tpu_radix_join_torch.performance.measurements import (RESULTS,
                                                                print_results)
@@ -828,17 +1175,52 @@ def _join_body(args, group, rank, meas) -> int:
         torch.cuda.synchronize(engine.device)
     trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
                  if args.trace else contextlib.nullcontext())
+    # the hang watchdog: evidence first (stacks, bundle), then the kill
+    # through the engine's cancel hook
+    from tpu_radix_join_torch.observability.statusz import (
+        measurements_sections)
+    from tpu_radix_join_torch.observability.watchdog import (Watchdog,
+                                                             engine_killer)
+    wd_ctx = (Watchdog(meas, timeout_s=args.watchdog_timeout,
+                       kill=engine_killer(engine),
+                       bundle_dir=_forensics_dir(args), config=vars(args),
+                       membership=membership)
+              if args.watchdog_timeout > 0 else contextlib.nullcontext())
+    statusz = _statusz(args, measurements_sections(meas))
     times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
-    with trace_ctx:
-        if args.pipeline_repeats and args.repeat > 1:
-            result = engine.join_arrays_pipelined(r, s, args.repeat,
-                                                  key_bound=key_bound)
-        else:
-            for _ in range(args.repeat):
-                result = engine.join_arrays(r, s, key_bound=key_bound)
-        if cuda:
-            torch.cuda.synchronize(engine.device)
+    try:
+        with trace_ctx, wd_ctx:
+            if args.pipeline_repeats and args.repeat > 1:
+                result = engine.join_arrays_pipelined(r, s, args.repeat,
+                                                      key_bound=key_bound)
+            else:
+                for _ in range(args.repeat):
+                    result = engine.join_arrays(r, s, key_bound=key_bound)
+            if cuda:
+                torch.cuda.synchronize(engine.device)
+    except Exception as e:
+        # a classified failure (a watchdog trip, an injected fault) exits
+        # with its class and a forensics bundle; anything else stays a
+        # traceback
+        cls = getattr(e, "failure_class", None)
+        if cls is None:
+            raise
+        meas.meta["failure_class"] = cls
+        if rank == 0:
+            print(f"[RESULTS] failure/failure_class: {cls}")
+        print(f"[RESULTS] failure/error: {e}", file=sys.stderr)
+        bundle = _emit_failure_bundle(meas, e, args)
+        if bundle:
+            print(f"[FORENSICS] bundle {bundle}", file=sys.stderr)
+        if args.output_dir:
+            path = meas.store(args.output_dir)
+            if rank == 0:
+                print(f"[PERF] stored {path}")
+        return 1
+    finally:
+        if statusz is not None:
+            statusz.stop()
     join_s = (time.perf_counter() - t0) / args.repeat
     ok = result.ok and (expected is None or result.matches == expected)
     meas.meta["failure_class"] = result.diagnostics["failure_class"]

@@ -1071,7 +1071,7 @@ class HashJoin:
         """The JoinConfig fields window capacities depend on
         (``_cache_config_fp``, hash_join.py:399-416): configs agreeing here
         size the same windows for the same inputs.  The port has no
-        membership epoch yet (ROADMAP A18): it is 0."""
+        membership epoch in a join yet (ROADMAP A18c): it is 0."""
         cfg = self.config
         return {"num_nodes": cfg.num_nodes, "num_hosts": cfg.num_hosts,
                 "network_fanout_bits": cfg.network_fanout_bits,

@@ -8,7 +8,9 @@ loads at once.  Nothing here runs at import: the first wrapper call on a
 CUDA tensor builds its library, and :func:`build` builds them all at once,
 one ``nvcc`` process per source started together.  A first-use build and
 load is timed and reported to the hooks installed with :func:`on_build`
-(the join engine's records it as JCOMPILE, kept out of its phase timers).
+(the join engine's records it as JCOMPILE, kept out of its phase timers)
+or :func:`add_build_hook` (observability/compilemon.py's NCOMPILE and
+COMPILEMS).
 
     python -m tpu_radix_join_torch.ops.kernels._build   # build all, print ptxas -v
 """
@@ -40,16 +42,25 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 _hooks: List[Callable[[str, float], None]] = []
 
 
+def add_build_hook(hook: Callable[[str, float], None]) -> None:
+    """Call ``hook(name, seconds)`` after each library's first-use build
+    and load (:func:`library`) until :func:`remove_build_hook`; a build
+    that fails raises and calls no hook."""
+    _hooks.append(hook)
+
+
+def remove_build_hook(hook: Callable[[str, float], None]) -> None:
+    _hooks.remove(hook)
+
+
 @contextlib.contextmanager
 def on_build(hook: Callable[[str, float], None]):
-    """Within the block, call ``hook(name, seconds)`` after each library's
-    first-use build and load (:func:`library`); a build that fails raises
-    and calls no hook."""
-    _hooks.append(hook)
+    """:func:`add_build_hook` for the block."""
+    add_build_hook(hook)
     try:
         yield hook
     finally:
-        _hooks.remove(hook)
+        remove_build_hook(hook)
 
 
 def nvcc_path() -> str:

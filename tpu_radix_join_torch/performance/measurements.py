@@ -19,8 +19,16 @@ a host readback the join already does.
 The grid, the retry loop, the fault injector and the checkpoints also read
 ``span`` (host seconds per named span, ``span_s`` / ``span_n``), ``event``
 (``events`` and ``meta["events"]``) and ``incr``, from several threads: the
-registry's lock guards them.  The flight recorder and the span tracer the
-JAX registry mirrors into are ROADMAP A18.
+registry's lock guards them.
+
+As in the JAX registry (``measurements.py:216-340``), every ``start``,
+``stop``, ``incr``, ``event`` and ``span`` is mirrored into the always-on
+flight recorder (``flightrec``, observability/flightrec.py: the ring a
+forensics bundle freezes and the idle clock the hang watchdog reads) and,
+once :meth:`Measurements.attach_tracer` has run, into a span tracer
+(observability/spans.py).  A record holds the host values the registry
+already has (names, host-clock intervals, counter totals), so mirroring
+adds no device readback.
 """
 
 from __future__ import annotations
@@ -101,12 +109,16 @@ RESBYTES = "RESBYTES"      # gauge: high-water device-resident sorted-union
                            # bytes (service/resident.py)
 PLANDRIFT = "PLANDRIFT"    # gauge: |actual - predicted| JTOTAL as a percent
                            # of the planner's prediction (planner/audit.py)
-# the JAX session also reads these; nothing of the port ticks them yet
-# (the compile monitor and elastic membership are ROADMAP A18)
-NCOMPILE = "NCOMPILE"      # backend compiles observed
-COMPILEMS = "COMPILEMS"    # total backend-compile milliseconds
-MEPOCH = "MEPOCH"          # gauge: membership epoch
-RANKLOST = "RANKLOST"      # ranks declared lost
+NCOMPILE = "NCOMPILE"      # first-use kernel builds and loads
+                           # (observability/compilemon.py)
+COMPILEMS = "COMPILEMS"    # their total milliseconds
+MEPOCH = "MEPOCH"          # gauge: membership epoch (robustness/membership.py)
+RANKLOST = "RANKLOST"      # ranks declared lost on a lease lapse
+RANKJOIN = "RANKJOIN"      # ranks admitted from a ``joining`` lease
+WDOGTRIP = "WDOGTRIP"      # hang-watchdog trips (observability/watchdog.py)
+PMBUNDLE = "PMBUNDLE"      # forensics bundles written (observability/
+                           # postmortem.py)
+# the JAX session also reads these; elastic recovery is ROADMAP A18c
 RECOVERN = "RECOVERN"      # partitions recomputed by elastic recovery
 RECOVERMS = "RECOVERMS"    # elastic-recovery milliseconds
 JRATE = "JRATE"            # derived: (R+S) tuples / JTOTAL second
@@ -150,6 +162,7 @@ class Measurements:
         self.span_n: Dict[str, int] = defaultdict(int)
         self.events: List[Tuple[str, dict]] = []
         self._lock = threading.Lock()
+        self._tracer = None
         self._mono0 = time.perf_counter()
         self.meta: Dict[str, object] = {
             "host": socket.gethostname(),
@@ -157,25 +170,68 @@ class Measurements:
             "nodes": num_nodes,
             "epoch_s": time.time(),
         }
+        # the always-on flight recorder, on the registry's clock anchors
+        from tpu_radix_join_torch.observability.flightrec import (
+            FlightRecorder)
+        self.flightrec = FlightRecorder(epoch_s=self.meta["epoch_s"],
+                                        mono_s=self._mono0)
+
+    # ------------------------------------------------------ span tracer
+    def attach_tracer(self, tracer=None, trace_id=None, **tags):
+        """Attach (or build) a ``SpanTracer`` on this registry's clock
+        anchors: every ``start`` / ``stop`` pair then mirrors into a
+        timeline span and every :meth:`event` into an instant event.
+        ``trace_id`` (one for every rank of a run) lands in the span file,
+        ``meta["trace_id"]`` and the flight recorder's context.  Returns
+        the tracer."""
+        if tracer is None:
+            from tpu_radix_join_torch.observability.spans import SpanTracer
+            tracer = SpanTracer(rank=self.node_id, trace_id=trace_id,
+                                tags=tags, epoch_s=self.meta["epoch_s"],
+                                mono_s=self._mono0)
+        self.meta["trace_id"] = tracer.trace_id
+        self.flightrec.set_context(trace_id=tracer.trace_id)
+        self._tracer = tracer
+        return tracer
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    def set_trace_tags(self, **tags) -> None:
+        """Stamp tags (plan strategy, engine, ...) onto future spans; a
+        no-op without an attached tracer."""
+        if self._tracer is not None:
+            self._tracer.set_tags(**tags)
 
     # ------------------------------------------------------------ spans
     @contextlib.contextmanager
     def span(self, name: str, **args):
         """Host seconds of a named span (grid pairs, prefetch waits,
-        checkpoint writes), summed per name in ``span_s``; no
-        ``times_us`` tag, so the ``.perf`` file stays bounded."""
+        checkpoint writes, served queries), summed per name in ``span_s``;
+        no ``times_us`` tag, so the ``.perf`` file stays bounded.  Mirrored
+        into the ring (``span`` / ``span_end``) and the tracer."""
+        self.flightrec.record("span", name, **args)
         t0 = time.perf_counter()
         try:
-            yield
+            if self._tracer is not None:
+                with self._tracer.span(name, **args):
+                    yield
+            else:
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.span_s[name] += dt
                 self.span_n[name] += 1
+            self.flightrec.record("span_end", name)
 
     # ----------------------------------------------------------- timers
     def start(self, key: str) -> None:
         self._starts[key] = time.perf_counter()
+        self.flightrec.record("begin", key)
+        if self._tracer is not None:
+            self._tracer.begin(key)
 
     def stop(self, key: str, fence=None) -> float:
         """Stop a timer and return its microseconds; ``fence`` (tensors)
@@ -186,6 +242,9 @@ class Measurements:
         dt = (time.perf_counter() - self._starts.pop(key)) * 1e6
         with self._lock:
             self.times_us[key] += dt
+        self.flightrec.record("end", key, us=round(dt, 1))
+        if self._tracer is not None:
+            self._tracer.end(key)
         return dt
 
     def add_time_us(self, key: str, us: float) -> None:
@@ -202,6 +261,8 @@ class Measurements:
     def incr(self, key: str, by: int = 1) -> None:
         with self._lock:
             self.counters[key] += by
+            total = self.counters[key]
+        self.flightrec.record("incr", key, by=by, total=total)
 
     def event(self, name: str, **data) -> None:
         """Record an event: ``(name, data)`` in ``events``, and in
@@ -216,6 +277,9 @@ class Measurements:
                 "t_epoch_s": round(self.meta["epoch_s"]
                                    + (now - self._mono0), 6),
                 **data})
+        self.flightrec.record("event", name, **data)
+        if self._tracer is not None:
+            self._tracer.instant(name, **data)
 
     # ----------------------------------------------- detail accumulators
     def record_exchange(self, num_nodes: int, cap_r: int, cap_s: int,
@@ -241,6 +305,11 @@ class Measurements:
                 self.counters[XSTAGES] = int(stages)
             self.counters[WINCAPR] = cap_r
             self.counters[WINCAPS] = cap_s
+        # the gauges bypass incr(): one ring record keeps the geometry
+        self.flightrec.record(
+            "gauge", "exchange", wirebytes=self.counters[WIREBYTES],
+            pack_ratio_pct=self.counters.get(PACKRATIO),
+            stages=self.counters.get(XSTAGES))
 
     def derive_rates(self) -> None:
         """Throughput tags (Measurements.cpp:251-260): tuples per second of

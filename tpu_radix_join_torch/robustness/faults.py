@@ -27,7 +27,7 @@ from __future__ import annotations
 import difflib
 import random
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from tpu_radix_join_torch.performance.measurements import FINJECT
 from tpu_radix_join_torch.robustness.retry import BACKEND_UNAVAILABLE
@@ -110,6 +110,9 @@ class FaultInjector:
         self.seed = seed
         self.measurements = measurements
         self._arms: Dict[str, _Arm] = {}
+        #: every (site, hit) that fired, in order: the replay record a
+        #: forensics bundle keeps
+        self.history: List[Tuple[str, int]] = []
 
     def arm(self, site: str, *, at=None, p: Optional[float] = None,
             times: Optional[int] = None, exc=None) -> "FaultInjector":
@@ -131,6 +134,7 @@ class FaultInjector:
         arm = self._arms.get(site)
         if arm is None or not arm.decide():
             return False
+        self.history.append((site, arm.hits))
         for m in (self.measurements, measurements):
             if m is not None:
                 m.incr(FINJECT)

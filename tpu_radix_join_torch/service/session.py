@@ -45,11 +45,21 @@ issues a collective.  The degraded CPU engine joins over the same gloo
 group.
 
 ``ledger=`` (observability/ledger.py) appends one ``query`` row an
-executed query, as JAX's does without its ``trace_id`` and ``ncompile``
-(ROADMAP A18d).  Not ported here: forensics bundles, the heartbeat
-sampler, elastic membership and hedging (ROADMAP A18), and the fleet
-supervisor (A16b); their constructor arguments raise
-``NotImplementedError``.
+executed query.  The liveness and observability plane (ROADMAP A16b step
+1, A18d): every executed query stamps its ``query_id`` and ``tenant`` into
+the flight recorder's context; ``forensics_dir=`` writes a bundle for each
+failed query (observability/postmortem.py) and sets the outcome's
+``bundle``; :meth:`JoinSession.attach_heartbeat` starts a metrics sampler
+whose tick carries the SLO, breaker and cache state (and, with
+``membership=``, writes this rank's lease); :meth:`JoinSession.
+attach_watchdog` starts a hang watchdog whose kill reaches the engine
+through the session's cancel hook; the NCOMPILE delta of a query after
+the first is the recompile-storm canary.  ``membership=`` (a one-rank
+``MembershipView``) and ``elastic=True`` are taken at one rank: the epoch
+keys the result cache and residency, and no join consults the view.  Not
+ported: membership over several ranks, recovery, growth and hedging
+(ROADMAP A18c), the partition manifest (A18b) and the fleet supervisor
+(A16b step 2); their constructor arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import collections
 import contextlib
 import dataclasses
 import pickle
+import sys
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -69,8 +80,8 @@ from tpu_radix_join_torch.core.config import (JoinConfig, ServiceConfig,
 from tpu_radix_join_torch.data.tuples import (U32_MASK, lane_from_numpy,
                                               lane_to_numpy)
 from tpu_radix_join_torch.performance.measurements import (
-    BATCHN, BATCHQ, COMPILEMS, DELTAMERGE, JHIST, NCOMPILE, QDEADLINE,
-    QDEGRADED, QWARM)
+    BATCHN, BATCHQ, COMPILEMS, DELTAMERGE, JHIST, MEPOCH, NCOMPILE, QDEADLINE,
+    QDEGRADED, QWARM, RANKLOST, RECOVERMS, RECOVERN)
 from tpu_radix_join_torch.robustness import faults as _faults
 from tpu_radix_join_torch.robustness.retry import (BACKEND_UNAVAILABLE,
                                                    DEADLINE_EXCEEDED, OK)
@@ -160,7 +171,7 @@ class QueryOutcome:
     warm: bool = False              # sizing pass skipped (plan-cache hit)
     breaker_state: str = "closed"
     detail: str = ""
-    bundle: Optional[str] = None    # forensics bundle (ROADMAP A18): None
+    bundle: Optional[str] = None    # forensics bundle path, failed queries
     #: the serving path of the answer: execute (full engine run),
     #: cache_hit, batched (fused multi-query program), delta_merge
     served_by: str = "execute"
@@ -194,18 +205,31 @@ class JoinSession:
         from tpu_radix_join_torch.operators.hash_join import HashJoin
         from tpu_radix_join_torch.parallel.world import make_world
 
-        for name, value, off in (
-                ("forensics_dir", forensics_dir, None),
-                ("membership", membership, None),
-                ("elastic", elastic, False),
-                ("partition_manifest", partition_manifest, None),
-                ("elastic_grow", elastic_grow, False),
-                ("hedge", hedge, "off")):
+        for name, value, off, item in (
+                ("partition_manifest", partition_manifest, None,
+                 "queue A, A18b: the partition manifest"),
+                ("elastic_grow", elastic_grow, False,
+                 "queue A, A18c: membership, recovery and stragglers"),
+                ("hedge", hedge, "off",
+                 "queue A, A18c: membership, recovery and stragglers")):
             if value != off:
-                raise _not_ported(f"JoinSession({name}={value!r})",
-                                  "queue A, A18: host-side modules")
-        del hedge_threshold        # read only with hedging (A18)
+                raise _not_ported(f"JoinSession({name}={value!r})", item)
+        del hedge_threshold        # read only with hedging (A18c)
+        if config.num_nodes > 1 and (membership is not None or elastic):
+            raise _not_ported(
+                f"JoinSession(membership=, elastic=) over "
+                f"{config.num_nodes} ranks",
+                "queue A, A18c: membership, recovery and stragglers")
         self.config = config
+        #: the membership view (robustness/membership.py) at one rank: its
+        #: epoch keys the result cache and residency; the lease it reads
+        #: is this worker's liveness (:meth:`attach_heartbeat` writes it)
+        self.membership = membership
+        self.elastic = elastic
+        #: failed queries drop a forensics bundle here
+        #: (observability/postmortem.py), stamped with the query_id the
+        #: flight recorder's context carried during the query
+        self.forensics_dir = forensics_dir
         self.service = service or ServiceConfig()
         self.measurements = measurements
         #: the run ledger (observability/ledger.py): when set, every
@@ -270,6 +294,19 @@ class JoinSession:
         self._resident_probe: Dict = {}
         self.batches_fused = 0          # fused device programs dispatched
         self.batch_queries_fused = 0    # queries served through them
+        self._recompile_storms = 0
+        self._sampler = None            # attached heartbeat, owned if set
+        self._watchdog = None           # attached hang watchdog, owned
+        self._watchdog_kw: Optional[dict] = None
+        #: the watchdog's verdict waiting for the running query's next
+        #: cancel point (:meth:`kill`), and that query's deadline
+        self._killed: Optional[BaseException] = None
+        self._deadline: Optional[Deadline] = None
+        #: one heartbeat of this rank's lease a sampler tick
+        self._lease_extra = (None if membership is None else
+                             membership.board.sampler_extra(
+                                 epoch_of=membership.epoch_of,
+                                 status_of=membership.my_status))
         self._closed = False
         #: recent outcomes only; the SLO recorder owns the aggregates
         self.outcomes: "collections.deque" = collections.deque(
@@ -388,7 +425,7 @@ class JoinSession:
 
     # ----------------------------------------------------- result cache tier
     def _epoch(self) -> Optional[int]:
-        return None                     # no membership yet (ROADMAP A18)
+        return self.membership.epoch if self.membership is not None else None
 
     def _content_fp(self, request: QueryRequest) -> str:
         return content_fingerprint(
@@ -767,14 +804,22 @@ class JoinSession:
         engine = self.engine if primary else self._degraded_engine()
         t0 = time.perf_counter()
         jhist0 = m.times_us.get(JHIST, 0.0) if m is not None else 0.0
+        nc0 = m.counters.get(NCOMPILE, 0) if m is not None else 0
+        completed_before = self.slo.completed
         span = (m.span("query", query_id=request.query_id,
                        tenant=request.tenant,
                        engine="primary" if primary else "cpu_fallback",
                        probe=probing)
                 if m is not None else contextlib.nullcontext())
-        engine.cancel = deadline.check
+        self._deadline = deadline
+        engine.cancel = self._cancel
+        if m is not None:
+            # every ring record inside this query carries its query_id: a
+            # bundle cut mid-query attributes its evidence
+            m.flightrec.set_context(query_id=request.query_id,
+                                    tenant=request.tenant)
         status, cls, detail = "ok", OK, ""
-        matches = expected = None
+        matches = expected = bundle = None
         try:
             with span:
                 if primary and _faults.fires(_faults.BACKEND_DISPATCH, m):
@@ -820,12 +865,16 @@ class JoinSession:
             if cls is None:
                 cls = UNCLASSIFIED
             detail = repr(e)[:500]
+            # a watchdog's verdict carries the bundle it wrote at the trip
+            bundle = getattr(e, "bundle", None)
             if m is not None:
                 m.event("query_failed", query_id=request.query_id,
                         failure_class=cls, error=repr(e)[:200])
         finally:
             engine.cancel = None
+            self._end_query_watch(request)
         latency_ms = (time.perf_counter() - t0) * 1e3
+        trips0 = self.breaker.trips
         # warm = the sizing pass did not run this query (a plan-cache hit):
         # the JHIST column did not move
         warm = (status == "ok" and m is not None
@@ -841,13 +890,37 @@ class JoinSession:
                 self.breaker.record_success()
             else:
                 self.breaker.record_failure(cls)
+        if status == "failed" and self.forensics_dir and bundle is None:
+            reason = ("breaker_trip" if self.breaker.trips > trips0
+                      else ("deadline_exceeded" if cls == DEADLINE_EXCEEDED
+                            else "query_failed"))
+            bundle = self._write_bundle(request, reason, cls, detail)
+        # the recompile-storm canary: NCOMPILE rising after the session
+        # has completed queries means a kernel library loaded mid-service
+        # (observability/compilemon.py: a first-use build, which a warm
+        # session has already paid)
+        nc_delta = (m.counters.get(NCOMPILE, 0) - nc0) if m is not None else 0
+        if nc_delta and completed_before > 0:
+            self._recompile_storms += 1
+            if m is not None:
+                m.event("recompile_storm", query_id=request.query_id,
+                        ncompile_delta=nc_delta,
+                        completed=completed_before)
+            if self._recompile_storms <= 3:      # warn, don't spam
+                print(f"[OBS] recompile storm: query {request.query_id} "
+                      f"triggered {nc_delta} kernel build(s) after "
+                      f"{completed_before} completed queries",
+                      file=sys.stderr)
+        if m is not None:
+            m.flightrec.clear_context("query_id", "tenant")
         out = QueryOutcome(
             query_id=request.query_id, tenant=request.tenant,
             status=status, failure_class=cls, latency_ms=latency_ms,
             matches=matches, expected=expected,
             engine="primary" if primary else "cpu_fallback",
             degraded=not primary, warm=warm,
-            breaker_state=self.breaker.state, detail=detail)
+            breaker_state=self.breaker.state, detail=detail,
+            bundle=bundle)
         self.slo.record(request.tenant, latency_ms, ok=(status == "ok"),
                         failure_class=None if cls == OK else cls,
                         degraded=not primary)
@@ -857,20 +930,117 @@ class JoinSession:
             try:
                 self.ledger.append("query", {
                     "query_id": request.query_id, "tenant": request.tenant,
+                    "trace_id": (m.meta.get("trace_id")
+                                 if m is not None else None),
                     "status": status, "failure_class": cls,
                     "latency_ms": round(latency_ms, 3),
                     "warm": warm, "engine": out.engine,
                     "tuples_per_node": request.tuples_per_node,
-                    "repeats": request.repeats})
+                    "repeats": request.repeats,
+                    "ncompile": nc_delta or None})
             except Exception as e:   # noqa: BLE001 — isolation boundary
                 if m is not None:
                     m.event("ledger_error", error=repr(e)[:200])
         return out
 
+    def _write_bundle(self, request: QueryRequest, reason: str,
+                      cls: str, detail: str) -> Optional[str]:
+        """Forensics bundle of one failed query; a write error is an event
+        on the registry, never a new failure for the query."""
+        try:
+            from tpu_radix_join_torch.observability.postmortem import (
+                write_bundle)
+            return write_bundle(
+                self.forensics_dir, self.measurements, reason=reason,
+                failure_class=cls, config=self.config,
+                extra={"query_id": request.query_id,
+                       "tenant": request.tenant,
+                       "breaker_state": self.breaker.state,
+                       "detail": detail})
+        except Exception as e:     # noqa: BLE001 — forensics must not mask
+            if self.measurements is not None:
+                self.measurements.event("bundle_error", error=repr(e)[:200])
+            return None
+
+    # ------------------------------------------------------------ watchdog
+    def kill(self, exc: BaseException) -> None:
+        """The watchdog's kill path: ``exc`` is raised at the running
+        query's next cancel point (a phase boundary or the ``backend.stall``
+        poll), before its deadline is consulted — the hang's verdict
+        outranks the budget clock, as JAX's ``engine_killer`` rebinding
+        does.  The verdict waits on the session, not on the engine's hook,
+        so resetting the hook cannot drop it while the query runs."""
+        self._killed = exc
+
+    def _cancel(self, phase: str) -> None:
+        """The engine's cancel hook while a query runs."""
+        exc = self._killed
+        if exc is not None:
+            self._killed = None
+            raise exc
+        if self._deadline is not None:
+            self._deadline.check(phase)
+
+    def _end_query_watch(self, request: QueryRequest) -> None:
+        """After a query: a tripped watchdog is joined (its kill is then
+        delivered or pending) and a fresh one armed for the next query; a
+        kill no cancel point took (the query had passed its last one) is
+        recorded and dropped, and never reaches the next query."""
+        self._deadline = None
+        wd = self._watchdog
+        if wd is not None and wd.tripped:
+            wd.stop()
+            self._watchdog = self._new_watchdog()
+        if self._killed is not None:
+            self._killed = None
+            if self.measurements is not None:
+                self.measurements.event("watchdog_kill_undelivered",
+                                        query_id=request.query_id)
+
+    def _new_watchdog(self):
+        from tpu_radix_join_torch.observability.watchdog import Watchdog
+        return Watchdog(self.measurements, kill=self.kill,
+                        bundle_dir=self.forensics_dir,
+                        membership=self.membership, config=self.config,
+                        **self._watchdog_kw).start()
+
+    def attach_watchdog(self, timeout_s: float,
+                        poll_s: Optional[float] = None):
+        """Start a hang watchdog owned by this session (stopped by
+        :meth:`close`; observability/watchdog.py): a query whose registry
+        records nothing for ``timeout_s`` with a phase open ends as
+        ``backend_unavailable``, its bundle (with every thread's stack, in
+        ``forensics_dir``) on the outcome; the watchdog is re-armed for the
+        next query.  A second call replaces the watchdog.  One rank only:
+        the kill decides on one rank alone."""
+        if self._host_world.size > 1:
+            raise _not_ported(
+                "JoinSession.attach_watchdog over several ranks",
+                "queue A, A18c: membership, recovery and stragglers")
+        if self.measurements is None:
+            raise ValueError("the watchdog reads the registry's flight "
+                             "recorder: pass measurements=")
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        self._watchdog_kw = {"timeout_s": float(timeout_s),
+                             "poll_s": poll_s}
+        self._watchdog = self._new_watchdog()
+        return self._watchdog
+
     # ----------------------------------------------------------- lifecycle
     def attach_heartbeat(self, path: str, interval_s: float):
-        raise _not_ported("JoinSession.attach_heartbeat",
-                          "queue A, A18: host-side modules")
+        """Start a metrics heartbeat owned by this session (stopped by
+        :meth:`close`): every tick carries the SLO, breaker, queue and
+        cache state beside the counter registry, the session's card's
+        memory, and, with a membership view, this rank's lease, written
+        on the tick."""
+        from tpu_radix_join_torch.observability.metrics import MetricsSampler
+        self._sampler = MetricsSampler(path, interval_s,
+                                       measurements=self.measurements,
+                                       extra=self.heartbeat_tick,
+                                       device=self.device)
+        self._sampler.start()
+        return self._sampler
 
     def fastpath_stats(self) -> dict:
         """The fast paths' state: result-cache hit rates, residency bytes
@@ -883,10 +1053,36 @@ class JoinSession:
                 "place_cache_entries": len(self._place_cache),
                 "place_cache_max": self.service.place_cache_max}
 
+    def _heartbeat_extra(self) -> dict:
+        """The service state a heartbeat tick and ``/statusz/service``
+        show: SLO, breaker, queue depth, placed bytes, the caches and the
+        membership view; host values and tensor sizes only."""
+        out = {"slo": self.slo.snapshot(),
+               "breaker": self.breaker.snapshot(),
+               "queue_depth": self.queue.depth(),
+               "placed_bytes": self.placed_bytes()}
+        if self.result_cache.max_entries:
+            out["result_cache"] = self.result_cache.stats()
+        if self.resident.budget_bytes:
+            out["resident"] = self.resident.stats()
+        if self.membership is not None:
+            out["membership"] = {"epoch": self.membership.epoch,
+                                 "lost": sorted(self.membership.lost),
+                                 "survivors": self.membership.survivors}
+        return out
+
+    def heartbeat_tick(self) -> dict:
+        """One heartbeat tick's extra: :meth:`_heartbeat_extra` and, with
+        a membership view, this rank's lease, written now."""
+        out = self._heartbeat_extra()
+        if self._lease_extra is not None:
+            out.update(self._lease_extra())
+        return out
+
     def summary(self) -> dict:
         """Final serve report: SLO tags and breaker, queue and cache
-        state.  ``ncompile`` / ``compile_ms`` read counters nothing of the
-        port ticks yet (the compile monitor is ROADMAP A18)."""
+        state; ``ncompile`` / ``compile_ms`` count the first-use kernel
+        builds an installed compile monitor heard."""
         out = self.slo.snapshot()
         out.update(breaker_state=self.breaker.state,
                    breaker_trips=self.breaker.trips,
@@ -910,15 +1106,26 @@ class JoinSession:
             out["degraded_queries"] = int(m.counters.get(QDEGRADED, 0))
             out["ncompile"] = int(m.counters.get(NCOMPILE, 0))
             out["compile_ms"] = int(m.counters.get(COMPILEMS, 0))
+            out["recompile_storms"] = self._recompile_storms
+            if m.counters.get(RANKLOST):
+                out["ranks_lost"] = int(m.counters.get(RANKLOST, 0))
+                out["membership_epoch"] = int(m.counters.get(MEPOCH, 0))
+                out["recovered_partitions"] = int(m.counters.get(RECOVERN, 0))
+                out["recover_ms"] = int(m.counters.get(RECOVERMS, 0))
         return out
 
     def close(self) -> None:
-        """Release what the session owns: placed batches, resident lanes,
-        cached results and the ephemeral plan cache.  Idempotent; the
-        session refuses new submissions after."""
+        """Release what the session owns: the heartbeat and watchdog
+        threads, placed batches, resident lanes, cached results and the
+        ephemeral plan cache.  Idempotent; the session refuses new
+        submissions after."""
         if self._closed:
             return
         self._closed = True
+        for owned in (self._sampler, self._watchdog):
+            if owned is not None:
+                owned.stop()
+        self._sampler = self._watchdog = None
         self._place_cache.clear()
         self.result_cache.invalidate()
         self.resident.invalidate()
