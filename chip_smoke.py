@@ -294,6 +294,29 @@ A16b step 1, A18d; phase_v), last, at 20,000,000 tuples a node:
        line a tick with the card's bytes in use; the span file merged into
        a timeline with a device track; exit 1, the missed deadline's.
 
+Phase (w), the crash-only fleet (ROADMAP A16b step 2; phase_w), after (v),
+at 20,000,000 tuples a node, through the command line as subprocesses:
+
+  (w1) ``python -m tpu_radix_join_torch.main --fleet 2 --serve FILE
+       --verify check --fleet-dir D --fleet-kill-at 2 --statusz 0``: three
+       queries in two tenants, the second's worker SIGKILLed with the
+       request on its pipe and the query replayed on the survivor; every
+       outcome exact, ``failover`` and ``replayn`` at least 1,
+       ``double_exec`` and ``unacked`` 0, the journal's audit agreeing;
+       ``/healthz`` 200 while a worker serves, ``/statusz`` with its
+       ``fleet`` section; the card holding one CUDA context a live worker
+       beside this script's and none for the supervisor; the workers'
+       heartbeat lines holding their device bytes, NCOMPILE / COMPILEMS
+       and kernel launches (K2, K3);
+  (w2) ``--fleet 1 --serve - --fleet-kill-at 1``: one query on stdin, its
+       only worker killed and the slot respawned (``w0i2``), the query
+       replayed there; SIGTERM after the outcome: exit 0, nothing
+       unacknowledged, no lease left.
+
+  It prints the failover time, the cold restart, each query's latency
+  through the fleet beside the worker's and (v1)'s warm in-process query,
+  the supervisor's dispatch overhead and the workers' peak device memory.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -3705,6 +3728,394 @@ def phase_v(dev, n, card) -> dict:
     emit({"phase": "plane", "cell": "v_done",
           "seconds": time.perf_counter() - t_phase,
           "launches": {k: v for k, v in total.items() if v}, **card})
+    return total, med["on"]
+
+
+#: phase (w): the fleet's workers and the dispatched query its kill hits;
+#: the supervisor's lease window (its workers beat every half window); the
+#: seconds a fleet run may take; the period of the status poller;
+#: arguments phase (w) adds to its command lines (none on the card)
+W_WORKERS = 2
+W_KILL_AT = 2
+W_LEASE_S = 1.0
+W_RUN_S = 300.0
+W_POLL_S = 0.25
+W_CLI_EXTRA = ()
+
+
+def smi_apps() -> list:
+    """The compute apps ``nvidia-smi`` lists on the card: one line a CUDA
+    context (the pid column may be a pid of another namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps: "
+                             f"{out.stderr}")
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def fleet_run(argv, cwd, feed=None, sigterm=False, poll=None):
+    """One ``main --fleet`` run as a subprocess: ``feed`` lines written to
+    its stdin (then SIGTERM with ``sigterm``, else stdin closed), its
+    stdout's JSON lines collected, ``poll(port)`` called every
+    ``W_POLL_S`` while it runs once ``--statusz`` has printed its port.
+    Returns (exit code, JSON lines, stderr); the supervisor is killed if it
+    outlives ``W_RUN_S`` (its workers then see EOF and exit)."""
+    import queue
+    import signal
+    import threading
+
+    proc = subprocess.Popen(argv, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, bufsize=1, cwd=cwd)
+    outq, err, port = queue.Queue(), [], []
+
+    def read_out():
+        for ln in proc.stdout:
+            if ln.startswith("{"):
+                outq.put(json.loads(ln))
+        outq.put(None)
+
+    def read_err():
+        for ln in proc.stderr:
+            err.append(ln)
+            if "[STATUSZ] serving http://127.0.0.1:" in ln:
+                port.append(int(ln.split("127.0.0.1:")[1].split("/")[0]))
+
+    readers = [threading.Thread(target=f, daemon=True)
+               for f in (read_out, read_err)]
+    for t in readers:
+        t.start()
+    recs = []
+    deadline = time.monotonic() + W_RUN_S
+    try:
+        for line in feed or ():
+            proc.stdin.write(json.dumps(line) + "\n")
+            proc.stdin.flush()
+            while True:
+                rec = outq.get(timeout=max(1.0, deadline - time.monotonic()))
+                if rec is None:
+                    raise AssertionError(f"(w) the supervisor ended: "
+                                         f"{''.join(err)[-3000:]}")
+                recs.append(rec)
+                if rec.get("event") == "outcome":
+                    break
+        if sigterm:
+            proc.send_signal(signal.SIGTERM)
+        else:
+            proc.stdin.close()
+        while proc.poll() is None and time.monotonic() < deadline:
+            if poll is not None and port:
+                poll(port[0])
+            time.sleep(W_POLL_S)
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    for t in readers:
+        t.join(30.0)
+    while True:
+        rec = outq.get_nowait() if not outq.empty() else None
+        if rec is None:
+            break
+        recs.append(rec)
+    return proc.returncode, recs, "".join(err)
+
+
+def worker_incarnations(work_dir: str) -> list:
+    """Each worker incarnation's heartbeat lines under a fleet dir (the
+    slots' ``worker<k>/0.metrics.jsonl``, which every incarnation of a
+    slot appends to), grouped by the pid its lease names, in start order:
+    ``{"slot", "pid", "first_lease_s", "lines", "last"}``."""
+    from tpu_radix_join_torch.observability import load_samples
+
+    out = []
+    for slot in sorted(os.listdir(work_dir)):
+        path = os.path.join(work_dir, slot, "0.metrics.jsonl")
+        if not slot.startswith("worker") or not os.path.exists(path):
+            continue
+        by_pid: dict = {}
+        for rec in load_samples(path):
+            lease = rec.get("lease") or {}
+            if "pid" in lease:
+                by_pid.setdefault(lease["pid"], []).append(rec)
+        for pid, recs in by_pid.items():
+            out.append({"slot": int(slot[len("worker"):]), "pid": pid,
+                        "first_lease_s": recs[0]["lease"]["t_epoch_s"],
+                        "lines": len(recs), "last": recs[-1],
+                        "peak_bytes": max(
+                            (v for r in recs for k, v in
+                             r.get("devices", {}).items()
+                             if k.endswith("_peak_bytes_in_use")),
+                            default=0)})
+    return sorted(out, key=lambda w: w["first_lease_s"])
+
+
+def phase_w(dev, n, card, warm_ms) -> dict:
+    """Cell (w): the crash-only fleet (ROADMAP A16b step 2) on the card, at
+    ``n`` tuples a node, through the command line as a subprocess, so that
+    the supervisor's process is told apart from its workers'.
+
+    (w1) ``python -m tpu_radix_join_torch.main --fleet 2 --serve FILE
+    --verify check --fleet-dir D --fleet-kill-at 2 --statusz 0
+    --rank-lease-s 1``: three unique ⋈ unique queries in two tenants; the
+    second query's worker is SIGKILLed with the request on its pipe and the
+    survivor serves the replay.  Every outcome is ``ok`` and equal to the
+    oracle, the killed query carries ``fleet.attempts >= 2`` and
+    ``replayed``; the summary has ``failover >= 1``, ``replayn >= 1``,
+    ``double_exec == 0`` and ``unacked == 0``, and ``QueryJournal(D)
+    .audit()`` agrees.  While it serves a poller reads ``/healthz`` (200
+    while a worker serves) and ``/statusz`` (its ``fleet`` section: the
+    workers' pids and states) and counts ``nvidia-smi``'s compute apps:
+    this script's context and one a live worker, none for the supervisor
+    (inside a container nvidia-smi may list each process under another
+    pid namespace's id, so contexts are counted, not pids matched).  The
+    workers' heartbeat lines under D (one file a slot, one pid an
+    incarnation) show their device bytes, NCOMPILE / COMPILEMS and
+    kernel launches: each worker counts from 0 at its start, and the
+    launches of the incarnations' last lines are the phase's.
+    (w2) ``--fleet 1 --serve - --fleet-kill-at 1``: one query on stdin, its
+    only worker killed, so the supervisor respawns the slot (``w0i2``) and
+    replays the query there; SIGTERM after the outcome: exit 0,
+    ``drain.unacked == 0``, ``leases_left == []`` and no ``lease_*`` file
+    under its fleet dir.
+    Times: failover (the kill to the replayed outcome: the journal's first
+    intent to its outcome), cold restart (the respawn, the journal's intent
+    on the new incarnation, to that incarnation's first lease beat in its
+    heartbeat), each query's latency through the fleet (intent to outcome)
+    beside the worker's own and (v1)'s warm in-process query, the
+    supervisor's dispatch overhead (fleet latency less the worker's, on a
+    worker that had served before; on a fresh one that difference is its
+    boot), the workers' peak device memory.  Returns the launches of every
+    worker."""
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+    import torch
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.service.journal import QueryJournal
+
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_w_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = [sys.executable, "-m", "tpu_radix_join_torch.main", "--verify",
+            "check", "--rank-lease-s", str(W_LEASE_S), "--seed", "7",
+            *W_CLI_EXTRA]
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    apps0 = len(smi_apps()) if cuda else 0
+
+    # ------------------------------------------------------------- (w1)
+    d1 = os.path.join(tmp, "fleet")
+    reqs = [{"query_id": f"w{i}", "tenant": f"t{i % 2}",
+             "tuples_per_node": n, "seed": 1234 + 2 * i} for i in range(3)]
+    req_path = os.path.join(tmp, "requests.jsonl")
+    with open(req_path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    polls, pids_seen = [], set()
+
+    def get(port, path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as rsp:
+                return rsp.status, json.load(rsp)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+        except (urllib.error.URLError, ConnectionError):
+            return None, {}             # the server stopped at the drain
+
+    def poll(port):
+        hcode, hbody = get(port, "/healthz")
+        scode, body = get(port, "/statusz")
+        workers = (body.get("fleet") or {}).get("workers", {})
+        live = {w["pid"]: w["state"] for w in workers.values()
+                if w["pid"] is not None
+                and w["state"] in ("serving", "booting", "stale")}
+        pids_seen.update(live)
+        rec = {"healthz": hcode, "health": hbody, "statusz": scode,
+               "sections": sorted(body), "live": live}
+        if cuda:
+            rec["apps"] = len(smi_apps())
+        polls.append(rec)
+
+    t1 = time.perf_counter()
+    try:
+        rc1, recs1, err1 = fleet_run(
+            base + ["--fleet", str(W_WORKERS), "--serve", req_path,
+                    "--fleet-dir", d1, "--fleet-kill-at", str(W_KILL_AT),
+                    "--statusz", "0"], root, poll=poll)
+    except BaseException:
+        for pid in pids_seen:           # workers the supervisor left
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        raise
+    w1_s = time.perf_counter() - t1
+    outs = [r for r in recs1 if r.get("event") == "outcome"]
+    summary = next((r for r in recs1 if r.get("event") == "summary"), {})
+    if rc1 != 0 or [o["query_id"] for o in outs] != ["w0", "w1", "w2"]:
+        raise AssertionError(f"(w1) exit {rc1}: {recs1}\n{err1[-3000:]}")
+    for o in outs:
+        if o["status"] != "ok" or not o["matches"] == o["expected"] == n:
+            raise AssertionError(f"(w1) {o}")
+    killed = outs[W_KILL_AT - 1]
+    if killed["fleet"]["attempts"] < 2 or not killed["fleet"]["replayed"]:
+        raise AssertionError(f"(w1) the killed query: {killed}")
+    drain = summary.get("drain", {})
+    if (summary.get("failover", 0) < 1 or summary.get("replayn", 0) < 1
+            or summary.get("double_exec") != 0 or summary.get("unacked") != 0
+            or drain.get("unacked") != 0 or drain.get("double_exec") != 0):
+        raise AssertionError(f"(w1) summary {summary}")
+    journal = QueryJournal(d1)
+    audit = journal.audit()
+    if (audit.unacked, audit.double_exec, audit.outcomes, audit.replays) != (
+            summary["unacked"], summary["double_exec"], 3,
+            summary["replayn"]):
+        raise AssertionError(f"(w1) journal audit {audit} against "
+                             f"{summary}")
+    serving = [p for p in polls
+               if "serving" in p["live"].values() and p["statusz"] == 200]
+    if not serving or not any(p["healthz"] == 200 and p["health"].get("ok")
+                              for p in serving):
+        raise AssertionError(f"(w1) no /healthz 200 while a worker served: "
+                             f"{polls[-5:]}")
+    if any("fleet" not in p["sections"] for p in polls if
+           p["statusz"] == 200):
+        raise AssertionError(f"(w1) /statusz without its fleet section: "
+                             f"{polls[-5:]}")
+    incs1 = worker_incarnations(d1)
+    if cuda:
+        # one context a live worker beside this script's, none for the
+        # supervisor: nvidia-smi's pid column may be of another pid
+        # namespace (a container's processes can all read as pid 1), so
+        # the contexts are counted against the live workers the
+        # supervisor's statusz names
+        full = [p for p in serving if len(p["live"]) == W_WORKERS
+                and set(p["live"].values()) == {"serving"}]
+        if (not full or any(p["apps"] > apps0 + len(p["live"])
+                            for p in polls)
+                or not any(p["apps"] == apps0 + W_WORKERS for p in full)):
+            raise AssertionError(f"(w1) compute apps {apps0} before, "
+                                 f"{[(p['apps'], len(p['live'])) for p in polls]}")
+
+    # ------------------------------------------------------------- (w2)
+    d2 = os.path.join(tmp, "drain")
+    t2 = time.perf_counter()
+    rc2, recs2, err2 = fleet_run(
+        base + ["--fleet", "1", "--serve", "-", "--fleet-dir", d2,
+                "--fleet-kill-at", "1"], root,
+        feed=[{"query_id": "wd", "tenant": "t0", "tuples_per_node": n,
+               "seed": 1240}], sigterm=True)
+    w2_s = time.perf_counter() - t2
+    out2 = next((r for r in recs2 if r.get("event") == "outcome"), {})
+    sum2 = next((r for r in recs2 if r.get("event") == "summary"), {})
+    leases = [f for _, _, fs in os.walk(d2) for f in fs
+              if f.startswith("lease_")]
+    if (rc2 != 0 or out2.get("status") != "ok" or out2.get("matches") != n
+            or out2.get("expected") != n
+            or out2["fleet"]["incarnation"] != "w0i2"
+            or not out2["fleet"]["replayed"]
+            or sum2.get("worker_restarts") != 1
+            or sum2.get("drain", {}).get("unacked") != 0
+            or sum2["drain"].get("double_exec") != 0
+            or sum2["drain"].get("leases_left") != [] or leases):
+        raise AssertionError(f"(w2) exit {rc2}: {recs2}; lease files "
+                             f"{leases}\n{err2[-3000:]}")
+    if QueryJournal(d2).audit().unacked != 0:
+        raise AssertionError(f"(w2) {QueryJournal(d2).audit()}")
+    incs2 = worker_incarnations(d2)
+
+    # ------------------------------------------------------- the numbers
+    def rows(j, qid):
+        intents = sorted((r for r in j.rows("intent")
+                          if r["query_id"] == qid),
+                         key=lambda r: r["attempt"])
+        outcome = next(r for r in j.rows("outcome") if r["query_id"] == qid)
+        return intents, outcome
+
+    # a query's wait past its worker's own latency: the dispatch overhead
+    # where the worker had served before, its boot where it had not
+    fleet_ms, worker_ms, overhead_ms, boot_wait_ms = {}, {}, {}, {}
+    served = set()
+    for o in outs:
+        qid, inc = o["query_id"], o["fleet"]["incarnation"]
+        intents, outcome = rows(journal, qid)
+        fleet_ms[qid] = 1e3 * (outcome["t_epoch_s"]
+                               - intents[0]["t_epoch_s"])
+        worker_ms[qid] = o["latency_ms"]
+        if len(intents) == 1:
+            (overhead_ms if inc in served else boot_wait_ms)[qid] = (
+                fleet_ms[qid] - o["latency_ms"])
+        served.add(inc)
+    failover_ms = fleet_ms[killed["query_id"]]
+    j2 = QueryJournal(d2)
+    intents2, outcome2 = rows(j2, "wd")
+    respawn_s = next(r["t_epoch_s"] for r in intents2
+                     if r["incarnation"] == "w0i2")
+    # the first incarnation may die before its first heartbeat line
+    reborn = [w for w in incs2 if w["first_lease_s"] >= respawn_s]
+    if len(incs2) > 2 or len(reborn) != 1:
+        raise AssertionError(f"(w2) incarnations {incs2}")
+    cold_restart_ms = 1e3 * (reborn[0]["first_lease_s"] - respawn_s)
+    for w in incs1 + incs2:
+        for k, v in (w["last"].get("launches") or {}).items():
+            total[k] += v
+    if cuda:
+        for name in ("radix_pass", "merge_scan"):
+            if total[name] <= 0:
+                raise AssertionError(f"(w) kernel {name} did not launch in "
+                                     f"the workers: {total}")
+        if any(not w["peak_bytes"] for w in incs1 + incs2
+               if w["last"]["counters"].get("NCOMPILE")):
+            raise AssertionError(f"(w) a serving worker's heartbeat holds "
+                                 f"no device bytes: {incs1 + incs2}")
+
+    def inc_row(w):
+        c = w["last"].get("counters", {})
+        return {"slot": w["slot"], "heartbeat_lines": w["lines"],
+                "ncompile": c.get("NCOMPILE", 0),
+                "compile_ms": c.get("COMPILEMS", 0),
+                "peak_bytes": w["peak_bytes"],
+                "launches": {k: v for k, v in
+                             (w["last"].get("launches") or {}).items() if v}}
+
+    emit({"phase": "fleet", "cell": "w", "tuples_per_node": n,
+          "workers": W_WORKERS, "kill_at": W_KILL_AT,
+          "failover_ms": failover_ms, "cold_restart_ms": cold_restart_ms,
+          "fleet_latency_ms": fleet_ms, "worker_latency_ms": worker_ms,
+          "in_process_warm_ms": warm_ms,
+          "dispatch_overhead_ms": overhead_ms,
+          "first_query_boot_wait_ms": boot_wait_ms,
+          "dispatch_overhead_median_ms": (statistics.median(
+              overhead_ms.values()) if overhead_ms else None),
+          "restart_replay_ms": 1e3 * (outcome2["t_epoch_s"]
+                                      - intents2[0]["t_epoch_s"]),
+          "restart_query_worker_ms": out2["latency_ms"],
+          "worker_peak_bytes_max": max(
+              [w["peak_bytes"] for w in incs1 + incs2] or [0]),
+          "incarnations_w1": [inc_row(w) for w in incs1],
+          "incarnations_w2": [inc_row(w) for w in incs2],
+          "summary_w1": {k: summary[k] for k in (
+              "failover", "replayn", "worker_restarts", "incarnations",
+              "jdepth", "unacked", "double_exec")},
+          "summary_w2": {k: sum2[k] for k in (
+              "failover", "replayn", "worker_restarts", "incarnations",
+              "unacked", "double_exec")},
+          "journal_audit_w1": audit.to_json(),
+          "polls": len(polls), "compute_apps_before": apps0,
+          "compute_apps": sorted({(p.get("apps"), len(p["live"]))
+                                  for p in polls}),
+          "w1_s": w1_s, "w2_s": w2_s,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    shutil.rmtree(tmp, ignore_errors=True)
     return total
 
 
@@ -5010,8 +5421,13 @@ def main() -> int:
 
     # (v): the serve worker's liveness and observability plane
     torch.cuda.empty_cache()
-    launches_v = phase_v(dev, n_main, card)
+    launches_v, warm_ms = phase_v(dev, n_main, card)
     launches = {k: v + launches_v[k] for k, v in launches.items()}
+
+    # (w): the crash-only fleet, its workers serving on this card
+    torch.cuda.empty_cache()
+    launches_w = phase_w(dev, n_main, card, warm_ms)
+    launches = {k: v + launches_w[k] for k, v in launches.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

@@ -124,15 +124,10 @@ def test_cli_serve_batch_window_and_refusals(capsys, tmp_path):
     assert port[:3] == jax_[:3]
     assert [o["served_by"] for o in port[1]] == ["batched"] * 4
     assert port[3]["fused_batches"] == jax_[3]["fused_batches"] == 1
-    with pytest.raises(SystemExit):
-        tmain(["--serve", "x.jsonl", "--device", "cpu", "--fleet", "2"])
-    err = capsys.readouterr().err
-    assert "not ported" in err and "A16b" in err
 
 
 #: the JAX command line's flags the port still refuses, each naming its item
-REFUSED = [(["--fleet-dir", "d"], "A16b"), (["--fleet-kill-at", "1"], "A16b"),
-           (["--elastic-grow"], "A18c"), (["--elastic-join", "2"], "A18c"),
+REFUSED = [(["--elastic-grow"], "A18c"), (["--elastic-join", "2"], "A18c"),
            (["--rank-death-at", "1"], "A18c"),
            (["--rank-join-at", "1"], "A18c"), (["--hedge", "on"], "A18c"),
            (["--hedge-threshold", "0.3"], "A18c"),

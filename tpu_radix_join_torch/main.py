@@ -61,10 +61,18 @@ served queries); ``--metrics-interval`` a heartbeat line a tick
 before any work and on every tick, withdrawn at exit; ``--forensics-dir``
 collects the bundles of failed queries and runs; ``--watchdog-timeout``
 cancels a stalled join; ``--statusz PORT`` serves ``/statusz`` and
-``/healthz``.  A fleet supervisor starts each worker as
+``/healthz``.
+``--fleet N`` with ``--serve FILE|-`` runs the crash-only fleet instead
+(``_run_fleet``, service/fleet.py): N worker subprocesses, each started as
 ``--serve - --elastic on --lease-dir D --rank-lease-s S
---rank-missed-beats N --metrics-interval I --timeline-dir T``.  The JAX
-command line's ``--fleet``, ``--fleet-dir``, ``--fleet-kill-at`` (A16b step 2),
+--rank-missed-beats N --metrics-interval I --timeline-dir T`` with the
+supervisor's shape flags and its ``--device``, behind one supervisor that
+makes no CUDA call: queries routed by tenant hash, journaled under
+``--fleet-dir`` (intent before dispatch, outcome before reply), a dead
+worker's query replayed on a survivor (``--fleet-kill-at N`` SIGKILLs the
+N-th query's worker), dead workers restarted with backoff, SIGTERM a
+drain to zero unacknowledged intents; ``--statusz`` adds a ``fleet``
+section and the supervisor's readiness.  The JAX command line's
 ``--elastic-grow``, ``--elastic-join``, ``--rank-death-at``,
 ``--rank-join-at``, ``--hedge``, ``--hedge-threshold``,
 ``--straggle-factor`` (A18c), ``--cpu-fallback`` (A18b) and
@@ -105,6 +113,8 @@ Usage:
     python -m tpu_radix_join_torch.main --plan explain --profile auto --ledger-dir /tmp/ledger
     python -m tpu_radix_join_torch.main --serve - --elastic on --lease-dir /tmp/w0/leases --rank-lease-s 1 --rank-missed-beats 2 --metrics-interval 0.25 --timeline-dir /tmp/w0 --statusz 0 --forensics-dir /tmp/w0/forensics --watchdog-timeout 30
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --serve requests.jsonl
+    python -m tpu_radix_join_torch.main --fleet 2 --serve requests.jsonl --verify check --fleet-dir /tmp/fleet --fleet-kill-at 2 --statusz 0
+    python -m tpu_radix_join_torch.main --fleet 2 --serve - --device cpu --fleet-dir /tmp/fleet
 """
 
 from __future__ import annotations
@@ -400,6 +410,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rank-missed-beats", type=int, default=2, metavar="N",
                    help="a lease lapses after N windows of silence (lapse "
                         "window = N x --rank-lease-s; default 2)")
+    # --- the crash-only fleet (service/fleet.py) ---------------------------
+    p.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="crash-only fleet serving (service/fleet.py): "
+                        "supervise N --serve worker subprocesses, route "
+                        "queries by consistent hash on tenant, health-check "
+                        "workers by lease heartbeat (two missed beats = "
+                        "lapse, the rank-lapse rule), restart dead workers "
+                        "with exponential backoff + a crash-loop breaker, "
+                        "and guarantee exactly-once outcomes through the "
+                        "durable query journal (intent before dispatch, "
+                        "outcome before reply, replay on death); SIGTERM "
+                        "drains gracefully.  Requires --serve FILE|-; "
+                        "--statusz gains a fleet section and a readiness-"
+                        "aware /healthz.  The supervisor touches no device; "
+                        "every worker runs on its --device")
+    p.add_argument("--fleet-dir", default=None,
+                   help="fleet work dir: the query journal plus per-worker "
+                        "lease/timeline artifacts live here (default: "
+                        "fleet/ under --output-dir or --timeline-dir, else "
+                        "a private tempdir — restart the supervisor over "
+                        "the SAME dir to replay unacknowledged intents)")
+    p.add_argument("--fleet-kill-at", type=int, default=None, metavar="N",
+                   help="arm the fleet.worker_kill chaos site at the N-th "
+                        "dispatched query (1-based): the routed worker is "
+                        "SIGKILLed right after the request hits its pipe, "
+                        "and the supervisor must journal-replay it on a "
+                        "healthy worker (seeded from --seed)")
     # the JAX command line's flags the port refuses, each naming its item
     for flag, item in REFUSED_FLAGS.items():
         p.add_argument(flag, nargs="?", const=True, default=None,
@@ -409,9 +446,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: the JAX command line's flags the port refuses by name, with their items
 REFUSED_FLAGS = {
-    "--fleet": "A16b step 2: the fleet supervisor",
-    "--fleet-dir": "A16b step 2: the fleet supervisor",
-    "--fleet-kill-at": "A16b step 2: the fleet supervisor",
     "--elastic-grow": "A18c: membership, recovery and stragglers",
     "--elastic-join": "A18c: membership, recovery and stragglers",
     "--rank-death-at": "A18c: membership, recovery and stragglers",
@@ -828,6 +862,15 @@ def main(argv=None) -> int:
     if args.serve is not None and args.grid_chunk_tuples is not None:
         parser.error("--serve runs the in-core resident engine; the "
                      "out-of-core grid is a one-shot mode")
+    if args.fleet is not None:
+        if args.fleet < 1:
+            parser.error("--fleet needs at least one worker")
+        if args.serve is None:
+            parser.error("--fleet supervises --serve workers — pass "
+                         "--serve FILE (or '-' for stdin)")
+        if args.nodes > 1:
+            parser.error("--fleet workers are one-rank serve processes; a "
+                         "worker of --nodes > 1 runs under torchrun")
     if args.serve == "-" and args.nodes > 1:
         parser.error("--serve - reads stdin, which only one rank has: give "
                      "every rank the same request FILE")
@@ -835,6 +878,10 @@ def main(argv=None) -> int:
         from tpu_radix_join_torch.planner import resolve_profile
         args.profile = resolve_profile("auto", ledger_dir=_ledger_dir(args))
         print(f"[PROFILE] auto -> {args.profile}", file=sys.stderr)
+    if args.fleet is not None:
+        # the supervisor never touches a device: the workers own the
+        # card, so dispatch before anything below can reach torch.cuda
+        return _run_fleet(args)
     from tpu_radix_join_torch.parallel import multihost
 
     group = None
@@ -1122,6 +1169,214 @@ def _serve_loop(args, session, batcher, lines, emit, flush_groups, rank,
     if rank == 0:
         print(json.dumps({"event": "summary", **summary}), flush=True)
     return 1 if (errors or summary.get("queries_failed", 0)) else 0
+
+
+def _fleet_worker_args(args) -> list:
+    """The worker command line's shape flags (``_run_fleet``,
+    tpu_radix_join/main.py:941-968), with the supervisor's ``--device``:
+    requests carry the per-query knobs (tuples_per_node, seed,
+    deadline_s, ...), and a worker runs on the device the supervisor was
+    given, never on the CPU on its own."""
+    worker_args = ["--nodes", str(args.nodes), "--device", args.device]
+    if args.verify != "off":
+        worker_args += ["--verify", args.verify]
+    worker_args += ["--profile", args.profile,
+                    "--max-retries", str(args.max_retries),
+                    "--fallback", args.fallback,
+                    "--breaker-threshold", str(args.breaker_threshold),
+                    "--breaker-cooldown-s", str(args.breaker_cooldown_s),
+                    "--serve-queue-depth", str(args.serve_queue_depth),
+                    "--serve-tenant-quota", str(args.serve_tenant_quota),
+                    "--place-cache-max", str(args.place_cache_max)]
+    if args.serve_deadline_s is not None:
+        worker_args += ["--serve-deadline-s", str(args.serve_deadline_s)]
+    if args.result_cache:
+        worker_args += ["--result-cache", str(args.result_cache)]
+        if args.result_cache_ttl_s is not None:
+            worker_args += ["--result-cache-ttl-s",
+                            str(args.result_cache_ttl_s)]
+    if args.batch_window_ms > 0:
+        # the workers share the batch window: dispatch_batch writes a
+        # group's request lines back to back, and the worker's own
+        # coalescer fuses them into one device program
+        worker_args += ["--batch-window-ms", str(args.batch_window_ms),
+                        "--batch-max", str(args.batch_max)]
+    if args.resident_budget_mb:
+        worker_args += ["--resident-budget-mb", str(args.resident_budget_mb)]
+    return worker_args
+
+
+def _run_fleet(args) -> int:
+    """Crash-only fleet supervision (``--fleet N``, ``_run_fleet``,
+    tpu_radix_join/main.py:908-1124): N ``--serve -`` worker subprocesses
+    behind the journal's exactly-once discipline.
+
+    The supervisor reads the same JSONL request stream serve mode does,
+    but each query is intent-journaled, routed by tenant hash to a live
+    worker, and outcome-journaled before the client sees the reply; a
+    worker SIGKILLed mid-query fails over (replay on a healthy worker),
+    and a SIGTERM to the supervisor drains gracefully — admission stops,
+    in-flight queries finish, workers exit cleanly (withdrawing their own
+    leases), and the journal ends with zero unacknowledged intents.  The
+    supervisor makes no CUDA call.  Exit 0 = every accepted query got
+    exactly one outcome; 1 on a malformed line, an unacknowledged intent
+    or a double execution at drain."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from tpu_radix_join_torch.performance.measurements import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.service.fleet import FleetSupervisor
+
+    work_dir = (args.fleet_dir
+                or (os.path.join(args.output_dir, "fleet")
+                    if args.output_dir else None)
+                or (os.path.join(args.timeline_dir, "fleet")
+                    if args.timeline_dir else None)
+                or tempfile.mkdtemp(prefix="tpu_rj_fleet_"))
+    meas = Measurements()
+    sup = FleetSupervisor(args.fleet, _fleet_worker_args(args), work_dir,
+                          measurements=meas,
+                          lease_s=args.rank_lease_s,
+                          missed_beats=args.rank_missed_beats,
+                          result_cache_max=args.result_cache,
+                          result_cache_ttl_s=args.result_cache_ttl_s,
+                          batch_window_ms=args.batch_window_ms)
+    statusz = None
+    if args.statusz is not None:
+        from tpu_radix_join_torch.observability.statusz import (
+            measurements_sections)
+        sections = dict(measurements_sections(meas))
+        sections["fleet"] = sup.statusz_section
+        statusz = _statusz(args, sections, sup.readiness)
+
+    # SIGTERM = graceful drain: the handler only sets a flag; the
+    # in-flight dispatch (the supervisor is single-threaded) finishes its
+    # query, then the loop sees the flag and drains
+    stop = threading.Event()
+    prev_term = signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+
+    # requests arrive through a reader thread and a queue so the loop can
+    # poll the stop flag: a blocking readline would ride out SIGTERM (PEP
+    # 475 retries it) and strand the drain until the next line
+    lineq: "queue.Queue" = queue.Queue()
+
+    def read_lines(src):
+        try:
+            for line in src:
+                lineq.put(line)
+        finally:
+            lineq.put(None)
+
+    src = sys.stdin if args.serve == "-" else open(args.serve)
+    reader = threading.Thread(target=read_lines, args=(src,),
+                              name="fleet-stdin", daemon=True)
+
+    def emit(out):
+        print(json.dumps({"event": "outcome", **out}, default=str),
+              flush=True)
+
+    errors = 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if args.fleet_kill_at is not None:
+                inj = faults.FaultInjector(seed=args.seed, measurements=meas)
+                inj.arm(faults.FLEET_WORKER_KILL, at=args.fleet_kill_at)
+                stack.enter_context(inj)
+            sup.start()
+            # a previous incarnation's accepted-but-unanswered queries
+            # replay before any new admission, each outcome emitted
+            replayed = sup.replay_unacknowledged(emit)
+            if replayed:
+                print(f"[FLEET] replayed {len(replayed)} unacknowledged "
+                      f"intent(s) from {sup.journal.path}", file=sys.stderr)
+            reader.start()
+            errors = _fleet_loop(args, sup, lineq, stop, emit)
+        report = sup.drain()
+        summary = {**sup.summary(), "drain": report}
+        print(json.dumps({"event": "summary", **summary}, default=str),
+              flush=True)
+        if report["unacked"] or report["double_exec"]:
+            # a stranded or doubled query is the one failure this mode
+            # exists to rule out
+            print(f"[FLEET] exactly-once violated at drain: "
+                  f"unacked={report['unacked']} "
+                  f"double_exec={report['double_exec']}", file=sys.stderr)
+            return 1
+        return 1 if errors else 0
+    finally:
+        sup.close()
+        if statusz is not None:
+            statusz.stop()
+        if src is not sys.stdin:
+            src.close()
+        signal.signal(signal.SIGTERM, prev_term)
+        _ledger_flush(args, meas)
+
+
+def _fleet_loop(args, sup, lineq, stop, emit) -> int:
+    """The request loop of :func:`_run_fleet` until EOF or SIGTERM; returns
+    the count of malformed lines.  Under ``--batch-window-ms``
+    co-signature requests arriving within the window dispatch together
+    (``dispatch_batch``: one signature-routed worker, back-to-back lines
+    its coalescer fuses); EOF or SIGTERM flushes every parked group."""
+    import queue
+
+    window_s = args.batch_window_ms / 1000.0
+    parked: dict = {}          # sig -> (opened_monotonic, [request])
+
+    def flush_sig(sig):
+        _, group = parked.pop(sig)
+        for out in sup.dispatch_batch(group):
+            emit(out)
+
+    def flush_due():
+        now = time.monotonic()
+        for sig in sorted(parked, key=lambda s: parked[s][0]):
+            if now - parked[sig][0] >= window_s:
+                flush_sig(sig)
+
+    poll_s = min(0.2, window_s) if window_s > 0 else 0.2
+    errors = 0
+    lineno = 0
+    while not stop.is_set():
+        try:
+            line = lineq.get(timeout=poll_s if parked else 0.2)
+        except queue.Empty:
+            flush_due()
+            continue
+        if line is None:
+            break
+        lineno += 1
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        try:
+            obj = json.loads(line)
+            if not isinstance(obj, dict):
+                raise ValueError("request must be a JSON object")
+            obj.setdefault("query_id", f"line{lineno}")
+        except (ValueError, TypeError) as e:
+            errors += 1
+            print(json.dumps({"event": "request_error", "line": lineno,
+                              "error": str(e)}), flush=True)
+            continue
+        sig = sup._batch_signature(obj)
+        if sig is None or obj.get("delta_tuples_per_node"):
+            emit(sup.dispatch(obj))
+        else:
+            opened, group = parked.get(sig, (time.monotonic(), []))
+            group.append(obj)
+            parked[sig] = (opened, group)
+            if len(group) >= args.batch_max:
+                flush_sig(sig)
+        flush_due()
+    # EOF or SIGTERM: no parked query is lost to the drain
+    for sig in list(parked):
+        flush_sig(sig)
+    return errors
 
 
 def _join_body(args, group, rank, meas, membership=None) -> int:

@@ -8,10 +8,11 @@
   * :mod:`compilemon` — first-use kernel builds as NCOMPILE / COMPILEMS;
   * :mod:`postmortem` — forensics bundles of failed queries and runs;
   * :mod:`watchdog` — the hang watchdog over the flight recorder;
-  * :mod:`statusz` — the live read-only status endpoint (``--statusz``).
+  * :mod:`statusz` — the live read-only status endpoint (``--statusz``);
+  * :mod:`regress` — the regression gate over a result's numeric tags.
 
-The critical-path engine (``critpath.py``) and the regression gate
-(``regress.py``) are ROADMAP A18d.
+The critical-path engine (``critpath.py``) and the gate's command line are
+ROADMAP A18d.
 """
 
 from tpu_radix_join_torch.observability.compilemon import (

@@ -18,7 +18,10 @@ at most the current tick) and rotates its file at a size cap.
 The device it reads is named (``device=``): the session's own card.  A
 tick reads the caching allocator's counters (``torch.cuda.memory_stats``)
 and the CUDA runtime's free / total bytes (``torch.cuda.mem_get_info``), host
-queries that never synchronize the stream the join runs on.
+queries that never synchronize the stream the join runs on.  On the card
+a tick also carries the process's kernel launch counts
+(``ops/kernels.launch_counts``, ``launches``): a fleet worker's last line
+says which kernels it ran.
 """
 
 from __future__ import annotations
@@ -129,6 +132,11 @@ class MetricsSampler:
         try:
             rec["host"] = host_memory()
             rec["devices"] = device_memory(self.device)
+            if rec["devices"]:
+                # on the card: the process's kernel launches so far, so a
+                # worker's heartbeat shows which kernels its queries ran
+                from tpu_radix_join_torch.ops.kernels import launch_counts
+                rec["launches"] = launch_counts()
             m = self.measurements
             if m is not None:
                 lock = getattr(m, "_lock", None)

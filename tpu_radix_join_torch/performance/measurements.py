@@ -118,6 +118,15 @@ RANKJOIN = "RANKJOIN"      # ranks admitted from a ``joining`` lease
 WDOGTRIP = "WDOGTRIP"      # hang-watchdog trips (observability/watchdog.py)
 PMBUNDLE = "PMBUNDLE"      # forensics bundles written (observability/
                            # postmortem.py)
+FAILOVER = "FAILOVER"      # fleet queries failed over to another worker after
+                           # the routed worker died mid-query (service/fleet.py)
+REPLAYN = "REPLAYN"        # journal intents replayed (failover retries plus
+                           # restart-time unacknowledged-intent replay)
+WINCARN = "WINCARN"        # fleet worker incarnations spawned (boot + restarts)
+WRESTART = "WRESTART"      # dead-worker restarts (WINCARN minus the boot pool)
+JDEPTH = "JDEPTH"          # gauge: peak unacknowledged query-journal depth
+DOUBLEEXEC = "DOUBLEEXEC"  # fingerprints with >1 journaled outcome: the
+                           # exactly-once invariant; any nonzero is a bug
 # the JAX session also reads these; elastic recovery is ROADMAP A18c
 RECOVERN = "RECOVERN"      # partitions recomputed by elastic recovery
 RECOVERMS = "RECOVERMS"    # elastic-recovery milliseconds

@@ -5,8 +5,8 @@ The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
 checkpoints, the process-group connect (``parallel/multihost.initialize``),
 the join engine's retry loops (``engine.shuffle_overflow``), its
 exchange (``exchange.corrupt_lane``) and its cancel hook (``backend.stall``),
-and the join service (``backend.dispatch``, ``serve.cache_poison``)
-consult.  An armed
+the join service (``backend.dispatch``, ``serve.cache_poison``) and the
+fleet supervisor (``fleet.worker_kill``) consult.  An armed
 :class:`FaultInjector` decides from its seed whether a site fires on each
 hit; a fired site raises (a simulated kill or transient error) or tells its
 caller to damage its own state (a sentinel key in a streamed lane, a
@@ -44,13 +44,18 @@ BACKEND_DISPATCH = "backend.dispatch"      # a query's dispatch fails
                                            # (service/session.py)
 BACKEND_STALL = "backend.stall"            # the engine spins at its cancel
                                            # hook, as a hung collective would
+FLEET_WORKER_KILL = "fleet.worker_kill"    # SIGKILL a fleet worker right
+                                           # after its query hit the pipe:
+                                           # the supervisor must journal-
+                                           # replay the query on a healthy
+                                           # worker (service/fleet.py)
 CACHE_POISON = "serve.cache_poison"        # a stored result-cache entry is
                                            # corrupted in place; the read's
                                            # digest check must drop it
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
          COORD_CONNECT, SHUFFLE_OVERFLOW, EXCHANGE_CORRUPT, BACKEND_DISPATCH,
-         BACKEND_STALL, CACHE_POISON)
+         BACKEND_STALL, FLEET_WORKER_KILL, CACHE_POISON)
 
 
 class InjectedFault(RuntimeError):

@@ -1,7 +1,6 @@
 """Resident join service: admission-controlled sessions with deadlines, a
-backend circuit breaker, per-query failure isolation and the serving fast
-paths (the port of ``tpu_radix_join/service``; the fleet supervisor is
-ROADMAP A16b).
+backend circuit breaker, per-query failure isolation, the serving fast
+paths and the crash-only fleet (the port of ``tpu_radix_join/service``).
 
 Public surface:
 
@@ -22,7 +21,10 @@ Public surface:
   * :class:`MicroBatcher` / :func:`batch_signature` — bounded-window
     coalescing into fused device programs (microbatch.py);
   * :class:`ResidentStateManager` — byte-budgeted device-resident sorted
-    unions behind the O(N+Δ) delta merge (resident.py).
+    unions behind the O(N+Δ) delta merge (resident.py);
+  * :class:`FleetSupervisor` / :func:`ring_points` / :func:`route_tenant`
+    — N ``--serve -`` worker processes behind one consistent-hash router,
+    exactly-once through the journal (fleet.py).
 """
 
 from tpu_radix_join_torch.service.admission import (AdmissionQueue,
@@ -30,6 +32,8 @@ from tpu_radix_join_torch.service.admission import (AdmissionQueue,
 from tpu_radix_join_torch.service.breaker import (CLOSED, HALF_OPEN, OPEN,
                                                   CircuitBreaker)
 from tpu_radix_join_torch.service.deadline import Deadline, DeadlineExceeded
+from tpu_radix_join_torch.service.fleet import (FleetSupervisor, ring_points,
+                                                route_tenant)
 from tpu_radix_join_torch.service.journal import (JournalAudit, QueryJournal,
                                                   request_fingerprint)
 from tpu_radix_join_torch.service.microbatch import (MicroBatcher,
@@ -46,6 +50,7 @@ __all__ = [
     "AdmissionQueue", "AdmissionRejected",
     "CircuitBreaker", "CLOSED", "OPEN", "HALF_OPEN",
     "Deadline", "DeadlineExceeded",
+    "FleetSupervisor", "ring_points", "route_tenant",
     "JournalAudit", "QueryJournal", "request_fingerprint",
     "JoinSession", "QueryRequest", "QueryOutcome", "BackendUnavailable",
     "UNCLASSIFIED",
