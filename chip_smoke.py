@@ -317,6 +317,31 @@ at 20,000,000 tuples a node, through the command line as subprocesses:
   through the fleet beside the worker's and (v1)'s warm in-process query,
   the supervisor's dispatch overhead and the workers' peak device memory.
 
+Phase (x), the host-fed chunk stream (ROADMAP A18a), the device-init
+fallback and the partition manifest (A18b) and the critical path (A18d's
+critpath.py; phase_x), last:
+
+  (x1) the synchronous grid at (k)'s shape, 2**26 ⋈ 2**26 unique in
+       chunks of 2**25, slabs of 2**20, fed by ``stream_chunks`` (the
+       native generator into a pinned pool, non-blocking copies on a side
+       stream) and by ``stream_chunks_device``: equal totals, equal K2 and
+       K6 launches, the first chunks bit-equal; a chunk's fill and H2D
+       ms and the fill time hidden under the previous chunk; the host feed
+       first pinning its pools, then on the pools kept pinned; the
+       pipelined engine on the host feed;
+  (x2) ``main(argv)`` with ``engine.device_init`` armed and
+       ``--cpu-fallback`` at 2**22 a node (the plain versions on the
+       host): the ``[DEGRADE]`` line, exact, no launch; without the flag
+       the fault raises; the flag on the healthy card at 20M: (a) on the
+       card, K2 and K3;
+  (x3) (a) with ``--elastic on --checkpoint-dir``: 32 manifest lines equal
+       to the join's per-partition counts; a rerun leaves ``completed()``
+       as it was; another fingerprint raises ``CheckpointMismatch``;
+  (x4) (a) with ``--timeline-dir``: ``[CRITPATH]``, the path within JTOTAL
+       + 5%, its classes summing to it; ``--plan explain --timeline-dir``'s
+       ``critical_path`` column; two session queries' paths in
+       ``/statusz``.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -3385,7 +3410,8 @@ def phase_v(dev, n, card) -> dict:
     --metrics-interval 0.25 --timeline-dir T --statusz 0 --forensics-dir F
     --watchdog-timeout 30 --probe bucket --trace --output-dir O`` as a
     subprocess: three queries and a missed deadline written to its stdin
-    one at a time; between them the lease's age, ``/statusz``,
+    one at a time; between them the lease's age, ``/statusz`` (its
+    ``critical_paths`` holding each served query's path),
     ``/statusz/leases`` and ``/healthz`` (each GET timed).  The lease is
     younger than the lapse window while it serves and withdrawn at exit;
     the metrics file holds one line a tick with the card's bytes in use;
@@ -3666,10 +3692,16 @@ def phase_v(dev, n, card) -> dict:
                 gets.append({"path": path, "code": code, "ms": ms})
                 if path == "/healthz":
                     health.append(body)
-                if path == "/statusz" and set(body) - {"t_epoch_s"} != {
-                        "phase", "counters", "service", "leases"}:
+                if path == "/statusz" and (
+                        set(body) - {"t_epoch_s"} != {
+                            "phase", "counters", "service", "leases",
+                            "critical_paths"}
+                        or [p.get("query_id") for p in
+                            body["critical_paths"]]
+                        != [r["query_id"] for r in reqs[:len(cli_outs)]]):
                     raise AssertionError(f"(v2) /statusz sections "
-                                         f"{sorted(body)}")
+                                         f"{sorted(body)}: "
+                                         f"{body.get('critical_paths')}")
         proc.stdin.close()
         rest = proc.stdout.read()
         proc.wait(timeout=300)
@@ -4116,6 +4148,344 @@ def phase_w(dev, n, card, warm_ms) -> dict:
           "seconds": time.perf_counter() - t_phase,
           "launches": {k: v for k, v in total.items() if v}, **card})
     shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+#: cell (x1): the host-fed grid at (k)'s shape
+X_GRID_TUPLES = 1 << 26
+X_CHUNK = 1 << 25
+X_SLAB = 1 << 20
+#: cell (x2): the degraded run's tuples a node (the plain versions on the
+#: host; cut from 20M)
+X_FALLBACK_TUPLES = 1 << 22
+#: appended to every in-process command line of (x) (a CPU dry run sets
+#: ``("--device", "cpu")``)
+X_CLI_EXTRA = ()
+
+
+def phase_x(dev, n, card) -> dict:
+    """Cell (x): the host-fed chunk stream (ROADMAP A18a), the device-init
+    fallback and the partition manifest (A18b) and the critical path
+    (A18d's critpath.py), on the one card.
+
+    (x1) The synchronous grid at (k)'s shape (``X_GRID_TUPLES`` unique ⋈
+    unique, chunks of ``X_CHUNK``, slabs of ``X_SLAB``), fed once by
+    ``stream_chunks`` (the native generator into a pinned pool, the copies
+    on a side stream) and once by ``stream_chunks_device``, the same
+    relations: both totals equal the oracle, K2's and K6's launches equal
+    between the feeds, and the first chunk of each relation is bit-equal
+    between them.  Each feed's grid ms, a chunk's host fill ms and H2D ms
+    (CUDA events on the side stream), and the share of fill time hidden
+    under the previous chunk; the host feed runs twice, first pinning its
+    streams' pools, then on the pools the streams keep pinned; then the
+    pipelined engine once on the host feed, exact.
+    (x2) ``main(argv)`` in this process with ``engine.device_init`` armed
+    and ``--cpu-fallback`` at ``X_FALLBACK_TUPLES`` a node: the
+    ``[DEGRADE]`` line, an exact total on the CPU, no kernel launched; the
+    same argv without the flag raises the injected fault; the flag on the
+    healthy card at ``n``: the card's join (a), exact, K2 and K3 launched,
+    no ``[DEGRADE]``.
+    (x3) (a) at ``n`` with ``--elastic on --checkpoint-dir D``: 32
+    manifest lines whose counts equal the same join's per-partition counts
+    (``HashJoin.join`` beside it) and sum to the ``[RESULTS]`` total; a
+    second run at the same fingerprint leaves ``completed()`` unchanged;
+    another fingerprint (``--seed``) raises ``CheckpointMismatch``.
+    (x4) (a) at ``n`` with ``--timeline-dir T``: the ``[CRITPATH]`` line;
+    the path of T's span file (``critical_path_for_dir``) within JTOTAL
+    plus 5%, its classes summing to the path; ``--plan explain
+    --timeline-dir T`` prints the ``critical_path`` column; a two-query
+    ``JoinSession`` with a tracer serves both paths in ``/statusz``'s
+    ``critical_paths``.
+    Returns the launches of every driven run (the comparisons' included
+    only where they are main-path runs)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import urllib.request
+    import warnings
+    import torch
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch import main as cli
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.data.streaming import (release_staging_pools,
+                                                     stream_chunks,
+                                                     stream_chunks_device)
+    from tpu_radix_join_torch.observability.critpath import (
+        critical_path_for_dir)
+    from tpu_radix_join_torch.observability.statusz import StatuszServer
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.robustness.checkpoint import (
+        CheckpointMismatch, PartitionManifest)
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_x_")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def launched(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after: (its result, the counts, seconds)."""
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got, secs
+
+    def need(cell, got, names):
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"(x) {cell}: kernel {k} did not "
+                                     f"launch: {got}")
+
+    def cli_run(argv, extra=X_CLI_EXTRA):
+        """``main(argv)`` in this process: (exit code, stdout lines,
+        stderr lines)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, *extra])
+        return rc, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+    try:
+        # ------------------------------------------------------------ (x1)
+        rels = (Relation(X_GRID_TUPLES, 1, "unique", seed=1234),
+                Relation(X_GRID_TUPLES, 1, "unique", seed=1235))
+        for rel in rels:
+            host = next(stream_chunks(rel, 0, X_CHUNK, device=dev))
+            on_card = next(stream_chunks_device(rel, 0, X_CHUNK, dev))
+            if not (torch.equal(host.key, on_card.key)
+                    and torch.equal(host.rid, on_card.rid)):
+                raise AssertionError("(x1) the host stream's first chunk "
+                                     "differs from the device stream's")
+            del host, on_card
+        feeds, stats = {}, []
+
+        def host_stream(rel):
+            st = {}
+            stats.append(st)
+            return stream_chunks(rel, 0, X_CHUNK, device=dev, stats=st)
+
+        # the first host feed pins its streams' pools; the second takes
+        # them from the cache
+        for feed in ("host_cold", "host", "device"):
+            if feed.startswith("host"):
+                del stats[:]
+                args = (host_stream(rels[0]), lambda: host_stream(rels[1]))
+            else:
+                args = (stream_chunks_device(rels[0], 0, X_CHUNK, dev),
+                        lambda: stream_chunks_device(rels[1], 0, X_CHUNK,
+                                                     dev))
+            meas = Measurements()
+            got_total, got, secs = launched(lambda: chunked_join_grid(
+                *args, X_SLAB, pipeline="off", measurements=meas))
+            if got_total != X_GRID_TUPLES:
+                raise AssertionError(f"(x1) {feed} feed: {got_total} "
+                                     f"matches, the oracle {X_GRID_TUPLES}")
+            need(f"x1_{feed}", got, ("radix_histogram", "radix_pass",
+                                     "merge_scan_chunks"))
+            feeds[feed] = {"grid_ms": secs * 1e3, "matches": got_total,
+                           "launches": {k: v for k, v in got.items() if v},
+                           "pairs": meas.counters.get("GRIDPAIRS", 0)}
+        for k in ("radix_histogram", "radix_pass", "merge_scan_chunks"):
+            if not (feeds["host_cold"]["launches"][k]
+                    == feeds["host"]["launches"][k]
+                    == feeds["device"]["launches"][k]):
+                raise AssertionError(f"(x1) {k}: {feeds}")
+        # the warm host feed's streams
+        fill = [x for st in stats for x in st["fill_ms"]]
+        h2d = [x for st in stats for x in st.get("h2d_ms", [])]
+        # the first chunk of a stream has nothing to hide under
+        later_fill = sum(x for st in stats for x in st["fill_ms"][1:])
+        later_wait = sum(x for st in stats for x in st["wait_ms"][1:])
+        hidden = 1.0 - later_wait / later_fill if later_fill else None
+        st_pipe = {}
+        got_total, got, secs = launched(lambda: chunked_join_grid(
+            stream_chunks(rels[0], 0, X_CHUNK, device=dev),
+            lambda: stream_chunks(rels[1], 0, X_CHUNK, device=dev,
+                                  stats=st_pipe),
+            X_SLAB, pipeline="on"))
+        if got_total != X_GRID_TUPLES:
+            raise AssertionError(f"(x1) pipelined host feed: {got_total}")
+        need("x1_pipelined", got, ("radix_histogram", "radix_pass"))
+        emit({"phase": "host_stream", "cell": "x1", "tuples": X_GRID_TUPLES,
+              "chunk": X_CHUNK, "slab": X_SLAB, "feeds": feeds,
+              "chunks_filled": len(fill),
+              "fill_ms_median": statistics.median(fill),
+              "h2d_ms_median": statistics.median(h2d) if h2d else None,
+              "h2d_gb_s": (8 * X_CHUNK / statistics.median(h2d) / 1e6
+                           if h2d else None),
+              "fill_hidden_share": hidden,
+              "pipelined_host_ms": secs * 1e3,
+              "pipelined_launches": {k: v for k, v in got.items() if v},
+              **card})
+
+        # ------------------------------------------------------------ (x2)
+        argv = ["--tuples-per-node", str(X_FALLBACK_TUPLES),
+                "--cpu-fallback"]
+
+        def degraded():
+            with faults.FaultInjector(seed=23) as inj:
+                inj.arm(faults.DEVICE_INIT, at=1)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    return cli_run(argv) + (inj.hits(faults.DEVICE_INIT),)
+
+        (rc, out, err, hits), got, secs = launched(degraded)
+        doc = json.loads(out[-1])
+        lines = [x for x in err if x.startswith("[DEGRADE] ")]
+        if (rc != 0 or not lines or "failure_class=device_unavailable"
+                not in lines[0] or doc["device"] != "cpu"
+                or doc["matches"] != X_FALLBACK_TUPLES or hits != 2):
+            raise AssertionError(f"(x2) degraded run: rc {rc}, {lines}, "
+                                 f"{doc}, hits {hits}")
+        if cuda and any(got.values()):
+            # (a CPU dry run counts its plain calls as launches)
+            raise AssertionError(f"(x2) the degraded run launched a "
+                                 f"kernel: {got}")
+        x2 = {"degraded_ms": secs * 1e3, "degrade_line": lines[0][:200],
+              "degraded_join_ms": doc["join_ms"]}
+        try:
+            with faults.FaultInjector(seed=23) as inj:
+                inj.arm(faults.DEVICE_INIT, at=1)
+                cli_run(argv[:-1])
+            raise AssertionError("(x2) without --cpu-fallback the armed "
+                                 "site did not fail the run")
+        except faults.InjectedFault as e:
+            x2["without_flag"] = str(e)
+        (rc, out, err), got, secs = launched(lambda: cli_run(
+            ["--tuples-per-node", str(n), "--cpu-fallback"]))
+        doc = json.loads(out[-1])
+        want_dev = card["name"] if cuda else "cpu"
+        if (rc != 0 or doc["matches"] != n or doc["device"] != want_dev
+                or any(x.startswith("[DEGRADE]") for x in err)):
+            raise AssertionError(f"(x2) healthy --cpu-fallback: rc {rc}, "
+                                 f"{doc}")
+        need("x2_healthy", got, ("radix_pass", "merge_scan"))
+        x2.update(healthy_join_ms=doc["join_ms"],
+                  healthy_launches={k: v for k, v in got.items() if v})
+        emit({"phase": "cpu_fallback", "cell": "x2",
+              "tuples_degraded": X_FALLBACK_TUPLES, "tuples": n, **x2,
+              **card})
+
+        # ------------------------------------------------------------ (x3)
+        ck = os.path.join(tmp, "ck")
+        argv = ["--tuples-per-node", str(n), "--elastic", "on",
+                "--checkpoint-dir", ck, "--lease-dir",
+                os.path.join(tmp, "leases")]
+        (rc, out, err), got, secs = launched(lambda: cli_run(argv))
+        need("x3", got, ("radix_pass", "merge_scan"))
+        tuples = [int(x.split(":")[1]) for x in out
+                  if x.startswith("[RESULTS] Tuples:")]
+        path = os.path.join(ck, "partitions.manifest")
+        fp = f"elastic:unique:{n}:1234:32"
+        mf = PartitionManifest(path, fingerprint=fp)
+        done = mf.completed()
+        with open(path) as f:
+            n_lines = len(f.readlines()) - 1
+        eng = HashJoin(JoinConfig(), device=dev)
+        res, got_ref, _ = launched(lambda: eng.join(
+            Relation(n, 1, "unique", seed=1234),
+            Relation(n, 1, "unique", seed=1235)))
+        per_p = [int(c) for c in res.partition_counts]
+        if (rc != 0 or tuples != [n] or n_lines != 32
+                or sorted(done) != list(range(32))
+                or [done[p]["count"] for p in range(32)] != per_p
+                or sum(per_p) != n or mf.audit()["total"] != n):
+            raise AssertionError(f"(x3) manifest: rc {rc}, {tuples}, "
+                                 f"{n_lines} lines, {done}, {per_p}")
+        rc2, _, _ = cli_run(argv)
+        if rc2 != 0 or PartitionManifest(path, fp).completed() != done:
+            raise AssertionError("(x3) a second run at the same "
+                                 "fingerprint changed completed()")
+        try:
+            cli_run([*argv, "--seed", "9"])
+            raise AssertionError("(x3) another fingerprint did not raise")
+        except CheckpointMismatch as e:
+            mismatch = str(e)[:120]
+        emit({"phase": "manifest", "cell": "x3", "tuples": n,
+              "lines": n_lines, "total": mf.audit()["total"],
+              "first_run_ms": secs * 1e3,
+              "launches": {k: v for k, v in got.items() if v},
+              "mismatch": mismatch, **card})
+
+        # ------------------------------------------------------------ (x4)
+        tl = os.path.join(tmp, "tl")
+        (rc, out, err), got, secs = launched(lambda: cli_run(
+            ["--tuples-per-node", str(n), "--timeline-dir", tl,
+             "--lease-dir", os.path.join(tmp, "leases4")]))
+        need("x4", got, ("radix_pass", "merge_scan"))
+        crit = [x for x in out if x.startswith("[CRITPATH] ")]
+        doc = json.loads(out[-1])
+        jtotal_ms = doc["phases_us"]["JTOTAL"] / 1e3
+        cp = critical_path_for_dir(tl)
+        seg_sum = sum(s["compute_ms"] + s["collective_wait_ms"]
+                      + s["straggle_ms"] for s in cp.get("segments", []))
+        if (rc != 0 or len(crit) != 1 or "error" in cp
+                or not 0 < cp["path_ms"] <= 1.05 * jtotal_ms
+                or abs(sum(cp["fractions"].values()) - 1.0) > 2e-3
+                or abs(seg_sum - cp["path_ms"]) > 0.01 + 1e-3 * len(
+                    cp["segments"])):
+            raise AssertionError(f"(x4) critical path: rc {rc}, {crit}, "
+                                 f"JTOTAL {jtotal_ms}, {cp}")
+        rc, out, _ = cli_run(["--tuples-per-node", str(n), "--plan",
+                              "explain", "--timeline-dir", tl,
+                              "--lease-dir", os.path.join(tmp, "leases4")])
+        header = next((x for x in out if x.startswith("| strategy")), "")
+        if rc != 0 or "critical_path" not in header:
+            raise AssertionError(f"(x4) --plan explain: rc {rc}, {out[:3]}")
+        meas = Measurements()
+        meas.attach_tracer(nodes=1)
+        sess = JoinSession(JoinConfig(), ServiceConfig(), measurements=meas,
+                           device=dev)
+        server = StatuszServer(sections={
+            "critical_paths": lambda: list(sess.recent_critical_paths)})
+        server.start()
+        try:
+            lat = []
+            for i in range(2):
+                sess.submit(QueryRequest(query_id=f"x{i}", tuples_per_node=n,
+                                         seed=1234 + 2 * i))
+                o, got, secs = launched(sess.run_next)
+                need(f"x4_q{i}", got, ("radix_pass", "merge_scan"))
+                if o.status != "ok" or o.matches != o.expected:
+                    raise AssertionError(f"(x4) session: {o}")
+                lat.append(secs * 1e3)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/statusz",
+                    timeout=30) as rsp:
+                body = json.load(rsp)
+        finally:
+            server.stop()
+            sess.close()
+        paths = body.get("critical_paths") or []
+        if ([p.get("query_id") for p in paths] != ["x0", "x1"]
+                or any("error" in p for p in paths)):
+            raise AssertionError(f"(x4) /statusz critical_paths: {paths}")
+        emit({"phase": "critpath", "cell": "x4", "tuples": n,
+              "critpath_line": crit[0][:240], "path_ms": cp["path_ms"],
+              "jtotal_ms": jtotal_ms, "fractions": cp["fractions"],
+              "top_phase": cp["top_phase"],
+              "explain_header": header[:160],
+              "session_paths_ms": [p["path_ms"] for p in paths],
+              "session_latency_ms": lat, **card})
+    finally:
+        release_staging_pools()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "x_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
     return total
 
 
@@ -5428,6 +5798,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_w = phase_w(dev, n_main, card, warm_ms)
     launches = {k: v + launches_w[k] for k, v in launches.items()}
+
+    # (x): the host-fed stream, the device-init fallback, the manifest
+    # and the critical path
+    torch.cuda.empty_cache()
+    launches_x = phase_x(dev, n_main, card)
+    launches = {k: v + launches_x[k] for k, v in launches.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

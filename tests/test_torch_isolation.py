@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (every
-module of it, the distributed ones included, and ``chip_smoke.py``), and
-an entry point given no device runs on the card or raises — it never falls
-back to the CPU, or to gloo, on its own."""
+module of it, the distributed ones, the native host library, the chunk
+streams and the critical path included, and ``chip_smoke.py``), and an
+entry point given no device runs on the card or raises — it never falls
+back to the CPU, or to gloo, on its own; only the opt-in
+``engine_with_cpu_fallback`` (``--cpu-fallback``) builds on the host."""
 
 import ast
 import json
@@ -20,8 +22,10 @@ PORT = ROOT / "tpu_radix_join_torch"
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import tpu_radix_join_torch as tx
+walked = []
 for m in pkgutil.walk_packages(tx.__path__, "tpu_radix_join_torch."):
     importlib.import_module(m.name)
+    walked.append(m.name)
 res = tx.HashJoin(tx.JoinConfig(), device="cpu").join(
     tx.Relation(3000, 1, "unique", seed=1),
     tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
@@ -51,6 +55,29 @@ chunked = tx.HashJoin(tx.JoinConfig(chunk_size=1000), device="cpu",
     tx.Relation(3000, 1, "zipf", seed=2, zipf_theta=0.75))
 rel = tx.Relation(3000, 1, "unique", seed=1).generate("cpu")
 shuffled = distribute(rel, OneRankWorld(), seed=3)
+from tpu_radix_join_torch.data.streaming import stream_chunks
+host_grid = chunked_join_grid(
+    stream_chunks(tx.Relation(3000, 1, "unique", seed=1), 0, 1000,
+                  device="cpu"),
+    lambda: stream_chunks(tx.Relation(3000, 1, "modulo", seed=2,
+                                      modulo=700), 0, 1000, device="cpu"),
+    512)
+import warnings
+from tpu_radix_join_torch.robustness.degrade import engine_with_cpu_fallback
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", RuntimeWarning)
+    fb_engine, fb_info = engine_with_cpu_fallback(tx.JoinConfig())
+fallback = [fb_info["degraded"], fb_engine.device.type,
+            fb_engine.join(tx.Relation(3000, 1, "unique", seed=1),
+                           tx.Relation(3000, 1, "unique", seed=2)).matches]
+from tpu_radix_join_torch.observability.critpath import (
+    critical_path_from_tracer)
+traced = Measurements()
+traced.attach_tracer(nodes=1)
+tx.HashJoin(tx.JoinConfig(), device="cpu", measurements=traced).join(
+    tx.Relation(3000, 1, "unique", seed=1),
+    tx.Relation(3000, 1, "unique", seed=2))
+critpath = critical_path_from_tracer(traced.tracer)["top_phase"]["name"]
 from tpu_radix_join_torch.core.config import ServiceConfig
 from tpu_radix_join_torch.service import JoinSession, QueryRequest
 session = JoinSession(tx.JoinConfig(),
@@ -86,6 +113,8 @@ for name, call in [
             init_method="tcp://127.0.0.1:1", world_size=2, rank=0)),
         ("stream_chunks_device", lambda: next(stream_chunks_device(
             tx.Relation(64), 0, 16))),
+        ("stream_chunks", lambda: next(stream_chunks(
+            tx.Relation(64), 0, 16))),
         ("main --grid-chunk-tuples", lambda: tx.main.main(
             ["--grid-chunk-tuples", "16", "--tuples-per-node", "64"])),
         ("JoinSession", lambda: JoinSession(tx.JoinConfig())),
@@ -99,6 +128,8 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "tpu_radix_join"))
 print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
                   "raised": raised, "grid": grid,
+                  "host_grid": host_grid, "fallback": fallback,
+                  "critpath": critpath, "walked": walked,
                   "degraded": [degraded.matches, degraded.ok,
                                degraded.diagnostics["degraded"]],
                   "bucket": [bucket.matches, bucket.ok,
@@ -126,7 +157,13 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     assert got["leaked"] == []
     assert got["ok"] and got["matches"] == 3000
     assert got["bucket"] == [3000, True, 32]
-    assert got["grid"] == 3000
+    assert got["grid"] == got["host_grid"] == 3000
+    # the opt-in fallback, and only it, takes the host when no card is there
+    assert got["fallback"] == [True, "cpu", 3000]
+    assert got["critpath"] == "JPROC"
+    for name in ("native.build", "memory.pool", "observability.critpath",
+                 "data.streaming", "robustness.degrade"):
+        assert f"tpu_radix_join_torch.{name}" in got["walked"]
     assert got["degraded"] == [3000, True, "chunked"]
     assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",
                                            "SWINALLOC"]]

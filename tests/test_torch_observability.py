@@ -8,8 +8,8 @@ sampler's records (keys, counters, torn lines, rotation), the status
 sections and ``/healthz`` codes are held exactly, timestamps and host
 memory values excluded.  The serve command line's ``--statusz`` is
 queried over HTTP on port 0 while it serves (a thread, no subprocess), and
-its sections are JAX's but ``hedge`` and ``critical_paths`` (ROADMAP A18c
-and A18d's ``critpath.py``)."""
+its sections are JAX's but ``hedge`` (ROADMAP A18c), ``critical_paths``
+holding the served query's path."""
 
 import io
 import json
@@ -483,9 +483,10 @@ class _Pipe(io.TextIOBase):
 def test_serve_statusz_live_sections_and_health(tmp_path, monkeypatch,
                                                 capsys):
     """``--serve - --statusz 0`` answers while it serves: the service,
-    leases, cache and batch sections (JAX's, without ``hedge`` and
-    ``critical_paths``), the lease younger than its lapse window, /healthz
-    200; after the session closes, the lease is withdrawn."""
+    leases, cache, batch and critical_paths sections (JAX's, without
+    ``hedge``), the served query's critical path, the lease younger than
+    its lapse window, /healthz 200; after the session closes, the lease is
+    withdrawn."""
     servers = []
 
     class Recorded(tstz.StatuszServer):
@@ -500,7 +501,8 @@ def test_serve_statusz_live_sections_and_health(tmp_path, monkeypatch,
     argv = ["--serve", "-", "--device", "cpu", "--statusz", "0",
             "--elastic", "on", "--lease-dir", str(lease_dir),
             "--rank-lease-s", "30", "--result-cache", "4",
-            "--batch-window-ms", "5", "--tuples-per-node", "256"]
+            "--batch-window-ms", "5", "--tuples-per-node", "256",
+            "--timeline-dir", str(tmp_path / "tl")]
     rc = []
     worker = threading.Thread(target=lambda: rc.append(tmain(argv)))
     worker.start()
@@ -516,12 +518,20 @@ def test_serve_statusz_live_sections_and_health(tmp_path, monkeypatch,
                 "queries_submitted"] < 1:
             assert time.monotonic() - t0 < 30
             time.sleep(0.02)
+        # the query's path joins the section after its outcome
+        while not _get(base + "/statusz/critical_paths")[1][
+                "critical_paths"]:
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.02)
         code, body = _get(base + "/statusz")
         assert code == 200
         names = set(body) - {"t_epoch_s"}
-        assert names == _jax_serve_sections() - {"hedge", "critical_paths"}
+        assert names == _jax_serve_sections() - {"hedge"}
         assert names == {"phase", "counters", "service", "leases", "cache",
-                         "batch"}
+                         "batch", "critical_paths"}
+        (path,) = body["critical_paths"]
+        assert path["query_id"] == "q0" and path["ranks"] == [0]
+        assert "error" not in path and path["path_ms"] > 0
         lease = _get(base + "/statusz/leases")[1]["leases"]["lease"]
         assert lease["rank"] == 0 and lease["status"] == "member"
         on_disk = json.loads((lease_dir / "lease_r0.json").read_text())

@@ -347,8 +347,14 @@ def test_explain_table_lists_every_strategy_and_actuals(port_rules):
     assert "actual_ms" in table and "123.4" in table
     assert _sort_line_as_jax(table) == jp.explain_table(
         jcosts, jplan_, actuals=actuals)
-    with pytest.raises(NotImplementedError, match="A18d"):
-        tp.explain_table(costs, plan, critpath={"bound_ms": 1.0})
+    critpath = {"strategy": plan.strategy, "bound_ms": 150.25,
+                "bound_rank": 0, "wait_fraction": 0.125}
+    table = tp.explain_table(costs, plan, actuals=actuals, critpath=critpath)
+    assert "critical_path" in table and "150.2@r0" in table
+    assert _sort_line_as_jax(table) == jp.explain_table(
+        jcosts, jplan_, actuals=actuals, critpath=critpath)
+    with pytest.raises(NotImplementedError, match="A18e"):
+        tp.explain_table(costs, plan, static={"drift_pct": 1.0})
 
 
 # ------------------------------------------------------- the port's rules

@@ -133,7 +133,7 @@ REFUSED = [(["--elastic-grow"], "A18c"), (["--elastic-join", "2"], "A18c"),
            (["--hedge-threshold", "0.3"], "A18c"),
            (["--straggle-factor", "2"], "A18c"),
            (["--elastic", "on", "--nodes", "2"], "A18c"),
-           (["--cpu-fallback"], "A18b"), (["--transfer-guard", "log"], "A18e")]
+           (["--transfer-guard", "log"], "A18e")]
 
 
 @pytest.mark.parametrize("flags,item", REFUSED,
@@ -284,13 +284,15 @@ def test_breaker_trip_degrade_probe_recover_equal_jax():
 
 def test_session_refuses_unported_arguments_and_closes_twice():
     for kw, item in (({"elastic_grow": True}, "A18c"),
-                     ({"hedge": "on"}, "A18c"),
-                     ({"partition_manifest": object()}, "A18b")):
+                     ({"hedge": "on"}, "A18c")):
         with pytest.raises(NotImplementedError, match=item):
             tsvc.JoinSession(JoinConfig(), device="cpu", **kw)
     ledger = object()                  # ported: one row an executed query
-    sess = tsvc.JoinSession(JoinConfig(), device="cpu", ledger=ledger)
+    manifest = object()                # ported: threaded onto the engine
+    sess = tsvc.JoinSession(JoinConfig(), device="cpu", ledger=ledger,
+                            partition_manifest=manifest)
     assert sess.ledger is ledger
+    assert sess.engine.partition_manifest is manifest
     sess.close()
     sess.close()
     with pytest.raises(RuntimeError):

@@ -20,16 +20,21 @@ the whole relation.  ``key_bits=64`` adds the hi lane
 tensors holding uint32 values; the lanes it returns are int32
 (data/tuples.py).
 
-The host arms (:meth:`Relation.fill_np`, :meth:`Relation.shard_np`,
-:func:`feistel_permutation_np`, :func:`zipf_keys_np`,
-:func:`key_hi_lane_np`) are the JAX package's numpy generators, copied:
-uint32 numpy arrays, bit-identical to the device arms (and to the JAX
-package's native ``datagen.cc``, which waits for ROADMAP A18 here).
-``JoinConfig(generation="host")`` places relations through them.
+The host arms (:meth:`Relation.fill_np`, :meth:`Relation.shard_np`)
+fill uint32 numpy arrays through the native multithreaded generators
+(``native/datagen.cc``, built at first use; a failed build raises),
+bit-identical to the device arms.  The JAX package's numpy generators,
+copied (:func:`feistel_permutation_np`, :func:`zipf_keys_np`,
+:func:`key_hi_lane_np`), are their plain versions, which the tests hold
+them against.  ``JoinConfig(generation="host")`` places relations through
+them, and the host-fed chunk stream (data/streaming.py) fills its pinned
+buffers with them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from typing import Optional
 
 import numpy as np
@@ -281,13 +286,16 @@ class Relation:
         return zipf_range(start, n, head_cdf, tail_keys, self.key_domain,
                           self.seed, device)
 
-    def fill_np(self, start: int, count: int,
+    def fill_np(self, start: int, count: int, num_threads: int = 0,
                 out_key: Optional[np.ndarray] = None,
                 out_rid: Optional[np.ndarray] = None):
         """(keys, rids), uint32 numpy arrays of the global index range
-        [start, start + count), bit-identical to the device lanes;
-        ``out_key`` / ``out_rid`` (contiguous uint32 [count]) are filled in
-        place when given."""
+        [start, start + count), bit-identical to the device lanes, filled
+        by the native generators on ``num_threads`` threads (0: up to 16,
+        one a core; at most one a 2**16 keys).  ``out_key`` / ``out_rid`` (contiguous uint32
+        [count], pool views from ``memory.Pool.get_array`` in the chunk
+        stream) are filled in place when given."""
+        from tpu_radix_join_torch.native.build import load
         lo, n = int(start), int(count)
 
         def buf(out):
@@ -299,32 +307,38 @@ class Relation:
             return out
 
         key, rid = buf(out_key), buf(out_rid)
-        rid[:] = np.arange(lo, lo + n, dtype=np.uint32)
+        lib = load()
+        if num_threads <= 0:
+            num_threads = min(16, os.cpu_count() or 1)
+        # a thread a 2**16 keys at least: a small fill starts no idle ones
+        num_threads = max(1, min(num_threads, -(-n // (1 << 16))))
+        p_u32 = ctypes.POINTER(ctypes.c_uint32)
+        kp = key.ctypes.data_as(p_u32)
+        lib.fill_rids(rid.ctypes.data_as(p_u32), lo, n, num_threads)
         if self.kind == "unique":
             domain_bits = max(2, (self.global_size - 1).bit_length())
-            k = feistel_permutation_np(np.arange(lo, lo + n, dtype=np.uint64),
-                                       domain_bits, self.seed)
-            while (k >= self.global_size).any():
-                out = k >= self.global_size
-                k[out] = feistel_permutation_np(k[out], domain_bits,
-                                                self.seed)
-            key[:] = k.astype(np.uint32)
+            rk = np.ascontiguousarray(_feistel_keys(self.seed))
+            lib.fill_unique(kp, lo, n, self.global_size,
+                            (domain_bits + 1) // 2, rk.ctypes.data_as(p_u32),
+                            num_threads)
         elif self.kind == "modulo":
-            key[:] = rid % np.uint32(self.modulo)
+            lib.fill_modulo(kp, lo, n, self.modulo, num_threads)
         else:
             head_cdf, tail_keys = self._zipf_tables_cached()
-            key[:] = zipf_keys_np(lo, n, head_cdf, tail_keys,
-                                  self.key_domain, self.seed)
+            lib.fill_zipf(kp, lo, n, head_cdf.ctypes.data_as(p_u32),
+                          len(head_cdf), tail_keys.ctypes.data_as(p_u32),
+                          self.key_domain, self.seed, num_threads)
         return key, rid
 
-    def shard_np(self, node: int):
+    def shard_np(self, node: int, num_threads: int = 0):
         """Node ``node``'s shard as uint32 numpy arrays: ``(keys, rids)``,
         or ``(keys_lo, keys_hi, rids)`` for 64-bit keys (the JAX package's
-        ``shard_np`` contract)."""
+        ``shard_np`` contract), generated on ``num_threads`` threads."""
         if not 0 <= node < self.num_nodes:
             raise ValueError(f"node must be in [0, {self.num_nodes}), got "
                              f"{node}")
-        key, rid = self.fill_np(node * self.local_size, self.local_size)
+        key, rid = self.fill_np(node * self.local_size, self.local_size,
+                                num_threads)
         if self.key_bits == 64:
             return key, key_hi_lane_np(key), rid
         return key, rid

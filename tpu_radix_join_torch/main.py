@@ -75,8 +75,19 @@ drain to zero unacknowledged intents; ``--statusz`` adds a ``fleet``
 section and the supervisor's readiness.  The JAX command line's
 ``--elastic-grow``, ``--elastic-join``, ``--rank-death-at``,
 ``--rank-join-at``, ``--hedge``, ``--hedge-threshold``,
-``--straggle-factor`` (A18c), ``--cpu-fallback`` (A18b) and
-``--transfer-guard`` (A18e) are refused by name.
+``--straggle-factor`` (A18c) and ``--transfer-guard`` (A18e) are refused
+by name.
+``--cpu-fallback`` builds the engine on the host CPU when building it on
+the card fails (robustness/degrade.py), with a ``[DEGRADE]
+failure_class=... backend=cpu nodes=... error=...`` line on stderr; a
+kernel build or launch failure inside the join still raises.
+``--elastic on --checkpoint-dir D`` attaches the partition manifest
+``D/partitions.manifest`` (robustness/checkpoint.py), to which the join
+appends one line a realized partition.  Every join and grid run with
+``--timeline-dir`` prints its critical path (observability/critpath.py)
+as ``[CRITPATH] ...``, stamps it into ``meta["critical_path"]`` and
+prices the plan audit against it; ``--plan explain --timeline-dir``
+adds the measured ``critical_path`` column from the span files there.
 ``--grid-chunk-tuples N`` runs the out-of-core grid instead (``_run_grid``):
 both relations streamed in device-generated chunks of N tuples, every
 chunk pair probed once, with checkpoints under ``--checkpoint-dir`` that
@@ -115,6 +126,9 @@ Usage:
     torchrun --standalone --nproc-per-node 4 -m tpu_radix_join_torch.main --nodes 4 --device cpu --serve requests.jsonl
     python -m tpu_radix_join_torch.main --fleet 2 --serve requests.jsonl --verify check --fleet-dir /tmp/fleet --fleet-kill-at 2 --statusz 0
     python -m tpu_radix_join_torch.main --fleet 2 --serve - --device cpu --fleet-dir /tmp/fleet
+    python -m tpu_radix_join_torch.main --cpu-fallback --tuples-per-node 4194304
+    python -m tpu_radix_join_torch.main --elastic on --checkpoint-dir /tmp/ckpt --timeline-dir /tmp/tl
+    python -m tpu_radix_join_torch.main --plan explain --timeline-dir /tmp/tl
 """
 
 from __future__ import annotations
@@ -229,7 +243,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "'auto' pipelines any grid larger than one pair")
     p.add_argument("--checkpoint-dir", default=None,
                    help="grid mode: directory of the checkpoint file, "
-                        "saved after every chunk pair (see --resume)")
+                        "saved after every chunk pair (see --resume); with "
+                        "--elastic on, of the join's partition manifest "
+                        "(partitions.manifest)")
+    p.add_argument("--cpu-fallback", action="store_true",
+                   help="if building the engine on the card fails (no card, "
+                        "the process group), build it on the host CPU "
+                        "(loud [DEGRADE] line) instead of aborting; kernel "
+                        "failures inside the join still raise")
     p.add_argument("--resume", action="store_true",
                    help="grid mode: resume from the checkpoint in "
                         "--checkpoint-dir (default: a fresh run removes a "
@@ -398,7 +419,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "heartbeat an epoch-stamped lease (lease_r0.json) "
                         "under --lease-dir, the first before any work and "
                         "one every --metrics-interval tick, withdrawn at "
-                        "exit; its age is the worker's liveness.  Recovery "
+                        "exit; its age is the worker's liveness.  With "
+                        "--checkpoint-dir the join records its realized "
+                        "partitions in partitions.manifest there.  Recovery "
                         "over several ranks is ROADMAP A18c")
     p.add_argument("--lease-dir", default=None,
                    help="directory of the lease files (default: "
@@ -453,7 +476,6 @@ REFUSED_FLAGS = {
     "--hedge": "A18c: membership, recovery and stragglers",
     "--hedge-threshold": "A18c: membership, recovery and stragglers",
     "--straggle-factor": "A18c: membership, recovery and stragglers",
-    "--cpu-fallback": "A18b: the device-init fallback",
     "--transfer-guard": "A18e: the sync guard",
 }
 
@@ -697,7 +719,8 @@ def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
         torch.cuda.synchronize(dev)
     meas.stop("JTOTAL")
     grid_s = time.perf_counter() - t0
-    audit = audit_plan(plan, meas, times0=times0)
+    cp = _critical_path(meas, 0)
+    audit = audit_plan(plan, meas, times0=times0, critical_path=cp)
     if audit is not None:
         print(f"[PLAN] actual_ms={audit['actual_ms']:.1f} "
               f"predicted_ms={audit['predicted_ms']:.1f} "
@@ -795,7 +818,9 @@ def _plan_with(args, nodes, rank, meas, profile):
                 from tpu_radix_join_torch.planner import (detect_stale,
                                                           format_provenance)
                 if rank == 0:
-                    print(explain_table(costs, plan))
+                    print(explain_table(costs, plan,
+                                        critpath=_explain_critpath(args,
+                                                                   plan)))
                     ld = _ledger_dir(args) or default_ledger_dir()
                     print(format_provenance(
                         profile, stale=detect_stale(load_rows(ld))))
@@ -822,6 +847,25 @@ def _plan_with(args, nodes, rank, meas, profile):
             print("[PLAN] the chunked engine runs on one rank; keeping the "
                   "in-core engine at this world size", file=sys.stderr)
     return None, plan, costs, plan_cache
+
+
+def _explain_critpath(args, plan):
+    """``--plan explain --timeline-dir``'s ``critical_path`` column (JAX
+    ``main.py:1565-1588``): the measured path of the span files an earlier
+    run left there, its on-path JCOMPILE taken off, on the chosen
+    strategy's row; None without the flag or a usable path."""
+    if not args.timeline_dir:
+        return None
+    from tpu_radix_join_torch.observability.critpath import (
+        critical_path_for_dir)
+    cp = critical_path_for_dir(args.timeline_dir)
+    if cp.get("error"):
+        return None
+    jc = float((cp.get("phase_ms") or {}).get("JCOMPILE", 0.0))
+    return {"strategy": plan.strategy,
+            "bound_ms": max(0.0, cp.get("path_ms", 0.0) - jc),
+            "bound_rank": cp.get("bounding_rank"),
+            "wait_fraction": cp.get("wait_fraction")}
 
 
 def main(argv=None) -> int:
@@ -1041,10 +1085,11 @@ def _run_serve(args, group, meas, sampler=None, membership=None) -> int:
         from tpu_radix_join_torch.observability.statusz import (
             measurements_sections)
         # JAX's serve sections (tpu_radix_join/main.py:722-780) but
-        # "hedge" and "critical_paths", whose sources are ROADMAP A18c and
-        # A18d's critpath.py
+        # "hedge", whose source is ROADMAP A18c
         sections = dict(measurements_sections(meas))
         sections["service"] = session._heartbeat_extra
+        sections["critical_paths"] = (
+            lambda: list(session.recent_critical_paths))
         if membership is not None:
             sections["leases"] = membership.board.sampler_extra(
                 epoch_of=membership.epoch_of)
@@ -1379,16 +1424,75 @@ def _fleet_loop(args, sup, lineq, stop, emit) -> int:
     return errors
 
 
+def _engine(args, cfg, group, meas, plan_cache):
+    """The join's engine on ``--device``; with ``--cpu-fallback`` a failed
+    construction builds it on the host CPU instead (robustness/
+    degrade.py) and prints the ``[DEGRADE]`` line (JAX ``main.py:
+    1633-1645``)."""
+    from tpu_radix_join_torch import HashJoin
+
+    if not args.cpu_fallback:
+        return HashJoin(cfg, device=args.device, group=group,
+                        measurements=meas, plan_cache=plan_cache)
+    from tpu_radix_join_torch.robustness.degrade import (
+        engine_with_cpu_fallback)
+    engine, dinfo = engine_with_cpu_fallback(
+        cfg, device=args.device, group=group, measurements=meas,
+        plan_cache=plan_cache)
+    if dinfo["degraded"]:
+        # structured, parseable: key=value pairs after the marker
+        print(f"[DEGRADE] failure_class={dinfo['failure_class']} "
+              f"backend=cpu nodes={dinfo['num_nodes']} "
+              f"error={dinfo['error']}", file=sys.stderr)
+    return engine
+
+
+def _attach_manifest(args, engine, cfg, nodes, meas, membership) -> None:
+    """The membership view and, with ``--elastic on --checkpoint-dir D``,
+    the partition manifest ``D/partitions.manifest`` under the JAX
+    command line's fingerprint (JAX ``main.py:1651-1660``): the join
+    appends one line a realized partition; a manifest of another
+    fingerprint raises CheckpointMismatch."""
+    engine.membership = membership
+    if args.elastic != "on" or not args.checkpoint_dir:
+        return
+    from tpu_radix_join_torch.robustness.checkpoint import PartitionManifest
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    fp = (f"elastic:{args.outer_kind}:{args.tuples_per_node * nodes}:"
+          f"{args.seed}:{cfg.network_partition_count}")
+    engine.partition_manifest = PartitionManifest(
+        os.path.join(args.checkpoint_dir, "partitions.manifest"),
+        fingerprint=fp, measurements=meas)
+
+
+def _critical_path(meas, rank: int):
+    """The run's critical path over this rank's live span stream
+    (observability/critpath.py) when a tracer is attached
+    (``--timeline-dir``): stamped into ``meta["critical_path"]`` and
+    printed as ``[CRITPATH]`` by rank 0 (JAX ``main.py:1772-1798``);
+    None without a tracer."""
+    if meas.tracer is None:
+        return None
+    from tpu_radix_join_torch.observability.critpath import (
+        critical_path_from_tracer, format_summary)
+    cp = critical_path_from_tracer(meas.tracer)
+    meas.meta["critical_path"] = cp
+    if rank == 0:
+        print(f"[CRITPATH] {format_summary(cp)}")
+    return cp
+
+
 def _join_body(args, group, rank, meas, membership=None) -> int:
     """One join of ``--nodes`` ranks (or the grid), its result line from
     rank 0; every rank returns 1 unless the result equals the oracle, and
     1 with ``[RESULTS] failure/failure_class`` and a forensics bundle when
     the join raises a classified failure (a watchdog trip)."""
-    from tpu_radix_join_torch import HashJoin, Relation
+    from tpu_radix_join_torch import Relation
     from tpu_radix_join_torch.performance.measurements import (RESULTS,
                                                                print_results)
     from tpu_radix_join_torch.planner.audit import (actuals_for_explain,
                                                     audit_plan,
+                                                    critpath_for_explain,
                                                     phase_snapshot)
 
     nodes = args.nodes
@@ -1404,6 +1508,12 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
             if (plan.pipeline_repeats and args.repeat > 1
                     and not cfg.measure_phases):
                 args.pipeline_repeats = True
+    engine = None
+    if args.grid_chunk_tuples is None:
+        engine = _engine(args, cfg, group, meas, plan_cache)
+        cfg = engine.config
+        nodes = cfg.num_nodes
+        _attach_manifest(args, engine, cfg, nodes, meas, membership)
     n = args.tuples_per_node * nodes
     meas.meta.update(tuples_per_node=args.tuples_per_node, global_size=n,
                      config=vars(args))
@@ -1417,11 +1527,9 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     outer = Relation(n, nodes, args.outer_kind, seed=args.seed + 1,
                      **outer_kw)
     expected = inner.expected_matches(outer)
-    if args.grid_chunk_tuples is not None:
+    if engine is None:
         return _run_grid(args, inner, outer, expected, meas, plan=plan)
 
-    engine = HashJoin(cfg, device=args.device, group=group,
-                      measurements=meas, plan_cache=plan_cache)
     # generation is set-up, outside the join's timers (main.cpp:94-116)
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
@@ -1479,8 +1587,11 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     join_s = (time.perf_counter() - t0) / args.repeat
     ok = result.ok and (expected is None or result.matches == expected)
     meas.meta["failure_class"] = result.diagnostics["failure_class"]
-    # plan-vs-actual: the measured JTOTAL against the plan's prediction
-    audit = audit_plan(plan, meas, repeats=args.repeat, times0=times0)
+    cp = _critical_path(meas, rank)
+    # plan-vs-actual: the measured JTOTAL (and the critical path) against
+    # the plan's prediction
+    audit = audit_plan(plan, meas, repeats=args.repeat, times0=times0,
+                       critical_path=cp)
     if args.repeat > 1:
         # the report's Tuples line is one join's result; times and tuple
         # counters stay cumulative
@@ -1496,7 +1607,8 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
             if costs is not None:
                 from tpu_radix_join_torch.planner import explain_table
                 print(explain_table(costs, plan,
-                                    actuals=actuals_for_explain(audit)))
+                                    actuals=actuals_for_explain(audit),
+                                    critpath=critpath_for_explain(audit)))
         if len(all_meas) == 1:
             print(f"[RESULTS] Tuples: {result.matches}")
         if expected is not None:

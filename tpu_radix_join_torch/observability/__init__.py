@@ -9,14 +9,16 @@
   * :mod:`postmortem` — forensics bundles of failed queries and runs;
   * :mod:`watchdog` — the hang watchdog over the flight recorder;
   * :mod:`statusz` — the live read-only status endpoint (``--statusz``);
-  * :mod:`regress` — the regression gate over a result's numeric tags.
-
-The critical-path engine (``critpath.py``) and the gate's command line are
-ROADMAP A18d.
+  * :mod:`regress` — the regression gate over a result's numeric tags;
+  * :mod:`critpath` — critical-path attribution over the span streams
+    (the ``[CRITPATH]`` line, ``/statusz``'s ``critical_paths``).
 """
 
 from tpu_radix_join_torch.observability.compilemon import (
     install_compile_monitor, uninstall_compile_monitor)
+from tpu_radix_join_torch.observability.critpath import (
+    compute_critical_path, critical_path_for_dir, critical_path_from_tracer,
+    format_summary, load_streams, render_report, stream_from_tracer)
 from tpu_radix_join_torch.observability.flightrec import (FlightRecorder,
                                                           dump_all_stacks)
 from tpu_radix_join_torch.observability.ledger import (Ledger,
@@ -44,9 +46,12 @@ from tpu_radix_join_torch.observability.watchdog import (HangDetected,
 __all__ = [
     "FlightRecorder", "HangDetected", "Ledger", "MetricsSampler",
     "SpanTracer", "StatuszServer", "Watchdog", "build_bundle",
-    "default_ledger_dir", "dump_all_stacks", "engine_killer",
-    "find_span_files", "install_compile_monitor", "list_bundles",
-    "load_bundle", "load_rows", "load_samples", "measurements_sections",
-    "merge_bundles", "merge_timeline", "render_bundle", "run_fingerprint",
-    "run_payload", "uninstall_compile_monitor", "write_bundle",
+    "compute_critical_path", "critical_path_for_dir",
+    "critical_path_from_tracer", "default_ledger_dir", "dump_all_stacks",
+    "engine_killer", "find_span_files", "format_summary",
+    "install_compile_monitor", "list_bundles", "load_bundle", "load_rows",
+    "load_samples", "load_streams", "measurements_sections",
+    "merge_bundles", "merge_timeline", "render_bundle", "render_report",
+    "run_fingerprint", "run_payload", "stream_from_tracer",
+    "uninstall_compile_monitor", "write_bundle",
 ]

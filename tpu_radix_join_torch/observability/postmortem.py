@@ -232,9 +232,9 @@ def render_bundle(bundle: dict, ring_tail: int = 20,
         add(f"trace_id: {bundle['trace_id']}")
     cp = bundle.get("critical_path")
     if cp and not cp.get("error"):
-        # the critical-path engine (critpath.py) is ROADMAP A18d: a bundle
-        # written by the JAX package renders its summary as stored
-        add(f"critical path: {json.dumps(cp, default=str)[:300]}")
+        from tpu_radix_join_torch.observability.critpath import \
+            format_summary
+        add(f"critical path: {format_summary(cp)}")
     env = bundle.get("env") or {}
     add("env: " + " ".join(f"{k}={v}" for k, v in sorted(env.items())
                            if v is not None))

@@ -106,7 +106,11 @@ the warm verdict and the capacities are all-reduced).  ``cancel``, a
 callable of the phase name, is consulted at the boundaries "start" (before
 JTOTAL), "sized", "probe" (each attempt) and "stalled" (the fault site
 ``backend.stall`` spins there) and raises to cancel the join; JTOTAL is
-closed on the way out.
+closed on the way out.  ``partition_manifest`` (robustness/checkpoint.
+PartitionManifest) takes one line a realized partition after each
+successful ``join_arrays`` (``_manifest_record``).  Construction consults
+the fault site ``engine.device_init`` first (robustness/degrade.py's
+fallback).
 
 **Measurements** (``HashJoin(..., measurements=Measurements())``; timer
 placement of ``hash_join.py:1780-1935``): JTOTAL spans the join, the
@@ -281,6 +285,10 @@ class HashJoin:
 
     def __init__(self, config: Optional[JoinConfig] = None, device="cuda",
                  group=None, measurements=None, plan_cache=None):
+        # the injectable card-unavailable site (hash_join.py:180): lets
+        # the tests drive the construction fallback of
+        # robustness/degrade.py without a dead card
+        faults.check(faults.DEVICE_INIT, measurements)
         self.config = config if config is not None else JoinConfig()
         self.measurements = measurements
         #: planner.PlanCache or None: a warm join takes the converged
@@ -294,6 +302,12 @@ class HashJoin:
         #: must decide the same on every rank (the session's deadlines
         #: read rank 0's clock)
         self.cancel = None
+        #: the partition manifest (robustness/checkpoint.PartitionManifest)
+        #: every successful join records its realized partitions into, or
+        #: None; ``membership`` (a one-rank MembershipView) stamps the
+        #: lines' epoch.  Recovery from them is ROADMAP A18c
+        self.partition_manifest = None
+        self.membership = None
         self.device = resolve_device(device)
         self.world = make_world(self.config.num_nodes, group,
                                 self.config.num_hosts)
@@ -458,11 +472,51 @@ class HashJoin:
                 "the measure_phases split timers need a fence per program "
                 "— loop synchronous joins instead")
         self._check_batches(r, s)
+        mv = self.membership
+        if (mv is not None and self.partition_manifest is not None
+                and mv.board.progress_of is None):
+            # every lease beat carries this rank's manifest progress
+            mv.board.progress_of = self._my_partitions_done
         self._check_cancel("start")
         with self._measured():
             if self.config.sort_probe and self.world.size == 1:
-                return self._sort_probe_join(r, s, key_bound, repeats)
-            return self._shuffled_join(r, s, key_bound, repeats)
+                result = self._sort_probe_join(r, s, key_bound, repeats)
+            else:
+                result = self._shuffled_join(r, s, key_bound, repeats)
+        self._manifest_record(result)
+        return result
+
+    def _membership_epoch(self) -> int:
+        """The membership epoch (0 without a view)."""
+        return self.membership.epoch if self.membership is not None else 0
+
+    def _manifest_record(self, result: JoinResult) -> None:
+        """Record a successful join's realized partitions in the attached
+        manifest (``_manifest_record``, hash_join.py:2470-2495), after the
+        counts are on the host: each partition's uint64 sum over the ranks
+        of its uint32 counts, owned by node stripe (``p % N``: forensic
+        metadata, not the assignment map), at the membership epoch.  No
+        manifest, a failed join or counts that are not ``[N * P]`` (the
+        chunked fallback's one total) record nothing."""
+        mf = self.partition_manifest
+        if mf is None or result is None or not result.ok:
+            return
+        num_p = self.config.network_partition_count
+        counts = np.asarray(result.partition_counts)
+        if counts.size < num_p or counts.size % num_p:
+            return
+        per_p = counts.astype(np.uint64).reshape(-1, num_p).sum(axis=0)
+        n = self.config.num_nodes
+        mf.mark_many({int(p): int(c) for p, c in enumerate(per_p)},
+                     owner_of=lambda p: p % n,
+                     epoch=self._membership_epoch())
+
+    def _my_partitions_done(self) -> int:
+        """This process's manifest progress, the partitions it has
+        realized (``_my_partitions_done``, hash_join.py:2086-2098, at one
+        rank, where every partition is its own); -1 without a manifest."""
+        mf = self.partition_manifest
+        return -1 if mf is None else len(mf.completed())
 
     def join_arrays_pipelined(self, r: TupleBatch, s: TupleBatch,
                               repeats: int,

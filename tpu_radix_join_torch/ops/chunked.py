@@ -22,12 +22,19 @@ resident inner side, so the working set is O(inner + slab):
     writes the checkpoints behind the computation.  ``"auto"`` is "on"
     for any grid larger than one pair.
 
+Either side may come from ``data/streaming``: ``stream_chunks_device``
+(generated on the card) or ``stream_chunks`` (filled on the host and
+copied from a pinned pool on a side stream), as a list or, for the outer
+side, a factory such as ``lambda: stream_chunks(s_rel, node, c)``.
+
 The prefetch thread issues its generation on the thread's current stream,
 which is the device's default stream, as the consumer's is: the two never
 race, and the chunk's max-key readback is the staging fence, as in JAX.
 On one stream the thread does not overlap generation with the probes; it
 takes the max-key readbacks off the consumer's thread and keeps the JAX
-package's ``PREFETCH`` count and ``prefetch_wait`` span.
+package's ``PREFETCH`` count and ``prefetch_wait`` span.  A host-fed chunk
+reaches it already on the card (the default stream waits on its copy's
+event), and it stages that chunk as it is: no second copy.
 """
 
 from __future__ import annotations
@@ -265,7 +272,8 @@ class _Prefetcher:
     """Bounded background chunk stager of the pipelined grid: a daemon
     thread pulls chunks from ``it``, waits for their generation (and, for
     32-bit chunks, reads their max key off the critical path) and hands
-    ``(chunk, bound)`` pairs over a queue of ``depth`` slots.  Each staged
+    ``(chunk, bound)`` pairs over a queue of ``depth`` slots; the chunk is
+    the iterator's own batch, never copied again.  Each staged
     chunk is one "prefetch" span and one ``PREFETCH`` count; the
     consumer's wait for a chunk is a "prefetch_wait" span (the pipeline's
     stall).  An exception of the iterator is raised at the consumer's

@@ -11,11 +11,14 @@ plan selection and its audit, and the warm-start plan cache.
   * :mod:`cache` — the engine's converged capacities (and plans) on disk.
 
 The JAX package's jaxpr gate (``static_memory_gate``) is not applicable
-(ROADMAP A18e) and ``critpath_for_explain`` waits for A18d.
+(ROADMAP A18e).  :func:`audit.critpath_for_explain` shapes a measured
+critical path (observability/critpath.py) for ``--plan explain``.
 """
 
 from tpu_radix_join_torch.planner.audit import (actuals_for_explain,
-                                                audit_plan, phase_snapshot)
+                                                audit_plan,
+                                                critpath_for_explain,
+                                                phase_snapshot)
 from tpu_radix_join_torch.planner.cache import ManifestMismatch, PlanCache
 from tpu_radix_join_torch.planner.calibrate import (UnderSampledError,
                                                     detect_stale,
@@ -36,8 +39,8 @@ __all__ = [
     "DeviceProfile", "JoinPlan", "ManifestMismatch", "PlanCache",
     "PlanError", "PlanInfeasibleError", "ProfileError", "ServingContext",
     "StrategyCost", "UnderSampledError", "Workload", "actuals_for_explain",
-    "audit_plan", "calibrate", "detect_stale", "diff_profiles",
-    "enumerate_serving_strategies", "explain_table", "fit_profile",
+    "audit_plan", "calibrate", "critpath_for_explain", "detect_stale",
+    "diff_profiles", "enumerate_serving_strategies", "explain_table", "fit_profile",
     "format_provenance", "load_profile", "phase_snapshot", "plan_join",
     "resolve_profile",
 ]

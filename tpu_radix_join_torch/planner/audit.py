@@ -15,9 +15,10 @@ Only the shuffle term has a measured twin (JMPI, under the phase split);
 the other terms land in JPROC together, so the JTOTAL comparison carries
 the signal.  ``times0`` (a :func:`phase_snapshot` taken before the join)
 makes the audit a delta, so a registry that accumulates several joins
-audits the last one.  The JAX package's critical-path pricing
-(``critical_path=``, ``critpath_for_explain``) waits for A18d's
-``critpath.py``.
+audits the last one.  ``critical_path=`` (an observability/critpath.py
+result) re-prices the drift against the measured bounding rank's path,
+its on-path JCOMPILE taken off, and :func:`critpath_for_explain` shapes
+that for ``explain_table``'s ``critical_path`` column.
 """
 
 from __future__ import annotations
@@ -43,13 +44,16 @@ def phase_snapshot(measurements) -> Dict[str, float]:
 
 
 def audit_plan(plan, measurements, repeats: int = 1,
-               times0: Optional[Dict[str, float]] = None) -> Optional[dict]:
+               times0: Optional[Dict[str, float]] = None,
+               critical_path: Optional[dict] = None) -> Optional[dict]:
     """Record the plan-vs-actual table of the join that just ran.
 
     ``plan`` is a JoinPlan or its dict; ``repeats`` divides the measured
     JTOTAL down to the one join ``predicted_ms`` speaks of.  Returns the
     table (also ``meta["plan_vs_actual"]``), or None when nothing ran (no
-    JTOTAL since ``times0``)."""
+    JTOTAL since ``times0``).  ``critical_path`` (a critpath.py result)
+    adds the bound-rank terms under ``"critical_path"`` and prices the
+    PLANDRIFT gauge against them instead of the local mean."""
     m = measurements
     if m is None or plan is None:
         return None
@@ -87,9 +91,31 @@ def audit_plan(plan, measurements, repeats: int = 1,
         "terms": terms,
         "measured_ms": {k: round(v / reps, 3) for k, v in delta_ms.items()},
     }
+    gauge_drift = drift_pct
+    if critical_path and not critical_path.get("error"):
+        bound_ms = critical_path.get("path_ms")
+        if bound_ms:
+            # the cost model predicts steady-state joins: the path's
+            # compile wall comes off before pricing, as times_us keeps it
+            # out of the running timers
+            compile_ms = float((critical_path.get("phase_ms") or {})
+                               .get("JCOMPILE", 0.0))
+            bound_ms = round(max(0.0, float(bound_ms) - compile_ms)
+                             / reps, 3)
+            bound_drift = (round(100.0 * abs(bound_ms - predicted_ms)
+                                 / predicted_ms, 2)
+                           if predicted_ms > 0 else None)
+            table["critical_path"] = {
+                "bound_ms": bound_ms,
+                "bound_rank": critical_path.get("bounding_rank"),
+                "wait_fraction": critical_path.get("wait_fraction"),
+                "drift_pct": bound_drift,
+            }
+            if bound_drift is not None:
+                gauge_drift = bound_drift
     m.meta["plan_vs_actual"] = table
-    if drift_pct is not None:
-        m.counters[PLANDRIFT] = int(round(drift_pct))
+    if gauge_drift is not None:
+        m.counters[PLANDRIFT] = int(round(gauge_drift))
     m.event("plan_drift", strategy=table["strategy"],
             predicted_ms=table["predicted_ms"],
             actual_ms=table["actual_ms"], drift_pct=drift_pct)
@@ -104,3 +130,16 @@ def actuals_for_explain(table: Optional[dict]) -> Optional[dict]:
     return {"strategy": table.get("strategy"),
             "actual_ms": table.get("actual_ms"),
             "drift_pct": table.get("drift_pct")}
+
+
+def critpath_for_explain(table: Optional[dict]) -> Optional[dict]:
+    """An audit table's bound-rank terms shaped for explain_table's
+    ``critical_path`` column: {strategy, bound_ms, bound_rank,
+    wait_fraction}; None when the run had no path (or no table)."""
+    if not table or not table.get("critical_path"):
+        return None
+    cp = table["critical_path"]
+    return {"strategy": table.get("strategy"),
+            "bound_ms": cp.get("bound_ms"),
+            "bound_rank": cp.get("bound_rank"),
+            "wait_fraction": cp.get("wait_fraction")}

@@ -8,9 +8,9 @@ winner won.  A plan saved by either package loads in the other.
 
 JAX's ``static_memory_gate`` walks a jaxpr's live set (``analysis/jaxpr``);
 the port has no jaxpr (ROADMAP A18e records it as not applicable), so
-``plan_join(static_gate=True)`` refuses by name.  The ``static=`` and
-``critpath=`` columns of :func:`explain_table` take ``None`` until A18d's
-``critpath.py`` is ported.
+``plan_join(static_gate=True)`` and :func:`explain_table`'s ``static=``
+column refuse by name.  Its ``critpath=`` column is the measured
+critical path (planner/audit.py ``critpath_for_explain``).
 """
 
 from __future__ import annotations
@@ -217,12 +217,16 @@ def explain_table(costs: List[StrategyCost],
     """Human-readable per-strategy predicted-cost table (``--plan
     explain``), one column a term.  ``actuals`` (planner/audit.py
     ``actuals_for_explain``) adds ``actual_ms`` / ``drift%`` on the row
-    that ran.  ``static`` and ``critpath`` are the JAX package's jaxpr and
-    critical-path columns: the port has neither source yet, and passing
-    one raises NotImplementedError."""
-    if static is not None or critpath is not None:
-        raise _not_ported("explain_table(static=, critpath=)",
-                          "queue A, A18d (critpath.py) and A18e")
+    that ran.  ``critpath`` (planner/audit.py ``critpath_for_explain``)
+    adds the ``critical_path`` column: the measured bounding rank's path
+    length on the row of the strategy that ran, what ``predicted_ms``
+    should be priced against.  ``static`` is the JAX package's jaxpr
+    column: the port has no jaxpr, and passing one raises
+    NotImplementedError."""
+    if static is not None:
+        raise _not_ported("explain_table(static=)",
+                          "queue A, A18e: not applicable, the port has no "
+                          "jaxpr")
     term_keys: List[str] = []
     for c in costs:
         for k in c.terms:
@@ -230,6 +234,7 @@ def explain_table(costs: List[StrategyCost],
                 term_keys.append(k)
     header = (["strategy", "feasible", "predicted_ms"]
               + (["actual_ms", "drift%"] if actuals else [])
+              + (["critical_path"] if critpath else [])
               + [f"{k}_ms" for k in term_keys] + ["note"])
     rows = []
     for c in costs:
@@ -243,10 +248,18 @@ def explain_table(costs: List[StrategyCost],
                              f"{d:.1f}" if d is not None else "-"]
             else:
                 act_cells = ["", ""]
+        cp_cells = []
+        if critpath:
+            b = critpath.get("bound_ms")
+            if c.strategy == critpath.get("strategy") and b is not None:
+                cp_cells = [f"{b:.1f}@r{critpath.get('bound_rank')}"]
+            else:
+                cp_cells = [""]
         rows.append([c.strategy + mark,
                      "yes" if c.feasible else "NO",
                      f"{c.cost_ms:.1f}" if c.feasible else "-"]
                     + act_cells
+                    + cp_cells
                     + [f"{c.terms[k]:.1f}" if k in c.terms else ""
                        for k in term_keys]
                     + [c.note])
@@ -274,4 +287,12 @@ def explain_table(costs: List[StrategyCost],
                 f"sort: impl={chosen.sort_impl} "
                 + _SORT_ARMS.get(chosen.sort_impl,
                                  "(runtime auto-select per sort site)"))
+    if critpath and critpath.get("bound_ms") is not None:
+        wf = critpath.get("wait_fraction")
+        lines.append(
+            f"critical path: {critpath['bound_ms']:.1f} ms bound by "
+            f"rank {critpath.get('bound_rank')}"
+            + (f" (wait fraction {wf * 100:.1f}%)" if wf is not None
+               else "")
+            + " — plan terms priced against the bounding rank")
     return "\n".join(lines)

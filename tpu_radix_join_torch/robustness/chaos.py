@@ -14,8 +14,8 @@ exception is a VIOLATION, and a violating run writes a forensics bundle
 naming its ``(seed, arms)``.
 
 The join-path runners of the JAX module (``CHAOS_SITES``, which names the
-device-init site of ROADMAP A18b, ``ChaosRunner`` / ``soak`` /
-``shrink``, the recovery runner and the session runner) are ROADMAP A18c.
+``engine.device_init`` site, ``ChaosRunner`` / ``soak`` / ``shrink``, the
+recovery runner and the session runner) are ROADMAP A18c.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
 (``:95-251``) with the sites the out-of-core grid, the chunk stream, the
 checkpoints, the process-group connect (``parallel/multihost.initialize``),
-the join engine's retry loops (``engine.shuffle_overflow``), its
+the join engine's construction (``engine.device_init``), its retry loops
+(``engine.shuffle_overflow``), its
 exchange (``exchange.corrupt_lane``) and its cancel hook (``backend.stall``),
 the join service (``backend.dispatch``, ``serve.cache_poison``) and the
 fleet supervisor (``fleet.worker_kill``) consult.  An armed
@@ -39,6 +40,9 @@ CKPT_SAVE = "checkpoint.save"              # checkpoint write I/O error
 CKPT_LOAD = "checkpoint.load"              # checkpoint read I/O error
 COORD_CONNECT = "multihost.coordinator_connect"   # process-group connect
 SHUFFLE_OVERFLOW = "engine.shuffle_overflow"   # a reported outer shortfall
+DEVICE_INIT = "engine.device_init"         # the card is unavailable at
+                                           # engine construction
+                                           # (robustness/degrade.py)
 EXCHANGE_CORRUPT = "exchange.corrupt_lane"     # a bit-flipped outer key
 BACKEND_DISPATCH = "backend.dispatch"      # a query's dispatch fails
                                            # (service/session.py)
@@ -54,8 +58,8 @@ CACHE_POISON = "serve.cache_poison"        # a stored result-cache entry is
                                            # digest check must drop it
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
-         COORD_CONNECT, SHUFFLE_OVERFLOW, EXCHANGE_CORRUPT, BACKEND_DISPATCH,
-         BACKEND_STALL, FLEET_WORKER_KILL, CACHE_POISON)
+         COORD_CONNECT, SHUFFLE_OVERFLOW, DEVICE_INIT, EXCHANGE_CORRUPT,
+         BACKEND_DISPATCH, BACKEND_STALL, FLEET_WORKER_KILL, CACHE_POISON)
 
 
 class InjectedFault(RuntimeError):

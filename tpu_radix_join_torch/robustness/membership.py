@@ -119,8 +119,9 @@ class Lease:
     ``status`` is ``"member"`` for a participating rank or ``"joining"``
     for a newcomer awaiting admission; ``partitions_done`` mirrors the
     rank's partition manifest's progress at beat time (-1 = unknown or no
-    manifest: the port keeps none yet, ROADMAP A18b) — the per-rank
-    progress clock a straggler detector reads."""
+    manifest; ``HashJoin`` installs ``progress_of`` when it joins with
+    both a view and a manifest) — the per-rank progress clock a straggler
+    detector reads (ROADMAP A18c)."""
 
     rank: int
     epoch: int

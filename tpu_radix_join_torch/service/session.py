@@ -54,12 +54,18 @@ whose tick carries the SLO, breaker and cache state (and, with
 ``membership=``, writes this rank's lease); :meth:`JoinSession.
 attach_watchdog` starts a hang watchdog whose kill reaches the engine
 through the session's cancel hook; the NCOMPILE delta of a query after
-the first is the recompile-storm canary.  ``membership=`` (a one-rank
-``MembershipView``) and ``elastic=True`` are taken at one rank: the epoch
-keys the result cache and residency, and no join consults the view.  Not
-ported: membership over several ranks, recovery, growth and hedging
-(ROADMAP A18c), the partition manifest (A18b) and the fleet supervisor
-(A16b step 2); their constructor arguments raise ``NotImplementedError``.
+the first is the recompile-storm canary; with a span tracer attached to
+the registry, each executed query's critical path (observability/
+critpath.py, the tracer's window of that query) joins
+``recent_critical_paths``, the last 8, which ``/statusz`` serves as
+``critical_paths``.  ``membership=`` (a one-rank ``MembershipView``) and
+``elastic=True`` are taken at one rank: the epoch keys the result cache
+and residency and stamps the manifest's lines.
+``partition_manifest=`` (robustness/checkpoint.PartitionManifest) is
+threaded onto every engine the session builds, the degraded CPU engine
+too, and each successful join records its partitions there.  Not ported:
+membership over several ranks, recovery, growth and hedging (ROADMAP
+A18c); their constructor arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -206,8 +212,6 @@ class JoinSession:
         from tpu_radix_join_torch.parallel.world import make_world
 
         for name, value, off, item in (
-                ("partition_manifest", partition_manifest, None,
-                 "queue A, A18b: the partition manifest"),
                 ("elastic_grow", elastic_grow, False,
                  "queue A, A18c: membership, recovery and stragglers"),
                 ("hedge", hedge, "off",
@@ -226,6 +230,9 @@ class JoinSession:
         #: is this worker's liveness (:meth:`attach_heartbeat` writes it)
         self.membership = membership
         self.elastic = elastic
+        #: the partition manifest every engine of the session records its
+        #: successful joins' partitions into (None: none)
+        self.partition_manifest = partition_manifest
         #: failed queries drop a forensics bundle here
         #: (observability/postmortem.py), stamped with the query_id the
         #: flight recorder's context carried during the query
@@ -251,6 +258,7 @@ class JoinSession:
         self.engine = HashJoin(config, device=device, group=group,
                                measurements=measurements,
                                plan_cache=plan_cache)
+        self._wire_elastic(self.engine)
         self.device = self.engine.device
         world = self.engine.world
         #: the gloo group of the session's own agreement and of the
@@ -311,6 +319,10 @@ class JoinSession:
         #: recent outcomes only; the SLO recorder owns the aggregates
         self.outcomes: "collections.deque" = collections.deque(
             maxlen=self.service.outcomes_keep)
+        #: the last 8 executed queries' critical paths, each the attached
+        #: tracer's window of its query (``/statusz`` critical_paths)
+        self.recent_critical_paths: "collections.deque" = \
+            collections.deque(maxlen=8)
 
     # ----------------------------------------------------------- agreement
     def _agreed(self, fn: Callable):
@@ -741,6 +753,13 @@ class JoinSession:
         return out
 
     # ------------------------------------------------------------ internals
+    def _wire_elastic(self, engine) -> None:
+        """Thread the session's membership view and partition manifest
+        onto an engine (``_wire_elastic``, session.py:655-666): the
+        primary at construction, the CPU engine when it is built."""
+        engine.membership = self.membership
+        engine.partition_manifest = self.partition_manifest
+
     def _degraded_engine(self):
         """The CPU engine, built once on first use (the breaker's
         open-state serving path, robustness/degrade.py), over the
@@ -751,6 +770,7 @@ class JoinSession:
             self._cpu_engine, info = build_cpu_engine(
                 self.config, measurements=self.measurements,
                 plan_cache=self.plan_cache, host_group=self._host_group)
+            self._wire_elastic(self._cpu_engine)
             m = self.measurements
             if m is not None:
                 m.event("degrade", to="cpu", num_nodes=info["num_nodes"],
@@ -802,6 +822,8 @@ class JoinSession:
         primary = self.breaker.allow_primary()
         probing = primary and self.breaker.state == HALF_OPEN
         engine = self.engine if primary else self._degraded_engine()
+        tracer = m.tracer if m is not None else None
+        win0_us = tracer.now_us() if tracer is not None else None
         t0 = time.perf_counter()
         jhist0 = m.times_us.get(JHIST, 0.0) if m is not None else 0.0
         nc0 = m.counters.get(NCOMPILE, 0) if m is not None else 0
@@ -925,6 +947,19 @@ class JoinSession:
                         failure_class=None if cls == OK else cls,
                         degraded=not primary)
         self.outcomes.append(out)
+        if tracer is not None:
+            # the query's own critical path, its window of the resident
+            # tracer's stream; a path failure is an event, never the
+            # query's
+            try:
+                from tpu_radix_join_torch.observability.critpath import (
+                    critical_path_from_tracer)
+                cp = critical_path_from_tracer(
+                    tracer, window_us=(win0_us, tracer.now_us()))
+                cp["query_id"] = request.query_id
+                self.recent_critical_paths.append(cp)
+            except Exception as e:   # noqa: BLE001 — isolation boundary
+                m.event("critpath_error", error=repr(e)[:200])
         if self.ledger is not None:
             # a ledger write failure is an event, never the query's
             try:
