@@ -3695,7 +3695,8 @@ def phase_v(dev, n, card) -> dict:
                 if path == "/statusz" and (
                         set(body) - {"t_epoch_s"} != {
                             "phase", "counters", "service", "leases",
-                            "critical_paths"}
+                            "hedge", "critical_paths"}
+                        or body["hedge"]["mode"] != "off"
                         or [p.get("query_id") for p in
                             body["critical_paths"]]
                         != [r["query_id"] for r in reqs[:len(cli_outs)]]):
@@ -4485,6 +4486,536 @@ def phase_x(dev, n, card) -> dict:
         release_staging_pools()
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "x_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    return total
+
+
+Y_RANKS = 2
+Y_TUPLES = 20_000_000
+Y_LEASE_S = 1.0
+Y_MISSED_BEATS = 2
+Y_STRAGGLE_FACTOR = 40
+Y_SOAK_RUNS = 6
+Y_SOAK_TUPLES = 1 << 16
+#: the soaks' first seeds: a schedule that arms ``engine.device_init``
+#: ends before its join, so these windows are ones where most schedules
+#: reach it (the recovery soak's six all do, the join soak's five, two of
+#: them passing: a CPU run of two gloo ranks at 2^14 gives pass 6 and
+#: pass 2 with capacity_overflow, data_corruption and device_unavailable)
+Y_SOAK_RECOVERY_SEED = 380
+Y_SOAK_JOIN_SEED = 303
+Y_CHECK_PARTITIONS = 2
+Y_DEADLINE_S = 300.0
+#: the ranks' device flag (a CPU dry run passes ``("--device", "cpu")``)
+Y_DEVICE_ARGS = ("--device", "cuda")
+Y_RANK_FLAG = "--phase-y-rank"
+Y_CLI_FLAG = "--phase-y-cli"
+
+
+def y_cli_rank(argv) -> int:
+    """One command-line rank of phase (y): joins the ``env://`` group as an
+    elastic gloo group on ``argv``'s ``--device`` (several ranks on one
+    card, their collectives through the host), then runs the command
+    line's ``main(argv)``, which takes that group."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_radix_join_torch import main as cli
+    from tpu_radix_join_torch.parallel import multihost
+    device = argv[argv.index("--device") + 1]
+    multihost.initialize(device=device, backend="gloo",
+                         elastic_lapse_s=Y_LEASE_S * Y_MISSED_BEATS)
+    return cli.main(argv)
+
+
+def y_soak_rank(rank: int, world: int, init_method: str,
+                spec: dict) -> dict:
+    """One rank of (y6) (see :func:`phase_y`): joins a gloo group on
+    ``spec["device"]`` and runs ``soak_recovery`` and ``soak`` through
+    runners over the group; returns both summaries, the outcomes'
+    statuses and the launches."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.robustness import chaos, faults
+    dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" \
+        else torch.device("cpu")
+    multihost.initialize(init_method=init_method, world_size=world,
+                         rank=rank, device=dev.type, backend="gloo",
+                         timeout_s=spec["timeout_s"])
+    try:
+        kernels.reset_launches()
+        kw = dict(num_nodes=world, size=spec["tuples"], device=dev,
+                  group=dist.group.WORLD)
+        runner = chaos.RecoveryChaosRunner(**kw)
+        t0 = time.perf_counter()
+        try:
+            outs_r, rec = chaos.soak_recovery(
+                spec["runs"], base_seed=Y_SOAK_RECOVERY_SEED, runner=runner)
+        finally:
+            runner.close()
+        t1 = time.perf_counter()
+        outs_j, join = chaos.soak(spec["runs"], base_seed=Y_SOAK_JOIN_SEED,
+                                  runner=chaos.ChaosRunner(**kw))
+        t2 = time.perf_counter()
+        return {"rank": rank, "recovery": rec, "join": join,
+                "statuses": [o.status for o in outs_r + outs_j],
+                # a run whose schedule arms the constructor's site ends
+                # before its join
+                "reached_join": sum(
+                    all(site != faults.DEVICE_INIT
+                        for site, _ in o.schedule.arms)
+                    for o in outs_r + outs_j),
+                "details": [o.detail[:200] for o in outs_r + outs_j
+                            if o.status == chaos.VIOLATION],
+                "recovery_s": t1 - t0, "join_s": t2 - t1,
+                "launches": kernels.launch_counts()}
+    finally:
+        multihost.shutdown()
+
+
+def y_processes(cmds, deadline_s=Y_DEADLINE_S, start_gap=None):
+    """Start every ``(argv, env)`` of ``cmds`` (``start_gap(i)``, when
+    given, runs before the i-th start) and wait for all under one
+    deadline: their exit codes, stdouts and stderrs.  Every process is
+    reaped on the way out."""
+    import threading
+    procs, outs, errs = [], [], []
+    try:
+        for i, (argv, env) in enumerate(cmds):
+            if start_gap is not None:
+                start_gap(i, procs, errs)
+            p = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=os.path.dirname(os.path.abspath(
+                                     __file__)))
+            procs.append(p)
+            for stream, sink in ((p.stdout, outs), (p.stderr, errs)):
+                sink.append([])
+                threading.Thread(target=lambda st=stream, o=sink[-1]:
+                                 o.extend(st.readlines()),
+                                 daemon=True).start()
+        end = time.monotonic() + deadline_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > end:
+                raise AssertionError(
+                    f"(y) processes passed their deadline: "
+                    f"{''.join(errs[0])[-3000:]}")
+            time.sleep(0.1)
+        time.sleep(0.2)       # the drains' last lines
+        return ([p.returncode for p in procs],
+                ["".join(o) for o in outs], ["".join(e) for e in errs])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def y_elastic_lines(err: str) -> list:
+    """The ``[ELASTIC] {...}`` records of a rank's stderr."""
+    return [json.loads(x[len("[ELASTIC] "):]) for x in err.splitlines()
+            if x.startswith("[ELASTIC] {")]
+
+
+def y_last_json(out: str):
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def phase_y(dev, n, card) -> dict:
+    """Cell (y): membership, recovery, stragglers and chaos over several
+    ranks (ROADMAP A18c), on the one card: :data:`Y_RANKS` plain processes
+    of the command line (``main(argv)`` behind ``y_cli_rank``: an
+    ``env://`` rendezvous of a gloo group, several ranks on one card, no
+    torchrun agent) at ``n`` tuples a rank, unique ⋈ unique, the
+    main path's defaults (fanout 5, the sort probe), ``--elastic on`` with
+    a lease of :data:`Y_LEASE_S` s and :data:`Y_MISSED_BEATS` missed beats.
+
+    (y1) a simulated death at boundary 2 (``--rank-death-at 2`` on every
+    rank): every rank recovers the oracle's ``2n`` (``[ELASTIC]``'s
+    matches), RANKLOST 1, MEPOCH 1, RECOVERN 32, and K2 and K6 launched
+    during each rank's recovery;
+    (y2) a real death: rank 1 alone is armed and SIGKILLs itself at
+    boundary 2 (``TPU_RJ_RANK_DEATH_SUICIDE=1``); the survivor finds it
+    behind gloo's reset connection and the lapsed lease, exits 0 and
+    exact;
+    the time from the kill to detection, the host regeneration, the
+    recompute and the total;
+    (y3) resume: a manifest holding the true counts of 16 of the 32
+    partitions (``--checkpoint-dir``), then (y1)'s death: RECOVERN below
+    32, 16 resumed, the spliced total and the manifest's audit exact;
+    (y4) ``compute.straggle`` (``--straggle-factor`` x 0.05 s on every
+    rank, the victim rank 1) with ``--hedge on`` and a manifest, then with
+    the hedge off: both exact, each join's time, HEDGED 1 and HEDGEWIN +
+    SPECWASTE equal to the hedged partitions;
+    (y5) growth: a newcomer (``--elastic-join 2``) starts first, two
+    ``--elastic-grow`` incumbents admit it: all three exit 0 and exact,
+    RANKJOIN 1, the partitions the newcomer recomputed (on the card: K2
+    and K6 launched in its process) among the manifest's lines of its
+    rank;
+    (y6) ``soak_recovery`` and ``soak`` over :data:`Y_SOAK_RUNS` seeds at
+    :data:`Y_SOAK_TUPLES` a world on a gloo group of :data:`Y_RANKS`
+    ranks (``chip_smoke.py --phase-y-rank``), from seed windows where most
+    schedules reach the join: no VIOLATION, every rank's summary the same,
+    and each soak with a pass.
+    Then the recovery path's K2 and K6 held bit-exact against their plain
+    versions on that path's inputs: :data:`Y_CHECK_PARTITIONS` partitions
+    of (y1)'s relations recovered in this process, every sort and window
+    scan the grid makes recorded and replayed through the plain versions.
+    Returns the launches of the main-path runs (the reporters' and the
+    newcomer's whole processes, the soaks' ranks)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tpu_radix_join_torch import Relation
+    from tpu_radix_join_torch.ops import kernels, merge_count, sorting
+    from tpu_radix_join_torch.ops.kernels import merge_scan_chunks as k6
+    from tpu_radix_join_torch.ops.kernels import radix_sort as k2
+    from tpu_radix_join_torch.robustness import recovery
+    from tpu_radix_join_torch.robustness.checkpoint import PartitionManifest
+
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_y_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    global_n = Y_RANKS * n
+    num_p = 32
+    fp = f"elastic:unique:{global_n}:1234:{num_p}"
+
+    def add(launches):
+        for k, v in (launches or {}).items():
+            total[k] += v
+
+    def rank_env(rank, port, **extra):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(Y_RANKS), LOCAL_RANK="0",
+                   PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host: loopback
+        env.pop("TPU_RJ_RANK_DEATH_SUICIDE", None)
+        env.update(extra)
+        return env
+
+    def cli(*argv, leases, rank=True):
+        """A rank's command (``y_cli_rank``), or with ``rank=False`` the
+        command line alone (a newcomer outside the group)."""
+        head = ([sys.executable, os.path.abspath(__file__), Y_CLI_FLAG]
+                if rank else
+                [sys.executable, "-m", "tpu_radix_join_torch.main"])
+        return [*head, *Y_DEVICE_ARGS, "--nodes", str(Y_RANKS),
+                "--tuples-per-node", str(n), "--elastic", "on",
+                "--rank-lease-s", str(Y_LEASE_S),
+                "--rank-missed-beats", str(Y_MISSED_BEATS),
+                "--lease-dir", os.path.join(tmp, leases), *argv]
+
+    def world(case, *argv, envs=None, victim=()):
+        """Every rank runs ``argv``; rank ``Y_RANKS - 1`` adds
+        ``victim``'s flags and ``envs``' last entry its environment."""
+        port = free_port()
+        envs = envs or [{}] * Y_RANKS
+        t0 = time.perf_counter()
+        rcs, outs, errs = y_processes([
+            (cli(*argv, *(victim if r == Y_RANKS - 1 else ()), leases=case),
+             rank_env(r, port, **envs[r]))
+            for r in range(Y_RANKS)])
+        return rcs, outs, errs, time.perf_counter() - t0
+
+    def fail(case, rcs, outs, errs):
+        raise AssertionError(f"({case}) rcs {rcs}:\n"
+                             + "\n---\n".join(o[-1500:] + e[-2500:]
+                                              for o, e in zip(outs, errs)))
+
+    def recovered_ranks(case, errs, rcs, outs, ranks):
+        recs = []
+        for r in ranks:
+            got = [x for x in y_elastic_lines(errs[r])
+                   if x.get("kind") in ("recovery", "hedge", "regrow")]
+            if len(got) != 1 or got[0]["matches"] != global_n:
+                fail(case, rcs, outs, errs)
+            if cuda and not (got[0]["launches"].get("radix_pass", 0) > 0
+                             and got[0]["launches"].get(
+                                 "merge_scan_chunks", 0) > 0):
+                raise AssertionError(f"({case}) rank {r}'s recovery did not "
+                                     f"launch K2 and K6: {got[0]}")
+            recs.append(got[0])
+        return recs
+
+    try:
+        # ------------------------------------------------------------ (y1)
+        rcs, outs, errs, secs = world("y1", "--rank-death-at", "2")
+        doc = y_last_json(outs[0])
+        if rcs != [0] * Y_RANKS or doc is None:
+            fail("y1", rcs, outs, errs)
+        c = doc["counters"]
+        if (doc["matches"] != global_n or not doc["recovered"]
+                or c.get("RANKLOST") != 1 or c.get("MEPOCH") != 1
+                or c.get("RECOVERN") != num_p):
+            fail("y1", rcs, outs, errs)
+        recs = recovered_ranks("y1", errs, rcs, outs, range(Y_RANKS))
+        add(doc.get("launches"))
+        emit({"phase": "elastic", "cell": "y1", "tuples_per_rank": n,
+              "ranks": Y_RANKS, "matches": doc["matches"],
+              "counters": {k: c[k] for k in ("RANKLOST", "MEPOCH",
+                                             "RECOVERN", "RECOVERMS")},
+              "regen_s": [x["regen_s"] for x in recs],
+              "recompute_s": [x["recompute_s"] for x in recs],
+              "total_s": [x["total_s"] for x in recs],
+              "recovery_launches": [x["launches"] for x in recs],
+              "run_s": secs, **card})
+
+        # ------------------------------------------------------------ (y2)
+        rcs, outs, errs, secs = world(
+            "y2", victim=("--rank-death-at", "2"),
+            envs=[{}, {"TPU_RJ_RANK_DEATH_SUICIDE": "1"}])
+        doc = y_last_json(outs[0])
+        death = [x for x in errs[1].splitlines()
+                 if x.startswith("[ELASTIC] rank_death ")]
+        if (rcs[0] != 0 or rcs[1] != -9 or doc is None or not death
+                or doc["matches"] != global_n or not doc["recovered"]
+                or "[RESULTS] recovered: epoch=1 lost_ranks=[1]"
+                not in outs[0]):
+            fail("y2", rcs, outs, errs)
+        (rec,) = recovered_ranks("y2", errs, rcs, outs, [0])
+        killed_t = float(death[0].split("t_epoch_s=")[1].split()[0])
+        add(doc.get("launches"))
+        emit({"phase": "elastic", "cell": "y2", "tuples_per_rank": n,
+              "matches": doc["matches"], "victim_rc": rcs[1],
+              "detect_s": rec["detected_t"] - killed_t,
+              "regen_s": rec["regen_s"], "recompute_s": rec["recompute_s"],
+              "recovery_total_s": rec["total_s"],
+              "kill_to_done_s": rec["detected_t"] - killed_t
+              + rec["total_s"],
+              "lapse_window_s": Y_LEASE_S * Y_MISSED_BEATS,
+              "counters": {k: doc["counters"].get(k) for k in
+                           ("RANKLOST", "MEPOCH", "RECOVERN")},
+              "recovery_launches": rec["launches"], "run_s": secs, **card})
+
+        # ------------------------------------------------------------ (y3)
+        ck = os.path.join(tmp, "ck3")
+        os.makedirs(ck)
+        sk, _ = Relation(global_n, Y_RANKS, "unique",
+                         seed=1235).fill_np(0, global_n)
+        true = np.bincount(sk & np.uint32(num_p - 1), minlength=num_p)
+        del sk
+        PartitionManifest(os.path.join(ck, "partitions.manifest"),
+                          fingerprint=fp).mark_many(
+            {p: int(true[p]) for p in range(num_p // 2)},
+            owner_of=lambda p: p % Y_RANKS)
+        rcs, outs, errs, secs = world("y3", "--rank-death-at", "2",
+                                      "--checkpoint-dir", ck)
+        doc = y_last_json(outs[0])
+        aud = PartitionManifest(os.path.join(ck, "partitions.manifest"),
+                                fingerprint=fp).audit()
+        if (rcs != [0] * Y_RANKS or doc is None
+                or doc["matches"] != global_n
+                or not 0 < doc["counters"].get("RECOVERN", 0) < num_p
+                or f"resumed={num_p // 2} " not in outs[0]
+                or aud["total"] != global_n):
+            fail("y3", rcs, outs, errs)
+        recs = [x for r in range(Y_RANKS) for x in y_elastic_lines(errs[r])]
+        add(doc.get("launches"))
+        emit({"phase": "elastic", "cell": "y3", "tuples_per_rank": n,
+              "matches": doc["matches"], "resumed": num_p // 2,
+              "recovern": doc["counters"]["RECOVERN"],
+              "manifest_total": aud["total"],
+              "fenced_duplicates": len(aud["fenced_duplicates"]),
+              "total_s": [x["total_s"] for x in recs], "run_s": secs,
+              **card})
+
+        # ------------------------------------------------------------ (y4)
+        hedge = {}
+        for mode in ("on", "off"):
+            extra = (["--hedge", "on", "--checkpoint-dir",
+                      os.path.join(tmp, "ck4")] if mode == "on" else [])
+            rcs, outs, errs, secs = world(
+                f"y4_{mode}", "--straggle-factor", str(Y_STRAGGLE_FACTOR),
+                *extra)
+            doc = y_last_json(outs[0])
+            if rcs != [0] * Y_RANKS or doc is None \
+                    or doc["matches"] != global_n:
+                fail(f"y4_{mode}", rcs, outs, errs)
+            c = doc["counters"]
+            row = {"join_ms": doc["join_ms"], "run_s": secs,
+                   "hedged": c.get("HEDGED", 0),
+                   "hedgewin": c.get("HEDGEWIN", 0),
+                   "specwaste": c.get("SPECWASTE", 0)}
+            if mode == "on":
+                line = [x for x in outs[0].splitlines()
+                        if x.startswith("[RESULTS] hedged: ")]
+                parts = (int(line[0].split("partitions=")[1].split()[0])
+                         if line else -1)
+                if (c.get("HEDGED") != 1 or parts <= 0
+                        or row["hedgewin"] + row["specwaste"] != parts
+                        or c.get("MEPOCH", 0) != 0):
+                    fail("y4_on", rcs, outs, errs)
+                row["hedged_partitions"] = parts
+                (rec,) = recovered_ranks("y4_on", errs, rcs, outs, [0])
+                row.update(recompute_s=rec["recompute_s"],
+                           regen_s=rec["regen_s"])
+            elif doc["recovered"] or c.get("HEDGED"):
+                fail("y4_off", rcs, outs, errs)
+            add(doc.get("launches"))
+            hedge[mode] = row
+        emit({"phase": "elastic", "cell": "y4", "tuples_per_rank": n,
+              "straggle_s": Y_STRAGGLE_FACTOR * 0.05, **hedge, **card})
+
+        # ------------------------------------------------------------ (y5)
+        ck = os.path.join(tmp, "ck5")
+        port = free_port()
+        leases = os.path.join(tmp, "y5")
+        joiner_argv = cli("--elastic-join", str(Y_RANKS), "--checkpoint-dir",
+                          ck, leases="y5", rank=False)
+        joiner_env = dict(rank_env(0, port))
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+            joiner_env.pop(k)
+
+        def newcomer_first(i, procs, errs_):
+            if i != 1:
+                return
+            lease = os.path.join(leases, f"lease_r{Y_RANKS}.json")
+            end = time.monotonic() + 120
+            while not os.path.exists(lease):
+                if time.monotonic() > end or procs[0].poll() is not None:
+                    raise AssertionError("(y5) the newcomer's joining "
+                                         "lease never appeared")
+                time.sleep(0.1)
+
+        t0 = time.perf_counter()
+        rcs, outs, errs = y_processes(
+            [(joiner_argv, joiner_env)]
+            + [(cli("--elastic-grow", "--checkpoint-dir", ck, leases="y5"),
+                rank_env(r, port)) for r in range(Y_RANKS)],
+            start_gap=newcomer_first)
+        secs = time.perf_counter() - t0
+        doc = y_last_json(outs[1])
+        with open(os.path.join(ck, "partitions.manifest")) as f:
+            lines = [json.loads(x) for x in f.readlines()[1:] if x.strip()]
+        newcomer_lines = [x for x in lines if x.get("owner") == Y_RANKS
+                          and "count" in x]
+        joined = [x for x in y_elastic_lines(errs[0])
+                  if x.get("kind") == "joiner"]
+        if (rcs != [0] * (Y_RANKS + 1) or doc is None
+                or doc["matches"] != global_n
+                or doc["counters"].get("RANKJOIN") != 1
+                or f"[RESULTS] joiner: rank={Y_RANKS} epoch=1" not in outs[0]
+                or f"[RESULTS] Expected: {global_n} (OK)" not in outs[0]
+                or not joined or not 0 < joined[0]["recomputed"]
+                <= len(newcomer_lines)):
+            fail("y5", rcs, outs, errs)
+        if cuda and not (joined[0]["launches"].get("radix_pass", 0) > 0
+                         and joined[0]["launches"].get(
+                             "merge_scan_chunks", 0) > 0):
+            raise AssertionError(f"(y5) the newcomer launched no K2/K6: "
+                                 f"{joined[0]}")
+        regrow = recovered_ranks("y5", errs, rcs, outs, [1])
+        add(doc.get("launches"))
+        add(joined[0]["launches"])
+        emit({"phase": "elastic", "cell": "y5", "tuples_per_rank": n,
+              "matches": doc["matches"],
+              "newcomer_lines": len(newcomer_lines),
+              "newcomer_recomputed": joined[0]["recomputed"],
+              "newcomer_recompute_s": joined[0]["recompute_s"],
+              "incumbent_total_s": regrow[0]["total_s"],
+              "newcomer_launches": joined[0]["launches"], "run_s": secs,
+              **card})
+
+        # ------------------------------------------------------------ (y6)
+        spec = {"device": dev.type, "tuples": Y_SOAK_TUPLES,
+                "runs": Y_SOAK_RUNS, "timeout_s": Y_DEADLINE_S}
+        init = f"file://{os.path.join(tmp, 'rendezvous6')}"
+        t0 = time.perf_counter()
+        env = rank_env(0, 0)
+        rcs, outs, errs = y_processes([
+            ([sys.executable, os.path.abspath(__file__), Y_RANK_FLAG,
+              str(r), str(Y_RANKS), init, json.dumps(spec)], env)
+            for r in range(Y_RANKS)])
+        res = [y_last_json(o) for o in outs]
+        if rcs != [0] * Y_RANKS or None in res:
+            fail("y6", rcs, outs, errs)
+        for r in res:
+            if (r["recovery"]["violations"] or r["join"]["violations"]
+                    or not r["recovery"]["pass"] or not r["join"]["pass"]
+                    or r["recovery"] != res[0]["recovery"]
+                    or r["join"] != res[0]["join"]
+                    or r["recovery"]["wdogtrip"]):
+                raise AssertionError(f"(y6) soak: {r}")
+            add(r["launches"])
+        emit({"phase": "elastic", "cell": "y6", "tuples": Y_SOAK_TUPLES,
+              "runs": Y_SOAK_RUNS, "recovery": res[0]["recovery"],
+              "join": res[0]["join"], "reached_join": res[0]["reached_join"],
+              "recovery_s": [r["recovery_s"] for r in res],
+              "join_s": [r["join_s"] for r in res],
+              "run_s": time.perf_counter() - t0, **card})
+
+        # ------------------------------------- the recovery's K2 and K6
+        rk, _ = recovery.host_keys(Relation(global_n, Y_RANKS, "unique",
+                                            seed=1234))
+        sk, _ = recovery.host_keys(Relation(global_n, Y_RANKS, "unique",
+                                            seed=1235))
+        plan = recovery.plan_recovery(
+            num_nodes=Y_RANKS, num_partitions=num_p, lost_ranks=[1],
+            epoch=1, weights=recovery.partition_weights(rk, sk, num_p))
+        plan = dataclasses.replace(
+            plan, recompute=plan.recompute[:Y_CHECK_PARTITIONS])
+        sorts, scans = [], []
+        real_sort, real_scan = sorting.radix_sort, \
+            merge_count.merge_scan_chunks
+
+        def sort_rec(operands, *a, **kw):
+            out = real_sort(operands, *a, **kw)
+            sorts.append(([x.clone() for x in operands], a, kw, out))
+            return out
+
+        def scan_rec(packed, *a, **kw):
+            out = real_scan(packed, *a, **kw)
+            scans.append((packed.clone(), a, kw, out))
+            return out
+
+        sorting.radix_sort, merge_count.merge_scan_chunks = sort_rec, \
+            scan_rec
+        try:
+            kernels.reset_launches()
+            matches, counts = recovery.execute_recovery(
+                plan, rk, sk, device=dev)
+            got = kernels.launch_counts()
+        finally:
+            sorting.radix_sort, merge_count.merge_scan_chunks = real_sort, \
+                real_scan
+        want = {p: int(true[p]) for p in plan.recompute}
+        if counts != want or not sorts or not scans:
+            raise AssertionError(f"(y) the recovery check: {counts} "
+                                 f"against {want}, {len(sorts)} sorts, "
+                                 f"{len(scans)} scans")
+        errs_k2, errs_k6 = [], []
+        for operands, a, kw, out in sorts:
+            ref = k2.radix_sort_plain(operands, kw.get("num_keys", 1),
+                                      kw.get("key_bounds"))
+            errs_k2 += [int((g.to(torch.int64) - r.to(torch.int64))
+                            .abs().max()) if g.numel() else 0
+                        for g, r in zip(out, ref)]
+        for packed, a, kw, out in scans:
+            ref = k6.merge_scan_chunks_plain(packed, kw["width"])
+            errs_k6 += [int((out[0].to(torch.int64) - ref[0].to(torch.int64))
+                            .abs().max()) if out[0].numel() else 0,
+                        abs(int(out[1]) - int(ref[1]))]
+        if max(errs_k2) or max(errs_k6):
+            raise AssertionError(f"(y) the recovery's K2/K6 disagree with "
+                                 f"their plain versions: {errs_k2} "
+                                 f"{errs_k6}")
+        emit({"phase": "elastic_kernels", "cell": "y",
+              "partitions": list(plan.recompute),
+              "k2_calls": len(sorts), "k6_calls": len(scans),
+              "k2_max_abs_err": max(errs_k2), "k6_max_abs_err": max(errs_k6),
+              "elements": [int(s[0][0].numel()) for s in sorts],
+              "launches": {k: v for k, v in got.items() if v}, **card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "y_summary", "seconds": time.perf_counter() - t_phase,
           "launches": {k: v for k, v in total.items() if v}, **card})
     return total
 
@@ -5805,6 +6336,11 @@ def main() -> int:
     launches_x = phase_x(dev, n_main, card)
     launches = {k: v + launches_x[k] for k, v in launches.items()}
 
+    # (y): membership, recovery, stragglers and chaos over several ranks
+    torch.cuda.empty_cache()
+    launches_y = phase_y(dev, n_main, card)
+    launches = {k: v + launches_y[k] for k, v in launches.items()}
+
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
                       "tpu_radix_join/ops/pallas/histogram.py:60",
@@ -5867,6 +6403,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == Y_CLI_FLAG:
+        # one command-line rank of phase (y), started by phase_y
+        sys.exit(y_cli_rank(sys.argv[2:]))
+    if len(sys.argv) == 6 and sys.argv[1] == Y_RANK_FLAG:
+        # one rank of (y6), started by phase_y: its result on stdout
+        print(json.dumps(y_soak_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                     sys.argv[4], json.loads(sys.argv[5]))),
+              flush=True)
+        sys.exit(0)
     if len(sys.argv) == 6 and sys.argv[1] == P_RANK_FLAG:
         # one rank of phase (p), started by phase_p: its result on stdout
         print(json.dumps(phase_p_rank(int(sys.argv[2]), int(sys.argv[3]),

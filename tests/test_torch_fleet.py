@@ -397,9 +397,13 @@ def test_cli_fleet_port_refusals(capsys):
     err = _parse_error(tmain, ["--fleet", "2", "--serve", "-", "--nodes",
                                "2"], capsys)
     assert "one-rank serve processes" in err
-    err = _parse_error(tmain, ["--fleet", "2", "--serve", "-",
-                               "--elastic-join", "2"], capsys)
-    assert "not ported" in err and "A18c" in err
+    # --elastic-join (refused by name until it was ported) is refused as
+    # JAX refuses it: a supervisor is no mesh rank
+    argv = ["--fleet", "2", "--serve", "-", "--elastic-join", "2"]
+    err = _parse_error(tmain, argv, capsys)
+    assert "cannot run as --elastic-join" in err
+    assert err.split(": ", 1)[1] == \
+        _parse_error(jmain, argv, capsys).split(": ", 1)[1]
 
 
 def test_worker_args_pass_the_device_and_jax_shape():

@@ -9,7 +9,7 @@ held exactly, timestamps (``t_s``, ``created_epoch_s``) and the substrate
 block (``env``: JAX against torch) excluded.  On the port alone: a
 session's watchdog ending a stalled query (``backend.stall``) as
 ``backend_unavailable`` with the bundle on its outcome, and the next query
-exact."""
+exact; over two ranks, rank 0's kill ending every rank's query."""
 
 import os
 import time
@@ -375,8 +375,11 @@ def test_failed_served_query_bundle_equal_jax(tmp_path):
                            ("jax", jsvc, JConfig(num_nodes=1))):
         m = PKGS[name][1].Measurements()
         kw = {"device": "cpu"} if name == "port" else {}
+        # one still clock for both sessions: the detail's elapsed time is
+        # the clock's, not the host's load
         sess = svc.JoinSession(cfg, measurements=m,
-                               forensics_dir=str(tmp_path / name), **kw)
+                               forensics_dir=str(tmp_path / name),
+                               clock=lambda: 1000.0, **kw)
         try:
             sess.submit(svc.QueryRequest(query_id="dead",
                                          tuples_per_node=256,
@@ -446,7 +449,7 @@ def test_session_watchdog_ends_a_stalled_query_then_serves(tmp_path,
     assert sess._watchdog is None
 
 
-def test_session_kill_outranks_the_deadline_and_is_per_query():
+def test_session_kill_outranks_the_deadline_and_is_per_query(tmp_path):
     sess = tsvc.JoinSession(JoinConfig(), device="cpu")
     try:
         expired = tsvc.Deadline(0.0)
@@ -462,6 +465,22 @@ def test_session_kill_outranks_the_deadline_and_is_per_query():
         assert sess._killed is None and sess._deadline is None
     finally:
         sess.close()
-    with pytest.raises(NotImplementedError, match="A18c"):
-        tsvc.JoinSession(JoinConfig(num_nodes=2),
-                         membership=object(), device="cpu")
+    # over two ranks (a gloo world of tests/torch_dist_worker.py) the
+    # kill is rank 0's verdict, broadcast at the cancel point: every rank's
+    # query ends killed, though only rank 0's watchdog tripped
+    from torch_dist_worker import WorkerPool
+    pool = WorkerPool(2, tmp_path, deadline_s=120.0)
+    try:
+        outs = pool.run({"kind": "serve", "config": {"num_nodes": 2},
+                         "watchdog_kill_rank0": True,
+                         "requests": [{"query_id": "k", "tuples_per_node":
+                                       512},
+                                      {"query_id": "after",
+                                       "tuples_per_node": 512}]})
+    finally:
+        pool.close()
+    for got in outs:
+        killed, after = got["outcomes"]
+        assert killed["status"] == "failed"
+        assert killed["failure_class"] == "backend_unavailable"
+        assert after["status"] == "ok" and after["matches"] == 1024

@@ -78,6 +78,12 @@ tx.HashJoin(tx.JoinConfig(), device="cpu", measurements=traced).join(
     tx.Relation(3000, 1, "unique", seed=1),
     tx.Relation(3000, 1, "unique", seed=2))
 critpath = critical_path_from_tracer(traced.tracer)["top_phase"]["name"]
+from tpu_radix_join_torch.robustness import recovery
+rk, _ = recovery.host_keys(tx.Relation(3000, 1, "unique", seed=1))
+sk, _ = recovery.host_keys(tx.Relation(3000, 1, "unique", seed=2))
+rplan = recovery.plan_recovery(num_nodes=2, num_partitions=32,
+                               lost_ranks=[1], epoch=1)
+recovered = recovery.execute_recovery(rplan, rk, sk, device="cpu")[0]
 from tpu_radix_join_torch.core.config import ServiceConfig
 from tpu_radix_join_torch.service import JoinSession, QueryRequest
 session = JoinSession(tx.JoinConfig(),
@@ -118,7 +124,9 @@ for name, call in [
         ("main --grid-chunk-tuples", lambda: tx.main.main(
             ["--grid-chunk-tuples", "16", "--tuples-per-node", "64"])),
         ("JoinSession", lambda: JoinSession(tx.JoinConfig())),
-        ("main --serve", lambda: tx.main.main(["--serve", "absent.jsonl"]))]:
+        ("main --serve", lambda: tx.main.main(["--serve", "absent.jsonl"])),
+        ("execute_recovery", lambda: recovery.execute_recovery(
+            rplan, rk, sk))]:
     try:
         call()
         raised[name] = None
@@ -130,6 +138,7 @@ print(json.dumps({"matches": res.matches, "ok": res.ok, "leaked": leaked,
                   "raised": raised, "grid": grid,
                   "host_grid": host_grid, "fallback": fallback,
                   "critpath": critpath, "walked": walked,
+                  "recovered": recovered,
                   "degraded": [degraded.matches, degraded.ok,
                                degraded.diagnostics["degraded"]],
                   "bucket": [bucket.matches, bucket.ok,
@@ -161,8 +170,12 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     # the opt-in fallback, and only it, takes the host when no card is there
     assert got["fallback"] == [True, "cpu", 3000]
     assert got["critpath"] == "JPROC"
+    # the recovery's recompute: the masked grids on the host when asked,
+    # and on its default device, the card, a raise without one
+    assert got["recovered"] == 3000
     for name in ("native.build", "memory.pool", "observability.critpath",
-                 "data.streaming", "robustness.degrade"):
+                 "data.streaming", "robustness.degrade",
+                 "robustness.recovery", "robustness.straggler"):
         assert f"tpu_radix_join_torch.{name}" in got["walked"]
     assert got["degraded"] == [3000, True, "chunked"]
     assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",

@@ -316,7 +316,9 @@ def test_stale_joining_lease_and_sync_epoch_equal_jax(tmp_path):
 def test_session_takes_a_one_rank_membership(tmp_path):
     """``membership=`` and ``elastic=True`` at one rank: the view's epoch
     keys the session (``_epoch``), the heartbeat tick writes the lease and
-    carries the membership block; over several ranks they refuse."""
+    carries the membership block; over two ranks (a gloo world of
+    tests/torch_dist_worker.py) every rank's session takes a view over both
+    and serves exact queries, its block naming both survivors."""
     clk = FakeClock()
     board = tmem.LeaseBoard(str(tmp_path / "leases"), rank=0, num_ranks=1,
                             lease_s=1.0, clock=clk)
@@ -340,9 +342,21 @@ def test_session_takes_a_one_rank_membership(tmp_path):
     recs = load_samples(str(path))
     assert len(recs) == 2 and recs[-1]["lease"]["seq"] == 3
     assert recs[-1]["slo"]["queries_submitted"] == 0
-    for kw in ({"membership": view}, {"elastic": True}):
-        with pytest.raises(NotImplementedError, match="A18c"):
-            tsvc.JoinSession(JoinConfig(num_nodes=4), device="cpu", **kw)
+    from torch_dist_worker import WorkerPool
+    pool = WorkerPool(2, tmp_path, deadline_s=120.0)
+    try:
+        outs = pool.run({"kind": "serve", "config": {"num_nodes": 2},
+                         "lease_dir": str(tmp_path / "world_leases"),
+                         "requests": [{"query_id": f"m{i}",
+                                       "tuples_per_node": 512, "seed": i}
+                                      for i in range(2)]})
+    finally:
+        pool.close()
+    for rank, got in enumerate(outs):
+        assert [(o["status"], o["matches"]) for o in got["outcomes"]] == \
+            [("ok", 1024)] * 2
+        assert got["membership"] == {"epoch": 0, "lost": [],
+                                     "survivors": [0, 1]}
 
 
 def test_cli_serve_worker_liveness(tmp_path, monkeypatch, capsys):

@@ -8,8 +8,8 @@ sampler's records (keys, counters, torn lines, rotation), the status
 sections and ``/healthz`` codes are held exactly, timestamps and host
 memory values excluded.  The serve command line's ``--statusz`` is
 queried over HTTP on port 0 while it serves (a thread, no subprocess), and
-its sections are JAX's but ``hedge`` (ROADMAP A18c), ``critical_paths``
-holding the served query's path."""
+its sections are JAX's, ``hedge`` holding the hedge posture and
+``critical_paths`` the served query's path."""
 
 import io
 import json
@@ -483,8 +483,8 @@ class _Pipe(io.TextIOBase):
 def test_serve_statusz_live_sections_and_health(tmp_path, monkeypatch,
                                                 capsys):
     """``--serve - --statusz 0`` answers while it serves: the service,
-    leases, cache, batch and critical_paths sections (JAX's, without
-    ``hedge``), the served query's critical path, the lease younger than
+    leases, cache, batch, hedge and critical_paths sections (JAX's), the
+    hedge posture, the served query's critical path, the lease younger than
     its lapse window, /healthz 200; after the session closes, the lease is
     withdrawn."""
     servers = []
@@ -526,9 +526,12 @@ def test_serve_statusz_live_sections_and_health(tmp_path, monkeypatch,
         code, body = _get(base + "/statusz")
         assert code == 200
         names = set(body) - {"t_epoch_s"}
-        assert names == _jax_serve_sections() - {"hedge"}
+        assert names == _jax_serve_sections()
         assert names == {"phase", "counters", "service", "leases", "cache",
-                         "batch", "critical_paths"}
+                         "batch", "hedge", "critical_paths"}
+        assert body["hedge"] == {"mode": "off", "threshold": 0.5,
+                                 "elastic_grow": False, "hedged": 0,
+                                 "wins": 0, "wasted": 0}
         (path,) = body["critical_paths"]
         assert path["query_id"] == "q0" and path["ranks"] == [0]
         assert "error" not in path and path["path_ms"] > 0

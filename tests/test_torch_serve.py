@@ -10,6 +10,7 @@ virtual mesh, the three-query smoke and a delta chain.  Outcomes and the
 counters the service ticks must be equal."""
 
 import json
+import time
 
 import pytest
 
@@ -126,19 +127,180 @@ def test_cli_serve_batch_window_and_refusals(capsys, tmp_path):
     assert port[3]["fused_batches"] == jax_[3]["fused_batches"] == 1
 
 
-#: the JAX command line's flags the port still refuses, each naming its item
-REFUSED = [(["--elastic-grow"], "A18c"), (["--elastic-join", "2"], "A18c"),
-           (["--rank-death-at", "1"], "A18c"),
-           (["--rank-join-at", "1"], "A18c"), (["--hedge", "on"], "A18c"),
-           (["--hedge-threshold", "0.3"], "A18c"),
-           (["--straggle-factor", "2"], "A18c"),
-           (["--elastic", "on", "--nodes", "2"], "A18c"),
+#: the JAX command line's elastic flags, refused by name until membership,
+#: recovery and stragglers were ported (each now runs: ``_ELASTIC_RUNS``),
+#: and the one flag the port still refuses, naming its item
+REFUSED = [(["--elastic-grow"], None), (["--elastic-join", "2"], None),
+           (["--rank-death-at", "1"], None),
+           (["--rank-join-at", "1"], None), (["--hedge", "on"], None),
+           (["--hedge-threshold", "0.3"], None),
+           (["--straggle-factor", "2"], None),
+           (["--elastic", "on", "--nodes", "2"], None),
            (["--transfer-guard", "log"], "A18e")]
+
+_ONE_SHOT = ["--device", "cpu", "--tuples-per-node", "2048",
+             "--network-fanout", "3", "--rank-lease-s", "30"]
+
+
+def _one_shot(capsys, argv):
+    """One in-process join of ``_ONE_SHOT`` + ``argv``: (rc, stdout, the
+    final JSON line)."""
+    rc = tmain(_ONE_SHOT + argv)
+    out = capsys.readouterr().out
+    return rc, out, json.loads(out.strip().splitlines()[-1])
+
+
+def _world_pair(tmp_path, argv, extra_env=None):
+    """Two plain processes of one gloo world (``env://``) running the
+    command line: their return codes and outputs."""
+    from test_torch_elastic_procs import _port, _reap, _spawn
+    port = _port()
+    base = ["--device", "cpu", "--nodes", "2", "--tuples-per-node", "2048",
+            "--network-fanout", "3", "--elastic", "on",
+            "--rank-lease-s", "0.5", "--lease-dir", str(tmp_path / "L")]
+    procs = [_spawn(base + argv, r, port, extra_env) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        _reap(procs)
+    return [p.returncode for p in procs], outs
+
+
+def _run_elastic_grow(capsys, tmp_path, monkeypatch):
+    from tpu_radix_join_torch.robustness.membership import LeaseBoard
+    leases = tmp_path / "L"
+    LeaseBoard(str(leases), rank=1, num_ranks=1, lease_s=30.0).heartbeat(
+        0, status="joining")             # a newcomer asks before the join
+    rc, out, last = _one_shot(capsys, ["--elastic", "on", "--elastic-grow",
+                                       "--lease-dir", str(leases)])
+    assert rc == 0 and last["matches"] == last["expected"] == 2048
+    assert "[RESULTS] regrown: joined_ranks=[1] survivors=[0, 1]" in out
+    assert last["counters"]["RANKJOIN"] == 1
+    assert last["counters"]["MEPOCH"] == 1
+
+
+def _run_elastic_join(capsys, tmp_path, monkeypatch):
+    """A newcomer process joins a one-rank incumbent here, and both end
+    exact through the shared manifest."""
+    from test_torch_elastic_procs import _reap, _spawn
+    leases, ck = tmp_path / "L", tmp_path / "ck"
+    shared = ["--device", "cpu", "--tuples-per-node", "2048",
+              "--network-fanout", "3", "--elastic", "on",
+              "--rank-lease-s", "0.5", "--lease-dir", str(leases),
+              "--checkpoint-dir", str(ck)]
+    joiner = _spawn(shared + ["--elastic-join", "1"])
+    try:
+        deadline = time.monotonic() + 60
+        while not (leases / "lease_r1.json").exists():
+            assert time.monotonic() < deadline and joiner.poll() is None
+            time.sleep(0.1)
+        rc = tmain(shared + ["--elastic-grow"])
+        out = capsys.readouterr().out
+        jout = joiner.communicate(timeout=120)[0]
+    finally:
+        _reap([joiner])
+    assert rc == 0 and joiner.returncode == 0, jout
+    assert "[RESULTS] regrown: joined_ranks=[1]" in out
+    assert "[RESULTS] joiner: rank=1 epoch=1" in jout, jout
+    assert "manifest_partitions=8/8" in jout
+    assert "[RESULTS] Expected: 2048 (OK)" in jout
+
+
+def _run_rank_death_at(capsys, tmp_path, monkeypatch):
+    """A simulated death on both ranks of a world: each recomputes every
+    partition from the host-regenerated relations, exact."""
+    rcs, outs = _world_pair(tmp_path, ["--rank-death-at", "2"])
+    assert rcs == [0, 0], outs
+    assert "[RESULTS] recovered: epoch=1 lost_ranks=[1] resumed=0 " \
+        "recomputed=8" in outs[0], outs[0]
+    assert "[RESULTS] Expected: 4096 (OK)" in outs[0]
+    assert "RANKLOST\t1" in outs[0] and "RECOVERN\t8" in outs[0]
+
+
+def _run_rank_join_at(capsys, tmp_path, monkeypatch):
+    rc, out, last = _one_shot(capsys, ["--elastic", "on", "--elastic-grow",
+                                       "--rank-join-at", "1", "--lease-dir",
+                                       str(tmp_path / "L")])
+    assert rc == 0 and last["matches"] == last["expected"] == 2048
+    assert last["recovered"] and last["counters"]["RANKJOIN"] == 1
+    assert "[RESULTS] regrown: joined_ranks=[1]" in out
+
+
+def _run_hedge(capsys, tmp_path, monkeypatch):
+    """A straggling rank 1 hedged over a world through the shared
+    manifest: rank 0 recomputes its stripe, and every hedged partition is
+    a win."""
+    rcs, outs = _world_pair(tmp_path, [
+        "--hedge", "on", "--straggle-factor", "20",
+        "--checkpoint-dir", str(tmp_path / "ck")])
+    assert rcs == [0, 0], outs
+    assert "[RESULTS] hedged: straggler=1 partitions=4 hedgewin=4 " \
+        "specwaste=0" in outs[0], outs[0]
+    assert "[RESULTS] Expected: 4096 (OK)" in outs[0]
+    assert "HEDGED\t1" in outs[0] and "MEPOCH" not in outs[0]
+
+
+def _run_hedge_threshold(capsys, tmp_path, monkeypatch):
+    from tpu_radix_join_torch.operators.hash_join import HashJoin
+    seen = []
+    join_arrays = HashJoin.join_arrays
+
+    def spy(self, *a, **kw):
+        seen.append((self.hedge, self.hedge_threshold, self.elastic))
+        return join_arrays(self, *a, **kw)
+
+    monkeypatch.setattr(HashJoin, "join_arrays", spy)
+    req = tmp_path / "q.jsonl"
+    req.write_text(json.dumps({"query_id": "h", "tuples_per_node": 512})
+                   + "\n")
+    rc = tmain(["--serve", str(req), "--device", "cpu", "--elastic", "on",
+                "--lease-dir", str(tmp_path / "L"), "--hedge", "on",
+                "--hedge-threshold", "0.3"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert rc == 0 and seen == [("on", 0.3, True)]
+    assert lines[0]["status"] == "ok" and lines[0]["matches"] == 512
+
+
+def _run_straggle_factor(capsys, tmp_path, monkeypatch):
+    """Unhedged, the join eats the straggle: 2 x 0.05 s."""
+    monkeypatch.setenv("TPU_RJ_STRAGGLE_UNIT_S", "0.05")
+    rc, out, last = _one_shot(capsys, ["--elastic", "on", "--straggle-factor",
+                                       "2", "--lease-dir",
+                                       str(tmp_path / "L")])
+    assert rc == 0 and last["matches"] == last["expected"] == 2048
+    assert last["join_ms"] >= 100.0 and not last["recovered"]
+
+
+def _run_elastic_nodes(capsys, tmp_path, monkeypatch):
+    """``--elastic on --nodes 2``: leases over both ranks, an exact join,
+    and every lease withdrawn at the exit."""
+    rcs, outs = _world_pair(tmp_path, [])
+    assert rcs == [0, 0], outs
+    assert "[RESULTS] Expected: 4096 (OK)" in outs[0]
+    assert not list((tmp_path / "L").glob("lease_r*.json"))
+
+
+_ELASTIC_RUNS = {"--elastic-grow": _run_elastic_grow,
+                 "--elastic-join": _run_elastic_join,
+                 "--rank-death-at": _run_rank_death_at,
+                 "--rank-join-at": _run_rank_join_at,
+                 "--hedge": _run_hedge,
+                 "--hedge-threshold": _run_hedge_threshold,
+                 "--straggle-factor": _run_straggle_factor,
+                 "--elastic": _run_elastic_nodes}
 
 
 @pytest.mark.parametrize("flags,item", REFUSED,
                          ids=[f[0][0] for f in REFUSED])
-def test_cli_refuses_unported_flag_by_name(capsys, flags, item):
+def test_cli_refuses_unported_flag_by_name(capsys, tmp_path, monkeypatch,
+                                           flags, item):
+    """``--transfer-guard`` is refused by name, naming its item; each
+    elastic flag, refused until it was ported, runs and its result is
+    checked."""
+    if item is None:
+        _ELASTIC_RUNS[flags[0]](capsys, tmp_path, monkeypatch)
+        return
     with pytest.raises(SystemExit):
         tmain(["--serve", "x.jsonl", "--device", "cpu"] + flags)
     err = capsys.readouterr().err
@@ -283,10 +445,19 @@ def test_breaker_trip_degrade_probe_recover_equal_jax():
 
 
 def test_session_refuses_unported_arguments_and_closes_twice():
-    for kw, item in (({"elastic_grow": True}, "A18c"),
-                     ({"hedge": "on"}, "A18c")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsvc.JoinSession(JoinConfig(), device="cpu", **kw)
+    # elastic_grow= and hedge= (refused until ported) thread onto the
+    # engine, and a query under them is exact
+    for kw in ({"elastic_grow": True}, {"hedge": "on",
+                                        "hedge_threshold": 0.3}):
+        sess = tsvc.JoinSession(JoinConfig(), device="cpu", **kw)
+        try:
+            for k, v in kw.items():
+                assert getattr(sess.engine, k) == getattr(sess, k) == v
+            sess.submit(tsvc.QueryRequest("e", tuples_per_node=256))
+            out = sess.run_next()
+            assert out.status == "ok" and out.matches == out.expected == 256
+        finally:
+            sess.close()
     ledger = object()                  # ported: one row an executed query
     manifest = object()                # ported: threaded onto the engine
     sess = tsvc.JoinSession(JoinConfig(), device="cpu", ledger=ledger,

@@ -258,9 +258,12 @@ def _serve(task, world_group):
     request submitted and served in turn (``"drain"``: all submitted, then
     drained).  ``"tick_clock"`` gives every rank's session a clock that
     advances one second a read (the session reads rank 0's); ``"faults"``
-    (``[[site, [hits]], ...]``) arms those sites on every rank.  Returns
-    every outcome's fields, the registry's counters and the session's
-    summary."""
+    (``[[site, [hits]], ...]``) arms those sites on every rank;
+    ``"lease_dir"`` gives the session a membership view over the world's
+    ranks (``elastic=True``); ``"watchdog_kill_rank0"`` attaches a watchdog
+    on every rank and hands rank 0's a hang verdict.  Returns every
+    outcome's fields, the registry's counters, the session's summary and
+    its heartbeat's membership block."""
     import torch
     import tpu_radix_join_torch as tx
     from tpu_radix_join_torch.core.config import ServiceConfig
@@ -276,12 +279,25 @@ def _serve(task, world_group):
             return self.t - 1.0
 
     cfg = tx.JoinConfig(**task["config"])
-    meas = Measurements(node_id=torch.distributed.get_rank(),
-                        num_nodes=cfg.num_nodes)
+    rank = torch.distributed.get_rank()
+    meas = Measurements(node_id=rank, num_nodes=cfg.num_nodes)
     kw = {"clock": TickClock()} if task.get("tick_clock") else {}
+    if task.get("lease_dir"):
+        from tpu_radix_join_torch.robustness.membership import (
+            LeaseBoard, MembershipView)
+        board = LeaseBoard(task["lease_dir"], rank=rank,
+                           num_ranks=cfg.num_nodes, lease_s=30.0)
+        board.heartbeat(0)
+        kw.update(membership=MembershipView(board), elastic=True)
     sess = JoinSession(cfg, ServiceConfig(**task.get("service", {})),
                        measurements=meas, device="cpu", group=world_group,
                        **kw)
+    if task.get("watchdog_kill_rank0"):
+        # every rank's watchdog, and a hang verdict on rank 0's alone
+        from tpu_radix_join_torch.observability.watchdog import HangDetected
+        sess.attach_watchdog(3600.0)
+        if rank == 0:
+            sess.kill(HangDetected(1.0, ["JTOTAL"], None))
     injector = faults.FaultInjector(seed=5)
     for site, hits in task.get("faults", []):
         injector.arm(site, at=tuple(hits))
@@ -296,9 +312,98 @@ def _serve(task, world_group):
         return {"outcomes": [{k: getattr(o, k) for k in SERVE_FIELDS}
                              for o in outs],
                 "counters": dict(meas.counters),
-                "summary": sess.summary()}
+                "summary": sess.summary(),
+                "membership": sess.heartbeat_tick().get("membership")}
     finally:
         sess.close()
+
+
+def _elastic(task, world_group):
+    """One elastic ``join_arrays`` of the task's global ``"lanes"`` (each
+    rank joins its shard; ``elastic_inputs`` hands recovery the whole
+    lanes): ``"engine"`` sets engine attributes (``elastic``, ``hedge``,
+    ``elastic_grow``, ``straggle_factor``, ``straggle_unit_s``);
+    ``"membership"`` gives each rank a one-lease board of its own (lease
+    300 s, a fresh directory); ``"manifest"`` (``{partition: count}``
+    lines owned by ``p % 4``, possibly empty) a fresh manifest of its own;
+    ``"faults"`` (``[[site, at], ...]``) are armed on one injector of
+    ``"seed"``.  Returns the result (or the raised exception's class and
+    failure class), the counters and the manifest's audit."""
+    import numpy as np
+    import torch
+    import tpu_radix_join_torch as tx
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.robustness.checkpoint import PartitionManifest
+    from tpu_radix_join_torch.robustness.membership import (LeaseBoard,
+                                                            MembershipView)
+    cfg = tx.JoinConfig(**task["config"])
+    meas = Measurements(node_id=torch.distributed.get_rank(),
+                        num_nodes=cfg.num_nodes)
+    eng = tx.HashJoin(cfg, device="cpu", group=world_group,
+                      measurements=meas)
+    for k, v in task.get("engine", {}).items():
+        setattr(eng, k, v)
+    glanes = {k: [np.asarray(x, np.uint32) for x in task["lanes"][k]]
+              for k in ("r", "s")}
+    eng.elastic_inputs = lambda: (glanes["r"][0], None, glanes["s"][0], None)
+    rank, size = eng.world.rank, eng.world.size
+    r, s = (_shard(task["lanes"][k] + [None], rank, size)
+            for k in ("r", "s"))
+    with tempfile.TemporaryDirectory() as tmp:
+        if task.get("membership"):
+            board = LeaseBoard(os.path.join(tmp, "leases"), rank=0,
+                               num_ranks=1, lease_s=300.0, measurements=meas)
+            board.heartbeat(0)
+            eng.membership = MembershipView(board, measurements=meas)
+        man = None
+        if task.get("manifest") is not None:
+            man = PartitionManifest(os.path.join(tmp, "m"),
+                                    fingerprint={"t": 1}, measurements=meas)
+            man.mark_many({int(p): int(c)
+                           for p, c in task["manifest"].items()},
+                          owner_of=lambda p: p % 4)
+            eng.partition_manifest = man
+        injector = faults.FaultInjector(seed=task.get("seed", 0),
+                                        measurements=meas)
+        for site, at in task.get("faults", []):
+            injector.arm(site, at=at)
+        out = {}
+        try:
+            with injector:
+                res = eng.join_arrays(r, s)
+            out.update({"matches": res.matches, "ok": res.ok,
+                        "partition_counts": res.partition_counts.tolist(),
+                        "diagnostics": res.diagnostics})
+        except Exception as e:      # the class is the test's verdict
+            out.update({"raised": type(e).__name__,
+                        "failure_class": getattr(e, "failure_class", None)})
+        out["counters"] = dict(meas.counters)
+        if man is not None:
+            aud = man.audit()
+            out["audit_total"] = aud["total"]
+    return out
+
+
+def _soak(task, world_group):
+    """``robustness/chaos``'s ``"which"`` soak (``"join"`` or
+    ``"recovery"``) of ``"runs"`` schedules from ``"base_seed"`` over the
+    world, its runner built with ``"runner"``'s keywords on the CPU:
+    every outcome and the summary."""
+    from tpu_radix_join_torch.robustness import chaos
+    kw = dict(task.get("runner", {}), device="cpu", group=world_group)
+    if task["which"] == "recovery":
+        runner = chaos.RecoveryChaosRunner(**kw)
+        try:
+            outs, summary = chaos.soak_recovery(
+                task["runs"], base_seed=task["base_seed"], runner=runner)
+        finally:
+            runner.close()
+    else:
+        runner = chaos.ChaosRunner(**kw)
+        outs, summary = chaos.soak(task["runs"], base_seed=task["base_seed"],
+                                   runner=runner)
+    return {"outcomes": [o.to_json() for o in outs], "summary": summary}
 
 
 def worker(rank: int, world_size: int, init_method: str) -> None:
@@ -318,7 +423,9 @@ def worker(rank: int, world_size: int, init_method: str) -> None:
              "distribute": lambda t: _distribute(t, DistWorld(group)),
              "checksums": lambda t: _checksums(t, DistWorld(group)),
              "hierarchical": lambda t: _hierarchical(t, group),
-             "serve": lambda t: _serve(t, group)}
+             "serve": lambda t: _serve(t, group),
+             "elastic": lambda t: _elastic(t, group),
+             "soak": lambda t: _soak(t, group)}
     for line in sys.stdin:
         task = json.loads(line)
         if task["kind"] == "exit":

@@ -73,10 +73,19 @@ worker's query replayed on a survivor (``--fleet-kill-at N`` SIGKILLs the
 N-th query's worker), dead workers restarted with backoff, SIGTERM a
 drain to zero unacknowledged intents; ``--statusz`` adds a ``fleet``
 section and the supervisor's readiness.  The JAX command line's
-``--elastic-grow``, ``--elastic-join``, ``--rank-death-at``,
-``--rank-join-at``, ``--hedge``, ``--hedge-threshold``,
-``--straggle-factor`` (A18c) and ``--transfer-guard`` (A18e) are refused
-by name.
+``--transfer-guard`` (A18e) is refused by name.
+``--elastic on`` over ``--nodes N`` (plain processes of an ``env://`` or
+``file://`` rendezvous: torchrun's agent tears every worker down when one
+dies) finds a lost rank at the join's phase boundaries and behind a
+transport error, bounds every collective by the lapse window plus 30 s
+(or ``TPU_RJ_COORD_TIMEOUT_S``) and finishes the join on the survivors from
+host-regenerated relations (``[RESULTS] recovered: ...``; a survivor then
+touches the group no more: no gather, no barrier, no
+``destroy_process_group``); ``--rank-death-at N`` kills a rank at the
+N-th boundary (really with ``TPU_RJ_RANK_DEATH_SUICIDE``, else simulated
+on every rank), ``--elastic-grow`` admits a newcomer started with
+``--elastic-join N`` (``--rank-join-at`` simulates one), and ``--hedge``
+with ``--straggle-factor`` hedges a straggler through the manifest.
 ``--cpu-fallback`` builds the engine on the host CPU when building it on
 the card fails (robustness/degrade.py), with a ``[DEGRADE]
 failure_class=... backend=cpu nodes=... error=...`` line on stderr; a
@@ -139,7 +148,10 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
+import traceback
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -415,14 +427,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "else forensics/ under --output-dir or "
                         "--timeline-dir)")
     p.add_argument("--elastic", choices=["on", "off"], default="off",
-                   help="membership (robustness/membership.py) at one rank: "
-                        "heartbeat an epoch-stamped lease (lease_r0.json) "
-                        "under --lease-dir, the first before any work and "
-                        "one every --metrics-interval tick, withdrawn at "
-                        "exit; its age is the worker's liveness.  With "
-                        "--checkpoint-dir the join records its realized "
-                        "partitions in partitions.manifest there.  Recovery "
-                        "over several ranks is ROADMAP A18c")
+                   help="elastic membership and recovery (robustness/"
+                        "membership.py, recovery.py): heartbeat an epoch-"
+                        "stamped lease a rank (lease_r<rank>.json) under "
+                        "--lease-dir, the first before any work, then every "
+                        "--metrics-interval tick (or every half lease "
+                        "without one, over several ranks), withdrawn at "
+                        "exit; detect a lost peer at phase boundaries and "
+                        "from transport errors, fence the membership epoch "
+                        "and finish the join on the survivors by "
+                        "recomputing the lost partitions from host-"
+                        "regenerated relations.  With --checkpoint-dir the "
+                        "join records its realized partitions in "
+                        "partitions.manifest there and a recovery resumes "
+                        "from it.  Over several ranks the group's timeout "
+                        "is the lapse window plus 30 s, unless "
+                        "TPU_RJ_COORD_TIMEOUT_S sets it, and the ranks must "
+                        "be plain processes (env:// or file:// "
+                        "rendezvous): torchrun's agent "
+                        "tears every worker down when one dies")
     p.add_argument("--lease-dir", default=None,
                    help="directory of the lease files (default: "
                         "$TPU_RADIX_LEASE_DIR, else leases/ under "
@@ -433,6 +456,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rank-missed-beats", type=int, default=2, metavar="N",
                    help="a lease lapses after N windows of silence (lapse "
                         "window = N x --rank-lease-s; default 2)")
+    p.add_argument("--rank-death-at", type=int, default=None, metavar="N",
+                   help="arm the membership.rank_death chaos site at the "
+                        "N-th phase boundary (1-based): with "
+                        "TPU_RJ_RANK_DEATH_SUICIDE set this process dies "
+                        "for real (SIGKILL; =stop freezes it with SIGSTOP); "
+                        "otherwise the highest rank's death is simulated "
+                        "on every rank and --elastic on recovers it")
+    p.add_argument("--elastic-grow", action="store_true",
+                   help="admit joining ranks mid-run: a newcomer's joining "
+                        "lease is admitted at the next phase boundary with "
+                        "a fenced epoch bump, and the join finishes on the "
+                        "grown membership; needs --elastic on")
+    p.add_argument("--elastic-join", type=int, default=None, metavar="N",
+                   help="run as a newcomer to an N-rank incumbent world, "
+                        "outside its process group: write a joining lease "
+                        "under the shared --lease-dir, wait for admission "
+                        "(an incumbent's epoch bump), recompute this rank's "
+                        "share of the unfinished partitions into the shared "
+                        "--checkpoint-dir manifest, and exit once it is "
+                        "complete; needs --elastic on")
+    p.add_argument("--hedge", choices=["on", "off", "auto"], default="off",
+                   help="straggler hedging (robustness/straggler.py): when "
+                        "a live rank's manifest progress falls below "
+                        "--hedge-threshold x the median for two checks, "
+                        "recompute its unfinished partitions beside it; the "
+                        "manifest's first-writer-wins fence keeps the "
+                        "speculation from counting twice; auto backs off "
+                        "while SPECWASTE > HEDGEWIN; needs --elastic on")
+    p.add_argument("--hedge-threshold", type=float, default=0.5,
+                   metavar="F",
+                   help="the straggler threshold: hedge when the slowest "
+                        "rank's progress < F x the median (default 0.5, in "
+                        "(0, 1))")
+    p.add_argument("--straggle-factor", type=float, default=0.0,
+                   metavar="F",
+                   help="arm the compute.straggle chaos site: the highest "
+                        "rank slows by F x TPU_RJ_STRAGGLE_UNIT_S seconds "
+                        "(0.05) after the sizing pass (0 = off)")
+    p.add_argument("--rank-join-at", type=int, default=None, metavar="N",
+                   help="arm the membership.rank_join chaos site at the "
+                        "N-th phase boundary: a joining lease appears past "
+                        "the boot world and --elastic-grow admits it")
     # --- the crash-only fleet (service/fleet.py) ---------------------------
     p.add_argument("--fleet", type=int, default=None, metavar="N",
                    help="crash-only fleet serving (service/fleet.py): "
@@ -469,13 +534,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: the JAX command line's flags the port refuses by name, with their items
 REFUSED_FLAGS = {
-    "--elastic-grow": "A18c: membership, recovery and stragglers",
-    "--elastic-join": "A18c: membership, recovery and stragglers",
-    "--rank-death-at": "A18c: membership, recovery and stragglers",
-    "--rank-join-at": "A18c: membership, recovery and stragglers",
-    "--hedge": "A18c: membership, recovery and stragglers",
-    "--hedge-threshold": "A18c: membership, recovery and stragglers",
-    "--straggle-factor": "A18c: membership, recovery and stragglers",
     "--transfer-guard": "A18e: the sync guard",
 }
 
@@ -586,8 +644,31 @@ def _statusz(args, sections, readiness=None):
     return server
 
 
+class _LeaseBeat:
+    """A daemon thread heartbeating a membership view's lease every
+    ``period_s`` seconds: over several ranks without a metrics sampler,
+    a rank blocked in a long collective or a recompute must not lapse in
+    its peers' eyes."""
+
+    def __init__(self, membership, period_s: float):
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(membership, period_s), daemon=True,
+            name="lease-beat")
+        self._thread.start()
+
+    def _run(self, membership, period_s: float) -> None:
+        while not self._stop.wait(period_s):
+            membership.board.heartbeat(membership.epoch,
+                                       status=membership.my_status())
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
 @contextlib.contextmanager
-def _observed(args, meas, rank: int):
+def _observed(args, meas, rank: Optional[int]):
     """The liveness and observability plane around a run (``main``,
     tpu_radix_join/main.py:1365-1460): the compile monitor; with
     ``--timeline-dir`` a span tracer (one trace id over the ranks, through
@@ -602,12 +683,12 @@ def _observed(args, meas, rank: int):
         install_compile_monitor, uninstall_compile_monitor)
 
     install_compile_monitor(meas)
-    tracer = sampler = membership = board = None
+    tracer = sampler = membership = board = beat = None
     try:
         if args.timeline_dir:
             os.makedirs(args.timeline_dir, exist_ok=True)
-            trace_id = (_trace_identity(args, rank) if args.nodes > 1
-                        else None)
+            trace_id = (_trace_identity(args, rank)
+                        if args.nodes > 1 and rank is not None else None)
             tracer = meas.attach_tracer(trace_id=trace_id, nodes=args.nodes)
         if args.metrics_interval:
             from tpu_radix_join_torch.observability.metrics import (
@@ -620,17 +701,26 @@ def _observed(args, meas, rank: int):
         if args.elastic == "on":
             from tpu_radix_join_torch.robustness.membership import (
                 LeaseBoard, MembershipView)
+            joining = rank is None
+            if joining:
+                # a newcomer's rank: the first free id at or above the
+                # incumbent world's size, from the shared lease directory
+                rank = LeaseBoard.next_rank(_lease_dir(args),
+                                            floor=args.elastic_join)
             board = LeaseBoard(_lease_dir(args), rank=rank,
                                num_ranks=args.nodes,
                                lease_s=args.rank_lease_s,
                                missed_beats=args.rank_missed_beats,
                                measurements=meas)
             membership = MembershipView(board, measurements=meas)
-            board.heartbeat(0)        # the first lease before any work
+            # the first lease before any work (a newcomer's asks to join)
+            board.heartbeat(0, status="joining" if joining else "member")
             if sampler is not None:
                 sampler.extra = board.sampler_extra(
                     epoch_of=membership.epoch_of,
                     status_of=membership.my_status)
+            elif args.nodes > 1:
+                beat = _LeaseBeat(membership, args.rank_lease_s / 2)
         if sampler is not None:
             sampler.start()
         yield sampler, membership
@@ -638,6 +728,8 @@ def _observed(args, meas, rank: int):
         # the sampler's last tick writes the lease: stop it first
         if sampler is not None:
             sampler.stop()
+        if beat is not None:
+            beat.stop()
         if board is not None:
             # a clean exit withdraws the lease: a reader sees a departure,
             # not a stale lease
@@ -885,10 +977,16 @@ def main(argv=None) -> int:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported to PyTorch yet (ROADMAP.md "
                          f"queue A, {item})")
-    if args.elastic == "on" and args.nodes > 1:
-        parser.error("--elastic on keeps one rank's lease; membership over "
-                     "several ranks is not ported to PyTorch yet (ROADMAP.md "
-                     "queue A, A18c: membership, recovery and stragglers)")
+    if args.elastic_grow and args.elastic != "on":
+        parser.error("--elastic-grow admits ranks into the elastic "
+                     "recovery protocol — it needs --elastic on")
+    if args.hedge != "off" and args.elastic != "on":
+        parser.error("--hedge speculates through the elastic recovery "
+                     "machinery — it needs --elastic on")
+    if not 0.0 < args.hedge_threshold < 1.0:
+        parser.error("--hedge-threshold must be in (0, 1): it is the "
+                     "slowest/median progress ratio below which hedging "
+                     "arms")
     if args.rank_missed_beats < 1:
         parser.error("--rank-missed-beats must be >= 1")
     if args.rank_lease_s <= 0:
@@ -898,11 +996,6 @@ def main(argv=None) -> int:
     if args.metrics_interval and not (args.timeline_dir or args.output_dir):
         parser.error("--metrics-interval writes <rank>.metrics.jsonl under "
                      "--timeline-dir or --output-dir: pass one")
-    if args.serve is not None and args.nodes > 1 and args.watchdog_timeout:
-        parser.error("a session's watchdog kills one rank's query alone; "
-                     "over several ranks it is not ported to PyTorch yet "
-                     "(ROADMAP.md queue A, A18c: membership, recovery and "
-                     "stragglers)")
     if args.serve is not None and args.grid_chunk_tuples is not None:
         parser.error("--serve runs the in-core resident engine; the "
                      "out-of-core grid is a one-shot mode")
@@ -915,6 +1008,25 @@ def main(argv=None) -> int:
         if args.nodes > 1:
             parser.error("--fleet workers are one-rank serve processes; a "
                          "worker of --nodes > 1 runs under torchrun")
+        if args.elastic_join is not None:
+            parser.error("--fleet is a serving supervisor, not a mesh "
+                         "rank; it cannot run as --elastic-join")
+    if args.elastic_join is not None:
+        if args.elastic != "on":
+            parser.error("--elastic-join is the growth half of elastic "
+                         "recovery — it needs --elastic on")
+        if not args.checkpoint_dir:
+            parser.error("--elastic-join recomputes through the shared "
+                         "partition manifest — pass the incumbents' "
+                         "--checkpoint-dir")
+        if args.elastic_join < 1 or args.nodes not in (1, args.elastic_join):
+            parser.error("--elastic-join N names the incumbent world of N "
+                         "ranks (one node a rank): --nodes, when given, "
+                         "must be N")
+        if args.serve is not None:
+            parser.error("--elastic-join joins a one-shot join, not a "
+                         "serving process")
+        args.nodes = args.elastic_join
     if args.serve == "-" and args.nodes > 1:
         parser.error("--serve - reads stdin, which only one rank has: give "
                      "every rank the same request FILE")
@@ -927,24 +1039,47 @@ def main(argv=None) -> int:
         # card, so dispatch before anything below can reach torch.cuda
         return _run_fleet(args)
     from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.performance.measurements import Measurements
 
+    if args.elastic_join is not None:
+        # a newcomer stays outside the incumbents' process group
+        meas = Measurements(node_id=args.elastic_join, num_nodes=args.nodes)
+        with _observed(args, meas, None) as (_, membership):
+            return _run_joiner(args, meas, membership)
     group = None
     if args.nodes > 1:
-        if not multihost.initialize(device=args.device):
+        lapse = (args.rank_lease_s * args.rank_missed_beats
+                 if args.elastic == "on" else None)
+        if not multihost.initialize(device=args.device,
+                                    elastic_lapse_s=lapse):
             parser.error(f"--nodes {args.nodes} runs under torchrun "
                          f"(torchrun --nproc-per-node {args.nodes} -m "
-                         "tpu_radix_join_torch.main ...)")
+                         "tpu_radix_join_torch.main ...), or as plain "
+                         "processes with MASTER_ADDR, MASTER_PORT, RANK and "
+                         "WORLD_SIZE set (the launch --elastic on needs)")
         group = dist.group.WORLD
+    rc, views = 1, []
     try:
-        from tpu_radix_join_torch.performance.measurements import (
-            Measurements)
         rank = dist.get_rank(group) if group is not None else 0
         meas = Measurements(node_id=rank, num_nodes=args.nodes)
         with _observed(args, meas, rank) as (sampler, membership):
+            views.append(membership)
             if args.serve is not None:
-                return _run_serve(args, group, meas, sampler, membership)
-            return _join_body(args, group, rank, meas, membership)
+                rc = _run_serve(args, group, meas, sampler, membership)
+            else:
+                rc = _join_body(args, group, rank, meas, membership)
+        return rc
     finally:
+        if group is not None and views and views[0] is not None \
+                and views[0].lost:
+            # a survivor of a rank loss leaves the group without a word:
+            # destroying it may wait on the dead peer, so flush and exit
+            # with the join's code (and the traceback of one in flight)
+            if sys.exc_info()[0] is not None:
+                traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(rc)
         multihost.shutdown()
 
 
@@ -1066,7 +1201,10 @@ def _run_serve(args, group, meas, sampler=None, membership=None) -> int:
                           device=args.device, group=group, ledger=ledger,
                           forensics_dir=_forensics_dir(args),
                           membership=membership,
-                          elastic=args.elastic == "on")
+                          elastic=args.elastic == "on",
+                          elastic_grow=args.elastic_grow,
+                          hedge=args.hedge,
+                          hedge_threshold=args.hedge_threshold)
     # the coalescer is the serve loop's (no threads of its own), on the
     # session's clock (rank 0's over several ranks)
     batcher = MicroBatcher(svc.batch_window_ms, svc.batch_max_queries,
@@ -1084,10 +1222,18 @@ def _run_serve(args, group, meas, sampler=None, membership=None) -> int:
     if args.statusz is not None:
         from tpu_radix_join_torch.observability.statusz import (
             measurements_sections)
-        # JAX's serve sections (tpu_radix_join/main.py:722-780) but
-        # "hedge", whose source is ROADMAP A18c
+        # JAX's serve sections (tpu_radix_join/main.py:722-780)
+        from tpu_radix_join_torch.performance.measurements import (
+            HEDGED, HEDGEWIN, SPECWASTE)
         sections = dict(measurements_sections(meas))
         sections["service"] = session._heartbeat_extra
+        sections["hedge"] = (lambda: {
+            "mode": session.hedge,
+            "threshold": session.hedge_threshold,
+            "elastic_grow": session.elastic_grow,
+            "hedged": int(meas.counters.get(HEDGED, 0)),
+            "wins": int(meas.counters.get(HEDGEWIN, 0)),
+            "wasted": int(meas.counters.get(SPECWASTE, 0))})
         sections["critical_paths"] = (
             lambda: list(session.recent_critical_paths))
         if membership is not None:
@@ -1448,21 +1594,51 @@ def _engine(args, cfg, group, meas, plan_cache):
 
 
 def _attach_manifest(args, engine, cfg, nodes, meas, membership) -> None:
-    """The membership view and, with ``--elastic on --checkpoint-dir D``,
+    """The membership view, the elastic flags (``--elastic``,
+    ``--elastic-grow``, ``--hedge``, ``--hedge-threshold``,
+    ``--straggle-factor``) and, with ``--elastic on --checkpoint-dir D``,
     the partition manifest ``D/partitions.manifest`` under the JAX
     command line's fingerprint (JAX ``main.py:1651-1660``): the join
     appends one line a realized partition; a manifest of another
     fingerprint raises CheckpointMismatch."""
     engine.membership = membership
+    engine.elastic = args.elastic == "on"
+    engine.elastic_grow = args.elastic_grow
+    engine.hedge = args.hedge
+    engine.hedge_threshold = args.hedge_threshold
+    engine.straggle_factor = args.straggle_factor
     if args.elastic != "on" or not args.checkpoint_dir:
         return
+    engine.partition_manifest = _manifest(args, nodes,
+                                          cfg.network_partition_count, meas)
+
+
+def _manifest(args, nodes: int, num_p: int, meas):
+    """``--checkpoint-dir``'s ``partitions.manifest`` under the JAX command
+    line's fingerprint ``elastic:<outer>:<N>:<seed>:<P>``."""
     from tpu_radix_join_torch.robustness.checkpoint import PartitionManifest
     os.makedirs(args.checkpoint_dir, exist_ok=True)
-    fp = (f"elastic:{args.outer_kind}:{args.tuples_per_node * nodes}:"
-          f"{args.seed}:{cfg.network_partition_count}")
-    engine.partition_manifest = PartitionManifest(
+    return PartitionManifest(
         os.path.join(args.checkpoint_dir, "partitions.manifest"),
-        fingerprint=fp, measurements=meas)
+        fingerprint=(f"elastic:{args.outer_kind}:"
+                     f"{args.tuples_per_node * nodes}:{args.seed}:{num_p}"),
+        measurements=meas)
+
+
+def _relations(args, nodes: int):
+    """The command line's (inner, outer) relations over ``nodes``: unique
+    of ``--seed``, and ``--outer-kind`` of ``--seed + 1``."""
+    from tpu_radix_join_torch import Relation
+    n = args.tuples_per_node * nodes
+    outer_kw = {}
+    if args.outer_kind == "modulo":
+        outer_kw["modulo"] = args.modulo or max(1, n // 4)
+    elif args.outer_kind == "zipf":
+        outer_kw["zipf_theta"] = args.zipf_theta
+        outer_kw["key_domain"] = n
+    return (Relation(n, nodes, "unique", seed=args.seed),
+            Relation(n, nodes, args.outer_kind, seed=args.seed + 1,
+                     **outer_kw))
 
 
 def _critical_path(meas, rank: int):
@@ -1482,12 +1658,158 @@ def _critical_path(meas, rank: int):
     return cp
 
 
+def _membership_faults(args, meas):
+    """One injector of ``--seed`` arming ``--rank-death-at``,
+    ``--rank-join-at`` and ``--straggle-factor``'s sites (only the
+    innermost injector is consulted, so they share one), or a null
+    context."""
+    if not (args.rank_death_at or args.rank_join_at
+            or args.straggle_factor > 0):
+        return contextlib.nullcontext()
+    from tpu_radix_join_torch.robustness import faults
+    inj = faults.FaultInjector(seed=args.seed, measurements=meas)
+    if args.rank_death_at:
+        inj.arm(faults.RANK_DEATH, at=args.rank_death_at)
+    if args.rank_join_at:
+        inj.arm(faults.RANK_JOIN, at=args.rank_join_at)
+    if args.straggle_factor > 0:
+        inj.arm(faults.COMPUTE_STRAGGLE, at=1)
+    return inj
+
+
+def _print_recovery(d: dict, times, reporter: bool) -> None:
+    """The recovered join's lines (JAX ``main.py:1817-1831``) from the
+    reporter, and on every rank's stderr ``[ELASTIC] {...}``: the
+    recovery's kind, wall times, matches and the kernel launches it made
+    (``HashJoin.last_recovery``)."""
+    if reporter:
+        print(f"[RESULTS] recovered: epoch={d.get('membership_epoch')} "
+              f"lost_ranks={d.get('lost_ranks')} "
+              f"resumed={len(d.get('resumed_partitions') or [])} "
+              f"recomputed={len(d.get('recovered_partitions') or [])}")
+        if d.get("regrown"):
+            print(f"[RESULTS] regrown: "
+                  f"joined_ranks={d.get('joined_ranks_admitted')} "
+                  f"survivors={d.get('survivors')}")
+        if d.get("hedged"):
+            print(f"[RESULTS] hedged: straggler={d.get('straggler')} "
+                  f"partitions={d.get('hedged_partitions')} "
+                  f"hedgewin={d.get('hedgewin')} "
+                  f"specwaste={d.get('specwaste')}")
+    if times:
+        print("[ELASTIC] " + json.dumps(times), file=sys.stderr, flush=True)
+
+
+def _run_joiner(args, meas, membership) -> int:
+    """The newcomer's half of elastic growth (``--elastic-join N``, JAX
+    ``main.py:1126-1257``): outside the incumbents' process group, this
+    process wrote a ``joining`` lease before any work; it waits for an
+    incumbent's epoch bump (the fenced admission, read from the shared
+    lease directory), regenerates the seeded relations on the host,
+    recomputes its share of the unfinished partitions on ``--device``
+    into the shared manifest (``execute_recovery(only_rank=...)``, the
+    incumbents' regrowth discipline) and reports once the manifest is
+    complete: completeness, not a barrier, is the exit signal."""
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.performance.measurements import RECOVERN
+    from tpu_radix_join_torch.robustness.recovery import (execute_recovery,
+                                                          host_keys,
+                                                          partition_weights,
+                                                          plan_recovery)
+
+    board = membership.board
+    nodes = args.nodes
+    my_nodes = [board.rank]          # one node a rank
+    cfg = _join_config(args)
+    inner, outer = _relations(args, nodes)
+    num_p = cfg.network_partition_count
+    manifest = _manifest(args, nodes, num_p, meas)
+    print(f"[ELASTIC] joiner rank={board.rank} nodes={my_nodes} "
+          f"waiting for admission under {board.run_dir}", file=sys.stderr,
+          flush=True)
+    wait_s = max(120.0, 6.0 * board.lapse_window_s)
+    deadline = time.monotonic() + wait_s
+    admitted_epoch = 0
+    while time.monotonic() < deadline:
+        for r in board.discover():
+            lease = None if r == board.rank else board.read(r)
+            if (lease is not None and lease.status == "member"
+                    and lease.epoch > admitted_epoch):
+                admitted_epoch = lease.epoch
+        # incumbents that finished the grown join before this process read
+        # their leases leave its lines behind, at the admission's epoch
+        admitted_epoch = max([admitted_epoch] + [
+            rec["epoch"] for rec in manifest.completed().values()])
+        if admitted_epoch >= 1:
+            break
+        board.heartbeat(membership.epoch, status="joining")
+        time.sleep(min(0.2, board.lease_s / 4.0))
+    if admitted_epoch < 1:
+        print("[RESULTS] failure/joiner: no admission epoch bump before "
+              "the deadline: the incumbents never saw the joining lease "
+              "(a dead world, or no --elastic-grow there)", file=sys.stderr)
+        return 1
+    membership.epoch = admitted_epoch
+    membership.joined.add(board.rank)
+    board.heartbeat(admitted_epoch, status="member")
+    print(f"[ELASTIC] joiner admitted epoch={admitted_epoch}",
+          file=sys.stderr, flush=True)
+    rk, rhi = host_keys(inner)
+    sk, shi = host_keys(outer)
+    plan = plan_recovery(num_nodes=nodes, num_partitions=num_p,
+                         lost_ranks=[], epoch=admitted_epoch,
+                         manifest=manifest,
+                         weights=partition_weights(rk, sk, num_p),
+                         joined_ranks=my_nodes)
+    board.heartbeat(admitted_epoch, status="member")
+    t0 = time.perf_counter()
+    execute_recovery(plan, rk, sk, rhi, shi, only_rank=set(my_nodes),
+                     manifest=manifest, measurements=meas,
+                     device=args.device, sort_impl=cfg.sort_impl,
+                     pipeline=cfg.grid_pipeline)
+    recompute_s = time.perf_counter() - t0
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        if len(manifest.completed()) >= num_p:
+            break
+        board.heartbeat(admitted_epoch, status="member")
+        time.sleep(0.1)
+    done = manifest.completed()
+    matches = int(sum(rec["count"] for rec in done.values()))
+    mine = sum(1 for rec in done.values() if rec.get("owner") in my_nodes)
+    expected = inner.expected_matches(outer)
+    print(f"[RESULTS] joiner: rank={board.rank} epoch={admitted_epoch} "
+          f"owned_partitions={mine} manifest_partitions={len(done)}/{num_p}")
+    print(f"[RESULTS] Tuples: {matches}")
+    if expected is not None:
+        status = "OK" if matches == expected else "MISMATCH"
+        print(f"[RESULTS] Expected: {expected} ({status})")
+        if matches != expected:
+            return 1
+    if len(done) < num_p:
+        print("[RESULTS] failure/joiner: manifest incomplete at the "
+              "deadline", file=sys.stderr)
+        return 1
+    aud = manifest.audit()
+    print(f"[ELASTIC] joiner manifest audit total={aud['total']} "
+          f"fenced_duplicates={aud['fenced_duplicates']}", file=sys.stderr)
+    print("[ELASTIC] " + json.dumps({
+        "kind": "joiner", "rank": board.rank, "matches": matches,
+        "recomputed": int(meas.counters.get(RECOVERN, 0)),
+        "recompute_s": recompute_s,
+        "launches": {k: v for k, v in kernels.launch_counts().items()
+                     if v}}), file=sys.stderr, flush=True)
+    if args.output_dir:
+        print(f"[PERF] stored {meas.store(args.output_dir)}")
+    return 0
+
+
 def _join_body(args, group, rank, meas, membership=None) -> int:
     """One join of ``--nodes`` ranks (or the grid), its result line from
     rank 0; every rank returns 1 unless the result equals the oracle, and
     1 with ``[RESULTS] failure/failure_class`` and a forensics bundle when
     the join raises a classified failure (a watchdog trip)."""
-    from tpu_radix_join_torch import Relation
+    from tpu_radix_join_torch.ops.kernels import launch_counts
     from tpu_radix_join_torch.performance.measurements import (RESULTS,
                                                                print_results)
     from tpu_radix_join_torch.planner.audit import (actuals_for_explain,
@@ -1517,15 +1839,7 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     n = args.tuples_per_node * nodes
     meas.meta.update(tuples_per_node=args.tuples_per_node, global_size=n,
                      config=vars(args))
-    inner = Relation(n, nodes, "unique", seed=args.seed)
-    outer_kw = {}
-    if args.outer_kind == "modulo":
-        outer_kw["modulo"] = args.modulo or max(1, n // 4)
-    elif args.outer_kind == "zipf":
-        outer_kw["zipf_theta"] = args.zipf_theta
-        outer_kw["key_domain"] = n
-    outer = Relation(n, nodes, args.outer_kind, seed=args.seed + 1,
-                     **outer_kw)
+    inner, outer = _relations(args, nodes)
     expected = inner.expected_matches(outer)
     if engine is None:
         return _run_grid(args, inner, outer, expected, meas, plan=plan)
@@ -1550,10 +1864,15 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
                        membership=membership)
               if args.watchdog_timeout > 0 else contextlib.nullcontext())
     statusz = _statusz(args, measurements_sections(meas))
+    if args.elastic == "on":
+        # recovery regenerates the relations from their seeded specs on
+        # the host, never from the group's tensors
+        from tpu_radix_join_torch.robustness.recovery import relation_inputs
+        engine.elastic_inputs = relation_inputs(inner, outer)
     times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
     try:
-        with trace_ctx, wd_ctx:
+        with trace_ctx, wd_ctx, _membership_faults(args, meas):
             if args.pipeline_repeats and args.repeat > 1:
                 result = engine.join_arrays_pipelined(r, s, args.repeat,
                                                       key_bound=key_bound)
@@ -1587,6 +1906,15 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     join_s = (time.perf_counter() - t0) / args.repeat
     ok = result.ok and (expected is None or result.matches == expected)
     meas.meta["failure_class"] = result.diagnostics["failure_class"]
+    # after a recovery nothing of the group is touched again: no gather,
+    # and the lowest survivor reports from its own registry
+    recovered = bool(result.diagnostics.get("recovered"))
+    lost = sorted(membership.lost) if membership is not None else []
+    reporter = rank == 0
+    if lost and membership.board.num_ranks > 1:
+        reporter = membership.board.rank == min(membership.survivors)
+    if recovered:
+        _print_recovery(result.diagnostics, engine.last_recovery, reporter)
     cp = _critical_path(meas, rank)
     # plan-vs-actual: the measured JTOTAL (and the critical path) against
     # the plan's prediction
@@ -1598,8 +1926,9 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
         meas.counters[RESULTS] = result.matches
     if args.measure_phases or args.output_dir:
         meas.measure_dispatch_floor(device=engine.device)
-    all_meas = meas.gather_all(engine.world)
-    if rank == 0:
+    all_meas = ([meas] if recovered or lost
+                else meas.gather_all(engine.world))
+    if reporter:
         if audit is not None:
             print(f"[PLAN] actual_ms={audit['actual_ms']:.1f} "
                   f"predicted_ms={audit['predicted_ms']:.1f} "
@@ -1631,11 +1960,12 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
         # the post-join memory checkpoint (main.cpp:32,68,92)
         meas.memory_utilization()
         path = meas.store(args.output_dir)
-        if rank == 0:
+        if reporter:
             print(f"[PERF] stored {path}")
-    if rank == 0:
+    if reporter:
         print(json.dumps({
             "matches": result.matches, "ok": result.ok, "expected": expected,
+            "recovered": recovered, "recovery": engine.last_recovery,
             "join_ms": join_s * 1e3, "tuples": 2 * n,
             "tuples_per_s": 2 * n / join_s, "nodes": nodes,
             "failure_class": result.diagnostics["failure_class"],
@@ -1656,6 +1986,7 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
             "plan_vs_actual": audit,
             "phases_us": dict(meas.times_us),
             "counters": dict(meas.counters),
+            "launches": {k: v for k, v in launch_counts().items() if v},
         }), flush=True)
     return 0 if ok else 1
 

@@ -33,10 +33,9 @@ and service spans carry JAX's names (``grid_pair``, ``prefetch``,
 classes below are JAX's without a map.  Two differ: the port resolves
 the wire plan inside the sizing pass and runs the staged exchange inside
 JMPI, so it emits no ``exchange_pack`` / ``exchange_stage`` marker and
-its exchange barrier is JMPI's; and it emits no ``hedge`` / ``recovery``
-/ ``regrow`` span until membership over several ranks is ported (ROADMAP
-A18c).  The JAX names stay in the sets, so a stream of either package
-classes the same.
+its exchange barrier is JMPI's.  The elastic spans (``recovery``,
+``regrow``, ``hedge``, ``recover_partition``) and the ``hedge_claim``
+instants are JAX's, so a stream of either package classes the same.
 
 Partial-tolerant: a torn or missing rank degrades the result to a partial
 path with a warning, never a crash.  Every entry point returns a plain

@@ -81,8 +81,11 @@ def _env_info() -> dict:
 
 def _chaos_info(chaos=None) -> Optional[dict]:
     """``(seed, arms)`` replay record: from an explicit schedule (an object
-    with ``to_json``, or a dict; the chaos runner is ROADMAP A18c) or,
-    failing that, the active FaultInjector."""
+    with ``to_json``, such as a chaos runner's violating schedule, or a
+    dict) or, failing that, the active FaultInjector.  The bundle's event
+    tail carries the run's recovery record (``rank_lost``, ``recovery``,
+    ``regrow``, ``hedge``, ``hedge_claim``), which :func:`merge_bundles`
+    renders as the recovery timeline."""
     if chaos is not None:
         if hasattr(chaos, "to_json"):
             return chaos.to_json()

@@ -112,6 +112,23 @@ successful ``join_arrays`` (``_manifest_record``).  Construction consults
 the fault site ``engine.device_init`` first (robustness/degrade.py's
 fallback).
 
+**Elastic recovery** (``elastic``, ``elastic_grow``, ``hedge``; JAX
+``hash_join.py:1731-1761``, ``:1969-2460``): every boundary also consults
+the sites ``membership.rank_death`` and ``membership.rank_join``, beats
+this rank's lease and scans the membership view (admissions, then lapses),
+and polls the straggler detector when hedging; ``compute.straggle`` fires
+after the stall site.  A lost rank (a lapse, the death site, or a
+transport error a lapsed lease confirms within one lapse window) ends the
+join in :meth:`HashJoin._recover_join`: the relations regenerated on the
+host, the partitions the manifest lacks assigned over the survivors and
+each recomputed as a masked out-of-core grid (K2 and K6 on the card), with
+no collective on the old group.  An admission under ``elastic_grow``
+(:meth:`HashJoin._regrow_join`) and a straggler verdict
+(:meth:`HashJoin._hedge_join`) finish on the same engine.  A JAX process
+owns several mesh nodes and a port process is one, so the expansions from
+lease ranks to node ranks are the identity over the port's world
+(:meth:`HashJoin._npp`).
+
 **Measurements** (``HashJoin(..., measurements=Measurements())``; timer
 placement of ``hash_join.py:1780-1935``): JTOTAL spans the join, the
 key-range probe included; SWINALLOC the sizing pass, whose execution is
@@ -135,6 +152,8 @@ from __future__ import annotations
 
 import contextlib
 import os
+import signal
+import sys
 import time
 from typing import NamedTuple, Optional
 
@@ -166,7 +185,7 @@ from tpu_radix_join_torch.ops.build_probe import (DENSE_BUCKET_LIMIT,
                                                   probe_materialize_chunked)
 from tpu_radix_join_torch.ops.chunked import (chunked_join_count,
                                               chunked_join_grid)
-from tpu_radix_join_torch.ops.kernels import _build
+from tpu_radix_join_torch.ops.kernels import _build, launch_counts
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
     merge_count_wide_per_partition)
@@ -177,11 +196,19 @@ from tpu_radix_join_torch.parallel.network_partitioning import (
 from tpu_radix_join_torch.parallel.window import Window, parse_exchange_mode
 from tpu_radix_join_torch.parallel.world import make_world
 from tpu_radix_join_torch.performance.measurements import (
-    BACKOFFMS, BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, JCOMPILE,
-    JHIST, JMPI, JPROC, JTOTAL, MWINWAIT, PACKRATIO, RESULTS, RETRIES,
-    RETRYN, RTUPLES, SLOCPREP, SNETCOMPL, STUPLES, SWINALLOC, VCHK, VCHKN,
-    VFAIL, VREPAIR, XSTAGES)
+    BACKOFFMS, BPBUILD, BPBUILDTUPLES, BPPROBE, BPPROBETUPLES, HEDGED,
+    HEDGEWIN, JCOMPILE, JHIST, JMPI, JPROC, JTOTAL, MEPOCH, MWINWAIT,
+    PACKRATIO, RANKLOST, RESULTS, RETRIES, RETRYN, RTUPLES, SLOCPREP,
+    SNETCOMPL, SPECWASTE, STUPLES, SWINALLOC, VCHK, VCHKN, VFAIL, VREPAIR,
+    XSTAGES)
 from tpu_radix_join_torch.robustness import faults
+from tpu_radix_join_torch.robustness.membership import (LeaseBoard,
+                                                        RankJoined, RankLost,
+                                                        StaleEpoch)
+from tpu_radix_join_torch.robustness.straggler import (StragglerDetected,
+                                                       StragglerDetector,
+                                                       board_progress,
+                                                       score_hedge)
 from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
                                                    RETRIES_EXHAUSTED,
                                                    RetryPolicy,
@@ -302,12 +329,40 @@ class HashJoin:
         #: must decide the same on every rank (the session's deadlines
         #: read rank 0's clock)
         self.cancel = None
-        #: the partition manifest (robustness/checkpoint.PartitionManifest)
-        #: every successful join records its realized partitions into, or
-        #: None; ``membership`` (a one-rank MembershipView) stamps the
-        #: lines' epoch.  Recovery from them is ROADMAP A18c
+        #: elastic recovery (robustness/membership.py, recovery.py,
+        #: straggler.py), wired like ``cancel``: runtime services, not
+        #: configuration.  ``partition_manifest`` (robustness/checkpoint.
+        #: PartitionManifest) takes every realized partition of a
+        #: successful join, or None; ``membership`` (a MembershipView) is
+        #: scanned at every phase boundary and stamps the lines' epoch;
+        #: ``elastic`` makes ``join_arrays`` finish a join that lost a rank
+        #: on the survivors (:meth:`_recover_join`); ``elastic_grow``
+        #: finishes one on a grown membership instead of raising
+        #: RankJoined; ``hedge`` ("off" | "on" | "auto") hedges a
+        #: straggler at ``hedge_threshold``; ``straggle_factor`` x
+        #: ``straggle_unit_s`` seconds is the ``compute.straggle`` site's
+        #: slowdown
         self.partition_manifest = None
         self.membership = None
+        self.elastic = False
+        self.elastic_grow = False
+        self.hedge = "off"
+        self.hedge_threshold = 0.5
+        self.straggle_factor = 0.0
+        self.straggle_unit_s = float(
+            os.environ.get("TPU_RJ_STRAGGLE_UNIT_S", "0.05"))
+        self._straggler_detector = None
+        #: a zero-argument callable returning the global host lanes
+        #: ``(r_keys, r_hi, s_keys, s_hi)`` (uint32 numpy, hi None for
+        #: 32-bit keys) a recovery recomputes from; ``join`` sets it to
+        #: its Relation specs (``recovery.relation_inputs``)
+        self.elastic_inputs = None
+        #: the last recovery's record, or None: its kind ("recovery",
+        #: "regrow", "hedge"), rank and matches, when the loss was detected
+        #: (``detected_t``, ``time.time``), the wall times of the host
+        #: regeneration, the recompute and the whole (``regen_s``,
+        #: ``recompute_s``, ``total_s``) and the kernel launches it made
+        self.last_recovery = None
         self.device = resolve_device(device)
         self.world = make_world(self.config.num_nodes, group,
                                 self.config.num_hosts)
@@ -463,7 +518,18 @@ class HashJoin:
         flags and counts.  There is no retry loop (every attempt has the
         same shapes and flags), and ``measure_phases``, which fences every
         phase, raises.  RESULTS, RTUPLES, STUPLES and the exchange counters
-        grow by ``repeats``."""
+        grow by ``repeats``.
+
+        With ``elastic`` set, a rank lost mid-join (the
+        ``membership.rank_death`` site, a lapsed lease found at a phase
+        boundary, a stale epoch, or a transport error a lapsed lease
+        explains) is absorbed: the join finishes on the survivors through
+        partition-level recompute (:meth:`_recover_join`), with no
+        collective on the old group.  Under ``elastic_grow`` an admission
+        finishes it on the grown membership (:meth:`_regrow_join`), and
+        with ``hedge`` a straggler's partitions are recomputed beside it
+        (:meth:`_hedge_join`).  A successful join records its partitions
+        in ``partition_manifest`` when one is attached."""
         if repeats < 1:
             raise ValueError("repeats must be >= 1")
         if repeats > 1 and self.config.measure_phases:
@@ -472,19 +538,39 @@ class HashJoin:
                 "the measure_phases split timers need a fence per program "
                 "— loop synchronous joins instead")
         self._check_batches(r, s)
+        if not self.elastic and self.partition_manifest is None:
+            return self._join_arrays_inner(r, s, key_bound, repeats)
         mv = self.membership
         if (mv is not None and self.partition_manifest is not None
                 and mv.board.progress_of is None):
             # every lease beat carries this rank's manifest progress
             mv.board.progress_of = self._my_partitions_done
+        try:
+            result = self._join_arrays_inner(r, s, key_bound, repeats)
+        except BaseException as e:     # noqa: BLE001 — triaged below
+            if not self.elastic:
+                raise
+            if isinstance(e, StragglerDetected):
+                return self._hedge_join(r, s, e, repeats, key_bound)
+            if isinstance(e, RankJoined):
+                return self._regrow_join(r, s, e, repeats, key_bound)
+            exc = self._as_rank_lost(e)
+            if exc is None:
+                raise
+            return self._recover_join(r, s, exc, repeats, key_bound)
+        self._manifest_record(result)
+        return result
+
+    def _join_arrays_inner(self, r: TupleBatch, s: TupleBatch,
+                           key_bound: Optional[int], repeats: int
+                           ) -> JoinResult:
+        """:meth:`join_arrays`' body; the wrapper owns rank-loss recovery,
+        growth, hedging and the manifest."""
         self._check_cancel("start")
         with self._measured():
             if self.config.sort_probe and self.world.size == 1:
-                result = self._sort_probe_join(r, s, key_bound, repeats)
-            else:
-                result = self._shuffled_join(r, s, key_bound, repeats)
-        self._manifest_record(result)
-        return result
+                return self._sort_probe_join(r, s, key_bound, repeats)
+            return self._shuffled_join(r, s, key_bound, repeats)
 
     def _membership_epoch(self) -> int:
         """The membership epoch (0 without a view)."""
@@ -496,10 +582,13 @@ class HashJoin:
         counts are on the host: each partition's uint64 sum over the ranks
         of its uint32 counts, owned by node stripe (``p % N``: forensic
         metadata, not the assignment map), at the membership epoch.  No
-        manifest, a failed join or counts that are not ``[N * P]`` (the
-        chunked fallback's one total) record nothing."""
+        manifest, a failed join, a recovered one (:func:`~..robustness.
+        recovery.execute_recovery` wrote its lines) or counts that are not
+        ``[N * P]`` (the chunked fallback's one total) record nothing."""
         mf = self.partition_manifest
         if mf is None or result is None or not result.ok:
+            return
+        if (result.diagnostics or {}).get("recovered"):
             return
         num_p = self.config.network_partition_count
         counts = np.asarray(result.partition_counts)
@@ -512,11 +601,19 @@ class HashJoin:
                      epoch=self._membership_epoch())
 
     def _my_partitions_done(self) -> int:
-        """This process's manifest progress, the partitions it has
-        realized (``_my_partitions_done``, hash_join.py:2086-2098, at one
-        rank, where every partition is its own); -1 without a manifest."""
+        """This rank's manifest progress, the partitions realized by the
+        nodes it owns (``_my_partitions_done``, hash_join.py:2086-2098),
+        every partition when it recovers for all: the progress clock every
+        lease beat exports; -1 without a manifest."""
         mf = self.partition_manifest
-        return -1 if mf is None else len(mf.completed())
+        if mf is None:
+            return -1
+        done = mf.completed()
+        scope = self._recovery_scope()
+        if scope is None:
+            return len(done)
+        sc = set(scope)
+        return sum(1 for rec in done.values() if rec["owner"] in sc)
 
     def join_arrays_pipelined(self, r: TupleBatch, s: TupleBatch,
                               repeats: int,
@@ -1124,8 +1221,9 @@ class HashJoin:
     def _cache_config_fp(self) -> dict:
         """The JoinConfig fields window capacities depend on
         (``_cache_config_fp``, hash_join.py:399-416): configs agreeing here
-        size the same windows for the same inputs.  The port has no
-        membership epoch in a join yet (ROADMAP A18c): it is 0."""
+        size the same windows for the same inputs.  The membership epoch
+        belongs to the identity: capacities converged on the boot mesh
+        never warm-start a mesh after a loss or an admission."""
         cfg = self.config
         return {"num_nodes": cfg.num_nodes, "num_hosts": cfg.num_hosts,
                 "network_fanout_bits": cfg.network_fanout_bits,
@@ -1136,7 +1234,7 @@ class HashJoin:
                 "window_sizing": cfg.window_sizing,
                 "exchange_codec": cfg.exchange_codec,
                 "exchange_stages": cfg.exchange_stages,
-                "membership_epoch": 0}
+                "membership_epoch": self._membership_epoch()}
 
     def _cache_eligible(self) -> bool:
         """Warm capacities apply only where the sizing pass would run and
@@ -1185,30 +1283,545 @@ class HashJoin:
                                           "local_slack": local_slack})
 
     def _check_cancel(self, phase: str) -> None:
-        """Consult the cancellation hook at a phase boundary
-        (``_check_cancel``, hash_join.py:1969-2010); it raises to cancel.
-        JTOTAL, when running, is closed by :meth:`_measured` on the way
-        out.  Every rank reaches the same boundaries in the same order, so
-        a hook that decides alike on every rank leaves no collective
-        half-entered."""
+        """The phase-boundary service point (``_check_cancel``,
+        hash_join.py:1969-2010): the ``membership.rank_death`` and
+        ``membership.rank_join`` sites, then the membership view (this
+        rank's own heartbeat, the lease scan: admissions, then lapses),
+        the straggler poll when hedging, and the cancellation hook, which
+        raises to cancel.  JTOTAL, when running, is closed by
+        :meth:`_measured` on the way out.  Every rank reaches the same
+        boundaries in the same order, so a hook that decides alike on
+        every rank leaves no collective half-entered; an admission under
+        ``elastic_grow`` and a straggler verdict are rank 0's, broadcast."""
+        m = self.measurements
+        if faults.fires(faults.RANK_DEATH, m):
+            self._rank_death(phase)
+        if faults.fires(faults.RANK_JOIN, m):
+            self._rank_join(phase)
+        mv = self.membership
+        if mv is not None:
+            # the self-heartbeat rides the boundary with the peer scan: a
+            # long gap between boundaries must not lapse this rank's lease
+            mv.board.heartbeat(mv.epoch, status=mv.my_status())
+            prev_joined = set(mv.joined)
+            newly = mv.check()
+            if newly:
+                raise RankLost(newly[0], mv.epoch,
+                               f"lease lapsed at phase {phase!r}")
+            if self.elastic_grow:
+                admitted = self._agreed_admission(
+                    sorted(mv.joined - prev_joined))
+                if admitted:
+                    # the fenced epoch on this rank's lease before the
+                    # re-expansion: a newcomer is admitted when it reads an
+                    # incumbent's lease at the bumped epoch
+                    mv.board.heartbeat(mv.epoch, status=mv.my_status())
+                    raise RankJoined(admitted, mv.epoch)
+            if self._should_hedge():
+                self._poll_straggler(phase)
         if self.cancel is not None:
             self.cancel(phase)
+
+    def _agreed_admission(self, admitted: list) -> list:
+        """The ranks this boundary admits: this rank's scan at one rank;
+        over several, rank 0's, broadcast, and admitted here too where this
+        rank's scan missed them, so every rank re-expands at the same
+        boundary."""
+        if self.world.size == 1:
+            return admitted
+        admitted = list(self.world.broadcast_object(admitted))
+        mv = self.membership
+        missed = [r for r in admitted if not mv.is_live(r)]
+        if missed:
+            mv._admit(missed, cause="joining_lease")
+        return admitted
 
     def _stall_site(self) -> None:
         """Fault site ``backend.stall`` (hash_join.py:1838-1858): a hung
         launch, simulated by spinning at the ``"stalled"`` boundary, where
         only the cancel hook can end it; after ``TPU_RADIX_STALL_CAP_S``
         seconds (120 by default) it raises ``TransientFault``
-        (``backend_unavailable``).  The cap is rank 0's clock's verdict."""
-        if not faults.fires(faults.BACKEND_STALL, self.measurements):
+        (``backend_unavailable``).  The cap is rank 0's clock's verdict.
+        Then the ``compute.straggle`` site (hash_join.py:1859-1865)."""
+        if faults.fires(faults.BACKEND_STALL, self.measurements):
+            cap_s = float(os.environ.get("TPU_RADIX_STALL_CAP_S", "120"))
+            t0 = time.monotonic()
+            while True:
+                self._check_cancel("stalled")
+                if self.world.broadcast_object(
+                        time.monotonic() - t0 >= cap_s):
+                    raise faults.TransientFault(faults.BACKEND_STALL, 1)
+                time.sleep(0.01)
+        if faults.fires(faults.COMPUTE_STRAGGLE, self.measurements):
+            # an alive but slow rank, not an infrastructure failure: it
+            # keeps heartbeating, so no lease declares it dead; hedging
+            # turns the stretch into a bounded speculative recompute
+            self._compute_straggle()
+
+    # ------------------------------------------------ elastic recovery
+    def _rank_death(self, phase: str) -> None:
+        """The ``membership.rank_death`` site fired at this boundary
+        (``_rank_death``, hash_join.py:2012-2036).  Two modes:
+
+          * **real** (``TPU_RJ_RANK_DEATH_SUICIDE`` set, the victim process
+            of a multi-process test): the process dies as a real rank
+            dies, SIGKILL, no cleanup; ``TPU_RJ_RANK_DEATH_SUICIDE=stop``
+            freezes it with SIGSTOP instead (a hung peer: its sockets stay
+            open, so the survivors wait out the group's timeout).  The
+            wall time of the death goes to stderr first;
+          * **simulated**: the highest node rank is the victim.  Every rank
+            whose injector fired declares it lost (bumping the epoch) and
+            raises the :class:`RankLost` the elastic path owns; with no
+            manifest each rank then recomputes every partition."""
+        mode = os.environ.get("TPU_RJ_RANK_DEATH_SUICIDE")
+        if mode:
+            print(f"[ELASTIC] rank_death pid={os.getpid()} phase={phase} "
+                  f"t_epoch_s={time.time():.6f} mode={mode}",
+                  file=sys.stderr, flush=True)
+            os.kill(os.getpid(), signal.SIGSTOP if mode == "stop"
+                    else signal.SIGKILL)
+            return      # a frozen rank woken up again runs on, fenced out
+        m = self.measurements
+        victim = self.config.num_nodes - 1
+        if self.membership is not None:
+            epoch = self.membership.declare_lost(victim, cause="injected")
+        else:
+            epoch = 1
+            if m is not None:
+                m.incr(MEPOCH)
+                m.incr(RANKLOST)
+                m.event("rank_lost", ranks=[victim], epoch=epoch,
+                        cause="injected",
+                        survivors=self.config.num_nodes - 1)
+        raise RankLost(victim, epoch, f"injected at phase {phase!r}")
+
+    def _rank_join(self, phase: str) -> None:
+        """The ``membership.rank_join`` site fired at this boundary: a
+        newcomer simulated by a fresh ``joining`` lease for the next unused
+        rank, the stand-in for a new process's first heartbeat.  The
+        boundary's lease scan does the rest (a fenced epoch bump, RANKJOIN,
+        and under ``elastic_grow`` the :class:`RankJoined`
+        re-expansion)."""
+        mv = self.membership
+        if mv is None:
             return
-        cap_s = float(os.environ.get("TPU_RADIX_STALL_CAP_S", "120"))
+        board = mv.board
+        new_rank = LeaseBoard.next_rank(board.run_dir, floor=board.num_ranks)
+        joiner = LeaseBoard(board.run_dir, new_rank, board.num_ranks,
+                            lease_s=board.lease_s, clock=board.clock,
+                            missed_beats=board.missed_beats)
+        joiner.heartbeat(mv.epoch, status="joining")
+        m = self.measurements
+        if m is not None:
+            m.event("rank_join_injected", rank=new_rank, phase=phase)
+
+    def _should_hedge(self) -> bool:
+        """Hedging needs the manifest's fence and a membership view;
+        ``auto`` also backs off while wasted speculation outruns wins (the
+        SPECWASTE / HEDGEWIN loop)."""
+        if (self.hedge == "off" or self.membership is None
+                or self.partition_manifest is None):
+            return False
+        if self.hedge == "auto":
+            m = self.measurements
+            if m is not None and (m.counters.get(SPECWASTE, 0)
+                                  > m.counters.get(HEDGEWIN, 0)):
+                return False
+        return True
+
+    def _detector(self) -> StragglerDetector:
+        if self._straggler_detector is None:
+            self._straggler_detector = StragglerDetector(
+                threshold=self.hedge_threshold)
+        return self._straggler_detector
+
+    def _agreed_verdict(self, verdict, stop: bool = False):
+        """``(verdict, stop)``: this rank's at one rank, rank 0's over
+        several (a straggler verdict and the straggle's end decide alike
+        on every rank, as the stall cap does)."""
+        if self.world.size == 1:
+            return verdict, stop
+        return tuple(self.world.broadcast_object((verdict, stop)))
+
+    def _poll_straggler(self, phase: str) -> None:
+        """Straggler detection at a boundary: the live peers' lease
+        progress clocks; a confirmed (post-dwell) verdict on a peer raises
+        :class:`StragglerDetected` for the hedge.  A verdict on this rank
+        itself is ignored: a straggler cannot hedge itself."""
+        mv = self.membership
+        board = mv.board
+        live = [r for r in mv.survivors if r in set(board.discover())
+                or r < board.num_ranks]
+        progress = board_progress(board, live)
+        verdict = None
+        if len(progress) >= 2:
+            num_p = self.config.network_partition_count
+            share = max(1, num_p // max(1, len(progress)))
+            outstanding = {r: max(0, share - done)
+                           for r, done in progress.items()}
+            verdict = self._detector().observe(progress, outstanding)
+            if verdict is not None and verdict.rank == board.rank:
+                verdict = None
+        verdict, _ = self._agreed_verdict(verdict)
+        if verdict is not None:
+            raise verdict.to_exc(mv.epoch)
+
+    def _compute_straggle(self) -> None:
+        """The ``compute.straggle`` site fired (``_compute_straggle``,
+        hash_join.py:2117-2154): the highest node rank slows down by
+        ``straggle_factor`` x ``straggle_unit_s`` seconds, which every rank
+        whose site fired spins out.  Unhedged, the join eats the stretch.
+        Hedged, each poll feeds the detector the simulated picture (the
+        healthy ranks at their share, the straggler at its manifest
+        progress) and the post-dwell verdict aborts into the hedge.  Over
+        several ranks every poll's verdict and the spin's end are rank
+        0's."""
+        m = self.measurements
+        n = self.config.num_nodes
+        victim = n - 1
+        factor = max(0.0, float(self.straggle_factor))
+        duration = factor * self.straggle_unit_s
+        if m is not None:
+            m.event("straggle", rank=victim, factor=factor,
+                    duration_s=round(duration, 3))
+        if duration <= 0:
+            return
+        hedging = self._should_hedge()
+        share = max(1, self.config.network_partition_count // n)
+        detector = self._detector() if hedging else None
         t0 = time.monotonic()
         while True:
-            self._check_cancel("stalled")
-            if self.world.broadcast_object(time.monotonic() - t0 >= cap_s):
-                raise faults.TransientFault(faults.BACKEND_STALL, 1)
-            time.sleep(0.01)
+            stop = time.monotonic() - t0 >= duration
+            verdict = None
+            if hedging and not stop:
+                done = self.partition_manifest.completed()
+                victim_done = sum(1 for p in done if p % n == victim)
+                progress = {r: share for r in range(n) if r != victim}
+                progress[victim] = victim_done
+                outstanding = {victim: max(0, share - victim_done)}
+                verdict = detector.observe(progress, outstanding)
+            verdict, stop = self._agreed_verdict(verdict, stop)
+            if verdict is not None:
+                raise verdict.to_exc(self._membership_epoch())
+            if stop:
+                return
+            time.sleep(min(0.02, duration / 4))
+
+    def _as_rank_lost(self, e: BaseException) -> Optional[RankLost]:
+        """A mid-join failure as the :class:`RankLost` recovery owns, or
+        None.  RankLost and StaleEpoch always qualify; other injected
+        faults and classified failures (``failure_class`` set: a deadline,
+        a watchdog's hang) keep their own classes, at once (JAX waits a
+        lapse window for them too).  A transport error (gloo's reset
+        connection, a collective past the group's timeout, NCCL's abort)
+        qualifies only once the membership view confirms a lapsed lease:
+        a dead peer's socket closes before its lease ages out, so the lease
+        gets one lapse window (``lease_s`` x ``missed_beats``) and a second
+        to lapse before the error is disowned."""
+        if isinstance(e, RankLost):
+            return e
+        if isinstance(e, StaleEpoch):
+            mv = self.membership
+            rank = min(mv.lost) if mv is not None and mv.lost else 0
+            return RankLost(rank, e.current, "stale epoch fenced")
+        if isinstance(e, faults.InjectedFault):
+            return None
+        if getattr(e, "failure_class", None) is not None:
+            # a classified verdict (a deadline, the watchdog's hang, whose
+            # triage already asked the leases) is no transport error: it
+            # leaves at once instead of waiting out a lapse window
+            return None
+        mv = self.membership
+        if mv is not None and isinstance(e, (ConnectionError, OSError,
+                                             RuntimeError, TimeoutError)):
+            deadline = time.monotonic() + mv.board.lapse_window_s + 1.0
+            while True:
+                lost = mv.check() or sorted(mv.lost)
+                if lost or time.monotonic() >= deadline:
+                    break
+                time.sleep(0.2)
+            if lost:
+                return RankLost(lost[0], mv.epoch,
+                                f"peer death surfaced as "
+                                f"{type(e).__name__}: {e}"[:200])
+        return None
+
+    def _npp(self) -> int:
+        """Node ranks a lease stands for: 1 wherever the board keeps one
+        lease a rank of the world (every process of the port is one node),
+        so the expansions below are the identity there; a one-lease board
+        over an N-node engine (the simulated single-process mesh of the
+        chaos runners) stands for all N."""
+        mv = self.membership
+        return max(1, self.config.num_nodes // max(1, mv.board.num_ranks))
+
+    def _lost_nodes(self, exc: RankLost) -> list:
+        """The node ranks of the lost lease ranks (``_lost_nodes``,
+        hash_join.py:2196-2213): the identity over the port's world
+        (:meth:`_npp`); without a board of several leases, the exception's
+        rank."""
+        n = self.config.num_nodes
+        mv = self.membership
+        if mv is None or mv.board.num_ranks <= 1:
+            r = int(getattr(exc, "rank", n - 1))
+            return [r if 0 <= r < n else n - 1]
+        npp = self._npp()
+        lost_procs = sorted(mv.lost) or [int(getattr(exc, "rank", 0))]
+        out = []
+        for pr in lost_procs:
+            out.extend(range(pr * npp, min(n, (pr + 1) * npp)))
+        return [r for r in out if 0 <= r < n] or [n - 1]
+
+    def _recovery_scope(self):
+        """The node ranks this rank recomputes for, or None for all
+        (``_recovery_scope``, hash_join.py:2215-2227): a survivor on a
+        board of several leases with a manifest takes its reassigned
+        share (its own rank, :meth:`_npp`) and merges the rest through the
+        manifest; otherwise it recomputes every lost partition."""
+        mv = self.membership
+        if (mv is None or mv.board.num_ranks <= 1
+                or self.partition_manifest is None):
+            return None
+        npp = self._npp()
+        me = mv.board.rank
+        return range(me * npp, (me + 1) * npp)
+
+    def _joined_nodes(self) -> list:
+        """The node ranks admitted lease ranks bring (``_joined_nodes``,
+        hash_join.py:2229-2243), the identity over the port's world: ids
+        past the boot mesh label the out-of-band recompute's owners, not
+        devices."""
+        mv = self.membership
+        if mv is None or not mv.joined:
+            return []
+        npp = self._npp()
+        out = []
+        for pr in sorted(mv.joined):
+            out.extend(range(pr * npp, (pr + 1) * npp))
+        return sorted(set(out))
+
+    def _straggler_nodes(self, exc) -> list:
+        """The node ranks the straggler owns (``_straggler_nodes``,
+        hash_join.py:2245-2258): a lease rank of the real detection
+        expands as :meth:`_lost_nodes` does (the identity over the port's
+        world); the simulated straggle's victim is already a node rank."""
+        n = self.config.num_nodes
+        mv = self.membership
+        rk = int(exc.rank)
+        if (mv is not None and mv.board.num_ranks > 1
+                and rk < mv.board.num_ranks):
+            npp = self._npp()
+            return [x for x in range(rk * npp, (rk + 1) * npp) if x < n]
+        return [rk if 0 <= rk < n else n - 1]
+
+    def _claim_hedge(self, plan, straggler_nodes, epoch: int) -> list:
+        """Advisory claims on the straggler's unfinished partitions before
+        the hedge recomputes them: a crash mid-hedge leaves a forensic
+        trail (the hedge-claim timeline) and a concurrent hedger sees the
+        race.  The done line, not the claim, decides the count."""
+        mf = self.partition_manifest
+        n = self.config.num_nodes
+        strag = set(straggler_nodes)
+        hedged = [p for p in plan.recompute if p % n in strag]
+        scope = self._recovery_scope()
+        mine = None if scope is None else set(scope)
+        for p in hedged:
+            owner = plan.reassignment[p]
+            if mine is None or owner in mine:
+                mf.claim(p, owner, epoch=epoch)
+        return hedged
+
+    def _recompute(self, plan, lanes, only_rank):
+        """One :func:`~..robustness.recovery.execute_recovery` on this
+        engine's device, sort arm and grid pipeline."""
+        from tpu_radix_join_torch.robustness.recovery import execute_recovery
+        rk, rhi, sk, shi = lanes
+        return execute_recovery(
+            plan, rk, sk, rhi, shi, only_rank=only_rank,
+            slab=min(FALLBACK_SLAB, max(1, len(sk))),
+            pipeline=self.config.grid_pipeline,
+            measurements=self.measurements,
+            manifest=self.partition_manifest, device=self.device,
+            sort_impl=self.config.sort_impl)
+
+    def _await_peer_partitions(self, plan, counts, lanes):
+        """Partitions the plan gave other live ranks (an incumbent or a
+        newcomer) may not have landed yet: poll the shared manifest for one
+        lapse window, then recompute what is still missing here.  The
+        inputs are deterministic and the fence takes the first line, so a
+        double recompute is waste, never a double count."""
+        mv, mf = self.membership, self.partition_manifest
+        missing = [p for p in plan.recompute if p not in counts]
+        if not missing or mf is None or mv is None:
+            return counts
+        deadline = time.monotonic() + mv.board.lapse_window_s + 1.0
+        while missing and time.monotonic() < deadline:
+            done = mf.completed()
+            for p in list(missing):
+                if p in done:
+                    counts[p] = done[p]["count"]
+                    missing.remove(p)
+            if missing:
+                time.sleep(0.2)
+        if missing:
+            _, extra = self._recompute(
+                plan, lanes, {plan.reassignment[p] for p in missing})
+            counts.update(extra)
+        return counts
+
+    def _host_lanes(self, r: TupleBatch, s: TupleBatch, exc):
+        """The global host lanes ``(r_keys, r_hi, s_keys, s_hi)`` recovery
+        recomputes from, without a collective: ``elastic_inputs``, else
+        read from the batches at one rank.  A join of shards over several
+        ranks without ``elastic_inputs`` re-raises the loss."""
+        if self.elastic_inputs is not None:
+            return tuple(self.elastic_inputs())
+        if self.world.size == 1:
+            return tuple(None if lane is None else lane_to_numpy(lane)
+                         for lane in (r.key, r.key_hi, s.key, s.key_hi))
+        raise exc
+
+    def _recover_join(self, r: TupleBatch, s: TupleBatch, exc: RankLost,
+                      repeats: int, key_bound: Optional[int] = None, *,
+                      lost_nodes=None, joined_nodes=None, epoch=None,
+                      span_name: str = "recovery", hedge_exc=None,
+                      extra_diag=None) -> JoinResult:
+        """Finish an aborted join on the survivors (``_recover_join``,
+        hash_join.py:2309-2419; robustness/recovery.py): resume the
+        realized partitions from the manifest, assign the rest over the
+        survivors (a set an admission may have grown: ``joined_nodes``),
+        recompute each as its own masked out-of-core grid from host lanes
+        (K2 and K6 on the card), and splice: ``ok=True``, the exact count,
+        the recovery record in the diagnostics, and no collective on the
+        old group.
+
+        Also the engine of :meth:`_regrow_join` (no loss, the admission's
+        epoch) and :meth:`_hedge_join` (``lost_nodes`` only excluded from
+        the assignment: nothing is declared lost, the epoch stays, and the
+        manifest arbitrates against the original).  ``last_recovery``
+        keeps the regeneration's and the recompute's wall times."""
+        m = self.measurements
+        cfg = self.config
+        num_p = cfg.network_partition_count
+        from tpu_radix_join_torch.robustness import recovery as _recovery
+        t0 = time.monotonic()
+        detected_t = time.time()
+        launched0 = launch_counts()
+        lanes = self._host_lanes(r, s, exc)
+        rk, _, sk, _ = lanes
+        t_regen = time.monotonic()
+        if m is not None and JTOTAL in m._starts:
+            m.stop(JTOTAL)      # the abort point; recovery has its own wall
+        if epoch is None:
+            epoch = max(1, self._membership_epoch(),
+                        int(getattr(exc, "epoch", 1)))
+        if lost_nodes is None:
+            lost_nodes = self._lost_nodes(exc)
+        if joined_nodes is None:
+            joined_nodes = self._joined_nodes()
+        # advisory re-pricing for the changed mesh under the port's own
+        # profile: a missing profile must not block recovery
+        profile = workload = None
+        try:
+            from tpu_radix_join_torch.planner.cost_model import Workload
+            from tpu_radix_join_torch.planner.profile import load_profile
+            profile = load_profile()
+            workload = Workload(r_tuples=int(len(rk)), s_tuples=int(len(sk)),
+                                key_bound=key_bound, key_bits=cfg.key_bits,
+                                num_nodes=cfg.num_nodes)
+        except Exception:   # noqa: BLE001 — advice only
+            profile = workload = None
+        span = (m.span(span_name, epoch=epoch, lost_ranks=list(lost_nodes))
+                if m is not None else contextlib.nullcontext())
+        with span:
+            plan = _recovery.plan_recovery(
+                num_nodes=cfg.num_nodes, num_partitions=num_p,
+                lost_ranks=lost_nodes, epoch=epoch,
+                manifest=self.partition_manifest,
+                weights=_recovery.partition_weights(rk, sk, num_p),
+                profile=profile, workload=workload,
+                joined_ranks=joined_nodes)
+            hedged_parts = []
+            if hedge_exc is not None and self.partition_manifest is not None:
+                hedged_parts = self._claim_hedge(plan, lost_nodes, epoch)
+            _, counts = self._recompute(plan, lanes, self._recovery_scope())
+            t_recompute = time.monotonic()
+            counts = self._await_peer_partitions(plan, counts, lanes)
+            matches = int(sum(counts.values()))
+        counts_out = np.zeros(num_p, np.uint32)
+        for p, c in counts.items():
+            counts_out[p] = c % (1 << 32)
+        diag = dict(plan.to_diag(), rank_lost_detail=str(exc)[:200],
+                    failure_class="ok")
+        if hedge_exc is not None and self.partition_manifest is not None:
+            # the speculation against the fence's winners: a win is a
+            # hedged partition someone other than the straggler realized
+            score = {"hedgewin": 0, "specwaste": 0}
+            for node in sorted(set(lost_nodes)):
+                sub = [p for p in hedged_parts if p % cfg.num_nodes == node]
+                sc = score_hedge(self.partition_manifest, sub, node, m)
+                score["hedgewin"] += sc["hedgewin"]
+                score["specwaste"] += sc["specwaste"]
+            diag.update(score, hedged_partitions=len(hedged_parts))
+        if extra_diag:
+            diag.update(extra_diag)
+        self._stamp(diag)
+        if m is not None:
+            m.incr(RESULTS, matches * repeats)
+            m.incr(RTUPLES, len(rk) * repeats)
+            m.incr(STUPLES, len(sk) * repeats)
+            m.derive_rates()
+        launched = launch_counts()
+        self.last_recovery = {
+            "kind": span_name, "rank": self.world.rank, "matches": matches,
+            "detected_t": detected_t, "regen_s": t_regen - t0,
+            "recompute_s": t_recompute - t_regen,
+            "total_s": time.monotonic() - t0,
+            "launches": {k: v - launched0[k] for k, v in launched.items()
+                         if v != launched0[k]}}
+        return JoinResult(matches=matches, ok=True,
+                          partition_counts=counts_out, diagnostics=diag)
+
+    def _regrow_join(self, r: TupleBatch, s: TupleBatch, exc, repeats: int,
+                     key_bound: Optional[int] = None) -> JoinResult:
+        """:class:`RankJoined` landed mid-join (``elastic_grow``): finish
+        the join over the enlarged membership, the recovery engine with no
+        loss at the admission's epoch.  The newcomer computes the same host
+        lanes, takes its share, and the manifest merges the totals."""
+        m = self.measurements
+        if m is not None:
+            m.event("regrow", joined_ranks=list(exc.ranks),
+                    epoch=int(exc.epoch))
+        epoch = max(1, int(exc.epoch), self._membership_epoch())
+        return self._recover_join(
+            r, s, exc, repeats, key_bound, lost_nodes=[], epoch=epoch,
+            span_name="regrow",
+            extra_diag={"regrown": True,
+                        "joined_ranks_admitted": list(exc.ranks)})
+
+    def _hedge_join(self, r: TupleBatch, s: TupleBatch, exc, repeats: int,
+                    key_bound: Optional[int] = None) -> JoinResult:
+        """:class:`StragglerDetected` (hedging on): finish the straggler's
+        partitions speculatively without declaring anyone lost.  Its nodes
+        leave the assignment only, the epoch stays, and where the original
+        lands a partition first the hedge's line is fenced out and scores
+        as SPECWASTE."""
+        m = self.measurements
+        strag_nodes = self._straggler_nodes(exc)
+        epoch = max(self._membership_epoch(), int(exc.epoch))
+        if m is not None:
+            # no epoch bump stamps the ring before these records: stamp
+            # the fence epoch so HEDGED and its scoring carry it
+            m.flightrec.set_context(membership_epoch=epoch)
+            m.incr(HEDGED)
+            m.event("hedge", straggler=int(exc.rank), nodes=strag_nodes,
+                    epoch=epoch, progress=int(exc.progress),
+                    median=float(exc.median),
+                    outstanding=int(exc.outstanding))
+        return self._recover_join(
+            r, s, exc, repeats, key_bound, lost_nodes=strag_nodes,
+            epoch=epoch, span_name="hedge", hedge_exc=exc,
+            extra_diag={"hedged": True, "straggler": int(exc.rank)})
 
     def _retry_backoff(self, attempt: int) -> None:
         """The pause after capacity retry ``attempt`` (``_retry_backoff``,
@@ -1938,10 +2551,17 @@ class HashJoin:
 
     def join(self, inner: Relation, outer: Relation) -> JoinResult:
         """Join two relation specs; their static key bounds resolve
-        ``key_range="auto"`` without the device max-key probe."""
-        return self.join_arrays(
-            self.place(inner), self.place(outer),
-            key_bound=max(inner.key_bound(), outer.key_bound()))
+        ``key_range="auto"`` without the device max-key probe, and an
+        elastic recovery regenerates them on the host."""
+        from tpu_radix_join_torch.robustness.recovery import relation_inputs
+        prev, self.elastic_inputs = (self.elastic_inputs,
+                                     relation_inputs(inner, outer))
+        try:
+            return self.join_arrays(
+                self.place(inner), self.place(outer),
+                key_bound=max(inner.key_bound(), outer.key_bound()))
+        finally:
+            self.elastic_inputs = prev
 
     def join_materialize(self, inner: Relation,
                          outer: Relation) -> MaterializedJoinResult:

@@ -25,6 +25,18 @@ by hand with an explicit address, world size and rank); after
     class ``coordinator_timeout``) after a bounded schedule.  Knobs:
     ``TPU_RJ_COORD_ATTEMPTS``, ``TPU_RJ_COORD_BACKOFF_S``,
     ``TPU_RJ_COORD_TIMEOUT_S``, or the arguments.
+  * An elastic group (``elastic_lapse_s``, the lease's lapse window) bounds
+    every collective by :func:`elastic_timeout_s`, the lapse window plus
+    :data:`ELASTIC_MARGIN_S`, unless ``timeout_s`` or
+    ``TPU_RJ_COORD_TIMEOUT_S`` sets the timeout: no survivor blocks on a
+    dead or frozen peer longer than that.
+    gloo then raises in the survivor (at once with a reset connection for a
+    killed peer, at the timeout for a frozen one); over NCCL the
+    environment asks for the same (``TORCH_NCCL_BLOCKING_WAIT=1``: a
+    timed-out collective raises in the caller;
+    ``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``: the watchdog aborts the
+    communicators without killing the process).  The elastic path has
+    never run over NCCL across cards.
 """
 
 from __future__ import annotations
@@ -46,6 +58,10 @@ from tpu_radix_join_torch.robustness.retry import (COORDINATOR_TIMEOUT,
 
 #: seconds a connect attempt (and each collective of the group) may take
 DEFAULT_TIMEOUT_S = 300.0
+
+#: seconds past the lapse window an elastic group's collective may wait:
+#: a healthy rank's longest phase between two collectives must fit in it
+ELASTIC_MARGIN_S = 30.0
 
 #: set by :func:`initialize` when it started a gloo group on a card
 _GLOO_ON_CARD = False
@@ -74,6 +90,13 @@ def _default_policy(rank: int) -> RetryPolicy:
         seed=rank)
 
 
+def elastic_timeout_s(lapse_window_s: float) -> float:
+    """The default collective timeout of an elastic group: the lease's
+    lapse window (``lease_s`` x ``missed_beats``) plus
+    :data:`ELASTIC_MARGIN_S`."""
+    return float(lapse_window_s) + ELASTIC_MARGIN_S
+
+
 def _env_int(name: str) -> Optional[int]:
     return int(os.environ[name]) if name in os.environ else None
 
@@ -87,6 +110,7 @@ def initialize(init_method: Optional[str] = None,
                retry_policy: Optional[RetryPolicy] = None,
                timeout_s: Optional[float] = None,
                measurements=None,
+               elastic_lapse_s: Optional[float] = None,
                _sleep: Optional[Callable[[float], None]] = None) -> bool:
     """Join the process group if one is configured; True when the world
     has more than one rank.
@@ -95,10 +119,13 @@ def initialize(init_method: Optional[str] = None,
     ``file://path``); without it, torchrun's ``MASTER_ADDR`` and
     ``MASTER_PORT`` select ``env://``.  ``timeout_s`` bounds each connect
     attempt and every collective of the group (default
-    ``TPU_RJ_COORD_TIMEOUT_S``, else 300).  ``backend`` is None (the
+    ``TPU_RJ_COORD_TIMEOUT_S``, else 300, else on an elastic group
+    :func:`elastic_timeout_s`).  ``backend`` is None (the
     device's: NCCL or gloo), or "gloo" with a CUDA device for a gloo group
-    of CUDA tensors.  A second call after a successful one returns at
-    once."""
+    of CUDA tensors.  ``elastic_lapse_s`` (the membership lease's lapse
+    window) makes the group elastic: an NCCL group then raises a timed-out
+    collective instead of aborting the process.  A second call after a
+    successful one returns at once."""
     global _GLOO_ON_CARD
     if backend not in (None, "nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
@@ -131,9 +158,14 @@ def initialize(init_method: Optional[str] = None,
         raise ValueError("NCCL runs on CUDA devices, not on the CPU")
     else:
         backend = "gloo"
+    if timeout_s is None and "TPU_RJ_COORD_TIMEOUT_S" in env:
+        timeout_s = float(env["TPU_RJ_COORD_TIMEOUT_S"])
     if timeout_s is None:
-        timeout_s = float(env.get("TPU_RJ_COORD_TIMEOUT_S",
-                                  DEFAULT_TIMEOUT_S))
+        timeout_s = (DEFAULT_TIMEOUT_S if elastic_lapse_s is None
+                     else elastic_timeout_s(elastic_lapse_s))
+    if elastic_lapse_s is not None and backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_BLOCKING_WAIT", "1")
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
 
     def connect():
         _faults.check(_faults.COORD_CONNECT, measurements)

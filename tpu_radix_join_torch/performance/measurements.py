@@ -127,9 +127,16 @@ WRESTART = "WRESTART"      # dead-worker restarts (WINCARN minus the boot pool)
 JDEPTH = "JDEPTH"          # gauge: peak unacknowledged query-journal depth
 DOUBLEEXEC = "DOUBLEEXEC"  # fingerprints with >1 journaled outcome: the
                            # exactly-once invariant; any nonzero is a bug
-# the JAX session also reads these; elastic recovery is ROADMAP A18c
 RECOVERN = "RECOVERN"      # partitions recomputed by elastic recovery
-RECOVERMS = "RECOVERMS"    # elastic-recovery milliseconds
+                           # (robustness/recovery.py); below the partition
+                           # count when the manifest resumed any
+RECOVERMS = "RECOVERMS"    # elastic-recovery milliseconds (re-plan,
+                           # regeneration, recompute and splice)
+HEDGED = "HEDGED"          # straggler hedges launched (robustness/
+                           # straggler.py)
+HEDGEWIN = "HEDGEWIN"      # hedged partitions whose speculative count won
+                           # the manifest's first-writer-wins fence
+SPECWASTE = "SPECWASTE"    # hedged partitions whose original landed first
 JRATE = "JRATE"            # derived: (R+S) tuples / JTOTAL second
 JPROCRATE = "JPROCRATE"    # derived: (R+S) tuples / JPROC second
 HILOCRATE = "HILOCRATE"    # derived: inner tuples / JHIST second

@@ -201,15 +201,16 @@ class PartitionManifest:
         resume point, not its life).
 
     Recovery reads :meth:`completed` to skip every realized partition and
-    recompute exactly the lost rank's unfinished ones (ROADMAP A18c; the
-    port's engine records, ``HashJoin._manifest_record``); the
+    recompute exactly the lost rank's unfinished ones
+    (robustness/recovery.py; the engine records,
+    ``HashJoin._manifest_record``); the
     ``owner``/``epoch`` stamps make the recovery timeline reconstructible
     in post-mortem bundles.
 
     **Fencing (hedge-never-double-counts)** — per partition, a line at a
     strictly newer epoch supersedes (a partition re-realized after a
     membership change owns its new count), but within one epoch the
-    FIRST writer wins: when a straggler hedge (ROADMAP A18c)
+    FIRST writer wins: when a straggler hedge (robustness/straggler.py)
     realizes a partition before its slow original owner does, the
     original's late line is dead on arrival — read-side arbitration, so
     two uncoordinated appenders can never sum the same partition twice.

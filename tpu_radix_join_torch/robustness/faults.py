@@ -5,7 +5,9 @@ The port's copy of the injector of ``tpu_radix_join/robustness/faults.py``
 checkpoints, the process-group connect (``parallel/multihost.initialize``),
 the join engine's construction (``engine.device_init``), its retry loops
 (``engine.shuffle_overflow``), its
-exchange (``exchange.corrupt_lane``) and its cancel hook (``backend.stall``),
+exchange (``exchange.corrupt_lane``), its cancel hook (``backend.stall``)
+and its phase boundaries (``membership.rank_death``, ``membership.rank_join``,
+``compute.straggle``),
 the join service (``backend.dispatch``, ``serve.cache_poison``) and the
 fleet supervisor (``fleet.worker_kill``) consult.  An armed
 :class:`FaultInjector` decides from its seed whether a site fires on each
@@ -48,6 +50,16 @@ BACKEND_DISPATCH = "backend.dispatch"      # a query's dispatch fails
                                            # (service/session.py)
 BACKEND_STALL = "backend.stall"            # the engine spins at its cancel
                                            # hook, as a hung collective would
+RANK_DEATH = "membership.rank_death"       # a rank dies at a phase boundary:
+                                           # the survivors fence the epoch
+                                           # and recover (robustness/
+                                           # recovery.py), never hang
+RANK_JOIN = "membership.rank_join"         # a newcomer's ``joining`` lease
+                                           # appears mid-run: the view admits
+                                           # it and the join re-expands
+COMPUTE_STRAGGLE = "compute.straggle"      # a live rank slows down: hedged
+                                           # (robustness/straggler.py), never
+                                           # declared dead
 FLEET_WORKER_KILL = "fleet.worker_kill"    # SIGKILL a fleet worker right
                                            # after its query hit the pipe:
                                            # the supervisor must journal-
@@ -59,7 +71,8 @@ CACHE_POISON = "serve.cache_poison"        # a stored result-cache entry is
 
 SITES = (GRID_KILL, GRID_TRANSIENT, STREAM_CORRUPT, CKPT_SAVE, CKPT_LOAD,
          COORD_CONNECT, SHUFFLE_OVERFLOW, DEVICE_INIT, EXCHANGE_CORRUPT,
-         BACKEND_DISPATCH, BACKEND_STALL, FLEET_WORKER_KILL, CACHE_POISON)
+         BACKEND_DISPATCH, BACKEND_STALL, RANK_DEATH, RANK_JOIN,
+         COMPUTE_STRAGGLE, FLEET_WORKER_KILL, CACHE_POISON)
 
 
 class InjectedFault(RuntimeError):

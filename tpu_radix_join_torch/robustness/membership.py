@@ -24,11 +24,12 @@ over files, with nothing of the device in it.
     that way, at a later epoch.
 
 Every rank computes the same view from the shared directory, with no
-coordinator.  In the port the serve worker and the one-shot join keep
-one rank's board (``main.py --elastic on``, ``JoinSession(membership=)``):
-the lease is the worker's liveness, which a supervisor reads by its age.
-No join consults the view yet; loss detection, recovery, growth and
-stragglers over several ranks are ROADMAP A18c.
+coordinator.  The join engine scans it at every phase boundary
+(``HashJoin._check_cancel``: its own heartbeat, admissions, then lapses)
+and exports its manifest progress on every beat (``progress_of``); a
+newcomer catches up with the incumbents' fences through
+:meth:`MembershipView.sync_epoch`.  A serve worker's lease is its
+liveness, which a supervisor reads by its age.
 
 The watchdog's bridge is duck-typed: :meth:`MembershipView.suspect`
 returns a :class:`RankLost` when a lapsed lease explains a stall, else
@@ -57,8 +58,8 @@ class RankLost(ConnectionError):
 
     Deliberately NOT blind-retryable (see retry.py's class catalog): the
     remedy is elastic recovery (fence the epoch, re-plan on the survivors,
-    resume at partition granularity; ROADMAP A18c), never a same-shape
-    rerun, which would block on the same dead collective."""
+    resume at partition granularity; robustness/recovery.py), never a
+    same-shape rerun, which would block on the same dead collective."""
 
     failure_class = RANK_LOST
 
@@ -80,7 +81,7 @@ class RankJoined(RuntimeError):
     is stamped with the pre-admission epoch, so the engine finishes the
     join on the *grown* membership (recovery's re-expansion path with
     ``joined_ranks``) instead of dispatching stale-epoch collectives.
-    Raised only when growth handling is enabled (ROADMAP A18c)."""
+    Raised only when growth handling is enabled (``elastic_grow``)."""
 
     failure_class = RANK_JOIN
 
@@ -121,7 +122,7 @@ class Lease:
     rank's partition manifest's progress at beat time (-1 = unknown or no
     manifest; ``HashJoin`` installs ``progress_of`` when it joins with
     both a view and a manifest) — the per-rank progress clock a straggler
-    detector reads (ROADMAP A18c)."""
+    detector reads (robustness/straggler.py)."""
 
     rank: int
     epoch: int

@@ -58,14 +58,17 @@ the first is the recompile-storm canary; with a span tracer attached to
 the registry, each executed query's critical path (observability/
 critpath.py, the tracer's window of that query) joins
 ``recent_critical_paths``, the last 8, which ``/statusz`` serves as
-``critical_paths``.  ``membership=`` (a one-rank ``MembershipView``) and
-``elastic=True`` are taken at one rank: the epoch keys the result cache
-and residency and stamps the manifest's lines.
+``critical_paths``.  ``membership=`` (a ``MembershipView``, over one rank
+or several), ``elastic=True``, ``elastic_grow=`` and ``hedge=`` /
+``hedge_threshold=`` are threaded onto every engine the session builds,
+the degraded CPU engine too: the epoch keys the result cache and
+residency and stamps the manifest's lines, and a query that loses a rank
+is recovered on the survivors (ok and exact, ``query_recovered`` in the
+registry, the lost ranks in the outcome's detail), regrown or hedged.
 ``partition_manifest=`` (robustness/checkpoint.PartitionManifest) is
-threaded onto every engine the session builds, the degraded CPU engine
-too, and each successful join records its partitions there.  Not ported:
-membership over several ranks, recovery, growth and hedging (ROADMAP
-A18c); their constructor arguments raise ``NotImplementedError``.
+threaded the same way, and each successful join records its partitions
+there.  Over several ranks an attached watchdog's kill is rank 0's,
+broadcast at every cancel point.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ from tpu_radix_join_torch.performance.measurements import (
     BATCHN, BATCHQ, COMPILEMS, DELTAMERGE, JHIST, MEPOCH, NCOMPILE, QDEADLINE,
     QDEGRADED, QWARM, RANKLOST, RECOVERMS, RECOVERN)
 from tpu_radix_join_torch.robustness import faults as _faults
+from tpu_radix_join_torch.robustness.recovery import relation_inputs
 from tpu_radix_join_torch.robustness.retry import (BACKEND_UNAVAILABLE,
                                                    DEADLINE_EXCEEDED, OK)
 from tpu_radix_join_torch.service.admission import (AdmissionQueue,
@@ -211,25 +215,19 @@ class JoinSession:
         from tpu_radix_join_torch.operators.hash_join import HashJoin
         from tpu_radix_join_torch.parallel.world import make_world
 
-        for name, value, off, item in (
-                ("elastic_grow", elastic_grow, False,
-                 "queue A, A18c: membership, recovery and stragglers"),
-                ("hedge", hedge, "off",
-                 "queue A, A18c: membership, recovery and stragglers")):
-            if value != off:
-                raise _not_ported(f"JoinSession({name}={value!r})", item)
-        del hedge_threshold        # read only with hedging (A18c)
-        if config.num_nodes > 1 and (membership is not None or elastic):
-            raise _not_ported(
-                f"JoinSession(membership=, elastic=) over "
-                f"{config.num_nodes} ranks",
-                "queue A, A18c: membership, recovery and stragglers")
         self.config = config
-        #: the membership view (robustness/membership.py) at one rank: its
-        #: epoch keys the result cache and residency; the lease it reads
-        #: is this worker's liveness (:meth:`attach_heartbeat` writes it)
+        #: the membership view (robustness/membership.py): its epoch keys
+        #: the result cache and residency, every engine of the session
+        #: scans it at the join's phase boundaries, and the lease it reads
+        #: is this rank's liveness (:meth:`attach_heartbeat` writes it)
         self.membership = membership
         self.elastic = elastic
+        #: growth and hedging, threaded onto every engine like the view: a
+        #: session admits ranks (``elastic_grow``) and hedges stragglers
+        #: (``hedge``, ``hedge_threshold``)
+        self.elastic_grow = elastic_grow
+        self.hedge = hedge
+        self.hedge_threshold = hedge_threshold
         #: the partition manifest every engine of the session records its
         #: successful joins' partitions into (None: none)
         self.partition_manifest = partition_manifest
@@ -754,11 +752,17 @@ class JoinSession:
 
     # ------------------------------------------------------------ internals
     def _wire_elastic(self, engine) -> None:
-        """Thread the session's membership view and partition manifest
-        onto an engine (``_wire_elastic``, session.py:655-666): the
-        primary at construction, the CPU engine when it is built."""
+        """Thread the session's membership view, elastic flags and
+        partition manifest onto an engine (``_wire_elastic``,
+        session.py:655-666): the primary at construction, the CPU engine
+        when it is built, so a rank loss seen on either path fences
+        both."""
         engine.membership = self.membership
+        engine.elastic = self.elastic
         engine.partition_manifest = self.partition_manifest
+        engine.elastic_grow = self.elastic_grow
+        engine.hedge = self.hedge
+        engine.hedge_threshold = self.hedge_threshold
 
     def _degraded_engine(self):
         """The CPU engine, built once on first use (the breaker's
@@ -858,14 +862,33 @@ class JoinSession:
                     self._place(engine, inner, "r", request),
                     self._place(engine, outer, "s", request)))
                 deadline.check("placed")
-                result = engine.join_arrays(
-                    r_batch, s_batch,
-                    key_bound=max(inner.key_bound(), outer.key_bound()),
-                    repeats=request.repeats)
+                # an elastic recovery regenerates the query's relations on
+                # the host, never from the group's tensors
+                engine.elastic_inputs = relation_inputs(inner, outer)
+                try:
+                    result = engine.join_arrays(
+                        r_batch, s_batch,
+                        key_bound=max(inner.key_bound(), outer.key_bound()),
+                        repeats=request.repeats)
+                finally:
+                    engine.elastic_inputs = None
                 matches = result.matches
                 cls = (result.diagnostics or {}).get(
                     "failure_class") or (OK if result.ok else UNCLASSIFIED)
                 status = "ok" if result.ok else "failed"
+                if (result.diagnostics or {}).get("recovered"):
+                    # a rank loss the elastic path absorbed: the outcome is
+                    # ok and exact, and the mesh change is evidence
+                    if m is not None:
+                        m.event("query_recovered",
+                                query_id=request.query_id,
+                                epoch=result.diagnostics.get(
+                                    "membership_epoch"),
+                                lost_ranks=result.diagnostics.get(
+                                    "lost_ranks"))
+                    detail = ("recovered from rank loss: "
+                              + str(result.diagnostics.get(
+                                    "lost_ranks")))[:500]
                 if status == "failed":
                     detail = str({k: v for k, v in
                                   (result.diagnostics or {}).items()
@@ -1008,8 +1031,15 @@ class JoinSession:
         self._killed = exc
 
     def _cancel(self, phase: str) -> None:
-        """The engine's cancel hook while a query runs."""
+        """The engine's cancel hook while a query runs.  Over several ranks
+        with a watchdog attached the kill is one decision: rank 0's,
+        broadcast over the session's gloo group, every rank dropping its
+        own."""
         exc = self._killed
+        if self._watchdog is not None and self._host_world.size > 1:
+            exc = self._host_world.broadcast_object(
+                None if exc is None else _portable(exc))
+            self._killed = None
         if exc is not None:
             self._killed = None
             raise exc
@@ -1046,12 +1076,10 @@ class JoinSession:
         records nothing for ``timeout_s`` with a phase open ends as
         ``backend_unavailable``, its bundle (with every thread's stack, in
         ``forensics_dir``) on the outcome; the watchdog is re-armed for the
-        next query.  A second call replaces the watchdog.  One rank only:
-        the kill decides on one rank alone."""
-        if self._host_world.size > 1:
-            raise _not_ported(
-                "JoinSession.attach_watchdog over several ranks",
-                "queue A, A18c: membership, recovery and stragglers")
+        next query.  A second call replaces the watchdog.  Over several
+        ranks every rank attaches its own, and a kill is rank 0's
+        watchdog's verdict, broadcast at each cancel point (as the stall
+        cap is), so every rank cancels at the same boundary."""
         if self.measurements is None:
             raise ValueError("the watchdog reads the registry's flight "
                              "recorder: pass measurements=")
