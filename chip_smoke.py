@@ -319,7 +319,7 @@ at 20,000,000 tuples a node, through the command line as subprocesses:
 
 Phase (x), the host-fed chunk stream (ROADMAP A18a), the device-init
 fallback and the partition manifest (A18b) and the critical path (A18d's
-critpath.py; phase_x), last:
+critpath.py; phase_x):
 
   (x1) the synchronous grid at (k)'s shape, 2**26 ⋈ 2**26 unique in
        chunks of 2**25, slabs of 2**20, fed by ``stream_chunks`` (the
@@ -342,6 +342,29 @@ critpath.py; phase_x), last:
        ``critical_path`` column; two session queries' paths in
        ``/statusz``.
 
+Phase (y), membership, recovery, stragglers and chaos over two gloo ranks
+(ROADMAP A18c; phase_y, its docstring), then phase (z), the sync guard
+(``utils/hostsync.sync_guard``, A18e) and the command-line tools (phase_z),
+last:
+
+  (z1) (a) at 20M on placed lanes under ``sync_guard("disallow")``, then
+       (c)'s modulo(65536) ⋈ unique at 2**24 (K1): exact, K1/K2/K3
+       launched, SORTPASS equal to K2's sorts, the sanctioned
+       readbacks, uploads and fences a join makes (counted by wrapping
+       each module's ``host_readback``);
+  (z2) ``main(argv)`` with ``--transfer-guard disallow --timeline-dir T``
+       twice: exit 0, OK; ``tools.critical_path T --summary`` and
+       ``tools.check_regress`` over the two result lines exit 0;
+  (z3) under the guard: the synchronous and the pipelined grid at 2**24
+       (K2, K6), a ``JoinSession``'s cold and warm query, and on an NCCL
+       group of one rank the generic body (K1, K4, K2, K3), the bucket
+       probe, ``debug_checks``, a verified repair of a corrupt lane and
+       the materializing join, each exact;
+  (z4) a bare ``.cpu()`` under ``disallow`` raises, under ``log`` warns;
+  (z5) (a) with the guard off and at ``disallow``, 10 joins each,
+       interleaved: the medians;
+  (z6) ``python -m tpu_radix_join_torch.tools.lint --strict`` exits 0.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -351,6 +374,7 @@ without one, and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -684,7 +708,15 @@ def phase_o(dev, n, group, rels32, rels64, placed, refs, time_ms,
             raise AssertionError(f"(o4) {name}: no CTOTAL: "
                                  f"{dict(m.times_us)}, "
                                  f"{m.meta.get('trace', {}).get('plane')}")
-        profiler_us = sum(device_us(join, 1).values())
+        # a profiler session that records no CUDA activity (seen once on
+        # the card after the trace's own session) is taken again
+        for _ in range(3):
+            profiler_us = sum(device_us(join, 1).values())
+            if profiler_us > 0:
+                break
+        else:
+            raise AssertionError(f"(o4) {name}: the profiler recorded no "
+                                 f"device time in three sessions")
         ctotal = m.times_us["CTOTAL"]
         emit({"phase": "trace", "cell": "o4", "workload": name,
               "ctotal_us": ctotal, "profiler_device_us": profiler_us,
@@ -5020,6 +5052,372 @@ def phase_y(dev, n, card) -> dict:
     return total
 
 
+#: (c)'s join in (z1): modulo(Z_K1_MODULO) ⋈ unique at Z_K1_TUPLES, whose
+#: largest weight times |S| passes 2**32, so the overflow guard runs K1
+#: (a CPU dry run: 2**16 and modulo 1)
+Z_K1_TUPLES = 1 << 24
+Z_K1_MODULO = 65536
+Z_GRID_TUPLES = 1 << 24
+Z_CHUNK = 1 << 23
+Z_SLAB = 1 << 20
+Z_REPS = 10
+#: the guard's mode around (z1) and (z3) on the card ("log" warns
+#: instead, to list every trip of a run)
+Z_GUARD = "disallow"
+#: arguments (z2) adds to its command lines (none on the card)
+Z_CLI_EXTRA = ()
+
+
+@contextlib.contextmanager
+def counting_readbacks():
+    """Count the sanctioned readbacks, uploads and fences
+    (``utils/hostsync``) of the port's modules: each module's own binding
+    of ``host_readback``, ``host_upload``, ``host_fence`` and
+    ``stream_fence`` is wrapped for the block.  Yields the counts."""
+    from tpu_radix_join_torch.utils import hostsync
+    counts = {"host_readback": 0, "host_upload": 0, "host_fence": 0,
+              "stream_fence": 0}
+    saved = []
+
+    def wrap(name, fn):
+        def counted(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    originals = {name: getattr(hostsync, name) for name in counts}
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("tpu_radix_join_torch"):
+            continue
+        for name, fn in originals.items():
+            if getattr(mod, name, None) is fn:
+                saved.append((mod, name, fn))
+                setattr(mod, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_z(dev, n, card) -> dict:
+    """Cell (z): the sync guard (``utils/hostsync.sync_guard``, ROADMAP
+    A18e) on the card, around the main paths, and the port's command-line
+    tools.
+
+    (z1) ``HashJoin(JoinConfig())`` on ``n`` ⋈ ``n`` unique placed lanes
+    (generation and placement outside the guard) under
+    ``sync_guard("disallow")``: exact, K2 and K3 launched, SORTPASS equal
+    to K2's sorts (its histogram launches); the count of sanctioned
+    readbacks, uploads and fences a join makes (this script wraps each
+    module's ``host_readback``); then (c)'s modulo(65536) ⋈ unique at
+    ``Z_K1_TUPLES``, whose overflow guard runs K1, the same way.
+    (z2) ``main(argv)`` in this process with ``--transfer-guard
+    disallow --timeline-dir T`` at ``n``, twice: exit 0 and the oracle's
+    OK; ``tools.critical_path T --summary`` exits 0 with one
+    ``[CRITPATH]`` line; ``tools.check_regress`` over the two runs' result
+    lines (the second against the first, ``--threshold 1.0``: the plumbing
+    of two runs of one join, no gain claimed) exits 0.
+    (z3) Under the guard: ``chunked_join_grid`` at ``Z_GRID_TUPLES`` ⋈
+    ``Z_GRID_TUPLES`` unique in chunks of ``Z_CHUNK``, synchronous (slabs
+    of ``Z_SLAB``: K2 and K6) and pipelined (K2); a ``JoinSession``'s
+    ``submit`` / ``run_next``, a cold query and a warm one at ``n``; on an
+    NCCL group of one rank at ``n``: the generic body (``join_shuffled``:
+    K1, K4, the all_to_all, K2, K3), and the paths whose implicit syncs the
+    guard found on the card (routed since): the bucket probe, the generic
+    body with ``debug_checks``, with ``verify="repair"`` and the corrupt
+    lane armed once, and ``join_materialize_arrays``.  Each exact.
+    (z4) Negative controls: a bare ``.cpu()`` of a CUDA tensor under
+    ``disallow`` raises, under ``log`` warns and returns its values.
+    (z5) (a) with the guard off and at ``disallow``, ``Z_REPS`` joins each,
+    interleaved: their medians.
+    (z6) ``python -m tpu_radix_join_torch.tools.lint --strict`` exits 0.
+    Returns the launches of the driven main paths."""
+    import io
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    import torch.distributed as dist
+    from tpu_radix_join_torch import HashJoin, JoinConfig, Relation
+    from tpu_radix_join_torch import main as cli
+    from tpu_radix_join_torch.core.config import ServiceConfig
+    from tpu_radix_join_torch.data.streaming import stream_chunks_device
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.robustness import faults
+    from tpu_radix_join_torch.service import JoinSession, QueryRequest
+    from tpu_radix_join_torch.tools import check_regress, critical_path
+    from tpu_radix_join_torch.utils.hostsync import host_fence, sync_guard
+
+    cuda = dev.type == "cuda"
+    guard = Z_GUARD if cuda else "off"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_z_")
+
+    def launched(fn, mode=guard):
+        """``fn()`` under the guard at ``mode`` with the launch counts set
+        to 0 just before and read just after: (its result, the counts,
+        seconds)."""
+        host_fence(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with sync_guard(mode):
+            out = fn()
+            host_fence(dev)
+        secs = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got, secs
+
+    def need(cell, got, names):
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"(z) {cell}: kernel {k} did not "
+                                     f"launch: {got}")
+
+    def quiet(fn):
+        """``fn()`` with its stdout and stderr captured: (result, stdout
+        lines, stderr lines)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = fn()
+        return rc, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+    try:
+        # ------------------------------------------------------------ (z1)
+        z1 = {}
+        for name, inner, outer, expected, extra in (
+                ("unique_20M", Relation(n, 1, "unique", seed=1234),
+                 Relation(n, 1, "unique", seed=1235), n, ()),
+                ("refine_2p24", Relation(Z_K1_TUPLES, 1, "modulo",
+                                         seed=1234, modulo=Z_K1_MODULO),
+                 Relation(Z_K1_TUPLES, 1, "unique", seed=1235),
+                 Z_K1_TUPLES, ("histogram",))):
+            meas = Measurements()
+            engine = HashJoin(JoinConfig(), dev, measurements=meas)
+            r, s = engine.place(inner), engine.place(outer)
+            bound = max(inner.key_bound(), outer.key_bound())
+            engine.join_arrays(r, s, key_bound=bound)      # warm
+            sortpass0 = meas.counters.get("SORTPASS", 0)
+            with counting_readbacks() as syncs:
+                res, got, secs = launched(
+                    lambda: engine.join_arrays(r, s, key_bound=bound))
+            if res.matches != expected or not res.ok:
+                raise AssertionError(f"(z1) {name}: {res.matches} matches "
+                                     f"ok={res.ok}, the oracle {expected}")
+            need(f"z1_{name}", got, ("radix_histogram", "radix_pass",
+                                     "merge_scan", *extra))
+            sortpass = meas.counters.get("SORTPASS", 0) - sortpass0
+            if sortpass != got["radix_histogram"]:
+                raise AssertionError(f"(z1) {name}: SORTPASS {sortpass} "
+                                     f"against K2's {got['radix_histogram']}"
+                                     f" sorts")
+            z1[name] = {"matches": res.matches, "ms": secs * 1e3,
+                        "sortpass": sortpass, "syncs": dict(syncs),
+                        "launches": {k: v for k, v in got.items() if v}}
+            del engine, r, s
+        emit({"phase": "z1_guarded_main_path", "guard": guard,
+              "cells": z1, **card})
+
+        # ------------------------------------------------------------ (z2)
+        tl = os.path.join(tmp, "timeline")
+        results = []
+        for i in range(2):
+            argv = ["--tuples-per-node", str(n), "--timeline-dir", tl,
+                    "--transfer-guard", guard, *Z_CLI_EXTRA]
+            # the command line arms the guard itself, around its join
+            (rc, out, err), got, secs = launched(
+                lambda: quiet(lambda: cli.main(argv)), mode="off")
+            if rc != 0 or not any("(OK)" in ln for ln in out):
+                raise AssertionError(f"(z2) run {i}: exit {rc}: "
+                                     f"{(out + err)[-6:]}")
+            need(f"z2_cli_{i}", got, ("radix_histogram", "radix_pass",
+                                      "merge_scan"))
+            line = json.loads(out[-1])
+            path = os.path.join(tmp, f"result_{i}.json")
+            with open(path, "w") as f:
+                json.dump(line, f)
+            results.append((path, line, secs))
+        rc_cp, cp_out, _ = quiet(lambda: critical_path.main(
+            [tl, "--summary"]))
+        crit = [ln for ln in cp_out if ln.startswith("[CRITPATH]")]
+        if rc_cp != 0 or len(crit) != 1:
+            raise AssertionError(f"(z2) critical_path: exit {rc_cp}, "
+                                 f"{cp_out[-4:]}")
+        rc_rg, rg_out, rg_err = quiet(lambda: check_regress.main(
+            [results[1][0], "--baseline", results[0][0],
+             "--threshold", "1.0"]))
+        if rc_rg != 0:
+            raise AssertionError(f"(z2) check_regress: exit {rc_rg}, "
+                                 f"{(rg_out + rg_err)[-6:]}")
+        emit({"phase": "z2_guarded_cli", "guard": guard,
+              "join_ms": [ln["join_ms"] for _, ln, _ in results],
+              "critpath": crit[0][:200], "check_regress_rc": rc_rg,
+              "check_regress_verdict": rg_out[-1][:120], **card})
+
+        # ------------------------------------------------------------ (z3)
+        z3 = {}
+        rels = (Relation(Z_GRID_TUPLES, 1, "unique", seed=1234),
+                Relation(Z_GRID_TUPLES, 1, "unique", seed=1235))
+        for pipeline, kern in (("off", ("radix_histogram", "radix_pass",
+                                         "merge_scan_chunks")),
+                               ("on", ("radix_histogram", "radix_pass"))):
+            got_total, got, secs = launched(lambda: chunked_join_grid(
+                stream_chunks_device(rels[0], 0, Z_CHUNK, dev),
+                lambda: stream_chunks_device(rels[1], 0, Z_CHUNK, dev),
+                Z_SLAB, pipeline=pipeline))
+            if got_total != Z_GRID_TUPLES:
+                raise AssertionError(f"(z3) grid pipeline={pipeline}: "
+                                     f"{got_total} matches, the oracle "
+                                     f"{Z_GRID_TUPLES}")
+            need(f"z3_grid_{pipeline}", got, kern)
+            z3[f"grid_{pipeline}"] = {"ms": secs * 1e3, "launches": {
+                k: v for k, v in got.items() if v}}
+        session = JoinSession(JoinConfig(), ServiceConfig(), device=dev,
+                              measurements=Measurements())
+        try:
+            for qid, seed in (("z3_cold", 21), ("z3_warm", 22)):
+                def serve():
+                    session.submit(QueryRequest(query_id=qid,
+                                                tuples_per_node=n,
+                                                seed=seed))
+                    return session.run_next()
+                out, got, secs = launched(serve)
+                if out.status != "ok" or out.matches != out.expected:
+                    raise AssertionError(f"(z3) session {qid}: "
+                                         f"{out.to_json()}")
+                need(f"z3_{qid}", got, ("radix_histogram", "radix_pass",
+                                        "merge_scan"))
+                z3[qid] = {"ms": secs * 1e3, "warm": out.warm,
+                           "matches": out.matches}
+        finally:
+            session.close()
+        multihost.initialize(init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0, local_rank=dev.index or 0,
+                             device=dev, timeout_s=300)
+        try:
+            inner, outer = (Relation(n, 1, "unique", seed=1234),
+                            Relation(n, 1, "unique", seed=1235))
+            engine = HashJoin(JoinConfig(), dev, group=dist.group.WORLD)
+            r, s = engine.place(inner), engine.place(outer)
+            bound = max(inner.key_bound(), outer.key_bound())
+            # the first collective sets up the communicator: a warm-up
+            engine.join_shuffled(r, s, key_bound=bound)
+            shuffled = (lambda e: e.join_shuffled(r, s, key_bound=bound))
+            corrupt = faults.FaultInjector(seed=1).arm(
+                faults.EXCHANGE_CORRUPT, at=1)
+            # the generic body, then the paths whose readbacks the guard
+            # found on the card and which now route them: the bucket
+            # probe's run starts, debug_checks' hot mask, the repair's
+            # partition filter, the materializing join's compaction
+            for name, cfg, call, kern, inj in (
+                    ("generic_body", {}, shuffled,
+                     ("histogram", "partition", "radix_histogram",
+                      "radix_pass", "merge_scan"), None),
+                    ("bucket", {"probe_algorithm": "bucket"},
+                     lambda e: e.join_arrays(r, s, key_bound=bound),
+                     ("histogram", "partition", "radix_pass"), None),
+                    ("debug_checks", {"debug_checks": True}, shuffled,
+                     ("histogram", "partition", "merge_scan"), None),
+                    ("verify_repair", {"verify": "repair"}, shuffled,
+                     ("histogram", "partition", "merge_scan"), corrupt),
+                    ("materialize", {},
+                     lambda e: e.join_materialize_arrays(r, s),
+                     ("partition", "radix_pass"), None)):
+                engine = HashJoin(JoinConfig(**cfg), dev,
+                                  group=dist.group.WORLD)
+                with inj if inj is not None else contextlib.nullcontext():
+                    res, got, secs = launched(lambda: call(engine))
+                if res.matches != n or not res.ok:
+                    raise AssertionError(f"(z3) {name}: {res.matches} "
+                                         f"ok={res.ok}, the oracle {n}")
+                need(f"z3_{name}", got, kern)
+                z3[name] = {"ms": secs * 1e3, "launches": {
+                    k: v for k, v in got.items() if v}}
+            if not corrupt.history:
+                raise AssertionError("(z3) verify_repair: the corrupt lane "
+                                     "never fired")
+            del engine, r, s
+        finally:
+            multihost.shutdown()
+        emit({"phase": "z3_guarded_paths", "guard": guard, "cells": z3,
+              **card})
+
+        # ------------------------------------------------------------ (z4)
+        if cuda:
+            x = torch.arange(1024, device=dev)
+            try:
+                with sync_guard("disallow"):
+                    x.cpu()
+            except RuntimeError as e:
+                raised = str(e).splitlines()[0][:160]
+            else:
+                raise AssertionError("(z4) a bare .cpu() under disallow "
+                                     "did not raise")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with sync_guard("log"):
+                    y = x.cpu()
+            # (PyTorch also warns once that the mode is a prototype)
+            caught = [w for w in caught
+                      if "called a synchronizing" in str(w.message)]
+            if not caught or not torch.equal(y, torch.arange(1024)):
+                raise AssertionError(f"(z4) a bare .cpu() under log did "
+                                     f"not warn ({len(caught)}) or return "
+                                     f"its values")
+            if torch.cuda.get_sync_debug_mode() != 0:
+                raise AssertionError("(z4) the guard left the mode armed")
+            emit({"phase": "z4_negative_controls", "disallow": raised,
+                  "log": str(caught[0].message)[:160], **card})
+
+        # ------------------------------------------------------------ (z5)
+        inner, outer = (Relation(n, 1, "unique", seed=1234),
+                        Relation(n, 1, "unique", seed=1235))
+        engine = HashJoin(JoinConfig(), dev)
+        r, s = engine.place(inner), engine.place(outer)
+        bound = max(inner.key_bound(), outer.key_bound())
+        times = {"off": [], "disallow": []}
+        engine.join_arrays(r, s, key_bound=bound)
+        for _ in range(Z_REPS):
+            for mode in times:
+                host_fence(dev)
+                t0 = time.perf_counter()
+                with sync_guard(mode if cuda else "off"):
+                    res = engine.join_arrays(r, s, key_bound=bound)
+                    host_fence(dev)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                if res.matches != n:
+                    raise AssertionError(f"(z5) {mode}: {res.matches}")
+        del engine, r, s
+        med = {k: statistics.median(v) for k, v in times.items()}
+        emit({"phase": "z5_guard_cost", "reps": Z_REPS,
+              "median_ms": med, "times_ms": times,
+              "disallow_over_off": med["disallow"] / med["off"], **card})
+
+        # ------------------------------------------------------------ (z6)
+        root = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_radix_join_torch.tools.lint",
+             "--strict"], cwd=root, capture_output=True, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"(z6) lint --strict exit "
+                                 f"{proc.returncode}: "
+                                 f"{proc.stdout[-800:]}{proc.stderr[-400:]}")
+        emit({"phase": "z6_lint", "python": sys.version.split()[0],
+              "verdict": proc.stdout.strip().splitlines()[-1][:200], **card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "z_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6340,6 +6738,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_y = phase_y(dev, n_main, card)
     launches = {k: v + launches_y[k] for k, v in launches.items()}
+
+    # (z): the sync guard around the main paths, and the command-line tools
+    torch.cuda.empty_cache()
+    launches_z = phase_z(dev, n_main, card)
+    launches = {k: v + launches_z[k] for k, v in launches.items()}
 
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",

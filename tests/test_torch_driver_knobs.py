@@ -43,11 +43,16 @@ from tpu_radix_join_torch.robustness import faults as tfaults  # noqa: E402
 from tpu_radix_join_torch.state import config_from_jax  # noqa: E402
 
 JAX_ONLY = {"PARTFALLBACK", "SORTFALLBACK", "NCOMPILE", "COMPILEMS"}
+#: the arms' dispatch ticks: JAX's auto arms fall back on the CPU (its
+#: *FALLBACK above) and tick no pass; the port's run K2 and K4 (their plain
+#: versions here) and tick SORTPASS / PARTPASS a call
+ARM_TAGS = {"SORTPASS", "PARTPASS"}
 RATES = {"JRATE", "JPROCRATE", "HILOCRATE", "HOLOCRATE"}
 
 
 def _counters(counters):
-    return {k: v for k, v in counters.items() if k not in RATES | JAX_ONLY}
+    return {k: v for k, v in counters.items()
+            if k not in RATES | JAX_ONLY | ARM_TAGS}
 
 
 def _events(meta):
@@ -298,7 +303,7 @@ def _report(main, argv, capsys):
                                                      "[RESULTS] Conserv"))]
     counters = [ln for ln in lines if ln.startswith("[PERF]")
                 and ln.endswith("\tcount")
-                and ln.split()[1] not in RATES | JAX_ONLY]
+                and ln.split()[1] not in RATES | JAX_ONLY | ARM_TAGS]
     return lines, results, counters
 
 

@@ -175,7 +175,13 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
     assert got["recovered"] == 3000
     for name in ("native.build", "memory.pool", "observability.critpath",
                  "data.streaming", "robustness.degrade",
-                 "robustness.recovery", "robustness.straggler"):
+                 "robustness.recovery", "robustness.straggler",
+                 "utils.hostsync", "analysis.core", "analysis.rules_sync",
+                 "analysis.rules_sort", "analysis.rules_tags",
+                 "analysis.rules_failure", "analysis.rules_locks",
+                 "analysis.rules_recompile", "tools.lint",
+                 "tools.check_regress", "tools.critical_path", "tools.chaos",
+                 "tools.postmortem"):
         assert f"tpu_radix_join_torch.{name}" in got["walked"]
     assert got["degraded"] == [3000, True, "chunked"]
     assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",

@@ -127,16 +127,16 @@ def test_cli_serve_batch_window_and_refusals(capsys, tmp_path):
     assert port[3]["fused_batches"] == jax_[3]["fused_batches"] == 1
 
 
-#: the JAX command line's elastic flags, refused by name until membership,
-#: recovery and stragglers were ported (each now runs: ``_ELASTIC_RUNS``),
-#: and the one flag the port still refuses, naming its item
+#: the JAX command line's flags the port refused by name until they were
+#: ported: the elastic flags (membership, recovery and stragglers) and
+#: ``--transfer-guard`` (the sync guard); each now runs (``_ELASTIC_RUNS``)
 REFUSED = [(["--elastic-grow"], None), (["--elastic-join", "2"], None),
            (["--rank-death-at", "1"], None),
            (["--rank-join-at", "1"], None), (["--hedge", "on"], None),
            (["--hedge-threshold", "0.3"], None),
            (["--straggle-factor", "2"], None),
            (["--elastic", "on", "--nodes", "2"], None),
-           (["--transfer-guard", "log"], "A18e")]
+           (["--transfer-guard", "log"], None)]
 
 _ONE_SHOT = ["--device", "cpu", "--tuples-per-node", "2048",
              "--network-fanout", "3", "--rank-lease-s", "30"]
@@ -281,6 +281,20 @@ def _run_elastic_nodes(capsys, tmp_path, monkeypatch):
     assert not list((tmp_path / "L").glob("lease_r*.json"))
 
 
+def _run_transfer_guard(capsys, tmp_path, monkeypatch):
+    """The guard needs the card: on ``--device cpu`` (and with
+    ``--cpu-fallback``) a parser error that says so, not a silent no-op;
+    ``off`` joins as before."""
+    for argv in (["--device", "cpu", "--transfer-guard", "log"],
+                 ["--transfer-guard", "disallow", "--cpu-fallback"]):
+        with pytest.raises(SystemExit):
+            tmain(["--tuples-per-node", "2048"] + argv)
+        err = capsys.readouterr().err
+        assert "--transfer-guard" in err and "CUDA device" in err
+    rc, out, res = _one_shot(capsys, ["--transfer-guard", "off"])
+    assert rc == 0 and res["matches"] == 2048
+
+
 _ELASTIC_RUNS = {"--elastic-grow": _run_elastic_grow,
                  "--elastic-join": _run_elastic_join,
                  "--rank-death-at": _run_rank_death_at,
@@ -288,16 +302,16 @@ _ELASTIC_RUNS = {"--elastic-grow": _run_elastic_grow,
                  "--hedge": _run_hedge,
                  "--hedge-threshold": _run_hedge_threshold,
                  "--straggle-factor": _run_straggle_factor,
-                 "--elastic": _run_elastic_nodes}
+                 "--elastic": _run_elastic_nodes,
+                 "--transfer-guard": _run_transfer_guard}
 
 
 @pytest.mark.parametrize("flags,item", REFUSED,
                          ids=[f[0][0] for f in REFUSED])
 def test_cli_refuses_unported_flag_by_name(capsys, tmp_path, monkeypatch,
                                            flags, item):
-    """``--transfer-guard`` is refused by name, naming its item; each
-    elastic flag, refused until it was ported, runs and its result is
-    checked."""
+    """Each flag the port refused by name until it was ported runs, and
+    its result is checked (no flag is refused any more)."""
     if item is None:
         _ELASTIC_RUNS[flags[0]](capsys, tmp_path, monkeypatch)
         return

@@ -43,6 +43,7 @@ import torch
 from tpu_radix_join_torch.core.device import resolve_device
 from tpu_radix_join_torch.data.tuples import TupleBatch, narrow
 from tpu_radix_join_torch.utils.hashing import mix32, mix32_np
+from tpu_radix_join_torch.utils.hostsync import host_readback
 
 _FEISTEL_ROUNDS = 6
 _ZIPF_TABLE_MAX = 65536
@@ -205,7 +206,8 @@ def unique_keys(start: int, n: int, global_size: int, seed: int,
     rk = _feistel_keys(seed)
     v = _feistel(torch.arange(start, start + n, dtype=torch.int64,
                               device=device), rk, domain_bits)
-    while bool((v >= global_size).any()):
+    # the walk's exit test is the one readback a re-walk
+    while bool(host_readback((v >= global_size).any())):
         v = torch.where(v < global_size, v, _feistel(v, rk, domain_bits))
     return v
 

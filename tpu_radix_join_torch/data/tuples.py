@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpu_radix_join_torch.utils.hostsync import host_readback, host_upload
+
 # Sentinel key values for padded (invalid) slots, per relation side.
 R_PAD_KEY = 0xFFFFFFFE   # inner/build side
 S_PAD_KEY = 0xFFFFFFFF   # outer/probe side
@@ -44,14 +46,16 @@ def narrow(values: torch.Tensor) -> torch.Tensor:
 
 
 def lane_from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """A uint32 numpy array as a lane on ``device`` (bits unchanged)."""
+    """A uint32 numpy array as a lane on ``device`` (bits unchanged): a
+    sanctioned upload (``utils/hostsync.host_upload``)."""
     a = np.ascontiguousarray(a, dtype=np.uint32)
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return host_upload(a.view(np.int32).copy(), device)
 
 
 def lane_to_numpy(lane: torch.Tensor) -> np.ndarray:
-    """A lane as a uint32 numpy array (bits unchanged)."""
-    return lane.detach().cpu().contiguous().numpy().view(np.uint32)
+    """A lane as a uint32 numpy array (bits unchanged): a sanctioned
+    readback (``utils/hostsync.host_readback``)."""
+    return np.ascontiguousarray(host_readback(lane)).view(np.uint32)
 
 
 def umax(lane: torch.Tensor) -> torch.Tensor:

@@ -72,8 +72,12 @@ makes no CUDA call: queries routed by tenant hash, journaled under
 worker's query replayed on a survivor (``--fleet-kill-at N`` SIGKILLs the
 N-th query's worker), dead workers restarted with backoff, SIGTERM a
 drain to zero unacknowledged intents; ``--statusz`` adds a ``fleet``
-section and the supervisor's readiness.  The JAX command line's
-``--transfer-guard`` (A18e) is refused by name.
+section and the supervisor's readiness.
+``--transfer-guard log|disallow`` arms ``utils/hostsync.sync_guard``
+(``torch.cuda.set_sync_debug_mode``) around the join only: every implicit
+sync of the process warns or raises, and the sanctioned readbacks pause
+it.  It needs the card: with ``--device cpu`` (or ``--cpu-fallback``) it
+is a parser error.
 ``--elastic on`` over ``--nodes N`` (plain processes of an ``env://`` or
 ``file://`` rendezvous: torchrun's agent tears every worker down when one
 dies) finds a lost rank at the join's phase boundaries and behind a
@@ -157,6 +161,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_radix_join_torch.core.config import PARTITION_IMPLS, SORT_IMPLS
+from tpu_radix_join_torch.utils.hostsync import host_fence, sync_guard
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -309,6 +314,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeat", type=positive_int, default=1)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
+    p.add_argument("--transfer-guard", choices=["off", "log", "disallow"],
+                   default="off",
+                   help="arm torch.cuda.set_sync_debug_mode around the "
+                        "join: 'log' warns on every implicit device<->host "
+                        "sync, 'disallow' raises on one — the runtime twin "
+                        "of the lint's static sync-point rule (explicit "
+                        "utils.hostsync.host_readback stays legal under "
+                        "both; data generation/placement is outside the "
+                        "guard, matching the reference timing bracket); "
+                        "needs a CUDA device")
     # --- the resident join service (service/) ----------------------------
     p.add_argument("--serve", default=None, metavar="FILE",
                    help="resident service mode: read one JSON query request "
@@ -533,9 +548,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 #: the JAX command line's flags the port refuses by name, with their items
-REFUSED_FLAGS = {
-    "--transfer-guard": "A18e: the sync guard",
-}
+#: (none left: ``--transfer-guard`` was the last)
+REFUSED_FLAGS: dict = {}
 
 
 def _forensics_dir(args):
@@ -807,8 +821,7 @@ def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
         print(json.dumps({"ok": False, "failure_class": cls,
                           "error": str(e)}))
         return 1
-    if cuda:
-        torch.cuda.synchronize(dev)
+    host_fence(dev)
     meas.stop("JTOTAL")
     grid_s = time.perf_counter() - t0
     cp = _critical_path(meas, 0)
@@ -977,6 +990,12 @@ def main(argv=None) -> int:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported to PyTorch yet (ROADMAP.md "
                          f"queue A, {item})")
+    if args.transfer_guard != "off" and (
+            torch.device(args.device).type != "cuda" or args.cpu_fallback):
+        parser.error("--transfer-guard guards the card's device<->host "
+                     "syncs: it needs a CUDA device (--device cuda) and "
+                     "no --cpu-fallback; on the CPU there is no transfer "
+                     "to guard")
     if args.elastic_grow and args.elastic != "on":
         parser.error("--elastic-grow admits ranks into the elastic "
                      "recovery protocol — it needs --elastic on")
@@ -1848,8 +1867,7 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
     cuda = engine.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(engine.device)
+    host_fence(engine.device)
     trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
                  if args.trace else contextlib.nullcontext())
     # the hang watchdog: evidence first (stacks, bundle), then the kill
@@ -1872,15 +1890,17 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
     try:
-        with trace_ctx, wd_ctx, _membership_faults(args, meas):
+        # --transfer-guard: the runtime half of the sync-point rule, armed
+        # around the join only (generation and placement sync by design)
+        with trace_ctx, wd_ctx, _membership_faults(args, meas), \
+                sync_guard(args.transfer_guard):
             if args.pipeline_repeats and args.repeat > 1:
                 result = engine.join_arrays_pipelined(r, s, args.repeat,
                                                       key_bound=key_bound)
             else:
                 for _ in range(args.repeat):
                     result = engine.join_arrays(r, s, key_bound=key_bound)
-            if cuda:
-                torch.cuda.synchronize(engine.device)
+            host_fence(engine.device)
     except Exception as e:
         # a classified failure (a watchdog trip, an injected fault) exits
         # with its class and a forensics bundle; anything else stays a

@@ -5,9 +5,10 @@ tag: the same direction lists, skips and comparison, so a result of either
 package gates the same way.  It compares the numeric tags of a fresh
 result (any flat JSON of measurements — a ``summary()`` dump, a fleet
 summary, a distilled profile) against a baseline file, with per-tag
-relative thresholds and a named-tag allowlist.  The command-line wrapper
-of the JAX package (``tools_check_regress.py``) and the SORTPASS /
-PARTPASS question are ROADMAP A18d.
+relative thresholds and a named-tag allowlist.  Its command line is
+``python -m tpu_radix_join_torch.tools.check_regress`` (the JAX package's
+``tools_check_regress.py``).  SORTPASS and PARTPASS tick once a K2 sort
+and once a K4 grouping (``ops/sorting.py``, ``ops/radix.py``).
 
 Direction discipline: throughput-like tags (``value``, ``vs_baseline``,
 ``*RATE``, ``*gbps``) regress when they *drop*; everything else — the

@@ -151,9 +151,9 @@ class Watchdog:
         m = self.measurements
         # one-shot trip on the only watchdog thread; readers
         # synchronize via stop()'s join before touching these
-        self.tripped = True
+        self.tripped = True  # lint: unguarded-ok(single trip; read after join)
         open_phases = list(m._starts)
-        self.stacks = dump_all_stacks()
+        self.stacks = dump_all_stacks()  # lint: unguarded-ok(single trip; read after join)
         from tpu_radix_join_torch.performance.measurements import WDOGTRIP
         # "suspect rank, check leases, fence" before "kill self": a dead
         # peer's stall is recoverable and must not be booked as a
@@ -171,7 +171,7 @@ class Watchdog:
             try:
                 from tpu_radix_join_torch.observability.postmortem import \
                     write_bundle
-                self.bundle_path = write_bundle(
+                self.bundle_path = write_bundle(  # lint: unguarded-ok(single trip; read after join)
                     self.bundle_dir, measurements=m,
                     reason=reason,
                     failure_class=cls,
@@ -183,9 +183,9 @@ class Watchdog:
                 m.event("bundle_error", error=repr(e)[:200])  # mask the hang
         if rank_exc is not None:
             rank_exc.bundle = self.bundle_path
-            self.exc = rank_exc
+            self.exc = rank_exc  # lint: unguarded-ok(single trip; read after join)
         else:
-            self.exc = HangDetected(
+            self.exc = HangDetected(  # lint: unguarded-ok(single trip; read after join)
                 idle_s, open_phases, self.bundle_path)
         if self.kill is not None:
             try:

@@ -189,7 +189,9 @@ from tpu_radix_join_torch.ops.kernels import _build, launch_counts
 from tpu_radix_join_torch.ops.merge_count import (
     MAX_MERGE_KEY, merge_count_per_partition, merge_count_per_partition_full,
     merge_count_wide_per_partition)
-from tpu_radix_join_torch.ops.radix import local_histogram, scatter_to_blocks
+from tpu_radix_join_torch.ops.radix import (install_partition_observer,
+                                           local_histogram, scatter_to_blocks)
+from tpu_radix_join_torch.ops.sorting import install_sort_observer
 from tpu_radix_join_torch.parallel import multihost
 from tpu_radix_join_torch.parallel.network_partitioning import (
     network_partition, receive_checksums)
@@ -216,6 +218,8 @@ from tpu_radix_join_torch.robustness.retry import (CAPACITY_OVERFLOW,
 from tpu_radix_join_torch.robustness.verify import (
     checksum_rows, cross_check_counts, damaged_partitions,
     global_partition_checksums)
+from tpu_radix_join_torch.utils.hostsync import (host_fence, host_readback,
+                                                  host_upload)
 
 #: slab of the chunked fallback's count (the JAX package's)
 FALLBACK_SLAB = 1 << 20
@@ -318,6 +322,11 @@ class HashJoin:
         faults.check(faults.DEVICE_INIT, measurements)
         self.config = config if config is not None else JoinConfig()
         self.measurements = measurements
+        # SORTPASS / PARTPASS: ops/sorting and ops/radix have no registry
+        # of their own, so the engine donates this one
+        if measurements is not None:
+            install_partition_observer(measurements)
+            install_sort_observer(measurements)
         #: planner.PlanCache or None: a warm join takes the converged
         #: capacities of an earlier join of its shapes instead of the
         #: sizing pass, and a successful join stores its own
@@ -431,9 +440,9 @@ class HashJoin:
         if key_bound is not None:
             full = key_bound - 1 > MAX_MERGE_KEY
         else:
-            full = int(self.world.all_reduce(
+            full = int(host_readback(self.world.all_reduce(
                 torch.maximum(umax(r.key), umax(s.key)), op="max")
-            ) > MAX_MERGE_KEY
+            )) > MAX_MERGE_KEY
         return "full" if full else "narrow"
 
     @staticmethod
@@ -715,8 +724,8 @@ class HashJoin:
         """Device max + 1 of the keys over the world, for a packed join
         with no static bound and no measured sizing pass
         (``_probe_key_bound``, hash_join.py:1589-1599)."""
-        return self._bound_of(self.world.all_reduce(
-            self._key_maxima(r, s), op="max").cpu())
+        return self._bound_of(host_readback(self.world.all_reduce(
+            self._key_maxima(r, s), op="max")))
 
     def _wire_side(self, cap: int, rid_bound):
         """One window's codec under the plan (``_wire_side``, hash_join.py:
@@ -921,7 +930,7 @@ class HashJoin:
         |S| < 2**32 clears every realistic workload with no extra pass;
         only a suspect workload pays the per-partition histogram (K1)."""
         num_p = self.config.network_partition_count
-        host = out.cpu().numpy()
+        host = host_readback(out)
         keys_bad, maxw = int(host[0]), int(host[1])
         counts = host[2:].astype(np.uint32)
         scalar_limit = (2**32 - 1) // max(1, s.size)
@@ -930,7 +939,7 @@ class HashJoin:
             s_hist = local_histogram(s_pid, num_p,
                                      impl=self.config.partition_impl)
             count_risk = self._count_risk(
-                maxw, s_hist.cpu().numpy().view(np.uint32))
+                maxw, host_readback(s_hist).view(np.uint32))
         else:
             count_risk = False
         return counts, np.array([keys_bad, 0, 0, 0, 0, 0, int(count_risk)],
@@ -1121,7 +1130,7 @@ class HashJoin:
         num_p = cfg.network_partition_count
         if m is not None:
             m.start(VCHK)
-        pre_h = pre.cpu().numpy().view(np.uint32)
+        pre_h = host_readback(pre).view(np.uint32)
         damaged = set()
         ncomp = 0
         for k in range(vchk.shape[0]):
@@ -1212,10 +1221,11 @@ class HashJoin:
         """The tuples of network partition ``p`` of ``b``, with zero rids
         (the count reads only keys)."""
         sel = partition_ids(b, self.config.network_fanout_bits) == p
-        key = torch.masked_select(b.key, sel)
+        idx = torch.nonzero_static(
+            sel, size=int(host_readback(sel.sum()))).squeeze(1)
+        key = b.key[idx]
         return TupleBatch(key=key, rid=torch.zeros_like(key),
-                          key_hi=None if b.key_hi is None
-                          else torch.masked_select(b.key_hi, sel))
+                          key_hi=None if b.key_hi is None else b.key_hi[idx])
 
     # ------------------------------------------------ plan cache, cancel
     def _cache_config_fp(self) -> dict:
@@ -1264,9 +1274,9 @@ class HashJoin:
                 (int(warm["cap_r"]), int(warm["cap_s"]),
                  int(warm.get("local_slack", 1))))
         if self.world.size > 1:
-            got = self.world.all_reduce(torch.tensor(
-                [caps is None, *(caps or (0, 0, 0))], dtype=torch.int64,
-                device=self.device), op="max").cpu().tolist()
+            got = host_readback(self.world.all_reduce(host_upload(
+                [caps is None, *(caps or (0, 0, 0))], self.device,
+                torch.int64), op="max")).tolist()
             caps = None if got[0] else tuple(got[1:])
         return caps
 
@@ -1965,9 +1975,8 @@ class HashJoin:
         cfg = self.config
         n = self.world.size
         if cfg.window_sizing == "static":
-            sizes = self.world.all_reduce(torch.tensor(
-                [r.size, s.size], dtype=torch.int64, device=self.device),
-                op="max").cpu()
+            sizes = host_readback(self.world.all_reduce(host_upload(
+                [r.size, s.size], self.device, torch.int64), op="max"))
             return (cfg.shuffle_block_capacity(int(sizes[0])),
                     cfg.shuffle_block_capacity(int(sizes[1])), None)
 
@@ -1982,8 +1991,9 @@ class HashJoin:
         reduced = self.world.all_reduce(reduced, op="max")
         split = cfg.skew_threshold is not None and n > 1
         # one readback: the demands, the key maxima and the global histograms
-        host = (torch.cat([reduced, widen(plan.r_ghist), widen(plan.s_ghist)])
-                if split else reduced).cpu().numpy()
+        host = host_readback(
+            torch.cat([reduced, widen(plan.r_ghist), widen(plan.s_ghist)])
+            if split else reduced)
         off = 2 * n
         if packs:
             self._measured_key_bound = self._bound_of(host[off:off + 2])
@@ -2005,9 +2015,9 @@ class HashJoin:
             is_hot(partition_ids(s, fanout), hot_bits),
             impl=cfg.partition_impl)
         hot_count = is_hot(partition_ids(r, fanout), hot_bits).sum()
-        host = self.world.all_reduce(
+        host = host_readback(self.world.all_reduce(
             torch.cat([r_demand, s_demand + widen(spread),
-                       hot_count.reshape(1)]), op="max").cpu()
+                       hot_count.reshape(1)]), op="max"))
         return (cap(host[:n]), cap(host[n:2 * n]),
                 SkewPlan(hot_bits, cap(host[2 * n:]), hot_plan))
 
@@ -2357,7 +2367,7 @@ class HashJoin:
         for _ in range(repeats):
             out = self._attempt_on_device(r, s, plan, route, cap_r, cap_s,
                                           local_slack, skew, dts, verify)
-        host = (out.cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
+        host = (host_readback(out) & 0xFFFFFFFF).astype(np.uint32)
         if m is not None and not split:
             dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
         vchk = None
@@ -2500,8 +2510,9 @@ class HashJoin:
         hot_overflow = (torch.zeros((), dtype=torch.int64,
                                     device=summed.device)
                         if sh.hot_overflow is None else sh.hot_overflow)
-        host = torch.stack([summed[0], sh.lost_r, sh.lost_s, summed[1],
-                            summed[2], hot_overflow]).cpu().numpy()
+        host = host_readback(torch.stack([summed[0], sh.lost_r, sh.lost_s,
+                                          summed[1], summed[2],
+                                          hot_overflow]))
         if m is not None and not split:
             dts[JPROC] = m.stop(JPROC)   # the readback has fenced it
         return mm, (host & 0xFFFFFFFF).astype(np.uint32), dts
@@ -2512,12 +2523,13 @@ class HashJoin:
         compacted on the device, so only they are read back.  Over several
         ranks two collectives: the ranks' pair counts, then the two lanes
         of every rank in one [2, most] block."""
-        pairs = torch.stack([torch.masked_select(mm.r_rid, mm.valid),
-                             torch.masked_select(mm.s_rid, mm.valid)])
+        at = torch.nonzero_static(
+            mm.valid, size=int(host_readback(mm.valid.sum()))).unbind(1)
+        pairs = torch.stack([mm.r_rid[at], mm.s_rid[at]])
         if self.world.size > 1:
-            counts = self.world.all_gather(torch.tensor(
-                [pairs.shape[1]], dtype=torch.int64,
-                device=pairs.device)).reshape(-1).tolist()
+            counts = host_readback(self.world.all_gather(host_upload(
+                [pairs.shape[1]], pairs.device,
+                torch.int64))).reshape(-1).tolist()
             block = pairs.new_zeros((2, max(counts)))
             block[:, :pairs.shape[1]] = pairs
             blocks = self.world.all_gather(block)
@@ -2543,10 +2555,9 @@ class HashJoin:
                                key_hi=lanes[1] if len(lanes) == 3 else None)
         else:
             batch = rel.shard(self.world.rank, self.device)
-        if self.device.type == "cuda":
-            # generation and copies are asynchronous: they must not finish
-            # inside a later join's timers
-            torch.cuda.synchronize(self.device)
+        # generation and copies are asynchronous: they must not finish
+        # inside a later join's timers
+        host_fence(self.device)
         return batch
 
     def join(self, inner: Relation, outer: Relation) -> JoinResult:

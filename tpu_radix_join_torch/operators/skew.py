@@ -66,8 +66,8 @@ def is_hot(pid: torch.Tensor, hot_bits: int) -> torch.Tensor:
     """bool [n]: whether each partition id (int32 lane, values < 32) is in
     the hot set.  The mask rides as its int32 bit pattern; an arithmetic
     shift keeps bit ``pid`` at bit 0 for every ``pid`` in [0, 32)."""
-    mask = torch.tensor(((hot_bits ^ 0x80000000) - 0x80000000),
-                        dtype=torch.int32, device=pid.device)
+    mask = torch.full((), (hot_bits ^ 0x80000000) - 0x80000000,
+                      dtype=torch.int32, device=pid.device)
     return torch.bitwise_and(torch.bitwise_right_shift(mask, pid), 1) == 1
 
 

@@ -25,7 +25,7 @@ lanes are K2's limit), then a cumsum gives each outer position its run's
 inner ranks ``[base, c_r)``; the run's base is read at its start through
 the run ids (a cumsum), not by ``cummax``.  The s_rid lane is the outer
 rid ``expand``ed over the cap, a view: the caller compacts the valid pairs
-(``torch.masked_select``) without copying it.  The JAX function returns
+(indexed at ``nonzero_static`` of the valid mask) without copying it.  The JAX function returns
 flat lanes; here ``.reshape(-1)`` of the [rows, cap] lanes is that layout.
 
 **The chunked probe** (``JoinConfig.chunk_size``, the reference's
@@ -78,6 +78,7 @@ from tpu_radix_join_torch.ops.sorting import (sort_kv_unstable,
                                               sort_lex_rows_unstable,
                                               sort_lex_unstable,
                                               sort_unstable)
+from tpu_radix_join_torch.utils.hostsync import host_readback
 
 # Above this per-bucket slot count the O(bi * bo) dense compare loses to
 # the batched sort-merge.
@@ -235,7 +236,9 @@ def bucket_rows_count(*sorted_lanes: torch.Tensor,
     for flat in more:
         run_start[1:] |= flat[1:] != flat[:-1]
     run_start.view(nb, width)[:, 0] = True
-    starts = torch.nonzero(run_start).squeeze(1)
+    # the run count sizes the starts: one readback (nonzero's own sync)
+    starts = torch.nonzero_static(
+        run_start, size=int(host_readback(run_start.sum()))).squeeze(1)
     ends = torch.cat([starts[1:], starts.new_full((1,), nb * width)])
     # before[i]: outer slots before flat position i
     before = torch.zeros(nb * width + 1, dtype=torch.int64,
@@ -316,7 +319,7 @@ def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
     lo = torch.cat([inner.key_rem, outer.key_rem])
     tag = torch.cat([torch.zeros(n_r, dtype=torch.int32, device=dev),
                      torch.ones(outer.size, dtype=torch.int32, device=dev)])
-    pad = torch.full((n_r,), narrow(torch.tensor(PAD_RID)).item(),
+    pad = torch.full((n_r,), int(narrow(torch.tensor(PAD_RID))),
                      dtype=torch.int32, device=dev)
     hi, lo, tag, *carried_sorted = sort_lex_unstable(
         hi, lo, tag, *(torch.cat([pad, c]) for c in carried), num_keys=2,
@@ -327,7 +330,9 @@ def _wide_union_scan(inner: CompressedBatch, outer: CompressedBatch,
     c_r = torch.cumsum(is_r, 0, dtype=torch.int32)
     # each run's base, the inner tuples before it, read at its start
     run_id = torch.cumsum(run_start, 0) - 1
-    base = (c_r - is_r)[run_start][run_id]
+    starts = torch.nonzero_static(
+        run_start, size=int(host_readback(run_start.sum()))).squeeze(1)
+    base = (c_r - is_r)[starts][run_id]
     return (tag, base, c_r, *carried_sorted)
 
 

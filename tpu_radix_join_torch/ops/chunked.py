@@ -65,6 +65,7 @@ from tpu_radix_join_torch.robustness.checkpoint import (AsyncCheckpointWriter,
                                                         CheckpointMismatch)
 from tpu_radix_join_torch.robustness.retry import execute as _retry_execute
 from tpu_radix_join_torch.robustness.verify import DataCorruption
+from tpu_radix_join_torch.utils.hostsync import host_readback, stream_fence
 from tpu_radix_join_torch.utils.locks import (bench_pause_file,
                                               grid_presence_file,
                                               pid_file_alive, remove_pid_file,
@@ -227,7 +228,7 @@ def chunked_join_count(r: TupleBatch, s: TupleBatch, slab_size: int,
         full = key_range == "full"
         if key_range == "auto":
             mx = (int(key_bound) if key_bound is not None
-                  else int(_max_key(r, s)))
+                  else int(host_readback(_max_key(r, s))))
             if mx >= R_PAD_KEY:
                 raise _sentinel_corruption(mx)
             full = mx > MAX_MERGE_KEY
@@ -262,9 +263,9 @@ def _fence(batch: TupleBatch) -> Optional[int]:
     """Wait for a chunk's generation; for a 32-bit chunk the wait is the
     readback of its max key, which is returned (the "auto" bound)."""
     if batch.key_hi is None:
-        return int(umax(batch.key))
+        return int(host_readback(umax(batch.key)))
     if batch.key.is_cuda:
-        torch.cuda.current_stream(batch.key.device).synchronize()
+        stream_fence(torch.cuda.current_stream(batch.key.device))
     return None
 
 
@@ -528,7 +529,7 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
             if i < start_i:
                 continue
             row_start_j = start_j if i == start_i else 0
-            rb = (int(umax(r.key))
+            rb = (int(host_readback(umax(r.key)))
                   if key_range == "auto" and r.key_hi is None else None)
             row_cols = 0
             for j, s in enumerate(s_iter()):
@@ -542,7 +543,7 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
                 kb = None
                 if rb is not None and s.key_hi is None:
                     if j not in s_bounds:
-                        s_bounds[j] = int(umax(s.key))
+                        s_bounds[j] = int(host_readback(umax(s.key)))
                     kb = max(rb, s_bounds[j])
                 total += run_pair(
                     lambda r=r, s=s, kb=kb: chunked_join_count(
@@ -579,7 +580,7 @@ def chunked_join_grid(r_chunks, s_chunks, slab_size: int,
         # the binary search compares raw keys: an inner key in the pad
         # range would pad-match the outer fill, so every mode checks
         if kb is None:
-            kb = max(int(umax(r.key)), int(umax(s.key)))
+            kb = int(host_readback(_max_key(r, s)))
         if kb >= R_PAD_KEY:
             raise _sentinel_corruption(kb)
         if key_range == "narrow" and kb > MAX_MERGE_KEY:

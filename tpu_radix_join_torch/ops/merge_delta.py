@@ -41,6 +41,7 @@ from tpu_radix_join_torch.data.tuples import narrow, widen
 from tpu_radix_join_torch.ops.merge_count import (merge_count_presorted,
                                                   search_bounds)
 from tpu_radix_join_torch.ops.sorting import sort_unstable
+from tpu_radix_join_torch.utils.hostsync import host_upload
 
 #: exclusive ceiling real keys must stay under for the presorted probe
 #: (0xFFFFFFFE / 0xFFFFFFFF are the pads)
@@ -164,7 +165,7 @@ def batched_merge_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
     def tagged(keys, sizes):
         qid = torch.repeat_interleave(
             torch.arange(q, dtype=torch.int64, device=dev),
-            torch.tensor(sizes, dtype=torch.int64, device=dev),
+            host_upload(sizes, dev, torch.int64),
             output_size=keys.numel())
         return narrow((qid << shift) | widen(keys))
 
@@ -172,9 +173,8 @@ def batched_merge_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
     lb, ub = search_bounds(rc_sorted, tagged(s_keys, s_sizes))
     csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum((ub - lb).to(torch.int64), 0)])
-    bounds = torch.from_numpy(
-        np.concatenate([[0], np.cumsum(np.asarray(s_sizes, np.int64))])
-    ).to(dev)
+    bounds = host_upload(
+        np.concatenate([[0], np.cumsum(np.asarray(s_sizes, np.int64))]), dev)
     return narrow(csum[bounds[1:]] - csum[bounds[:-1]])
 
 

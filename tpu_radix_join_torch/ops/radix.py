@@ -14,6 +14,12 @@ is the library baseline arm: K4's plain version (a stable ``argsort`` and a
 ``LAUNCHES["baseline_partition"]``, and ``torch.bincount`` for the
 histogram (``"xla"`` there too, JAX's histogram name for it), counted in
 ``LAUNCHES["baseline_histogram"]``.  Both arms give the same blocks.
+
+PARTPASS: every grouping the K4 arm dispatches ticks the registry that
+:func:`install_partition_observer` installed (the engine installs its
+own).  JAX ticks once per traced scatter or reorder site
+(``ops/radix.py:55``); the port has no trace, so it ticks once per call.
+The baseline arm does not tick.
 """
 
 from __future__ import annotations
@@ -29,6 +35,17 @@ from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels.histogram import histogram
 from tpu_radix_join_torch.ops.kernels.partition import (
     partition_scatter, partition_scatter_plain)
+from tpu_radix_join_torch.performance.measurements import PARTPASS
+
+#: the registry that hears PARTPASS (``install_partition_observer``)
+_partition_observer: dict = {"meas": None}
+
+
+def install_partition_observer(measurements) -> None:
+    """Register a ``Measurements`` (or None) to receive a PARTPASS tick a
+    K4 grouping.  Process-global: the most recent engine wins (JAX's
+    ``install_partition_observer``)."""
+    _partition_observer["meas"] = measurements
 
 
 def check_partition_impl(impl: str) -> str:
@@ -67,6 +84,9 @@ def _group(ids: torch.Tensor, lanes, fills, num_groups: int, group_size: int,
         LAUNCHES["baseline_partition"] += 1
         return partition_scatter_plain(ids, lanes, fills, num_groups,
                                        group_size, capacity)
+    m = _partition_observer["meas"]
+    if m is not None:
+        m.incr(PARTPASS)
     return partition_scatter(ids, lanes, fills, num_groups=num_groups,
                              group_size=group_size, capacity=capacity)
 

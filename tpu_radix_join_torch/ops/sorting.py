@@ -16,6 +16,13 @@ only; here :func:`sort_lex_rows_unstable` runs it on K2 with the row index
 as the most significant key.  :func:`segmented_xor_fold` (the checksums of
 integrity verification) sorts on K2 too; PyTorch has no cumulative xor, so
 its prefix xor at the segment ends is a plain PyTorch reduction.
+
+SORTPASS: every sort the K2 arm dispatches ticks the registry that
+:func:`install_sort_observer` installed (the engine installs its own).
+JAX ticks once per traced sort site (``ops/sorting.py:98``), since its
+sites run inside compiled programs; the port has no trace, so it ticks once
+per call, and a join's SORTPASS equals its K2 sorts.  The baseline
+arm does not tick.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ from tpu_radix_join_torch.core.config import SORT_IMPLS
 from tpu_radix_join_torch.data.tuples import widen
 from tpu_radix_join_torch.ops.kernels import LAUNCHES
 from tpu_radix_join_torch.ops.kernels.radix_sort import radix_sort
+from tpu_radix_join_torch.performance.measurements import SORTPASS
+
+#: the registry that hears SORTPASS (``install_sort_observer``)
+_sort_observer: dict = {"meas": None}
 
 #: values a row of :func:`_prefix_xor_at`'s blocked reduction holds
 _XOR_BLOCK = 1024
@@ -40,6 +51,13 @@ def check_sort_impl(impl: str) -> str:
         raise ValueError(
             f"unknown sort impl {impl!r} (expected one of {SORT_IMPLS})")
     return impl
+
+
+def install_sort_observer(measurements) -> None:
+    """Register a ``Measurements`` (or None) to receive a SORTPASS tick a
+    K2 sort.  Process-global: the most recent engine wins (JAX's
+    ``install_sort_observer``)."""
+    _sort_observer["meas"] = measurements
 
 
 def library_sort(operands, num_keys: int):
@@ -59,6 +77,9 @@ def library_sort(operands, num_keys: int):
 def _sort(operands, num_keys: int, key_bounds, impl: str):
     if check_sort_impl(impl) == "xla":
         return library_sort(operands, num_keys)
+    m = _sort_observer["meas"]
+    if m is not None:
+        m.incr(SORTPASS)
     return radix_sort(operands, num_keys=num_keys, key_bounds=key_bounds)
 
 

@@ -44,6 +44,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from tpu_radix_join_torch.utils.hostsync import host_fence, host_readback
+
 # Reference tag vocabulary (Measurements.cpp:136-142,176-178,351-368,533-542)
 JTOTAL = "JTOTAL"          # end-to-end join wall time
 JHIST = "JHIST"            # histogram phase (the sizing pass's execution)
@@ -137,6 +139,11 @@ HEDGED = "HEDGED"          # straggler hedges launched (robustness/
 HEDGEWIN = "HEDGEWIN"      # hedged partitions whose speculative count won
                            # the manifest's first-writer-wins fence
 SPECWASTE = "SPECWASTE"    # hedged partitions whose original landed first
+SORTPASS = "SORTPASS"      # sorts the K2 arm dispatched (ops/sorting.py); JAX
+                           # ticks one a traced sort site, the port one a
+                           # call: a join's K2 sorts
+PARTPASS = "PARTPASS"      # groupings the K4 arm dispatched (ops/radix.py);
+                           # one a call, as SORTPASS
 JRATE = "JRATE"            # derived: (R+S) tuples / JTOTAL second
 JPROCRATE = "JPROCRATE"    # derived: (R+S) tuples / JPROC second
 HILOCRATE = "HILOCRATE"    # derived: inner tuples / JHIST second
@@ -159,7 +166,7 @@ def fence_tensors(tensors) -> None:
 
     walk(tensors)
     for dev in devices:
-        torch.cuda.synchronize(dev)
+        host_fence(dev)
 
 
 class Measurements:
@@ -475,7 +482,7 @@ class Measurements:
         slot = torch.frombuffer(buf, dtype=torch.uint8)
         if world.backend == "nccl":
             slot = slot.to(torch.device("cuda", torch.cuda.current_device()))
-        rows = world.all_gather(slot).cpu().numpy()
+        rows = host_readback(world.all_gather(slot))
         out = []
         for row in rows:
             n = int.from_bytes(row[:4].tobytes(), "little")

@@ -20,7 +20,6 @@ import json
 import os
 from typing import List, Optional, Tuple
 
-from tpu_radix_join_torch.core.config import _not_ported
 from tpu_radix_join_torch.ops.merge_count import MAX_MERGE_KEY
 from tpu_radix_join_torch.planner.cost_model import (StrategyCost, Workload,
                                                      enumerate_strategies,
@@ -130,6 +129,12 @@ class JoinPlan:
         }
 
 
+def _not_applicable(setting: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{setting} is not applicable to the PyTorch port: it traces no "
+        f"jaxpr (ROADMAP.md queue A, A18e)")
+
+
 def plan_join(profile: DeviceProfile, workload: Workload,
               static_gate: bool = False
               ) -> Tuple[JoinPlan, List[StrategyCost]]:
@@ -138,10 +143,8 @@ def plan_join(profile: DeviceProfile, workload: Workload,
     command-line knobs.  ``static_gate=True`` (JAX's jaxpr live-set gate)
     is not applicable to the port and raises NotImplementedError."""
     if static_gate:
-        raise _not_ported("plan_join(static_gate=True), the jaxpr "
-                          "live-set gate,",
-                          "queue A, A18e: not applicable, the port has no "
-                          "jaxpr")
+        raise _not_applicable("plan_join(static_gate=True), the jaxpr "
+                              "live-set gate,")
     costs = enumerate_strategies(profile, workload)
     feasible = [c for c in costs if c.feasible]
     if not feasible:
@@ -224,9 +227,7 @@ def explain_table(costs: List[StrategyCost],
     column: the port has no jaxpr, and passing one raises
     NotImplementedError."""
     if static is not None:
-        raise _not_ported("explain_table(static=)",
-                          "queue A, A18e: not applicable, the port has no "
-                          "jaxpr")
+        raise _not_applicable("explain_table(static=)")
     term_keys: List[str] = []
     for c in costs:
         for k in c.terms:

@@ -103,6 +103,7 @@ from tpu_radix_join_torch.service.resident import ResidentStateManager
 from tpu_radix_join_torch.service.resultcache import (ResultCache,
                                                       content_fingerprint)
 from tpu_radix_join_torch.service.slo import SLORecorder
+from tpu_radix_join_torch.utils.hostsync import host_readback
 
 #: unclassified-exception sentinel: a query that dies without a
 #: failure_class still yields a terminal outcome (the session survives)
@@ -666,7 +667,8 @@ class JoinSession:
                     mirror2 = np.concatenate([lane_to_numpy(base), delta_np])
                     union = presort_keys(torch.cat([base, delta]),
                                          self.config.sort_impl)
-                    n = int(merge_count_presorted(union, s_dev)) & U32_MASK
+                    n = int(host_readback(
+                        merge_count_presorted(union, s_dev))) & U32_MASK
                     return (union, n, host_join_count(mirror2, s_host),
                             mirror2, None)
                 mirror2 = np.concatenate([mirror, delta_np])
@@ -682,13 +684,15 @@ class JoinSession:
                     exp = probe["expected"] + int(
                         (np.searchsorted(sh, ds, side="right")
                          - np.searchsorted(sh, ds, side="left")).sum())
-                    return (union, probe["total"] + (int(inc) & U32_MASK),
+                    return (union,
+                            probe["total"] + (int(host_readback(inc))
+                                              & U32_MASK),
                             exp, mirror2, probe)
                 fn = compiled_delta_merge_count(lane.numel(), delta.numel(),
                                                 s_dev.numel())
                 union, total = fn(lane, delta, s_dev,
                                   sort_impl=self.config.sort_impl)
-                return (union, int(total) & U32_MASK,
+                return (union, int(host_readback(total)) & U32_MASK,
                         host_join_count(mirror2, s_host), mirror2, None)
 
             union, matches, expected, mirror, probe = self._agreed(merged)
