@@ -365,6 +365,29 @@ last:
        interleaved: the medians;
   (z6) ``python -m tpu_radix_join_torch.tools.lint --strict`` exits 0.
 
+Phase (aa), last: ROADMAP C10's repairs under the guard and the evidence
+tools on the card's own output (phase_aa):
+
+  (aa1) ``main(argv)`` with ``--partition-impl sort --transfer-guard
+        disallow`` at 20M: (a), (d) and (d) on both library arms
+        (``--sort-impl xla`` too, (t3)'s arms), exact, the sanctioned
+        readbacks and the ``baseline_*`` launches; then K4 against its
+        plain version on the card, bit-equal, the plain version under
+        ``disallow``;
+  (aa2) ``execute_recovery`` of all 32 partitions of 20M ⋈ 20M in this
+        process under the guard: exact, K2 and K6; then (y1)'s two gloo
+        ranks with ``--rank-death-at 2`` and the skew split (unique ⋈
+        zipf, ``--skew-threshold 4``) on two gloo ranks, both under
+        ``--transfer-guard log``: exact, every trip listed by site; a gloo
+        ``all_reduce`` of a CUDA and of a CPU tensor under ``log``: the
+        trips each makes by itself;
+  (aa3) the grid at 2**24 fed by ``stream_chunks`` under the guard: exact;
+  (aa4) three runs at 20M and three at 2**16 of ``main(argv)`` with
+        ``--output-dir``, ``--ledger-dir`` and ``--timeline-dir``, then
+        ``tools.make_report`` (the report, ``--emit-ledger``,
+        ``--emit-profile``, ``--emit-timeline``) and ``tools.profile_fit``
+        (``fit``, ``diff``, ``refresh``) on them, each exit code checked.
+
 Every line of standard output is one JSON object, except one line that is
 nvidia-smi's ``name, power.limit`` as it prints them.  The line before the
 last lists the kernels; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -4545,16 +4568,21 @@ Y_CLI_FLAG = "--phase-y-cli"
 
 
 def y_cli_rank(argv) -> int:
-    """One command-line rank of phase (y): joins the ``env://`` group as an
-    elastic gloo group on ``argv``'s ``--device`` (several ranks on one
-    card, their collectives through the host), then runs the command
-    line's ``main(argv)``, which takes that group."""
+    """One command-line rank of phases (y) and (aa): joins the ``env://``
+    group as an elastic gloo group on ``argv``'s ``--device`` (several
+    ranks on one card, their collectives through the host), then runs the
+    command line's ``main(argv)``, which takes that group.  With
+    :data:`AA_TRIPS_ENV` set, every guard trip is echoed to stderr as it
+    happens (``listing_trips``): a survivor leaves by ``os._exit``."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_radix_join_torch import main as cli
     from tpu_radix_join_torch.parallel import multihost
     device = argv[argv.index("--device") + 1]
     multihost.initialize(device=device, backend="gloo",
                          elastic_lapse_s=Y_LEASE_S * Y_MISSED_BEATS)
+    if os.environ.get(AA_TRIPS_ENV):
+        with listing_trips(echo=True):
+            return cli.main(argv)
     return cli.main(argv)
 
 
@@ -5414,6 +5442,586 @@ def phase_z(dev, n, card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "z_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}, **card})
+    return total
+
+
+#: phase (aa): the grid fed from the host at (z3)'s size, its chunks and
+#: slabs; the small runs of (aa4) (``planner/calibrate.py`` fits
+#: ``dispatch_floor_ms`` from runs of at most 2**16 tuples) and the runs a
+#: size there
+AA_GRID_TUPLES = 1 << 24
+AA_CHUNK = 1 << 23
+AA_SLAB = 1 << 20
+AA_SMALL_TUPLES = 1 << 16
+AA_RUNS = 3
+#: the guard's mode around (aa1)-(aa3) on the card ("log" lists every trip
+#: by site instead of raising at the first)
+AA_GUARD = "disallow"
+#: arguments (aa1) and (aa4) add to their command lines (none on the card)
+AA_CLI_EXTRA = ()
+#: the environment variable that makes a (y) / (aa) rank list its trips
+AA_TRIPS_ENV = "CHIP_SMOKE_LIST_TRIPS"
+#: the library arm's (d) at 20M in (t3) (run 2, PR 18), printed beside
+#: (aa1)'s
+AA_T3_LIBRARY_D_MS = 80.04
+#: the marker of a trip a rank echoes (``listing_trips``)
+AA_TRIP_MARK = "[TRIP] "
+#: the command-line flag that runs one rank of (aa2)'s gloo control, and
+#: the marker its segments start with
+AA_GLOO_FLAG = "--phase-aa-gloo"
+AA_GLOO_MARK = "[GLOO] "
+
+
+@contextlib.contextmanager
+def listing_trips(echo=False):
+    """Every guard trip of the block (c10's "called a synchronizing CUDA
+    operation" warning under ``log``), counted by site: the innermost
+    frame of the port's package or of this script, else the warning's own
+    frame.  Yields ``{site: count}``; ``echo`` also prints each trip to
+    stderr as ``[TRIP] {"site": ..., "at": ...}`` when it happens."""
+    import traceback
+    import warnings
+    trips = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "tpu_radix_join_torch" in f.filename
+                    or f.filename.endswith("chip_smoke.py")]
+            site = (f"{os.path.relpath(ours[-1].filename, here)}:"
+                    f"{ours[-1].lineno} {ours[-1].name}" if ours
+                    else f"{filename}:{lineno}")
+            trips[site] = trips.get(site, 0) + 1
+            if echo:
+                print(AA_TRIP_MARK + json.dumps(
+                    {"site": site,
+                     "at": f"{os.path.basename(filename)}:{lineno}"}),
+                      file=sys.stderr, flush=True)
+        warnings.showwarning = show
+        yield trips
+
+
+def rank_trips(err: str) -> dict:
+    """A rank's trips by site from its stderr: the ``[TRIP]`` lines it
+    echoed, and c10's own warnings from threads without a Python frame
+    (a collective's worker thread), each under its text."""
+    trips = {}
+    for line in err.splitlines():
+        if line.startswith(AA_TRIP_MARK):
+            site = json.loads(line[len(AA_TRIP_MARK):])["site"]
+        elif ("called a synchronizing" in line
+              and "UserWarning" not in line):
+            site = "c10: " + line.split("Warning:")[-1].strip()[:120]
+        else:
+            continue
+        trips[site] = trips.get(site, 0) + 1
+    return trips
+
+
+def aa_gloo_rank() -> int:
+    """One rank of (aa2)'s control (started by ``phase_aa``): joins the
+    ``env://`` group as a gloo group on the card, then under
+    ``sync_guard("log")`` makes one ``all_reduce`` of a CUDA tensor and one
+    of a CPU tensor, each after a ``[GLOO] <name>`` line on stderr, so the
+    trips c10 prints between two markers are that collective's."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_radix_join_torch.parallel import multihost
+    from tpu_radix_join_torch.utils.hostsync import host_fence, sync_guard
+    dev = torch.device("cuda", 0)
+    multihost.initialize(device="cuda", backend="gloo", timeout_s=120)
+    try:
+        lanes = {"cuda": torch.ones(1 << 20, device=dev),
+                 "cpu": torch.ones(1 << 20)}
+        for t in lanes.values():
+            dist.all_reduce(t)           # the connections, unguarded
+        host_fence(dev)
+        for name, t in lanes.items():
+            print(AA_GLOO_MARK + name, file=sys.stderr, flush=True)
+            with listing_trips(echo=True), sync_guard("log"):
+                dist.all_reduce(t)
+            host_fence(dev)
+        print(AA_GLOO_MARK + "end", file=sys.stderr, flush=True)
+        return 0
+    finally:
+        multihost.shutdown()
+
+
+def gloo_segments(err: str) -> dict:
+    """A control rank's trips by site, for each ``[GLOO]`` segment."""
+    out, name, lines = {}, None, []
+    for line in err.splitlines() + [AA_GLOO_MARK + "end"]:
+        if line.startswith(AA_GLOO_MARK):
+            if name is not None and name != "end":
+                out[name] = rank_trips("\n".join(lines))
+            name, lines = line[len(AA_GLOO_MARK):], []
+        else:
+            lines.append(line)
+    return out
+
+
+def phase_aa(dev, n, card) -> dict:
+    """Cell (aa): ROADMAP C10's repairs under the sync guard, and the
+    evidence tools (A8b step 3) on the card's own output.
+
+    (aa1) ``main(argv)`` in this process with ``--partition-impl sort
+    --transfer-guard disallow`` (the library baseline arms, whose plain
+    versions size nothing on the host since C10's repair) at ``n`` unique
+    ⋈ unique: (a), the sort probe; (d), ``--probe bucket``, whose sizing
+    and partitions run the arms; and (d) with ``--sort-impl xla`` too,
+    (t3)'s arms, beside (t3)'s 80.04 ms.  Each runs twice (the first
+    loads what it runs), exits 0 with the oracle's OK (a trip would
+    raise), and prints its join ms, the command line's sanctioned
+    readbacks (the generator's re-walk included) and its
+    ``baseline_partition`` / ``baseline_histogram`` launches.  Then K4
+    (``partition_slots``, ``partition_scatter``) on (d)'s network ids of
+    the same relation, dense and blocked, against its plain version run
+    on the card under the guard: bit-equal; and the repair's cost on
+    those ids, each replaced spelling (``bincount`` counts, the boolean
+    compaction) beside its replacement (``index_add_``, the trash slot),
+    the plain version whole and K4, CUDA events, median of 10.
+    (aa2) ``recovery.execute_recovery`` in this process, ``only_rank=None``
+    (one survivor, the simulated death's view), every one of the 32
+    partitions of ``n`` ⋈ ``n`` unique recomputed under the guard: exact,
+    K2 and K6 launched.  Then two command-line gloo ranks on the card
+    (``y_cli_rank``) under ``--transfer-guard log``: (y1)'s simulated
+    death at boundary 2, both ranks recovering the oracle's ``2n``; and
+    the skew split, unique ⋈ zipf(0.75) with ``--skew-threshold 4`` at
+    ``n`` a rank, exact: every trip of each rank listed by site (a trip
+    c10 prints outside any Python frame under its text).  Then the
+    control (``aa_gloo_rank``): two gloo ranks, one ``all_reduce`` of a
+    CUDA tensor and one of a CPU tensor under ``log``, the trips of each.
+    (aa3) ``chunked_join_grid`` at ``AA_GRID_TUPLES`` ⋈ ``AA_GRID_TUPLES``
+    unique fed by ``stream_chunks`` (the native generator, pinned pools,
+    a side stream) under the guard: exact, K2 and K6.
+    (aa4) In a fresh directory T: ``AA_RUNS`` runs at ``n`` and
+    ``AA_RUNS`` at ``AA_SMALL_TUPLES`` of ``main(argv)`` with
+    ``--output-dir T/perf_<i> --ledger-dir T/ledger --timeline-dir
+    T/tl`` (``--output-dir`` records SDISPATCH), then the tools through
+    their ``main(argv)``: ``make_report T`` (exit 0, a row a run whose
+    JPROC and SDISPATCH cells are the ``.perf`` files', whose JTOTAL is
+    the run's result line's); ``--emit-ledger T/backfill`` (exit 0, a
+    run row a run whose fingerprint names this card, no bench row);
+    ``--emit-profile T/p.json`` (exit 0, ``dispatch_floor_ms`` the median
+    SDISPATCH, ``sort_stage_unit_ms`` kept from ``h100`` with its
+    citation); ``--emit-timeline T/merged.json`` (exit 0); ``profile_fit
+    fit --ledger T/ledger`` (exit 0, ``dispatch_floor_ms`` fitted);
+    ``profile_fit diff h100 T/ledger/profile_fitted.json`` and
+    ``profile_fit refresh --ledger T/ledger`` (exit 0 or 1, printed).
+    The fitted ``dispatch_floor_ms`` is printed beside ``h100``'s; nothing
+    is written into the tree.  Returns the launches of the driven paths."""
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from tpu_radix_join_torch import Relation
+    from tpu_radix_join_torch import main as cli
+    from tpu_radix_join_torch.data.streaming import stream_chunks
+    from tpu_radix_join_torch.data.tuples import narrow, widen
+    from tpu_radix_join_torch.observability.ledger import load_rows
+    from tpu_radix_join_torch.ops import kernels
+    from tpu_radix_join_torch.ops.chunked import chunked_join_grid
+    from tpu_radix_join_torch.ops.kernels import partition as k4
+    from tpu_radix_join_torch.performance import Measurements
+    from tpu_radix_join_torch.planner.profile import (FITTED_PROFILE_BASENAME,
+                                                      load_profile)
+    from tpu_radix_join_torch.robustness import recovery
+    from tpu_radix_join_torch.tools import make_report, profile_fit
+    from tpu_radix_join_torch.utils.hostsync import host_fence, sync_guard
+
+    cuda = dev.type == "cuda"
+    guard = AA_GUARD if cuda else "off"
+    total = {k: 0 for k in kernels.launch_counts()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_aa_")
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def launched(fn, mode=guard):
+        """``fn()`` under the guard at ``mode``, its trips listed, with the
+        launch counts set to 0 just before and read just after: (its
+        result, the counts, seconds, the trips by site)."""
+        host_fence(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with listing_trips() as trips, sync_guard(mode):
+            out = fn()
+            host_fence(dev)
+        secs = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got, secs, dict(trips)
+
+    def need(cell, got, names):
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"(aa) {cell}: {k} did not launch: "
+                                     f"{got}")
+
+    def quiet(fn):
+        """``fn()`` with its stdout and stderr captured: (result, stdout
+        lines, stderr lines)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = fn()
+        return rc, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+    def run_cli(cell, argv, kern):
+        """``main(argv)`` in this process (it arms any guard itself), with
+        its sanctioned syncs counted: (its result line, launches, seconds,
+        syncs, trips)."""
+        with counting_readbacks() as syncs:
+            (rc, out, err), got, secs, trips = launched(
+                lambda: quiet(lambda: cli.main(argv)), mode="off")
+        if rc != 0 or not any("(OK)" in ln for ln in out):
+            raise AssertionError(f"(aa) {cell}: exit {rc}: "
+                                 f"{(out + err)[-8:]}")
+        need(cell, got, kern)
+        return json.loads(out[-1]), got, secs, dict(syncs), trips
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def event_ms(fn, reps=10):
+        """CUDA events around each of ``reps`` calls after a warm-up: the
+        median ms."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    try:
+        # ----------------------------------------------------------- (aa1)
+        cells = {}
+        guard_args = ("--transfer-guard", guard) if cuda else ()
+        for name, extra, kern in (
+                ("a", (), ("radix_pass", "merge_scan")),
+                ("d", ("--probe", "bucket"),
+                 ("radix_pass", "baseline_partition", "baseline_histogram")),
+                ("d_library", ("--probe", "bucket", "--sort-impl", "xla"),
+                 ("baseline_sort", "baseline_partition",
+                  "baseline_histogram"))):
+            argv = ["--tuples-per-node", str(n), "--partition-impl", "sort",
+                    *extra, *guard_args, *AA_CLI_EXTRA]
+            join_ms = []
+            for rep in range(2):         # the first loads what it runs
+                line, got, secs, syncs, trips = run_cli(
+                    f"aa1_{name}_{rep}", argv, kern)
+                if line["matches"] != n or not line["ok"]:
+                    raise AssertionError(f"(aa1) {name}: {line['matches']}"
+                                         f" ok={line['ok']}")
+                join_ms.append(line["join_ms"])
+            cells[name] = {
+                "join_ms": join_ms, "matches": line["matches"],
+                "syncs": syncs, "trips": trips,
+                "baseline_partition": got["baseline_partition"],
+                "baseline_histogram": got["baseline_histogram"],
+                "launches": nonzero(got)}
+        cells["d_library"]["t3_library_d_ms"] = AA_T3_LIBRARY_D_MS
+        # K4 against its plain version on (d)'s network ids, the plain
+        # version on the card under the guard
+        key = Relation(n, 1, "unique", seed=1234).generate(dev).key
+        ids = torch.bitwise_and(key, 31)
+        rid = narrow(torch.arange(n, dtype=torch.int64, device=dev))
+        # the blocked layout one percent short of a group's share: every
+        # group drops tuples (the plain version's trash slot)
+        cap = max(1, (n // 32) * 99 // 100)
+        errs = {}
+        for mode, kw in (("dense", {}), ("blocked", {"capacity": cap})):
+            got_k = (k4.partition_slots(ids, num_groups=32, **kw),
+                     k4.partition_scatter(ids, [key, rid], [0, 0xFFFFFFFF],
+                                          num_groups=32, **kw))
+            plain, _, _, trips = launched(lambda: (
+                k4.partition_slots_plain(ids, 32, **kw),
+                k4.partition_scatter_plain(ids, [key, rid],
+                                           [0, 0xFFFFFFFF], 32, **kw)))
+            pairs = [(got_k[0][0], plain[0][0]), (got_k[0][1], plain[0][1]),
+                     *zip(got_k[1][0], plain[1][0]),
+                     (got_k[1][1], plain[1][1])]
+            for a, b in pairs:
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"(aa1) K4 {mode} differs from "
+                                         f"its plain version")
+            errs[mode] = {"max_abs_err": 0, "plain_trips": trips}
+        # what the repair costs: each spelling the guard caught beside the
+        # one that replaced it, on these ids (outside the guard), then the
+        # plain version whole and K4, the blocked layout
+        repair = {}
+        if cuda:
+            g = widen(ids)
+            ones = torch.ones_like(g)
+            keep = torch.rand(n, device=dev) < 0.9
+            slots = widen(k4.partition_slots_plain(ids, 32, capacity=cap)[0])
+            dropped = slots == k4.DROPPED
+            size = k4.out_size(n, 32, 1, cap)
+
+            def bool_write():
+                out = torch.empty(size, dtype=torch.int32, device=dev)
+                out[slots[~dropped]] = key[~dropped]
+
+            def trash_write():
+                out = torch.empty(size + 1, dtype=torch.int32, device=dev)
+                out[torch.where(dropped, size, slots)] = key
+
+            lanes, fills = [key, rid], [0, 0xFFFFFFFF]
+            for name, fn in (
+                    ("count_bincount", lambda: torch.bincount(
+                        g, minlength=33)),
+                    ("count_index_add", lambda: torch.zeros(
+                        33, dtype=g.dtype, device=dev).index_add_(0, g,
+                                                                  ones)),
+                    ("hist_bincount", lambda: torch.bincount(
+                        g[keep], minlength=32)),
+                    ("hist_index_add", lambda: torch.zeros(
+                        32, dtype=g.dtype, device=dev).index_add_(
+                            0, torch.where(keep, g, 0),
+                            keep.to(torch.int64))),
+                    ("write_bool_index", bool_write),
+                    ("write_trash_slot", trash_write),
+                    ("plain_slots", lambda: k4.partition_slots_plain(
+                        ids, 32, capacity=cap)),
+                    ("plain_scatter", lambda: k4.partition_scatter_plain(
+                        ids, lanes, fills, 32, capacity=cap)),
+                    ("k4_scatter", lambda: k4.partition_scatter(
+                        ids, lanes, fills, num_groups=32, capacity=cap))):
+                repair[f"{name}_ms"] = event_ms(fn)
+            del g, ones, keep, slots, dropped
+        del key, ids, rid
+        emit({"phase": "aa1_library_arms", "guard": guard, "cells": cells,
+              "k4_vs_plain": errs, "repair_cost": repair, **card})
+
+        # ----------------------------------------------------------- (aa2)
+        inner = Relation(n, 1, "unique", seed=1234)
+        outer = Relation(n, 1, "unique", seed=1235)
+        rk, _ = recovery.host_keys(inner)
+        sk, _ = recovery.host_keys(outer)
+        plan = recovery.plan_recovery(
+            num_nodes=2, num_partitions=32, lost_ranks=[1], epoch=1,
+            weights=recovery.partition_weights(rk, sk, 32))
+        with counting_readbacks() as syncs:
+            (matches, counts), got, secs, trips = launched(
+                lambda: recovery.execute_recovery(plan, rk, sk, device=dev))
+        if matches != n or len(counts) != 32:
+            raise AssertionError(f"(aa2) recovery: {matches} matches over "
+                                 f"{len(counts)} partitions, the oracle {n}")
+        need("aa2_recovery", got, ("radix_pass", "merge_scan_chunks"))
+        del rk, sk
+        emit({"phase": "aa2_recovery", "guard": guard, "matches": matches,
+              "partitions": len(counts), "recovery_s": secs,
+              "syncs": dict(syncs), "trips": trips,
+              "launches": nonzero(got), **card})
+        ranks = {}
+        device_args = ("--device", "cuda") if cuda else ("--device", "cpu")
+        log_args = ("--transfer-guard", "log") if cuda else ()
+        for name, argv in (
+                ("y1_death", ("--elastic", "on", "--rank-death-at", "2",
+                              "--rank-lease-s", str(Y_LEASE_S),
+                              "--rank-missed-beats", str(Y_MISSED_BEATS),
+                              "--lease-dir", os.path.join(tmp, "leases"))),
+                ("skew_split", ("--outer-kind", "zipf", "--skew-threshold",
+                                "4", "--max-retries", "4"))):
+            port = free_port()
+            cmds = []
+            for r in range(Y_RANKS):
+                env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(port), RANK=str(r),
+                           WORLD_SIZE=str(Y_RANKS), LOCAL_RANK="0",
+                           PYTHONPATH=here + os.pathsep
+                           + os.environ.get("PYTHONPATH", ""))
+                env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+                env.pop("TPU_RJ_RANK_DEATH_SUICIDE", None)
+                env[AA_TRIPS_ENV] = "1"
+                cmds.append(([sys.executable, os.path.abspath(__file__),
+                              Y_CLI_FLAG, *device_args, "--nodes",
+                              str(Y_RANKS), "--tuples-per-node", str(n),
+                              *argv, *log_args], env))
+            t0 = time.perf_counter()
+            rcs, outs, errs = y_processes(cmds)
+            secs = time.perf_counter() - t0
+            doc = y_last_json(outs[0])
+            want = Y_RANKS * n
+            if (rcs != [0] * Y_RANKS or doc is None or not doc["ok"]
+                    or doc["matches"] != doc["expected"]
+                    or (name == "y1_death" and doc["matches"] != want)):
+                raise AssertionError(
+                    f"(aa2) {name}: rcs {rcs}:\n" + "\n---\n".join(
+                        o[-1500:] + e[-2500:] for o, e in zip(outs, errs)))
+            if name == "y1_death":
+                recs = [x for e in errs for x in y_elastic_lines(e)
+                        if x.get("kind") == "recovery"]
+                if len(recs) != Y_RANKS or any(x["matches"] != want
+                                               for x in recs):
+                    raise AssertionError(f"(aa2) {name}: {recs}")
+            for k, v in (doc.get("launches") or {}).items():
+                total[k] += v
+            ranks[name] = {"seconds": secs, "matches": doc["matches"],
+                           "expected": doc.get("expected"),
+                           "join_ms": doc.get("join_ms"),
+                           "trips": [rank_trips(e) for e in errs],
+                           "launches": doc.get("launches")}
+        if cuda:
+            # the control: which trips one gloo collective makes by itself
+            port = free_port()
+            rcs, outs, errs = y_processes([
+                ([sys.executable, os.path.abspath(__file__), AA_GLOO_FLAG],
+                 dict(os.environ, MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), RANK=str(r),
+                      WORLD_SIZE=str(Y_RANKS), LOCAL_RANK="0",
+                      GLOO_SOCKET_IFNAME="lo",
+                      PYTHONPATH=here + os.pathsep
+                      + os.environ.get("PYTHONPATH", "")))
+                for r in range(Y_RANKS)])
+            segments = [gloo_segments(e) for e in errs]
+            if rcs != [0] * Y_RANKS or any(set(x) != {"cuda", "cpu"}
+                                           for x in segments):
+                raise AssertionError(f"(aa2) gloo control: rcs {rcs}: "
+                                     + "\n---\n".join(e[-2000:]
+                                                       for e in errs))
+            ranks["gloo_all_reduce_control"] = {"trips": segments}
+        emit({"phase": "aa2_gloo_ranks", "guard": "log" if cuda else "off",
+              "ranks": Y_RANKS, "cases": ranks, **card})
+
+        # ----------------------------------------------------------- (aa3)
+        rels = (Relation(AA_GRID_TUPLES, 1, "unique", seed=1234),
+                Relation(AA_GRID_TUPLES, 1, "unique", seed=1235))
+        with counting_readbacks() as syncs:
+            got_total, got, secs, trips = launched(lambda: chunked_join_grid(
+                stream_chunks(rels[0], 0, AA_CHUNK, device=dev),
+                lambda: stream_chunks(rels[1], 0, AA_CHUNK, device=dev),
+                AA_SLAB, pipeline="off"))
+        if got_total != AA_GRID_TUPLES:
+            raise AssertionError(f"(aa3) host-fed grid: {got_total} "
+                                 f"matches, the oracle {AA_GRID_TUPLES}")
+        need("aa3_host_grid", got, ("radix_pass", "merge_scan_chunks"))
+        emit({"phase": "aa3_host_feed", "guard": guard,
+              "tuples": AA_GRID_TUPLES, "chunk": AA_CHUNK,
+              "grid_ms": secs * 1e3, "syncs": dict(syncs),
+              "trips": trips,
+              "launches": nonzero(got), **card})
+
+        # ----------------------------------------------------------- (aa4)
+        led = os.path.join(tmp, "ledger")
+        runs = []
+        for i, size in enumerate([n] * AA_RUNS
+                                 + [AA_SMALL_TUPLES] * AA_RUNS):
+            perf = os.path.join(tmp, f"perf_{i}")
+            argv = ["--tuples-per-node", str(size), "--output-dir", perf,
+                    "--ledger-dir", led, "--timeline-dir",
+                    os.path.join(tmp, "tl"), *AA_CLI_EXTRA]
+            line, got, secs, _, _ = run_cli(f"aa4_run_{i}", argv,
+                                            ("radix_pass", "merge_scan"))
+            (m,) = Measurements.load(perf)
+            if line["matches"] != size or "SDISPATCH" not in m.times_us:
+                raise AssertionError(f"(aa4) run {i}: {line['matches']}, "
+                                     f"{sorted(m.times_us)}")
+            runs.append({"dir": f"perf_{i}", "size": size,
+                         "jtotal_us": m.times_us["JTOTAL"],
+                         "result_jtotal_us": line["phases_us"]["JTOTAL"],
+                         "sdispatch_us": m.times_us["SDISPATCH"],
+                         "jproc_us": m.times_us.get("JPROC")})
+            if m.times_us["JTOTAL"] != round(line["phases_us"]["JTOTAL"]):
+                raise AssertionError(f"(aa4) run {i}: the .perf JTOTAL "
+                                     f"{m.times_us['JTOTAL']} against "
+                                     f"{line['phases_us']['JTOTAL']}")
+        tools = {}
+        rc, out, err = quiet(lambda: make_report.main([tmp]))
+        table = {ln.split("|")[1].strip(): ln for ln in out
+                 if ln.startswith("| perf_")}
+        for r in runs:
+            row = table.get(r["dir"], "")
+            for tag in ("JPROC", "SDISPATCH"):
+                us = r["jproc_us" if tag == "JPROC" else "sdispatch_us"]
+                if us is not None and f"| {us / 1e3:.1f} |" not in row + "|":
+                    raise AssertionError(f"(aa4) make_report: {r['dir']}'s "
+                                         f"{tag} {us} not in {row!r}")
+        if rc != 0 or len(table) != len(runs):
+            raise AssertionError(f"(aa4) make_report: exit {rc}, "
+                                 f"{len(table)} rows: {(out + err)[-8:]}")
+        tools["make_report"] = {"rc": rc, "rows": len(table)}
+        backfill = os.path.join(tmp, "backfill")
+        rc, out, err = quiet(lambda: make_report.main(
+            [tmp, "--emit-ledger", backfill]))
+        rows = load_rows(backfill)
+        bench = [x for x in rows if x["kind"] == "bench"]
+        devices = {x["fingerprint"]["device"] for x in rows}
+        if (rc != 0 or len(rows) != len(runs) or bench
+                or devices != {card["name"] if cuda else "cpu"}):
+            raise AssertionError(f"(aa4) --emit-ledger: exit {rc}, "
+                                 f"{len(rows)} rows, devices {devices}: "
+                                 f"{(out + err)[-4:]}")
+        tools["emit_ledger"] = {"rc": rc, "run_rows": len(rows),
+                                "bench_rows": len(bench),
+                                "devices": sorted(devices)}
+        prof_path = os.path.join(tmp, "p.json")
+        rc, out, err = quiet(lambda: make_report.main(
+            [tmp, "--emit-profile", prof_path]))
+        base = load_profile()
+        prof = load_profile(prof_path)
+        floors = sorted(r["sdispatch_us"] / 1e3 for r in runs)
+        if (rc != 0 or prof.value("dispatch_floor_ms")
+                != round(floors[len(floors) // 2], 3)
+                or prof.source("sort_stage_unit_ms")
+                != base.source("sort_stage_unit_ms")
+                or prof.value("sort_stage_unit_ms")
+                != base.value("sort_stage_unit_ms")):
+            raise AssertionError(f"(aa4) --emit-profile: exit {rc}, "
+                                 f"{prof.constants}: {(out + err)[-4:]}")
+        tools["emit_profile"] = {
+            "rc": rc, "dispatch_floor_ms": prof.value("dispatch_floor_ms"),
+            "source": prof.source("dispatch_floor_ms")[:160]}
+        merged = os.path.join(tmp, "merged.json")
+        rc, out, err = quiet(lambda: make_report.main(
+            [tmp, "--emit-timeline", merged]))
+        if rc != 0 or not os.path.exists(merged):
+            raise AssertionError(f"(aa4) --emit-timeline: exit {rc}: "
+                                 f"{(out + err)[-4:]}")
+        tools["emit_timeline"] = {"rc": rc, "said": out[-1][:160],
+                                  "warnings": [x[:160] for x in err]}
+        rc, out, err = quiet(lambda: profile_fit.main(["fit", "--ledger",
+                                                       led]))
+        fitted_path = os.path.join(led, FITTED_PROFILE_BASENAME)
+        if rc != 0 or not os.path.exists(fitted_path):
+            raise AssertionError(f"(aa4) profile_fit fit: exit {rc}: "
+                                 f"{(out + err)[-6:]}")
+        fitted = load_profile(fitted_path)
+        origin = {k: (fitted.provenance(k) or {}).get("origin")
+                  for k in fitted.constants}
+        if origin.get("dispatch_floor_ms") != "fit":
+            raise AssertionError(f"(aa4) profile_fit fit: {origin}")
+        tools["profile_fit_fit"] = {
+            "rc": rc, "said": [x[:200] for x in out[:3]],
+            "fitted": sorted(k for k, v in origin.items() if v == "fit"),
+            "kept": sorted(k for k, v in origin.items() if v != "fit"),
+            "dispatch_floor_ms": fitted.value("dispatch_floor_ms"),
+            "h100_dispatch_floor_ms": base.value("dispatch_floor_ms")}
+        for name, argv in (("diff", ["diff", "h100", fitted_path]),
+                           ("refresh", ["refresh", "--ledger", led])):
+            rc, out, err = quiet(lambda: profile_fit.main(argv))
+            if rc not in (0, 1):
+                raise AssertionError(f"(aa4) profile_fit {name}: exit "
+                                     f"{rc}: {(out + err)[-6:]}")
+            tools[f"profile_fit_{name}"] = {"rc": rc,
+                                            "said": out[-1][:200]}
+        emit({"phase": "aa4_evidence_tools", "runs": runs, "tools": tools,
+              **card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "aa_summary", "seconds": time.perf_counter() - t_phase,
           "launches": {k: v for k, v in total.items() if v}, **card})
     return total
 
@@ -6744,6 +7352,11 @@ def main() -> int:
     launches_z = phase_z(dev, n_main, card)
     launches = {k: v + launches_z[k] for k, v in launches.items()}
 
+    # (aa): C10's repairs under the guard, and the evidence tools
+    torch.cuda.empty_cache()
+    launches_aa = phase_aa(dev, n_main, card)
+    launches = {k: v + launches_aa[k] for k, v in launches.items()}
+
     sources = {
         "histogram": ("tpu_radix_join_torch/csrc/histogram.cu",
                       "tpu_radix_join/ops/pallas/histogram.py:60",
@@ -6806,6 +7419,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == AA_GLOO_FLAG:
+        # one rank of (aa2)'s gloo control, started by phase_aa
+        sys.exit(aa_gloo_rank())
     if len(sys.argv) > 1 and sys.argv[1] == Y_CLI_FLAG:
         # one command-line rank of phase (y), started by phase_y
         sys.exit(y_cli_rank(sys.argv[2:]))

@@ -5,12 +5,13 @@ run through both packages on the same rows, and random ledgers from a
 numpy seed on which fits, staleness, diffs and provenance tables must be
 equal.
 
-Not ported: ``test_profile_fit_cli_fit_and_diff``,
+``test_profile_fit_cli_fit_and_diff``,
 ``test_profile_fit_cli_refuses_under_sampled`` and
 ``test_profile_fit_cli_refresh_flags_stale``, which drive
-``tools_profile_fit.py``: the port's counterpart of that tool waits for
-ROADMAP A8b.  ``test_plan_explain_shows_provenance_and_refit_changes_it``
-is ported with the fit made in process instead of by the tool.
+``tools_profile_fit.py``, are ``tests/test_torch_report_tools.py``'s
+(the port's ``python -m tpu_radix_join_torch.tools.profile_fit``).
+``test_plan_explain_shows_provenance_and_refit_changes_it`` is ported with
+the fit made in process instead of by the tool.
 """
 
 import importlib

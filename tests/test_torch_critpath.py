@@ -295,3 +295,63 @@ def test_session_keeps_each_querys_path_and_bundles_summarise():
         assert list(plain.recent_critical_paths) == []
     finally:
         plain.close()
+
+
+# ---------------------------------------------------- one reading a stamp
+
+class _TickingClock:
+    """A clock that moves on every read, one second further each time, so
+    no two reads agree and no two intervals between reads are alike: a
+    timer and its span agree only if they share their readings."""
+
+    def __init__(self, t=100.0):
+        self.t = t
+        self.step = 0.0
+
+    def perf_counter(self):
+        self.step += 1.0
+        self.t += self.step
+        return self.t
+
+    def monotonic(self):
+        return self.perf_counter()
+
+    def time(self):
+        return 1.7e9 + self.t
+
+
+def test_a_timer_and_its_span_share_their_readings(monkeypatch):
+    import tpu_radix_join_torch.observability.spans as tspans
+    import tpu_radix_join_torch.performance.measurements as tmeas
+    clock = _TickingClock()
+    for mod in (tspans, tmeas):
+        monkeypatch.setattr(mod, "time", clock)
+    m = Measurements()
+    tr = m.attach_tracer(trace_id="tick")
+    m.start("JTOTAL")
+    m.start("JPROC")
+    m.incr("RESULTS", 5)               # the ring records between readings
+    m.event("checkpoint_load", path="x")
+    m.stop("JPROC")
+    with m.span("grid_pair", i=1):
+        pass
+    m.stop("JTOTAL")
+    spans = {e["name"]: e for e in tr.events if e["ph"] == "X"}
+    assert spans["JTOTAL"]["dur"] == m.times_us["JTOTAL"]
+    assert spans["JPROC"]["dur"] == m.times_us["JPROC"]
+    assert spans["JPROC"]["ts"] >= spans["JTOTAL"]["ts"]
+    cp = tcp.critical_path_from_tracer(tr)
+    assert cp["jtotal_ms"] == round(m.times_us["JTOTAL"] / 1e3, 3)
+
+
+def test_tracer_stamps_a_callers_reading_through_its_anchor():
+    tr = SpanTracer(rank=0, trace_id="at", epoch_s=5.0, mono_s=10.0)
+    tr.begin("JTOTAL", at=10.5, step=1)
+    tr.end("JTOTAL", at=10.75)
+    tr.now_us = lambda: 900_000.0
+    tr.begin("JPROC")                   # no reading: the tracer's clock
+    tr.end("JPROC", at=11.0)
+    tr.end("JHIST", at=12.0)            # never begun: dropped
+    assert [(e["name"], e["ts"], e["dur"], e["args"]) for e in tr.events] \
+        == [("JTOTAL", 500_000.0, 250_000.0, {"step": 1}),
+            ("JPROC", 900_000.0, 100_000.0, {})]

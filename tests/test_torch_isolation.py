@@ -181,7 +181,8 @@ def test_port_imports_no_jax_and_never_falls_back_to_the_cpu():
                  "analysis.rules_failure", "analysis.rules_locks",
                  "analysis.rules_recompile", "tools.lint",
                  "tools.check_regress", "tools.critical_path", "tools.chaos",
-                 "tools.postmortem"):
+                 "tools.postmortem", "tools.make_report",
+                 "tools.profile_fit", "observability.ledger"):
         assert f"tpu_radix_join_torch.{name}" in got["walked"]
     assert got["degraded"] == [3000, True, "chunked"]
     assert got["chunked"] == [3000, True, ["JHIST", "JPROC", "JTOTAL",

@@ -5,17 +5,24 @@ same files and registries; then the writers the port adds this slice —
 ``main --ledger-dir`` (one ``run`` row at exit) and ``JoinSession(
 ledger=...)`` (one ``query`` row an executed query), held against JAX's.
 
-Not ported: ``test_bench_payload_unwraps_runner_wrapper``,
+The backfill (``bench_payload``, ``rows_from_perf_dir``,
+``ingest_artifacts``; JAX's ``test_bench_payload_unwraps_runner_wrapper``,
 ``test_rows_from_perf_dir_roundtrip``,
-``test_ingest_artifacts_backfills_committed_history`` and
-``test_emit_ledger_cli`` (the backfill of the JAX package's TPU
-artifacts, ROADMAP A8b); ``test_compile_monitor_counts_backend_compiles``
-and the three metrics-sampler cases (``compilemon.py`` and ``metrics.py``,
-ROADMAP A18d).
+``test_ingest_artifacts_backfills_committed_history``) is held row for row
+against JAX's on the committed artifacts, with two named divergences: a
+backfilled run row's fingerprint carries ``device`` (the ``.info``'s,
+else ``"unknown"``), and ``ingest_artifacts`` with no ``bench_dir`` reads
+no ``BENCH_r*.json`` (the repo root's are TPU runs).  JAX's
+``test_emit_ledger_cli`` is ``tests/test_torch_report_tools.py``'s.
+
+Not ported: ``test_compile_monitor_counts_backend_compiles`` and the
+three metrics-sampler cases (``compilemon.py`` and ``metrics.py`` have
+their own port tests).
 """
 
 import json
 import os
+from pathlib import Path
 
 import pytest
 
@@ -30,6 +37,8 @@ from tpu_radix_join_torch.performance.measurements import (  # noqa: E402
     WIREBYTES, Measurements)
 
 PKGS = (jled, tled)
+REPO = Path(__file__).resolve().parents[1]
+R3 = REPO / "artifacts" / "chip_r3"
 
 
 def _strip(row):
@@ -206,3 +215,80 @@ def test_session_ledger_rows_equal_jax(tmp_path):
     assert got[0] == got[1]
     assert [r["query_id"] for r in got[1]] == ["q0", "q1"]
     assert [r["warm"] for r in got[1]] == [False, True]
+
+
+# ------------------------------------------------------------------ backfill
+
+def _no_device(payload):
+    """A run payload with the fingerprint's ``device`` set aside (the
+    port's addition)."""
+    fp = {k: v for k, v in payload["fingerprint"].items() if k != "device"}
+    return {**payload, "fingerprint": fp}
+
+
+@pytest.mark.parametrize("doc", [
+    {"n": 1, "rc": 0, "parsed": {"metric": "m", "value": 2.5, "unit": "u",
+                                 "extra": 7, "planned": {"strategy": "x"}}},
+    {"rc": 2, "tail": "died"},
+    {"metric": "m", "value": 1.0, "size": 64},
+    {"metric": "m", "value": None, "flag": True},
+])
+def test_bench_payload_equals_jax(doc):
+    got, want = tled.bench_payload(doc), jled.bench_payload(doc)
+    assert got == want
+    assert tled.BENCH_DEFAULT_SIZE == jled.BENCH_DEFAULT_SIZE
+    if got is not None and "parsed" in doc:
+        assert got["rc"] == 0 and "planned" not in got
+
+
+def test_rows_from_perf_dir_equals_jax_on_the_committed_runs():
+    dirs = sorted(R3.glob("perf_*"))
+    assert len(dirs) == 8
+    for d in dirs:
+        got = tled.rows_from_perf_dir(str(d))
+        want = jled.rows_from_perf_dir(str(d))
+        assert len(got) == len(want) == 1
+        assert [(i, _no_device(p)) for i, p in got] == want
+        # the JAX package's .info names no device
+        assert got[0][1]["fingerprint"]["device"] == "unknown"
+
+
+def test_rows_from_perf_dir_reads_the_port_clis_device(tmp_path, capsys):
+    from tpu_radix_join_torch.main import main as tx_main
+    assert tx_main(["--device", "cpu", "--tuples-per-node", "4096",
+                    "--output-dir", str(tmp_path / "perf_a")]) == 0
+    capsys.readouterr()
+    info = json.loads((tmp_path / "perf_a" / "0.info").read_text())
+    assert info["device"] == "cpu"
+    ((run_id, payload),) = tled.rows_from_perf_dir(str(tmp_path / "perf_a"))
+    assert run_id == "perf_a:0"
+    assert payload["fingerprint"]["device"] == "cpu"
+    assert payload["workload"]["global_size"] == 4096
+    assert payload["times_us"]["JTOTAL"] > 0
+    assert "SDISPATCH" in payload["times_us"]
+    assert tled.rows_from_perf_dir(str(tmp_path / "missing")) == []
+
+
+def test_ingest_artifacts_equals_jax_with_a_bench_dir(tmp_path):
+    got = tled.ingest_artifacts(str(REPO / "artifacts"),
+                                str(tmp_path / "port"), bench_dir=str(REPO))
+    want = jled.ingest_artifacts(str(REPO / "artifacts"),
+                                 str(tmp_path / "jax"), bench_dir=str(REPO))
+    assert got == want and got["bench"] == 2 and got["run"] >= 8
+    rows = [_strip(r) for r in tled.load_rows(str(tmp_path / "port"))]
+    rows = [_no_device(r) if r["kind"] == "run" else r for r in rows]
+    assert rows == [_strip(r) for r in jled.load_rows(str(tmp_path / "jax"))]
+
+
+def test_ingest_artifacts_reads_no_bench_file_unless_asked(tmp_path):
+    """The named divergence: with no ``bench_dir`` JAX reads its repo
+    root's ``BENCH_r*.json`` (TPU runs), the port none."""
+    want = jled.ingest_artifacts(str(R3), str(tmp_path / "jax"))
+    got = tled.ingest_artifacts(str(R3), str(tmp_path / "port"))
+    assert want["bench"] == 2
+    assert got == {"bench": 0, "run": want["run"]}
+    assert not tled.load_rows(str(tmp_path / "port"), kind="bench")
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert tled.ingest_artifacts(str(empty), str(tmp_path / "e")) == {
+        "bench": 0, "run": 0}

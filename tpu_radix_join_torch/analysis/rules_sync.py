@@ -51,6 +51,7 @@ HOT_FILES = {
     "tpu_radix_join_torch/ops/chunked.py",
     "tpu_radix_join_torch/service/session.py",
     "tpu_radix_join_torch/parallel/window.py",
+    "tpu_radix_join_torch/robustness/recovery.py",
 }
 #: the sanctioned helpers' home
 EXEMPT_FILES = {"tpu_radix_join_torch/utils/hostsync.py"}

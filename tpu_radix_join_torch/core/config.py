@@ -4,9 +4,10 @@ The port's own copy of the fields of ``tpu_radix_join/core/config.py`` that
 its joins read — the sort probe and the partitioned (bucket / two-level)
 join, on one GPU or over ``num_nodes`` ranks of a ``torch.distributed``
 process group — each with the JAX package's default, and the derived
-geometry (``config.py:300-359``).  A setting the port does not run yet
-raises ``NotImplementedError`` naming the ROADMAP item that will port it;
-nothing falls back quietly.
+geometry (``config.py:300-383``; ``mesh_axes`` is not applicable, as
+``parallel/world.py`` takes the mesh's place).  A setting the port does
+not run yet raises ``NotImplementedError`` naming the ROADMAP item that
+will port it; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -277,6 +278,17 @@ class JoinConfig:
         """LOCAL_PARTITIONING_COUNT = 1 << FANOUT (Configuration.h:34)."""
         return 1 << self.local_fanout_bits
 
+    @property
+    def total_fanout_bits(self) -> int:
+        """Radix bits over both passes: the network fanout, plus the local
+        fanout on the two-level path."""
+        return self.network_fanout_bits + (self.local_fanout_bits
+                                           if self.two_level else 0)
+
+    @property
+    def total_partition_count(self) -> int:
+        return 1 << self.total_fanout_bits
+
     def shuffle_block_capacity(self, local_size: int) -> int:
         """Static per-destination exchange block: the expected share with
         ``allocation_factor`` slack, rounded up to a multiple of 8."""
@@ -290,6 +302,28 @@ class JoinConfig:
         cap = int(math.ceil(total_slots / max(1, num_buckets)
                             * self.allocation_factor))
         return max(8, -(-cap // 8) * 8)
+
+    # --- key/rid packing contract ----------------------------------------
+    @property
+    def key_remainder_bits(self) -> int:
+        """Key bits that survive compression: the network partition's bits
+        are implied by the partition (NetworkPartitioning.cpp:128-129)."""
+        return self.key_bits - self.network_fanout_bits
+
+    @property
+    def probe_shift_bits(self) -> int:
+        """Bits below the probe's key remainder (``shiftBits`` of
+        BuildProbe.cpp:55-61): the fanout bits, the rid riding its own
+        lane."""
+        return self.total_fanout_bits
+
+    def bucket_count_for(self, inner_size: int) -> int:
+        """N = the next power of two >= the inner partition's size
+        (BuildProbe.cpp:59-61)."""
+        return 1 << max(0, max(1, inner_size) - 1).bit_length()
+
+    def replace(self, **kw) -> "JoinConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -781,6 +781,7 @@ def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
     from tpu_radix_join_torch.robustness.retry import RetryPolicy
 
     dev = resolve_device(args.device)
+    meas.meta["device"] = _device_label(dev)
     chunk = args.grid_chunk_tuples
     ckpt_path = None
     if args.checkpoint_dir:
@@ -799,7 +800,6 @@ def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
     pipeline = args.grid_pipeline
     if pipeline == "auto" and plan is not None and plan.engine == "chunked":
         pipeline = plan.grid_pipeline
-    cuda = dev.type == "cuda"
     kernels.reset_launches()
     times0 = phase_snapshot(meas)
     t0 = time.perf_counter()
@@ -845,9 +845,15 @@ def _run_grid(args, inner, outer, expected, meas, plan=None) -> int:
         "key_range": args.key_range,
         "plan": plan.strategy if plan is not None else None,
         "plan_vs_actual": audit,
-        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "device": meas.meta["device"],
     }))
     return 0 if ok else 1
+
+
+def _device_label(dev) -> str:
+    """The card's name, or "cpu": the result line's and the ``.info``'s
+    ``device`` (the ledger backfill's fingerprint reads it there)."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def _ledger_dir(args):
@@ -1867,6 +1873,7 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
     r, s = engine.place(inner), engine.place(outer)
     key_bound = max(inner.key_bound(), outer.key_bound())
     cuda = engine.device.type == "cuda"
+    meas.meta["device"] = _device_label(engine.device)
     host_fence(engine.device)
     trace_ctx = (meas.trace(os.path.join(args.output_dir, "trace"))
                  if args.trace else contextlib.nullcontext())
@@ -1996,8 +2003,7 @@ def _join_body(args, group, rank, meas, membership=None) -> int:
                          else "chunked_probe" if cfg.chunk_size
                          else "partitioned"),
             "key_range": cfg.key_range,
-            "device": (torch.cuda.get_device_name(engine.device) if cuda
-                       else "cpu"),
+            "device": meas.meta["device"],
             "repeat": args.repeat,
             "pipeline_repeats": args.pipeline_repeats,
             "generation": args.generation,

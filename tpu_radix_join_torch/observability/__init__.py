@@ -1,6 +1,7 @@
 """Observability of the port (the JAX package's ``observability/``):
 
-  * :mod:`ledger` — the run ledger, one row a run or a served query;
+  * :mod:`ledger` — the run ledger, one row a run or a served query, and
+    its backfill from ``--output-dir`` directories;
   * :mod:`flightrec` — the always-on ring of recent registry activity;
   * :mod:`spans` and :mod:`timeline` — per-rank Chrome-trace span files
     and their merge onto one clock, with the profiler's device track;
@@ -21,11 +22,9 @@ from tpu_radix_join_torch.observability.critpath import (
     format_summary, load_streams, render_report, stream_from_tracer)
 from tpu_radix_join_torch.observability.flightrec import (FlightRecorder,
                                                           dump_all_stacks)
-from tpu_radix_join_torch.observability.ledger import (Ledger,
-                                                       default_ledger_dir,
-                                                       load_rows,
-                                                       run_fingerprint,
-                                                       run_payload)
+from tpu_radix_join_torch.observability.ledger import (
+    Ledger, bench_payload, default_ledger_dir, ingest_artifacts, load_rows,
+    rows_from_perf_dir, run_fingerprint, run_payload)
 from tpu_radix_join_torch.observability.metrics import (MetricsSampler,
                                                         load_samples)
 from tpu_radix_join_torch.observability.postmortem import (build_bundle,
@@ -45,13 +44,14 @@ from tpu_radix_join_torch.observability.watchdog import (HangDetected,
 
 __all__ = [
     "FlightRecorder", "HangDetected", "Ledger", "MetricsSampler",
-    "SpanTracer", "StatuszServer", "Watchdog", "build_bundle",
-    "compute_critical_path", "critical_path_for_dir",
+    "SpanTracer", "StatuszServer", "Watchdog", "bench_payload",
+    "build_bundle", "compute_critical_path", "critical_path_for_dir",
     "critical_path_from_tracer", "default_ledger_dir", "dump_all_stacks",
     "engine_killer", "find_span_files", "format_summary",
-    "install_compile_monitor", "list_bundles", "load_bundle", "load_rows",
-    "load_samples", "load_streams", "measurements_sections",
-    "merge_bundles", "merge_timeline", "render_bundle", "render_report",
+    "ingest_artifacts", "install_compile_monitor", "list_bundles",
+    "load_bundle", "load_rows", "load_samples", "load_streams",
+    "measurements_sections", "merge_bundles", "merge_timeline",
+    "render_bundle", "render_report", "rows_from_perf_dir",
     "run_fingerprint", "run_payload", "stream_from_tracer",
     "uninstall_compile_monitor", "write_bundle",
 ]

@@ -73,19 +73,28 @@ class SpanTracer:
         self.tags.update(tags)
 
     # ------------------------------------------------------------------ spans
-    def begin(self, name: str, **args) -> None:
-        self._open.setdefault(name, []).append((self.now_us(), args))
+    def _stamp(self, at: Optional[float]) -> float:
+        """Microseconds since the anchors of ``at``, a
+        ``time.perf_counter()`` reading the caller already took, else of
+        now."""
+        return self.now_us() if at is None else (at - self._mono0) * 1e6
 
-    def end(self, name: str, **args) -> None:
-        """Complete the innermost open span of ``name``; an ``end`` with no
-        matching ``begin`` is dropped."""
+    def begin(self, name: str, at: Optional[float] = None, **args) -> None:
+        """Open a span of ``name`` at ``at`` (see :meth:`_stamp`): a
+        registry timer hands over its own start reading, so the span and
+        the timer hold one interval."""
+        self._open.setdefault(name, []).append((self._stamp(at), args))
+
+    def end(self, name: str, at: Optional[float] = None, **args) -> None:
+        """Complete the innermost open span of ``name`` at ``at``; an
+        ``end`` with no matching ``begin`` is dropped."""
         stack = self._open.get(name)
         if not stack:
             return
         ts, begin_args = stack.pop()
         self.events.append({
             "name": name, "ph": "X", "ts": ts,
-            "dur": max(0.0, self.now_us() - ts),
+            "dur": max(0.0, self._stamp(at) - ts),
             "pid": self.rank, "tid": HOST_TID,
             "args": {**self.tags, **begin_args, **args},
         })

@@ -20,9 +20,9 @@ past it the MSD passes (``csrc/partition_msd.cu``: the exact totals from
 K1 at ``num_groups`` bins, a scan, then a coarse pass by the top digit and
 segmented passes by the lower ones, :func:`msd_plan`; ``partition_msd``).
 On the CPU
-:func:`partition_scatter_plain` applies the plain slots with the dropped
-ones masked out first (a torch index of -1, the int32 view of
-``0xFFFFFFFF``, would write the last element).
+:func:`partition_scatter_plain` applies the plain slots, the dropped ones
+written to a trash slot past the outputs (a torch index of -1, the int32
+view of ``0xFFFFFFFF``, would write the last element).
 """
 
 from __future__ import annotations
@@ -81,11 +81,14 @@ def partition_slots_plain(ids: torch.Tensor, num_groups: int,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K4: invalid ids join one extra group after the real ones, a
     stable argsort gives every id its dense position, and the exclusive
-    cumsum of the bincount gives the group starts the blocked layout
-    restarts from."""
+    cumsum of the group counts gives the group starts the blocked layout
+    restarts from.  The counts go into a lane of ``num_groups + 1`` made
+    beforehand, so nothing is sized on the host (a ``bincount`` would read
+    its largest id back)."""
     g = widen(ids)
     g = torch.where(g < num_groups, g, num_groups)
-    full = torch.bincount(g, minlength=num_groups + 1)
+    full = torch.zeros(num_groups + 1, dtype=g.dtype,
+                       device=g.device).index_add_(0, g, torch.ones_like(g))
     start = torch.cumsum(full, 0) - full
     pos = torch.empty_like(g)
     pos[torch.argsort(g, stable=True)] = torch.arange(
@@ -108,17 +111,19 @@ def partition_scatter_plain(ids: torch.Tensor, lanes: Sequence[torch.Tensor],
                             capacity: Optional[int] = None
                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Plain :func:`partition_scatter`: the plain slots, with the dropped
-    ones masked out before the lanes are written (a torch index of -1, the
-    int32 view of ``0xFFFFFFFF``, would write the last slot)."""
+    ones sent to one trash slot past ``size`` that is sliced off (a torch
+    index of -1, the int32 view of ``0xFFFFFFFF``, would write the last
+    slot; compacting the kept ones by a boolean index would size the
+    result on the host)."""
     slots, hist = partition_slots_plain(ids, num_groups, group_size, capacity)
     size = out_size(ids.numel(), num_groups, group_size, capacity)
-    outs = [torch.full((size,), int(narrow(torch.tensor(f))),
+    outs = [torch.full((size + 1,), int(narrow(torch.tensor(f))),
                        dtype=torch.int32, device=ids.device) for f in fills]
-    keep = slots != narrow(torch.tensor(DROPPED))
-    dest = widen(slots[keep])
+    dest = widen(slots)
+    dest = torch.where(dest == DROPPED, size, dest)
     for lane, out in zip(lanes, outs):
-        out[dest] = lane[keep]
-    return outs, hist
+        out[dest] = lane
+    return [out[:size] for out in outs], hist
 
 
 # ------------------------------------------------------------------ card

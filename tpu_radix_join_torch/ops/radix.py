@@ -9,11 +9,12 @@ modes, at every fanout (K1 and K4 have wide paths past their shared bins).
 ``impl=`` is JAX's partition choice (``resolve_partition_impl``): "auto",
 "pallas" and "pallas_interpret" run K1 and K4 at every group count, so the
 port never falls back and ticks no PARTFALLBACK.  "sort", asked for by name,
-is the library baseline arm: K4's plain version (a stable ``argsort`` and a
-``bincount``) on the caller's device, counted in
-``LAUNCHES["baseline_partition"]``, and ``torch.bincount`` for the
+is the library baseline arm: K4's plain version (a stable ``argsort`` and
+an ``index_add_`` count) on the caller's device, counted in
+``LAUNCHES["baseline_partition"]``, and an ``index_add_`` count for the
 histogram (``"xla"`` there too, JAX's histogram name for it), counted in
-``LAUNCHES["baseline_histogram"]``.  Both arms give the same blocks.
+``LAUNCHES["baseline_histogram"]``.  Both arms give the same blocks, and
+neither reads anything back to the host (``--transfer-guard disallow``).
 
 PARTPASS: every grouping the K4 arm dispatches ticks the registry that
 :func:`install_partition_observer` installed (the engine installs its
@@ -62,7 +63,10 @@ def local_histogram(pid: torch.Tensor, num_partitions: int,
     """Tuples per partition (LocalHistogram.cpp:44-47): int32 lane
     [num_partitions] of uint32 counts of ``pid``.  ``valid`` (bool [n])
     masks out padding slots.  K1 on a CUDA lane, its plain version on a
-    CPU lane; ``impl`` "sort" or "xla" is the ``torch.bincount`` arm."""
+    CPU lane; ``impl`` "sort" or "xla" is the library arm: an
+    ``index_add_`` of the valid, in-range mask into a lane of
+    ``num_partitions`` (no ``bincount``, which sizes its output on the
+    host)."""
     if impl != "xla":
         check_partition_impl(impl)
     if impl in ("sort", "xla"):
@@ -71,7 +75,10 @@ def local_histogram(pid: torch.Tensor, num_partitions: int,
         keep = ids < num_partitions
         if valid is not None:
             keep &= valid
-        return narrow(torch.bincount(ids[keep], minlength=num_partitions))
+        counts = torch.zeros(num_partitions, dtype=torch.int64,
+                             device=ids.device)
+        counts.index_add_(0, torch.where(keep, ids, 0), keep.to(torch.int64))
+        return narrow(counts)
     weights = None if valid is None else valid.to(torch.int32)
     return histogram(pid, weights, num_bins=num_partitions)
 

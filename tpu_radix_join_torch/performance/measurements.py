@@ -251,23 +251,27 @@ class Measurements:
 
     # ----------------------------------------------------------- timers
     def start(self, key: str) -> None:
-        self._starts[key] = time.perf_counter()
+        """Start a timer.  One clock reading serves the timer and the
+        tracer's span, so a span's ``dur`` is the timer's interval."""
+        now = time.perf_counter()
+        self._starts[key] = now
         self.flightrec.record("begin", key)
         if self._tracer is not None:
-            self._tracer.begin(key)
+            self._tracer.begin(key, at=now)
 
     def stop(self, key: str, fence=None) -> float:
         """Stop a timer and return its microseconds; ``fence`` (tensors)
         is waited for first, so the device work that produces them lands
-        inside the timer."""
+        inside the timer.  The tracer's span ends at the same reading."""
         if fence is not None:
             fence_tensors(fence)
-        dt = (time.perf_counter() - self._starts.pop(key)) * 1e6
+        now = time.perf_counter()
+        dt = (now - self._starts.pop(key)) * 1e6
         with self._lock:
             self.times_us[key] += dt
         self.flightrec.record("end", key, us=round(dt, 1))
         if self._tracer is not None:
-            self._tracer.end(key)
+            self._tracer.end(key, at=now)
         return dt
 
     def add_time_us(self, key: str, us: float) -> None:

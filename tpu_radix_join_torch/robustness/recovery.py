@@ -55,6 +55,7 @@ from tpu_radix_join_torch.histograms.assignment_map import (
     load_aware_assignment, round_robin_assignment)
 from tpu_radix_join_torch.performance.measurements import RECOVERMS, RECOVERN
 from tpu_radix_join_torch.robustness.membership import RankLost
+from tpu_radix_join_torch.utils.hostsync import host_readback
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,11 +128,11 @@ def plan_recovery(*, num_nodes: int, num_partitions: int,
         w[list(recompute)] = np.asarray(weights, np.float32)[list(recompute)]
         # integral float32 weights travel exactly as uint32 lanes
         lane = narrow(torch.from_numpy(w.astype(np.int64)))
-        amap = load_aware_assignment(lane, torch.zeros_like(lane),
-                                     len(survivors)).numpy()
+        amap = host_readback(load_aware_assignment(
+            lane, torch.zeros_like(lane), len(survivors)))
     else:
-        amap = round_robin_assignment(num_partitions,
-                                      max(1, len(survivors))).numpy()
+        amap = host_readback(round_robin_assignment(
+            num_partitions, max(1, len(survivors))))
     reassignment = {int(p): int(survivors[int(amap[p])]) for p in recompute}
     strategy, predicted_ms = "", 0.0
     if profile is not None and workload is not None:
@@ -226,10 +227,15 @@ def execute_recovery(plan: RecoveryPlan,
         rk, sk = (lane_from_numpy(a, dev) for a in (r_keys, s_keys))
         rh, sh = (None if a is None else lane_from_numpy(a, dev)
                   for a in (r_hi, s_hi))
-        # partition ids of the low key bits, and their sizes in one readback
+        # partition ids of the low key bits, and their sizes in one
+        # sanctioned readback (counted into a lane made beforehand: a
+        # bincount would size its output on the host)
         rp, sp = rk & (num_p - 1), sk & (num_p - 1)
-        sizes = torch.stack([torch.bincount(rp, minlength=num_p),
-                             torch.bincount(sp, minlength=num_p)]).cpu()
+        sizes = torch.zeros(2, num_p, dtype=torch.int64, device=dev)
+        for row, pid in zip(sizes, (rp, sp)):
+            row.index_add_(0, pid.long(), torch.ones_like(pid,
+                                                          dtype=torch.int64))
+        sizes = host_readback(sizes)
         lanes = (rk, rh, rp, sk, sh, sp)
     recovered = 0
     for p in todo:
@@ -242,13 +248,16 @@ def execute_recovery(plan: RecoveryPlan,
                     if m is not None else contextlib.nullcontext())
             with span:
                 sides = []
-                for key, hi, pid in ((rk, rh, rp), (sk, sh, sp)):
-                    sel = pid == p
-                    k = torch.masked_select(key, sel)
+                # each side's positions, sized by the count already on
+                # the host (no compaction sized on the device)
+                for key, hi, pid, size in ((rk, rh, rp, n_r),
+                                           (sk, sh, sp, n_s)):
+                    idx = torch.nonzero_static(pid == p,
+                                               size=size).squeeze(1)
+                    k = key[idx]
                     sides.append(TupleBatch(
                         key=k, rid=torch.zeros_like(k),
-                        key_hi=None if hi is None
-                        else torch.masked_select(hi, sel)))
+                        key_hi=None if hi is None else hi[idx]))
                 cnt = chunked_join_grid(
                     [sides[0]], [sides[1]], max(1, min(slab, n_s)),
                     measurements=m, pipeline=pipeline, sort_impl=sort_impl)
